@@ -1,0 +1,154 @@
+"""Carry weights from the JAX package's variable trees into the port.
+
+``jax_variables_to_state_dict`` is the inverse of
+``tools/convert_torch_checkpoint.py::convert_state_dict``: it takes the
+JAX ``{'params', 'batch_stats'}`` tree (leaves as numpy arrays) and
+returns a state dict with the rsiseg key names the port's modules
+carry. ``torch_key_to_flax`` is the port's own copy of that tool's key
+map (``convert_torch_checkpoint.py:47-151``), extended to mmseg's
+``avg_down`` downsample (``downsample.{1,2}`` after the pooling layer).
+"""
+from __future__ import annotations
+
+import re
+from typing import Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+_BN_LEAVES = {
+    'weight': ('params', 'scale'),
+    'bias': ('params', 'bias'),
+    'running_mean': ('batch_stats', 'mean'),
+    'running_var': ('batch_stats', 'var'),
+}
+
+
+def _bn(suffix, path):
+    leaf = _BN_LEAVES.get(suffix)
+    return None if leaf is None else (leaf[0], path + ['norm', 'bn', leaf[1]])
+
+
+def _backbone_key(rest, ndim):
+    base = ['backbone_mod']
+    if rest[0] == 'stem':
+        idx = int(rest[1])
+        conv_i = {0: 1, 3: 2, 6: 3}.get(idx)
+        bn_i = {1: 1, 4: 2, 7: 3}.get(idx)
+        if conv_i is not None and rest[2] == 'weight':
+            return 'params', base + [f'stem_conv{conv_i}', 'conv', 'kernel']
+        if bn_i is not None:
+            return _bn(rest[2], base + [f'stem_conv{bn_i}'])
+        return None
+    if rest[0] == 'conv1' and rest[1] == 'weight':
+        return 'params', base + ['conv1', 'conv', 'kernel']
+    if rest[0] == 'bn1':
+        return _bn(rest[1], base + ['conv1'])
+    m = re.match(r'layer(\d+)$', rest[0])
+    if not m:
+        return None
+    blk = base + [f'layer{m.group(1)}_block{rest[1]}']
+    sub = rest[2]
+    if sub.startswith('conv') and rest[3] == 'weight':
+        return 'params', blk + [sub, 'conv', 'kernel']
+    if sub.startswith('bn'):
+        return _bn(rest[3], blk + [f'conv{sub[2:]}'])
+    if sub == 'downsample':
+        down = blk + ['downsample', 'conv']
+        idx, suffix = int(rest[3]), rest[4]
+        # (conv, bn), or (avg pool, conv, bn) with avg_down
+        if suffix == 'weight' and ndim == 4 and idx in (0, 1):
+            return 'params', down + ['conv', 'kernel']
+        if idx in (1, 2):
+            return _bn(suffix, down)
+    return None
+
+
+def _conv_module(rest, path):
+    """mmcv ConvModule: conv.weight/bias, bn.*; DepthwiseSeparable
+    nests two of them."""
+    if rest[0] == 'conv':
+        leaf = {'weight': 'kernel', 'bias': 'bias'}.get(rest[1])
+        return None if leaf is None else (
+            'params', path + ['conv', leaf])
+    if rest[0] == 'bn':
+        return _bn(rest[1], path)
+    if rest[0] in ('depthwise_conv', 'pointwise_conv'):
+        return _conv_module(rest[1:], path + [rest[0]])
+    return None
+
+
+_HEADS = {'decode_head': 'decode_head_mod', 'auxiliary_head': 'aux_heads_0'}
+
+
+def _head_key(top, r):
+    base = [_HEADS[top]]
+    if r[0] == 'image_pool':
+        # Sequential(AdaptiveAvgPool2d, ConvModule)
+        return _conv_module(r[2:], base + ['image_pool_conv'])
+    if r[0] == 'aspp_modules':
+        return _conv_module(r[2:], base + ['aspp_modules', f'branch{r[1]}'])
+    if r[0] in ('bottleneck', 'c1_bottleneck', 'conv_cat'):
+        return _conv_module(r[1:], base + [r[0]])
+    if r[0] == 'sep_bottleneck':
+        return _conv_module(r[2:], base + [f'sep_bottleneck{int(r[1]) + 1}'])
+    if r[0] == 'convs':
+        return _conv_module(r[2:], base + [f'conv{r[1]}'])
+    if r[0] == 'conv_seg':
+        leaf = {'weight': 'kernel', 'bias': 'bias'}.get(r[1])
+        return None if leaf is None else (
+            'params', base + ['cls', 'conv_seg', leaf])
+    return None
+
+
+def torch_key_to_flax(key: str, ndim: int) -> Optional[Tuple[str, list]]:
+    """Map one rsiseg state-dict key (of a tensor with ``ndim`` dims) to
+    ``(collection, path)`` in the JAX tree, or None."""
+    parts = key.split('.')
+    if parts[0] == 'backbone':
+        return _backbone_key(parts[1:], ndim)
+    if parts[0] in _HEADS:
+        return _head_key(parts[0], parts[1:])
+    return None
+
+
+def _leaf(tree, path):
+    node = tree
+    for k in path:
+        if not isinstance(node, Mapping) or k not in node:
+            return None
+        node = node[k]
+    return node
+
+
+def jax_variables_to_state_dict(
+        variables: Mapping,
+        template: Mapping[str, torch.Tensor]) -> dict:
+    """JAX ``{'params', 'batch_stats'}`` tree -> port state dict.
+
+    ``template`` is the port model's ``state_dict()``: it names the keys
+    to fill and their shapes. Conv kernels go HWIO -> OIHW (depthwise
+    ``(3, 3, 1, C)`` -> ``(C, 1, 3, 3)``). Raises ``KeyError`` naming
+    every key of the port that has no source in ``variables``.
+    """
+    out, missing = {}, []
+    for key, ref in template.items():
+        if key.endswith('num_batches_tracked'):
+            out[key] = torch.zeros_like(ref)
+            continue
+        mapped = torch_key_to_flax(key, ref.ndim)
+        leaf = None if mapped is None else _leaf(
+            variables.get(mapped[0], {}), mapped[1])
+        if leaf is None:
+            missing.append(key)
+            continue
+        arr = np.asarray(leaf, dtype=np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f'{key}: source shape {arr.shape} does not '
+                             f'match the port\'s {tuple(ref.shape)}')
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
+    if missing:
+        raise KeyError(f'no source in the JAX variables for {missing}')
+    return out
