@@ -13,16 +13,7 @@ import torch
 
 from ..models import build_segmentor
 from ..utils.config import Config
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('pfst_tpu_torch runs on a CUDA card by default '
-                           'and none is available; pass device="cpu" to '
-                           'run on the CPU')
-    return device
+from ..utils.misc import resolve_device
 
 
 def _student_state_dict(obj) -> dict:

@@ -7,6 +7,8 @@ returns a state dict with the rsiseg key names the port's modules
 carry. ``torch_key_to_flax`` is the port's own copy of that tool's key
 map (``convert_torch_checkpoint.py:47-151``), extended to mmseg's
 ``avg_down`` downsample (``downsample.{1,2}`` after the pooling layer).
+``load_jax_train_state`` carries a JAX ``UDATrainState`` into the port's
+train state.
 """
 from __future__ import annotations
 
@@ -152,3 +154,26 @@ def jax_variables_to_state_dict(
     if missing:
         raise KeyError(f'no source in the JAX variables for {missing}')
     return out
+
+
+def load_jax_train_state(jax_state, state):
+    """Load a JAX ``UDATrainState`` (``params``, ``batch_stats``,
+    ``ema_params``, ``ema_batch_stats``, ``step``; leaves as arrays) into
+    the port's ``UDATrainState``: the student gets ``params`` and
+    ``batch_stats``, the teacher ``ema_params`` and ``ema_batch_stats``,
+    and ``step`` carries over, with the optimizer's LR schedule resumed
+    there. The optimizer's moments do not carry over. Raises ``KeyError``
+    for any key of either module without a source."""
+    for module, params, stats in (
+            (state.student, jax_state.params, jax_state.batch_stats),
+            (state.teacher, jax_state.ema_params,
+             jax_state.ema_batch_stats)):
+        ref = module.state_dict()
+        sd = jax_variables_to_state_dict(
+            {'params': params, 'batch_stats': stats}, ref)
+        module.load_state_dict({k: v.to(ref[k].device)
+                                for k, v in sd.items()})
+    state.step = int(np.asarray(jax_state.step))
+    if state.optimizer is not None:
+        state.optimizer.set_step(state.step)
+    return state

@@ -1,7 +1,8 @@
 """Model registries and builders (port of ``pfst_tpu/models/builder.py``).
 
 One ``MODELS`` registry aliased as BACKBONES/NECKS/HEADS/LOSSES/
-SEGMENTORS, as in ``rsiseg/models/builder.py:8-17``.
+SEGMENTORS/UDA, as in ``rsiseg/models/builder.py:8-17``;
+``build_train_model`` dispatches ``cfg.uda`` against ``cfg.model``.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import copy
 
 import torch
 
+from ..utils.misc import resolve_device
 from ..utils.registry import Registry
 
 MODELS = Registry('models')
@@ -18,6 +20,7 @@ NECKS = MODELS
 HEADS = MODELS
 LOSSES = MODELS
 SEGMENTORS = MODELS
+UDA = MODELS
 
 
 def build_backbone(cfg):
@@ -30,6 +33,10 @@ def build_neck(cfg):
 
 def build_head(cfg):
     return HEADS.build(cfg)
+
+
+def build_loss(cfg):
+    return LOSSES.build(cfg)
 
 
 def build_segmentor(cfg, train_cfg=None, test_cfg=None):
@@ -54,3 +61,22 @@ def build_segmentor(cfg, train_cfg=None, test_cfg=None):
     if test_cfg is not None:
         cfg['test_cfg'] = test_cfg
     return SEGMENTORS.build(cfg)
+
+
+def build_train_model(cfg, train_cfg=None, test_cfg=None, device='cuda'):
+    """The training-time model (``pfst_tpu/models/builder.py:67-82``).
+
+    With ``cfg.uda`` set, the UDA algorithm, given the segmentor config,
+    the runner's ``max_iters`` and ``device`` (where ``init_state`` puts
+    the student and the teacher); else the segmentor on ``device``.
+    ``device`` defaults to the card and must exist."""
+    device = resolve_device(device)
+    cfg = copy.deepcopy(cfg if isinstance(cfg, dict) else cfg.to_dict())
+    if cfg.get('uda') is not None:
+        uda_cfg = copy.deepcopy(cfg['uda'])
+        uda_cfg['model'] = copy.deepcopy(cfg['model'])
+        if 'max_iters' not in uda_cfg:
+            uda_cfg['max_iters'] = cfg['runner']['max_iters']
+        return UDA.build(uda_cfg, device=device)
+    return build_segmentor(cfg['model'], train_cfg=train_cfg,
+                           test_cfg=test_cfg).to(device)

@@ -1,4 +1,4 @@
-"""EncoderDecoder segmentor on NCHW tensors, inference half (port of
+"""EncoderDecoder segmentor on NCHW tensors (port of
 ``pfst_tpu/models/segmentors/encoder_decoder.py``).
 
 Attributes ``backbone``, ``decode_head`` and ``auxiliary_head`` give the
@@ -6,8 +6,11 @@ rsiseg state-dict prefixes. Inference follows
 ``encoder_decoder.py:72-84,220-327``: ``encode_decode`` resizes the head
 logits to the input, ``slide_inference`` averages overlapping windows
 over the same grid as the JAX ``fori_loop`` (here a plain loop), and
-``inference`` softmaxes after the rescale. ``forward_train`` comes with
-the training path.
+``inference`` softmaxes after the rescale. ``forward_train``
+(``encoder_decoder.py:140-241``) is the plain-head branch: decode and
+auxiliary losses under the ``decode.`` / ``aux.`` prefixes, in fp32.
+The K-Net, EncNet, DAHead and PointRend branches and the OHEM sampler
+are not ported and raise.
 """
 from __future__ import annotations
 
@@ -18,8 +21,49 @@ import torch
 import torch.nn as nn
 
 from ...ops import resize
-from ..builder import SEGMENTORS, build_backbone, build_head, build_neck
+from ...utils.misc import add_prefix
+from ..builder import (SEGMENTORS, build_backbone, build_head, build_loss,
+                       build_neck)
+from ..losses.accuracy import accuracy
 from ..utils.layers import init_conv_
+
+
+def _head_losses(head, loss_fns, seg_logit, seg_label, seg_weight=None):
+    """Logits resized to the label size in fp32, each loss, then the pixel
+    accuracy (``encoder_decoder.py:26-51``)."""
+    seg_logit = resize(seg_logit.float(), size=seg_label.shape[1:],
+                       mode='bilinear', align_corners=head.align_corners)
+    loss = {}
+    for loss_fn in loss_fns:
+        name = loss_fn.loss_name
+        val = loss_fn(seg_logit, seg_label, weight=seg_weight,
+                      ignore_index=head.ignore_index)
+        loss[name] = loss[name] + val if name in loss else val
+    loss['acc_seg'] = accuracy(seg_logit, seg_label,
+                               ignore_index=head.ignore_index)
+    return loss
+
+
+def _build_losses(loss_cfg):
+    if loss_cfg is None:
+        loss_cfg = {'type': 'CrossEntropyLoss', 'use_sigmoid': False,
+                    'loss_weight': 1.0}
+    if isinstance(loss_cfg, (list, tuple)):
+        return tuple(build_loss(c) for c in loss_cfg)
+    return (build_loss(loss_cfg),)
+
+
+def _check_plain_head(head):
+    """The training branches the port does not have yet."""
+    for attr, what in (('all_stage_logits', 'K-Net stage losses'),
+                       ('use_se_loss', 'the EncNet SE loss'),
+                       ('branch_loss_names', 'the DAHead branch losses'),
+                       ('point_losses', 'the PointRend point loss'),
+                       ('transform_targets', 'STDC boundary targets'),
+                       ('sampler', 'the OHEM pixel sampler')):
+        if getattr(head, attr, None):
+            raise NotImplementedError(f'forward_train: {what} are not '
+                                      f'ported')
 
 
 @SEGMENTORS.register_module()
@@ -52,6 +96,12 @@ class EncoderDecoder(nn.Module):
             self.auxiliary_head = None
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
+        self._decode_losses = _build_losses(decode_head.get('loss_decode'))
+        aux_cfgs = [] if auxiliary_head is None else (
+            list(auxiliary_head) if isinstance(auxiliary_head, (list, tuple))
+            else [auxiliary_head])
+        self._aux_losses = tuple(_build_losses(a.get('loss_decode'))
+                                 for a in aux_cfgs)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
         self.dtype = dtype
@@ -99,10 +149,7 @@ class EncoderDecoder(nn.Module):
         with self._autocast(img):
             feats = self.extract_feat(img)
             logits, decoded = self.decode_head(feats)[:2]
-            aux = self.auxiliary_head
-            aux = [] if aux is None else (
-                aux if isinstance(aux, nn.ModuleList) else [aux])
-            aux_logits = tuple(h(feats)[0] for h in aux)
+            aux_logits = tuple(h(feats)[0] for h in self._aux_heads())
         return {'feats': feats, 'seg_logits': logits,
                 'decoded_features': decoded, 'aux_logits': aux_logits}
 
@@ -116,6 +163,37 @@ class EncoderDecoder(nn.Module):
         states = {'feats': feats, 'decoded_features': decoded,
                   'seg_logits': out, 'head_logits': logits}
         return out, states
+
+    def _aux_heads(self):
+        aux = self.auxiliary_head
+        return [] if aux is None else (
+            list(aux) if isinstance(aux, nn.ModuleList) else [aux])
+
+    def forward_train(self, img, gt_semantic_seg, seg_weight=None):
+        """Losses and states of one supervised pass
+        (``encoder_decoder.py:140-241``, plain-head branch). Dropout runs
+        when the module is in train mode. Returns ``(losses, states)``,
+        ``states = {seg_logits (head resolution), decoded_features,
+        features}``."""
+        heads = [self.decode_head, *self._aux_heads()]
+        for head in heads:
+            _check_plain_head(head)
+        gt = gt_semantic_seg.long()
+        out = self(img)
+        losses = add_prefix(_head_losses(self.decode_head,
+                                         self._decode_losses,
+                                         out['seg_logits'], gt, seg_weight),
+                            'decode')
+        for i, (head, aux_logit) in enumerate(zip(heads[1:],
+                                                  out['aux_logits'])):
+            prefix = 'aux' if len(heads) == 2 else f'aux_{i}'
+            losses.update(add_prefix(
+                _head_losses(head, self._aux_losses[i], aux_logit, gt,
+                             seg_weight), prefix))
+        states = {'seg_logits': out['seg_logits'],
+                  'decoded_features': out['decoded_features'],
+                  'features': out['feats']}
+        return losses, states
 
     # -- inference --------------------------------------------------------
     def whole_inference(self, img):

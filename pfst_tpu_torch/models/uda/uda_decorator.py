@@ -1,0 +1,111 @@
+"""UDA base: a student segmentor and its EMA teacher (port of
+``pfst_tpu/models/uda/uda_decorator.py``).
+
+The JAX file keeps the train state as an immutable tree; here
+``UDATrainState`` holds the two modules, the optimizer and the step, and
+a train step updates them in place: the EMA update writes the teacher's
+parameters, the student's BN running statistics advance in its forward
+passes, and the optimizer writes the student's parameters.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+
+from ..builder import build_segmentor
+
+
+@dataclass
+class UDATrainState:
+    """The port of the JAX ``UDATrainState``: ``student`` holds ``params``
+    and ``batch_stats``, ``teacher`` holds ``ema_params`` and
+    ``ema_batch_stats``, ``optimizer`` holds ``opt_state``."""
+    student: nn.Module
+    teacher: nn.Module
+    optimizer: object
+    step: int = 0
+
+
+def maybe_normalize_images(batch: dict, mean, std) -> dict:
+    """Deferred normalization: NCHW image tensors (keys holding ``img``)
+    that arrive as uint8 or float16 on the 0-255 scale are normalized;
+    float32 images pass through (``uda_decorator.py:38-51``)."""
+    out = dict(batch)
+    for k, v in batch.items():
+        if 'img' in k and isinstance(v, torch.Tensor) and \
+                v.dtype in (torch.uint8, torch.float16):
+            m = torch.as_tensor(mean, dtype=torch.float32,
+                                device=v.device).view(1, -1, 1, 1)
+            s = torch.as_tensor(std, dtype=torch.float32,
+                                device=v.device).view(1, -1, 1, 1)
+            out[k] = (v.float() - m) / s
+    return out
+
+
+@contextlib.contextmanager
+def batch_stats_forward(module: nn.Module):
+    """Train-mode BN that normalizes by the batch statistics and leaves
+    the running statistics untouched, with dropout off: the teacher
+    forward of the JAX step (BN with ``train=True`` and the updates
+    discarded, no dropout rng). BN that the module keeps in eval mode
+    (``norm_eval``, frozen stages) stays so."""
+    was_training = module.training
+    module.train()
+    bns = [m for m in module.modules()
+           if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    drops = [m for m in module.modules()
+             if isinstance(m, nn.modules.dropout._DropoutNd)]
+    tracked = [m.track_running_stats for m in bns]
+    for m in bns:
+        m.track_running_stats = False
+    for m in drops:
+        m.eval()
+    try:
+        yield module
+    finally:
+        for m, t in zip(bns, tracked):
+            m.track_running_stats = t
+        module.train(was_training)
+
+
+class UDADecorator:
+    """Construction, the train state and the EMA update."""
+
+    def __init__(self, device='cuda', **cfg):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model_cfg = copy.deepcopy(cfg['model'])
+        self.train_cfg = cfg['model'].get('train_cfg')
+        self.test_cfg = cfg['model'].get('test_cfg')
+        self.num_classes = cfg['model']['decode_head']['num_classes']
+        self.max_iters = cfg.get('max_iters', 40000)
+
+    def init_state(self, generator: torch.Generator, tx) -> UDATrainState:
+        """Student weights from the JAX package's initializers drawn from
+        ``generator``, the teacher a copy of the student
+        (``uda_decorator.py:72-99``), both on ``self.device``; ``tx`` is a
+        ``build_optimizer`` factory, bound to the student's parameters."""
+        student = build_segmentor(self.model_cfg).init_weights(generator)
+        teacher = copy.deepcopy(student)
+        for p in teacher.parameters():
+            p.requires_grad_(False)
+        student.to(self.device).train()
+        teacher.to(self.device).train()
+        return UDATrainState(student=student, teacher=teacher,
+                             optimizer=tx(student.parameters()), step=0)
+
+    @torch.no_grad()
+    def ema_update(self, state: UDATrainState, alpha: float):
+        """teacher = a * teacher + (1 - a) * student on the parameters,
+        ``a = min(1 - 1 / (step + 1), alpha)`` (``uda_decorator.py:101-
+        113``); before the forward, so step 0 copies the student."""
+        a = min(1.0 - 1.0 / (state.step + 1.0), alpha)
+        ema = list(state.teacher.parameters())
+        torch._foreach_mul_(ema, a)
+        torch._foreach_add_(ema, list(state.student.parameters()),
+                            alpha=1.0 - a)
+        return state

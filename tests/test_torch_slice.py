@@ -147,7 +147,8 @@ def test_init_segmentor_default_device_needs_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
-    """Every module of the port, and chip_smoke.py, in a fresh process."""
+    """Every module of the port, and chip_smoke.py, in a fresh process:
+    none of jax, flax, optax, orbax, cv2 or the JAX package."""
     code = '\n'.join([
         'import importlib, pkgutil, sys',
         'import pfst_tpu_torch',
@@ -156,7 +157,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         '    importlib.import_module(m.name)',
         'import chip_smoke',
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in",
-        "             ('jax', 'jaxlib', 'flax', 'orbax', 'cv2', 'pfst_tpu'))",
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',",
+        "              'pfst_tpu'))",
         'print(len(sys.modules), bad)',
         'sys.exit(1 if bad else 0)',
     ])

@@ -1,12 +1,59 @@
 """Helpers shared by the ``test_torch_*`` parity tests: weights in the
 JAX package's layout, made from a numpy seed, and carried into the port
 through ``jax_variables_to_state_dict``."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from pfst_tpu_torch.core import jax_variables_to_state_dict
+
+# XLA:CPU compile options for the tests' JAX programs, each of which runs
+# once: LLVM's costly optimisations off (a PFGST train step of
+# tiny_model_cfg compiles in ~7 s instead of ~11 s), same results within
+# the parity tolerances
+FAST_COMPILE = {'xla_backend_optimization_level': 0,
+                'xla_llvm_disable_expensive_passes': True}
+
+
+def run_jit(fn, *args):
+    """``jax.jit(fn)(*args)``, compiled with ``FAST_COMPILE``."""
+    return jax.jit(fn).lower(*args).compile(FAST_COMPILE)(*args)
+
+
+@contextlib.contextmanager
+def two_pass_batch_variance():
+    """While JAX traces under this context, flax's BatchNorm takes the
+    batch variance as mean((x - mean)^2), as torch does, instead of its
+    default E[x^2] - E[x]^2 (``use_fast_variance``), which loses digits in
+    fp32 where a channel's mean is large against its spread: in train
+    mode the ASPP image-pool BN sees one value per image, and at batch 2
+    that puts the reference's logits ~2e-4 off an fp64 evaluation while
+    the port's stay within 4e-5 (ROADMAP C2). The JAX package is not
+    changed; its formula for the statistics is. flax offers no public
+    route to that flag for a module built inside the JAX package, so this
+    patches its private ``_compute_stats`` and fails if nothing traced
+    under the context called the patch (a flax that no longer reaches it
+    would otherwise leave the default formula in place unseen)."""
+    from flax.linen import normalization
+
+    compute_stats = normalization._compute_stats
+    calls = []
+
+    def two_pass(*args, **kwargs):
+        calls.append(1)
+        kwargs['use_fast_variance'] = False
+        return compute_stats(*args, **kwargs)
+
+    normalization._compute_stats = two_pass
+    try:
+        yield
+    finally:
+        normalization._compute_stats = compute_stats
+    assert calls, ('no BatchNorm statistics were computed through the '
+                   'patched flax normalization._compute_stats')
 
 
 def jax_variables(model, shape, seed=0):
