@@ -31,11 +31,32 @@ Phases (any failure exits non-zero before the result lines):
    around each run, the EMA teacher checked, and s/iter;
 8. one training step card against CPU, 2 x 128x128 crops, full width and
    depth, dropout off, TF32 off: log vars and student gradients;
+3c. (run after 3b) each flash-attention kernel (forward, dK/dV, dQ)
+   against its plain version at the ViT's shapes (1 and 2 x 12 x 1025 x
+   64, fp32 and bf16, read through the strides of the block's qkv
+   layout), the microbench's (8 x 12 x {1024, 4096} x 64 bf16) and an
+   edge case (1 x 2 x 17 x 64), with the median times of the kernel, the
+   plain version and SDPA, and the bound;
+9. ViT-B/16 UPerNet serving at full width (``upernet_vit-b16_ln_mln``,
+   seeded weights): 512x512 requests through ``make_inference_fn`` ->
+   ``_finalize_views`` and ``make_state_fn`` -> ``sim_feat``, with the
+   flash and similarity launches read around this phase only;
+10. ViT card against CPU on one 256x256 image (``img_size=256``), TF32
+   off;
+11. ViT supervised training at full width: ``build_algorithm`` ->
+   ``SupervisedTrainer.init_state`` -> ``make_train_step`` with AdamW and
+   the ``adamw_40k`` schedule, 2 x 512x512 crops, fp32 and bf16 autocast,
+   launches per step and s/iter; then one step card against CPU at 2 x
+   128x128 (``img_size=128``), dropout off, TF32 off;
+12. the attention microbench (``tools/attn_microbench_torch.py``) at its
+   default shapes;
 then one ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
+import concurrent.futures
 import copy
+import importlib.util
 import json
 import os.path as osp
 import statistics
@@ -46,13 +67,20 @@ import traceback
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from pfst_tpu_torch.apis import (_finalize_views, init_segmentor,
-                                 make_inference_fn, make_state_fn)
+from pfst_tpu_torch.apis import (_finalize_views, build_algorithm,
+                                 init_segmentor, make_inference_fn,
+                                 make_state_fn)
 from pfst_tpu_torch.core import build_optimizer
 from pfst_tpu_torch.models import build_train_model
-from pfst_tpu_torch.ops import (build, cuda_neighborhood_similarity,
+from pfst_tpu_torch.ops import (build, cuda_flash_attention,
+                                cuda_flash_attention_backward,
+                                cuda_flash_attention_bwd_dkv,
+                                cuda_flash_attention_bwd_dq,
+                                cuda_neighborhood_similarity,
                                 cuda_neighborhood_similarity_backward,
+                                torch_attention, torch_attention_backward,
                                 torch_neighborhood_similarity,
                                 torch_neighborhood_similarity_backward)
 from pfst_tpu_torch.utils import Config
@@ -60,14 +88,41 @@ from pfst_tpu_torch.utils import Config
 ROOT = osp.dirname(osp.abspath(__file__))
 LEAF = osp.join(ROOT, 'configs', 'pfst',
                 'pfst_pots_irrg2vaih_irrg_deeplabv3plus_r50-d8.py')
-# NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor-core) peak
+VIT = osp.join(ROOT, 'configs', '_base_', 'models',
+               'upernet_vit-b16_ln_mln.py')
+ADAMW_40K = osp.join(ROOT, 'configs', '_base_', 'schedules',
+                     'adamw_40k.py')
+MICROBENCH = osp.join(ROOT, 'tools', 'attn_microbench_torch.py')
+# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) and dense
+# bf16 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 SIM_TOL = 1e-5
 SIM_K, SIM_D, SIGMA = 3, 2, 30.0
-# (shape, sim_type): serving (1024^2 request, make_state_fn) and the
-# PFGST training loss (2 x 512^2 crops, pfgst_loss.py:95-109)
-SIM_CASES = [((1, 512, 128, 128), 'gaussian'), ((2, 512, 64, 64), 'cosine')]
+# (shape, sim_type): serving (1024^2 request, make_state_fn), the PFGST
+# training loss (2 x 512^2 crops, pfgst_loss.py:95-109) and the ViT
+# UPerNet's decoded features at a 512^2 request
+SIM_CASES = [((1, 512, 128, 128), 'gaussian'), ((2, 512, 64, 64), 'cosine'),
+             ((1, 768, 128, 128), 'gaussian')]
+# flash attention: (shape (B, heads, N, d), dtype, layout). 'qkv': q, k, v
+# are the strided views of the ViT block's (B, N, 3, heads, d) projection;
+# 'contiguous': the microbench's separate (B, heads, N, d) tensors
+FLASH_CASES = [((1, 12, 1025, 64), torch.float32, 'qkv'),
+               ((1, 12, 1025, 64), torch.bfloat16, 'qkv'),
+               ((2, 12, 1025, 64), torch.float32, 'qkv'),
+               ((2, 12, 1025, 64), torch.bfloat16, 'qkv'),
+               ((8, 12, 1024, 64), torch.bfloat16, 'contiguous'),
+               ((8, 12, 4096, 64), torch.bfloat16, 'contiguous'),
+               ((1, 2, 17, 64), torch.float32, 'qkv')]
+FLASH_FWD_TOL, FLASH_LSE_TOL, FLASH_BWD_TOL = 2e-5, 1e-5, 1e-4
+# the ViT configs' input normalization (ImageNet mean/std, RGB)
+VIT_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                to_rgb=True)
+VIT_LAYERS = 12
+N_VIT_REQUESTS = 4
+VIT_HW, VIT_CHECK_HW, VIT_TRAIN_CHECK_HW = (512, 512), (256, 256), (128, 128)
+VIT_TRAIN_STEPS = 8
 N_REQUESTS = 6
 REQUEST_HW = (1024, 1024)
 BATCH, PATCH, THRESHOLD = 24, 512, 0.98
@@ -119,10 +174,15 @@ def phase_card():
 
 
 def phase_build():
+    """Both sources at once, one nvcc each."""
     t0 = time.time()
-    path = build.build('neighborhood_sim')
-    build.load('neighborhood_sim')
-    log(f'[build] {osp.relpath(path, ROOT)} in {time.time() - t0:.1f} s')
+    names = ('neighborhood_sim', 'flash_attention')
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(build.build, names))
+    for name, path in zip(names, paths):
+        build.load(name)
+        log(f'[build] {osp.relpath(path, ROOT)}')
+    log(f'[build] {len(names)} libraries in {time.time() - t0:.1f} s')
 
 
 def sim_bound(shape, dtype, sim_type):
@@ -260,6 +320,160 @@ def phase_backward_vs_plain():
             cases.append(case)
             del xf, sim_ref, auto, plain
     return cases
+
+
+def _flash_inputs(shape, dtype, layout, gen):
+    b, h, n, d = shape
+    if layout == 'qkv':
+        qkv = torch.randn((b, n, 3, h, d), generator=gen).to('cuda', dtype)
+        return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    return [torch.randn(shape, generator=gen).to('cuda', dtype)
+            for _ in range(3)]
+
+
+def flash_bounds(shape, dtype):
+    """Least times (ms, bound_by) of the forward, dK/dV and dQ kernels'
+    functions: each input read once and each output written once over the
+    HBM rate, against the operations over the peak of the input type
+    (bf16 on the tensor cores, fp32 on the CUDA cores). Forward:
+    4 B H N^2 d flops (S = Q K^T and P V). The whole backward needs
+    10 B H N^2 d (S recomputed, dP = dO V^T, dV, dK, dQ: 2 each), split
+    6 : 4 here, dK/dV taking S, dV and dK and dQ taking dP and dQ. Bytes:
+    forward q, k, v, O and the fp32 LSE; dK/dV q, k, v, dO, LSE and Di
+    in, dK and dV out; dQ the same inputs, dQ out."""
+    b, h, n, d = shape
+    elt = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    mat, stat = b * h * n * d * elt, b * h * n * 4
+    work = {'fwd': (4 * mat + stat, 4), 'dkv': (6 * mat + 2 * stat, 6),
+            'dq': (5 * mat + 2 * stat, 4)}
+    out = {}
+    for kernel, (nbytes, per) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = per * b * h * n * n * d / peak
+        out[kernel] = (max(t_bytes, t_ops) * 1e3,
+                       'bytes' if t_bytes >= t_ops else 'operations')
+    return out
+
+
+def flash_errors(q, k, v, g, scale):
+    """The three flash kernels on (q, k, v) and dL/dO ``g`` against the
+    plain versions, with the limits of phase 3c. Returns ``(o, lse,
+    errors)``; ``errors`` holds each excess beyond its rounding allowance
+    next to its limit, and the raw max |kernel - ref| of O and of dQ, dK,
+    dV against autograd."""
+    bf16 = q.dtype == torch.bfloat16
+    rounding = 2.0**-8 if bf16 else 0.0
+    o, lse = cuda_flash_attention(q, k, v, scale)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    ref, ref_lse = torch_attention(qf, kf, vf, scale, return_lse=True)
+    err = dict(fwd_err=float((o.float() - ref).abs().max()),
+               fwd_excess=float(((o.float() - ref).abs()
+                                 - rounding * ref.abs()).max()),
+               fwd_limit=FLASH_FWD_TOL * max(1.0, float(ref.abs().max())),
+               lse_rel_err=float(((lse - ref_lse).abs()
+                                  / ref_lse.abs()).max()))
+    grads = cuda_flash_attention_backward(q, k, v, o, lse, g, scale)
+    xs = [t.clone().requires_grad_() for t in (qf, kf, vf)]
+    auto = torch.autograd.grad(torch_attention(*xs, scale), xs, gf)
+    plain = torch_attention_backward(qf, kf, vf, ref, ref_lse, gf, scale)
+    if bf16:
+        # Di = rowsum(dO O) reads the bf16 O: |dDi| <= 2^-8 rowsum|O dO|
+        p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                      - ref_lse[..., None])
+        eps = 2.0**-8 * (ref.abs() * gf.abs()).sum(-1, keepdim=True)
+        spread = (scale * eps * torch.matmul(p, kf.abs()),
+                  scale * torch.matmul(p.transpose(-1, -2), eps * qf.abs()),
+                  0.0)
+        del p
+    else:
+        spread = (0.0, 0.0, 0.0)
+    err['bwd_limit'] = FLASH_BWD_TOL * max(1.0, max(float(a.abs().max())
+                                                    for a in auto))
+    err['bwd_excess'] = max(
+        float(((got.float() - r).abs() - rounding * r.abs() - e).max())
+        for got, a, pl, e in zip(grads, auto, plain, spread)
+        for r in (a, pl))
+    for name, got, a in zip(('dq_err', 'dk_err', 'dv_err'), grads, auto):
+        err[name] = float((got.float() - a).abs().max())
+    err['ok'] = (err['fwd_excess'] <= err['fwd_limit']
+                 and err['lse_rel_err'] <= FLASH_LSE_TOL
+                 and err['bwd_excess'] <= err['bwd_limit'])
+    return o, lse, err
+
+
+def phase_flash_vs_plain():
+    """Each flash kernel against its plain version on the same inputs, as
+    the path launches it (bf16 or fp32, q, k, v through their strides).
+
+    Forward: O within ``FLASH_FWD_TOL * max(1, max|ref|)`` of the plain
+    forward in fp32 on the same input values (fp32 sums in another
+    order), plus for a bf16 O its rounding 2^-8 |ref|; LSE within
+    ``FLASH_LSE_TOL`` relative. Backward: dQ, dK, dV against autograd of
+    the plain fp32 forward and against ``torch_attention_backward``, on
+    the same values and a random dL/dO, within ``FLASH_BWD_TOL * max(1,
+    max|ref|)``: sums of N = 1025 to 4096 fp32 terms in another order
+    (the first chip run measured <= 6e-7). For bf16 input, the rounding of
+    the gradient, 2^-8 |ref|, and of the O that Di = rowsum(dO O) reads
+    (the library's backward reads its bf16 O too): |dDi| <= 2^-8
+    rowsum|O dO| reaches dQ as s |dDi| P|K| and dK as s P^T(|dDi| |Q|).
+    ``max_abs_err`` is the raw max |kernel - ref|."""
+    gen = torch.Generator().manual_seed(4)
+    cases = []
+    for shape, dtype, layout in FLASH_CASES:
+        q, k, v = _flash_inputs(shape, dtype, layout, gen)
+        g = torch.randn(shape, generator=gen).to('cuda', dtype)
+        scale = shape[-1]**-0.5
+        o, lse, err = flash_errors(q, k, v, g, scale)
+        gf = g.float()
+        di = (o.float() * gf).sum(-1).contiguous()
+        ms = {'fwd': cuda_time_ms(lambda: cuda_flash_attention(
+                  q, k, v, scale), 10),
+              'dkv': cuda_time_ms(lambda: cuda_flash_attention_bwd_dkv(
+                  q, k, v, g, lse, di, scale), 10),
+              'dq': cuda_time_ms(lambda: cuda_flash_attention_bwd_dq(
+                  q, k, v, g, lse, di, scale), 10)}
+        plain_fwd_ms = cuda_time_ms(lambda: torch_attention(q, k, v, scale),
+                                    5)
+        plain_bwd_ms = cuda_time_ms(lambda: torch_attention_backward(
+            q, k, v, o, lse, g, scale), 5)
+        lib_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 10)
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*xs, scale=scale)
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            lib_out, xs, g, retain_graph=True), 10)
+        del xs, lib_out, di, o, lse
+        bounds = flash_bounds(shape, dtype)
+        ok = err.pop('ok')
+        case = dict(shape=list(shape), dtype=str(dtype).split('.')[-1],
+                    layout=layout, **err, ms=ms, plain_fwd_ms=plain_fwd_ms,
+                    plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                    library_bwd_ms=lib_bwd_ms,
+                    bound_ms={kk: b[0] for kk, b in bounds.items()},
+                    bound_by={kk: b[1] for kk, b in bounds.items()})
+        log(f'[kernel] flash_attention {case}')
+        if not ok:
+            raise AssertionError(f'flash kernels disagree with the plain '
+                                 f'versions: {case}')
+        cases.append(case)
+        del q, k, v, g, gf
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _flash_counts():
+    return (cuda_flash_attention.launches,
+            cuda_flash_attention_bwd_dkv.launches,
+            cuda_flash_attention_bwd_dq.launches)
+
+
+def _reset_counts():
+    cuda_flash_attention.launches = 0
+    cuda_flash_attention_bwd_dkv.launches = 0
+    cuda_flash_attention_bwd_dq.launches = 0
+    cuda_neighborhood_similarity.launches = 0
+    cuda_neighborhood_similarity_backward.launches = 0
 
 
 def _request(cfg, seed, hw):
@@ -545,6 +759,17 @@ def phase_train_card_vs_cpu(cfg):
         torch.set_num_threads(threads)
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = old
+    _check_train_sides(sides, threads,
+                       f'[train card-vs-cpu] {CHECK_HW}, residual scale '
+                       f'{RESIDUAL_SCALE}')
+
+
+def _check_train_sides(sides, threads, tag):
+    """Card step against the CPU step (``sides``: log vars and gradient
+    groups of 'card', 'cpu' and 'cpu1', the CPU with one thread): log vars
+    within rtol 1e-3 (atol 1e-5); gradients with cosine similarity >=
+    0.9999 and norms within 1e-3 over all parameters; no parameter tensor
+    with a zero gradient."""
     (card_lv, card_g), (cpu_lv, cpu_g) = sides['card'], sides['cpu']
     cpu1_g = sides['cpu1'][1]
     bad = {k: (card_lv[k], cpu_lv[k]) for k in cpu_lv
@@ -559,7 +784,7 @@ def phase_train_card_vs_cpu(cfg):
                             ('cpu1', cpu1_g))}
     cos, norm_rel = _cos_and_gap(flat['card'], flat['cpu'])
     self_cos, self_gap = _cos_and_gap(flat['cpu1'], flat['cpu'])
-    log(f'[train card-vs-cpu] {CHECK_HW}, residual scale {RESIDUAL_SCALE}: '
+    log(f'{tag}: '
         f'log vars {len(cpu_lv)} compared, {len(bad)} outside rtol 1e-3; '
         f'gradient cosine {cos:.8f}, norm rel diff {norm_rel:.3e}; '
         f'parameter tensors with a zero gradient {zero}; per group '
@@ -572,11 +797,268 @@ def phase_train_card_vs_cpu(cfg):
         raise AssertionError(f'card and CPU training disagree: {bad}')
 
 
+def vit_config(img_size=VIT_HW[0], dtype=None):
+    """The ViT-B/16 UPerNet config at full width and depth, for inputs of
+    ``img_size`` (no position-embedding resize), with the ViT configs'
+    input normalization."""
+    cfg = Config.fromfile(VIT)
+    cfg.img_norm_cfg = dict(VIT_NORM)
+    cfg.model['backbone']['img_size'] = img_size
+    if dtype:
+        cfg.model['dtype'] = dtype
+    return cfg
+
+
+def phase_vit_serving(cfg, model):
+    """512x512 requests: logits -> labels, then the feature state through
+    the similarity kernel. Per request: 2 x 12 flash forwards (the two
+    full forwards of make_inference_fn and make_state_fn), 1 similarity
+    forward, no backward."""
+    infer = make_inference_fn(model)
+    state_fn = make_state_fn(model)
+    imgs = [_request(cfg, 200 + seed, VIT_HW)
+            for seed in range(N_VIT_REQUESTS)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    for i, img in enumerate(imgs):
+        t0 = time.time()
+        img = img.cuda()
+        logits = infer(img)
+        labels = _finalize_views(model, [logits], [{'flip': False}], VIT_HW)
+        sim = state_fn(img)['sim_feat'].cpu()
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+        h, w = VIT_HW[0] // 4, VIT_HW[1] // 4
+        if labels.shape != VIT_HW or not (
+                0 <= labels.min() and labels.max() < model.num_classes) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f'ViT request {i}: bad output')
+        if tuple(sim.shape) != (1, SIM_K**2, h, w) or \
+                not torch.isfinite(sim).all() or \
+                not (0 <= float(sim.min()) and float(sim.max()) <= 1):
+            raise AssertionError(f'ViT request {i}: bad sim_feat '
+                                 f'{tuple(sim.shape)}')
+    counts = _flash_counts()
+    sim_launches = cuda_neighborhood_similarity.launches
+    warm = statistics.median(times[1:])
+    log(f'[vit serve] {N_VIT_REQUESTS} requests of {VIT_HW}: ms per '
+        f'request {[round(t, 2) for t in times]}, warm median {warm:.2f}; '
+        f'flash launches fwd/dkv/dq {counts}, similarity {sim_launches}')
+    want = (2 * VIT_LAYERS * N_VIT_REQUESTS, 0, 0)
+    if counts != want or sim_launches != N_VIT_REQUESTS:
+        raise AssertionError(f'ViT serving launched flash {counts} (want '
+                             f'{want}) and similarity {sim_launches}')
+    return dict(flash=counts, sim=sim_launches, ms=times, warm_ms=warm)
+
+
+def phase_vit_card_vs_cpu():
+    """One 256x256 image, the model built at img_size 256, TF32 off:
+    logits within 1e-3 max|logit|, argmax agreement >= 99.9 %."""
+    cfg = vit_config(VIT_CHECK_HW[0])
+    model = init_segmentor(cfg)
+    cpu_model = copy.deepcopy(model).cpu()
+    img = _request(cfg, 300, VIT_CHECK_HW)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card_logits = make_inference_fn(model)(img.cuda()).cpu()
+        cpu_logits = make_inference_fn(cpu_model)(img)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    scale = float(cpu_logits.abs().max())
+    err = float((card_logits - cpu_logits).abs().max())
+    agree = float((card_logits.argmax(1) == cpu_logits.argmax(1))
+                  .float().mean())
+    log(f'[vit card-vs-cpu] {VIT_CHECK_HW}: logit err {err:.3e} (limit '
+        f'{1e-3 * scale:.3e}), argmax agreement {agree:.6f}')
+    if not (err <= 1e-3 * scale and agree >= 0.999):
+        raise AssertionError('ViT card and CPU disagree')
+
+
+def _vit_train_cfg(img_size, dtype=None, dropout=True):
+    """The ViT config with the ``adamw_40k`` schedule (AdamW, poly with
+    linear warmup, 40k iterations) composed in."""
+    cfg = vit_config(img_size, dtype)
+    sched = Config.fromfile(ADAMW_40K)
+    for key in ('optimizer', 'optimizer_config', 'lr_config', 'runner'):
+        cfg[key] = sched[key]
+    if not dropout:
+        cfg.model['decode_head']['dropout_ratio'] = 0.0
+        cfg.model['auxiliary_head']['dropout_ratio'] = 0.0
+    return cfg
+
+
+def _vit_train_setup(cfg, device='cuda'):
+    algo = build_algorithm(cfg, device=device)
+    opt_cfg = cfg.get('optimizer_config') or {}
+    tx = build_optimizer(cfg.optimizer, cfg.get('lr_config'),
+                         cfg.runner['max_iters'], opt_cfg.get('grad_clip'))
+    state = algo.init_state(torch.Generator().manual_seed(0), tx)
+    norm = cfg.img_norm_cfg
+    return algo, state, algo.make_train_step(norm['mean'], norm['std'])
+
+
+def _vit_batch(cfg, seed, hw):
+    """2 seeded uint8-noise images, normalized, and labels of the
+    config's classes in 32x32 blocks with a band of 255 across the top,
+    on the card."""
+    rs = np.random.RandomState(seed)
+    norm = cfg.img_norm_cfg
+    mean = np.asarray(norm['mean'], np.float32).reshape(1, 3, 1, 1)
+    std = np.asarray(norm['std'], np.float32).reshape(1, 3, 1, 1)
+    img = rs.randint(0, 256, (2, 3, *hw)).astype(np.float32)
+    num_classes = cfg.model['decode_head']['num_classes']
+    cells = rs.randint(0, num_classes, (2, hw[0] // 32, hw[1] // 32))
+    gt = cells.repeat(32, axis=1).repeat(32, axis=2)
+    gt[:, :hw[0] // 16] = 255
+    return dict(img=torch.from_numpy((img - mean) / std).cuda(),
+                gt_semantic_seg=torch.from_numpy(gt).cuda())
+
+
+def _vit_train_run(name, dtype, card):
+    """VIT_TRAIN_STEPS steps at full width on 2 x 512^2 crops; returns
+    (s/iter, flash launches (fwd, dkv, dq) in the run)."""
+    cfg = _vit_train_cfg(VIT_HW[0], dtype)
+    _, state, step = _vit_train_setup(cfg)
+    gen = torch.Generator().manual_seed(3)
+    probe = 'decode_head.conv_seg.weight'
+    start = state.student.get_parameter(probe).detach().clone()
+    batches = [_vit_batch(cfg, 2000 + i, VIT_HW)
+               for i in range(VIT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, log_vars = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        vals = {k: float(v) for k, v in log_vars.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f'[vit train {name}] step {i}: non-finite '
+                                 f'log vars {vals}')
+    counts = _flash_counts()
+    moved = float((state.student.get_parameter(probe).detach() - start)
+                  .abs().max())
+    s_iter = statistics.median(times[TRAIN_WARMUP:])
+    log(f'[vit train {name}] {VIT_TRAIN_STEPS} steps, batch 2 of {VIT_HW}: '
+        f's/iter {[round(t, 4) for t in times]}, median after '
+        f'{TRAIN_WARMUP} warm-ups {s_iter:.4f} s on {card}; flash launches '
+        f'fwd/dkv/dq {counts}; moved {moved:.3e}; last log vars '
+        f'{json.dumps({k: round(v, 6) for k, v in vals.items()})}')
+    if counts != (VIT_LAYERS * VIT_TRAIN_STEPS,) * 3:
+        raise AssertionError(f'[vit train {name}] expected '
+                             f'{VIT_LAYERS} launches of each flash kernel '
+                             f'per step, got {counts}')
+    if not moved > 0:
+        raise AssertionError(f'[vit train {name}] the model did not change')
+    return s_iter, counts
+
+
+def phase_vit_train(card):
+    results = {}
+    for name, dtype in (('fp32', None), ('bf16', 'bfloat16')):
+        results[name] = _vit_train_run(name, dtype, card)
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_vit_train_card_vs_cpu():
+    """One supervised step on the card and on the CPU from the same
+    weights and batch at 2 x 128^2 (img_size 128), dropout off, TF32 off,
+    held as phase 8 holds the PFGST step."""
+    cfg = _vit_train_cfg(VIT_TRAIN_CHECK_HW[0], dropout=False)
+    batch = {k: v.cpu() for k, v in
+             _vit_batch(cfg, 7, VIT_TRAIN_CHECK_HW).items()}
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    threads = torch.get_num_threads()
+    sides = {}
+    try:
+        for side, device, n in (('card', 'cuda', threads),
+                                ('cpu', 'cpu', threads), ('cpu1', 'cpu', 1)):
+            torch.set_num_threads(n)
+            _, state, step = _vit_train_setup(cfg, device)
+            _, log_vars = step(state, {k: v.to(device)
+                                       for k, v in batch.items()},
+                               torch.Generator().manual_seed(5))
+            sides[side] = ({k: float(v) for k, v in log_vars.items()},
+                           _grad_groups(state))
+    finally:
+        torch.set_num_threads(threads)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    _check_train_sides(sides, threads,
+                       f'[vit train card-vs-cpu] {VIT_TRAIN_CHECK_HW}')
+
+
+def phase_microbench():
+    """``tools/attn_microbench_torch.py`` at its default shapes."""
+    spec = importlib.util.spec_from_file_location('attn_microbench_torch',
+                                                  MICROBENCH)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    log('[microbench] shape, mode, naive / flash / library (SDPA) '
+        'best/median ms, bf16')
+    return bench.bench_rows()
+
+
+def _flash_entries(cases, serve, train):
+    """The kernels-line entries of the three flash kernels: times of the
+    serving shape (forward) and the training shape (backward), fp32."""
+    fwd = next(c for c in cases if c['shape'] == [1, 12, 1025, 64]
+               and c['dtype'] == 'float32')
+    bwd = next(c for c in cases if c['shape'] == [2, 12, 1025, 64]
+               and c['dtype'] == 'float32')
+    lib = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
+    steps = VIT_TRAIN_STEPS * len(train)
+    rows = []
+    for i, (name, kernel, line, case) in enumerate((
+            ('flash_attention', 'fwd', 589, fwd),
+            ('flash_attention_bwd_dkv', 'dkv', 941, bwd),
+            ('flash_attention_bwd_dq', 'dq', 1287, bwd))):
+        train_launches = sum(t[1][i] for t in train.values())
+        errs = [c['fwd_err'] if i == 0 else
+                max(c['dk_err'], c['dv_err']) if i == 1 else c['dq_err']
+                for c in cases]
+        rows.append(dict(
+            name=name, route='cuda',
+            source='pfst_tpu_torch/ops/csrc/flash_attention.cu',
+            replaces=f'{lib}:{line}',
+            called_from='tools/attn_microbench.py:30',
+            launches=serve['flash'][i] + train_launches,
+            launches_per_request=serve['flash'][i] / N_VIT_REQUESTS,
+            launches_per_train_step=train_launches / steps,
+            max_abs_err=max(errs),
+            max_abs_err_fp32=max(e for e, c in zip(errs, cases)
+                                 if c['dtype'] == 'float32'),
+            ms=case['ms'][kernel],
+            plain_ms=case['plain_fwd_ms'] if i == 0
+            else case['plain_bwd_ms'],
+            bound_ms=case['bound_ms'][kernel],
+            bound_by=case['bound_by'][kernel],
+            library_ms=case['library_fwd_ms'] if i == 0
+            else case['library_bwd_ms'],
+            timed_at=case['shape'],
+            cases=[{k: c[k] for k in ('shape', 'dtype', 'layout')}
+                   | {'ms': c['ms'][kernel],
+                      'bound_ms': c['bound_ms'][kernel]} for c in cases]))
+    return rows
+
+
 def main():
     card = phase_card()
     phase_build()
     cases = phase_kernel_vs_plain()
     bwd_cases = phase_backward_vs_plain()
+    flash_cases = phase_flash_vs_plain()
     cfg = Config.fromfile(LEAF)
     model = init_segmentor(cfg)      # seeded random weights, on the card
     launches, _ = phase_serving(cfg, model)
@@ -586,6 +1068,15 @@ def main():
     torch.cuda.empty_cache()
     train = phase_train(cfg, card)
     phase_train_card_vs_cpu(cfg)
+    vit_cfg = vit_config()
+    vit_model = init_segmentor(vit_cfg)      # seeded random weights
+    vit_serve = phase_vit_serving(vit_cfg, vit_model)
+    del vit_model
+    torch.cuda.empty_cache()
+    phase_vit_card_vs_cpu()
+    vit_train = phase_vit_train(card)
+    phase_vit_train_card_vs_cpu()
+    phase_microbench()
     main_case = next(c for c in cases if c['shape'] == list(SIM_CASES[0][0])
                      and c['dtype'] == 'float32')
     bwd_case = next(c for c in bwd_cases if c['sim_type'] == 'cosine'
@@ -596,8 +1087,9 @@ def main():
         name='neighborhood_similarity', route='cuda',
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:35',
-        launches=launches + train_fwd,
-        launches_per_request=launches / N_REQUESTS,
+        launches=launches + train_fwd + vit_serve['sim'],
+        launches_per_request=(launches + vit_serve['sim'])
+        / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
         max_abs_err=max(c['max_abs_err'] for c in cases),
         ms=main_case['ms'], plain_ms=main_case['plain_ms'],
@@ -612,8 +1104,12 @@ def main():
         ms=bwd_case['ms'], plain_ms=bwd_case['plain_ms'],
         bound_ms=bwd_case['bound_ms'], bound_by=bwd_case['bound_by'],
         library_ms=None, cases=bwd_cases)]
+    kernels += _flash_entries(flash_cases, vit_serve, vit_train)
     log(f'[train] s/iter batch 2 of {TRAIN_HW}: fp32 {train["fp32"][0]:.4f}, '
         f'bf16 {train["bf16"][0]:.4f} on {card}')
+    log(f'[vit] warm ms per {VIT_HW} request {vit_serve["warm_ms"]:.2f}; '
+        f's/iter batch 2 of {VIT_HW}: fp32 {vit_train["fp32"][0]:.4f}, '
+        f'bf16 {vit_train["bf16"][0]:.4f} on {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@
 JAX ``{'params', 'batch_stats'}`` tree (leaves as numpy arrays) and
 returns a state dict with the rsiseg key names the port's modules
 carry. ``torch_key_to_flax`` is the port's own copy of that tool's key
-map (``convert_torch_checkpoint.py:47-151``), extended to mmseg's
-``avg_down`` downsample (``downsample.{1,2}`` after the pooling layer).
+map (``convert_torch_checkpoint.py:47-151`` and, for the ViT,
+``:350-395``), extended to mmseg's ``avg_down`` downsample
+(``downsample.{1,2}`` after the pooling layer), the ``MultiLevelNeck`` and
+the ``UPerHead``.
 ``load_jax_train_state`` carries a JAX ``UDATrainState`` into the port's
 train state.
 """
@@ -32,6 +34,8 @@ def _bn(suffix, path):
 
 
 def _backbone_key(rest, ndim):
+    if rest[0] in ('pos_embed', 'cls_token', 'patch_embed', 'layers', 'ln1'):
+        return _vit_key(rest)
     base = ['backbone_mod']
     if rest[0] == 'stem':
         idx = int(rest[1])
@@ -66,6 +70,37 @@ def _backbone_key(rest, ndim):
     return None
 
 
+_LN_LEAVES = {'weight': 'scale', 'bias': 'bias'}
+_DENSE_LEAVES = {'weight': 'kernel', 'bias': 'bias'}
+_VIT_BLOCK = {'ln1': 'norm1', 'ln2': 'norm2', 'attn.attn.out_proj': 'proj',
+              'ffn.layers.0.0': 'fc1', 'ffn.layers.1': 'fc2'}
+
+
+def _vit_key(rest):
+    """mmseg ViT keys (``convert_torch_checkpoint.py:350-395``)."""
+    base = ['backbone_mod']
+    if rest[0] in ('pos_embed', 'cls_token'):
+        return 'params', base + [rest[0]]
+    if rest[0] == 'patch_embed' and rest[1] == 'projection':
+        leaf = _DENSE_LEAVES.get(rest[2])
+        return None if leaf is None else ('params',
+                                          base + ['patch_embed', leaf])
+    if rest[0] == 'ln1':
+        leaf = _LN_LEAVES.get(rest[1])
+        return None if leaf is None else ('params',
+                                          base + ['final_norm', leaf])
+    blk = base + [f'block{rest[1]}']
+    sub, leaf = '.'.join(rest[2:-1]), rest[-1]
+    if sub == 'attn.attn' and leaf in ('in_proj_weight', 'in_proj_bias'):
+        return 'params', blk + ['qkv', 'kernel' if leaf.endswith('weight')
+                                else 'bias']
+    if sub in _VIT_BLOCK:
+        leaves = _LN_LEAVES if sub.startswith('ln') else _DENSE_LEAVES
+        return None if leaf not in leaves else (
+            'params', blk + [_VIT_BLOCK[sub], leaves[leaf]])
+    return None
+
+
 def _conv_module(rest, path):
     """mmcv ConvModule: conv.weight/bias, bn.*; DepthwiseSeparable
     nests two of them."""
@@ -83,8 +118,25 @@ def _conv_module(rest, path):
 _HEADS = {'decode_head': 'decode_head_mod', 'auxiliary_head': 'aux_heads_0'}
 
 
-def _head_key(top, r):
+def _neck_key(r):
+    """MultiLevelNeck: ``lateral_convs.{i}`` and ``convs.{i}``."""
+    name = {'lateral_convs': 'lateral', 'convs': 'conv'}.get(r[0])
+    return None if name is None else _conv_module(
+        r[2:], ['neck_mod', f'{name}{r[1]}'])
+
+
+def _head_key(top, r, uper=False):
     base = [_HEADS[top]]
+    if uper:
+        # UPerHead: mmseg's names to the JAX file's
+        if r[0] == 'psp_modules':
+            return _conv_module(r[3:], base + ['ppm', f'pool{r[1]}'])
+        if r[0] in ('lateral_convs', 'fpn_convs'):
+            name = 'lateral' if r[0] == 'lateral_convs' else 'fpn_conv'
+            return _conv_module(r[2:], base + [f'{name}{r[1]}'])
+        if r[0] in ('bottleneck', 'fpn_bottleneck'):
+            name = 'psp_bottleneck' if r[0] == 'bottleneck' else r[0]
+            return _conv_module(r[1:], base + [name])
     if r[0] == 'image_pool':
         # Sequential(AdaptiveAvgPool2d, ConvModule)
         return _conv_module(r[2:], base + ['image_pool_conv'])
@@ -103,14 +155,19 @@ def _head_key(top, r):
     return None
 
 
-def torch_key_to_flax(key: str, ndim: int) -> Optional[Tuple[str, list]]:
+def torch_key_to_flax(key: str, ndim: int,
+                      uper: bool = False) -> Optional[Tuple[str, list]]:
     """Map one rsiseg state-dict key (of a tensor with ``ndim`` dims) to
-    ``(collection, path)`` in the JAX tree, or None."""
+    ``(collection, path)`` in the JAX tree, or None. ``uper``: the key's
+    head is a ``UPerHead`` (whose ``bottleneck`` is the JAX file's
+    ``psp_bottleneck``, where other heads keep the name)."""
     parts = key.split('.')
     if parts[0] == 'backbone':
         return _backbone_key(parts[1:], ndim)
+    if parts[0] == 'neck':
+        return _neck_key(parts[1:])
     if parts[0] in _HEADS:
-        return _head_key(parts[0], parts[1:])
+        return _head_key(parts[0], parts[1:], uper)
     return None
 
 
@@ -130,15 +187,19 @@ def jax_variables_to_state_dict(
 
     ``template`` is the port model's ``state_dict()``: it names the keys
     to fill and their shapes. Conv kernels go HWIO -> OIHW (depthwise
-    ``(3, 3, 1, C)`` -> ``(C, 1, 3, 3)``). Raises ``KeyError`` naming
-    every key of the port that has no source in ``variables``.
+    ``(3, 3, 1, C)`` -> ``(C, 1, 3, 3)``), Dense kernels (in, out) ->
+    (out, in); LayerNorm scales become weights, and ``pos_embed`` and
+    ``cls_token`` carry as they are. Raises ``KeyError`` naming every key
+    of the port that has no source in ``variables``.
     """
+    uper = {k.split('.')[0] for k in template if '.fpn_bottleneck.' in k}
     out, missing = {}, []
     for key, ref in template.items():
         if key.endswith('num_batches_tracked'):
             out[key] = torch.zeros_like(ref)
             continue
-        mapped = torch_key_to_flax(key, ref.ndim)
+        mapped = torch_key_to_flax(key, ref.ndim,
+                                   uper=key.split('.')[0] in uper)
         leaf = None if mapped is None else _leaf(
             variables.get(mapped[0], {}), mapped[1])
         if leaf is None:
@@ -147,10 +208,13 @@ def jax_variables_to_state_dict(
         arr = np.asarray(leaf, dtype=np.float32)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif arr.ndim == 2:
+            arr = arr.T                      # Dense (in, out) -> (out, in)
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f'{key}: source shape {arr.shape} does not '
                              f'match the port\'s {tuple(ref.shape)}')
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
+        # a copy: the leaves may be read-only views of JAX arrays
+        out[key] = torch.from_numpy(np.array(arr)).to(ref.dtype)
     if missing:
         raise KeyError(f'no source in the JAX variables for {missing}')
     return out

@@ -1,4 +1,4 @@
-from . import backbones, decode_heads, losses, segmentors, uda  # noqa: F401
+from . import backbones, decode_heads, losses, necks, segmentors, uda  # noqa: F401
 from .builder import (BACKBONES, HEADS, LOSSES, MODELS, NECKS, SEGMENTORS,
                       UDA, build_backbone, build_head, build_loss, build_neck,
                       build_segmentor, build_train_model)

@@ -118,9 +118,15 @@ class EncoderDecoder(nn.Module):
         """The JAX package's initializers, drawn from ``generator``:
         convs truncated-normal fan-out (``layers.py:126-127``), the
         classifiers normal(0.01) (``base.py:55``), biases zero, norms
-        at scale 1, shift 0, running mean 0 and variance 1."""
+        at scale 1, shift 0, running mean 0 and variance 1. A child with
+        its own ``init_weights`` (the ViT backbone: flax's default Dense
+        and Conv initializers) initializes itself."""
+        own = [m for m in self.children() if hasattr(m, 'init_weights')]
+        skip = {id(x) for m in own for x in m.modules()}
         with torch.no_grad():
             for name, m in self.named_modules():
+                if id(m) in skip:
+                    continue
                 if isinstance(m, nn.Conv2d):
                     if name.endswith('conv_seg'):
                         m.weight.normal_(0.0, 0.01, generator=generator)
@@ -128,6 +134,8 @@ class EncoderDecoder(nn.Module):
                         init_conv_(m.weight, generator)
                     if m.bias is not None:
                         m.bias.zero_()
+        for m in own:
+            m.init_weights(generator)
         return self
 
     def _autocast(self, img):

@@ -38,6 +38,15 @@ def init_conv_(weight: torch.Tensor, generator: torch.Generator):
                           generator=generator)
 
 
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """flax's default kernel initializer, ``lecun_normal``:
+    ``variance_scaling(1.0, 'fan_in', 'truncated_normal')``, with the
+    fan-in of a torch weight (out, in, ...) taken over all but dim 0."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
 class ChannelLayerNorm(nn.Module):
     """LayerNorm over the channels of each pixel of an NCHW map (flax's
     ``nn.LayerNorm`` on the last axis of NHWC)."""

@@ -147,7 +147,9 @@ def test_init_segmentor_default_device_needs_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
-    """Every module of the port, and chip_smoke.py, in a fresh process:
+    """Every module of the port (the attention, ViT, neck, UPerHead and
+    trainer modules named, so that a missing one fails),
+    tools/attn_microbench_torch.py and chip_smoke.py, in a fresh process:
     none of jax, flax, optax, orbax, cv2 or the JAX package."""
     code = '\n'.join([
         'import importlib, pkgutil, sys',
@@ -155,6 +157,11 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         'for m in pkgutil.walk_packages(pfst_tpu_torch.__path__, ',
         "                               'pfst_tpu_torch.'):",
         '    importlib.import_module(m.name)',
+        "for m in ('ops.attention', 'models.backbones.vit', 'models.necks',",
+        "          'models.decode_heads.uper_head', 'apis.train'):",
+        "    importlib.import_module('pfst_tpu_torch.' + m)",
+        "sys.path.insert(0, 'tools')",
+        'import attn_microbench_torch',
         'import chip_smoke',
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in",
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',",

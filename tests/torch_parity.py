@@ -58,14 +58,17 @@ def two_pass_batch_variance():
 
 def jax_variables(model, shape, seed=0):
     """Variables for ``model`` (the tree ``model.init`` would give at the
-    NHWC ``shape``, taken with ``eval_shape`` so nothing compiles), drawn
+    NHWC ``shape``, or at a tuple of inputs for a list of shapes, taken
+    with ``eval_shape`` so nothing compiles), drawn
     from ``numpy.random.RandomState(seed)``. Conv kernels have std
     ``sqrt(2/fan_in)`` and norms scales below 1, so activations stay of
     order one through 50 layers; shifts, biases and running statistics
     are away from their init values, so eval-mode norms are not the
     identity."""
+    x = tuple(jnp.zeros(s, jnp.float32) for s in shape) \
+        if isinstance(shape, list) else jnp.zeros(shape, jnp.float32)
     shapes = jax.eval_shape(lambda: model.init(
-        {'params': jax.random.PRNGKey(0)}, jnp.zeros(shape, jnp.float32)))
+        {'params': jax.random.PRNGKey(0)}, x))
     rs = np.random.RandomState(seed)
 
     def draw(path, leaf):
