@@ -93,11 +93,13 @@ VIT = osp.join(ROOT, 'configs', '_base_', 'models',
 ADAMW_40K = osp.join(ROOT, 'configs', '_base_', 'schedules',
                      'adamw_40k.py')
 MICROBENCH = osp.join(ROOT, 'tools', 'attn_microbench_torch.py')
-# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) and dense
-# bf16 tensor-core peaks
+# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core), dense
+# bf16 and TF32 tensor-core peaks; fp32-accurate products on the tensor
+# cores take three TF32 products each (3xTF32)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32X3_FLOP_PER_S = 495e12 / 3
 SIM_TOL = 1e-5
 SIM_K, SIM_D, SIGMA = 3, 2, 30.0
 # (shape, sim_type): serving (1024^2 request, make_state_fn), the PFGST
@@ -334,8 +336,11 @@ def _flash_inputs(shape, dtype, layout, gen):
 def flash_bounds(shape, dtype):
     """Least times (ms, bound_by) of the forward, dK/dV and dQ kernels'
     functions: each input read once and each output written once over the
-    HBM rate, against the operations over the peak of the input type
-    (bf16 on the tensor cores, fp32 on the CUDA cores). Forward:
+    HBM rate, against the operations over the peak of the input type:
+    bf16 at the tensor cores' 989 TFLOP/s; fp32 at 495 / 3 = 165 TFLOP/s,
+    the tensor cores' rate for fp32-accurate products as 3xTF32, which is
+    above the CUDA cores' 67, so no fp32 kernel can read faster than its
+    bound. Forward:
     4 B H N^2 d flops (S = Q K^T and P V). The whole backward needs
     10 B H N^2 d (S recomputed, dP = dO V^T, dV, dK, dQ: 2 each), split
     6 : 4 here, dK/dV taking S, dV and dK and dQ taking dP and dQ. Bytes:
@@ -343,7 +348,8 @@ def flash_bounds(shape, dtype):
     in, dK and dV out; dQ the same inputs, dQ out."""
     b, h, n, d = shape
     elt = torch.finfo(dtype).bits // 8
-    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+            else TF32X3_FLOP_PER_S)
     mat, stat = b * h * n * d * elt, b * h * n * 4
     work = {'fwd': (4 * mat + stat, 4), 'dkv': (6 * mat + 2 * stat, 6),
             'dq': (5 * mat + 2 * stat, 4)}
@@ -356,20 +362,61 @@ def flash_bounds(shape, dtype):
     return out
 
 
+def flash_allowances(qf, kf, vf, gf, o, lse, scale):
+    """What bf16 kernels may differ by from the fp32 plain versions beyond
+    the fp32 limits, propagated from the roundings they share with the
+    TPU kernel: ``(O, dQ, dK, dV)``, each shaped like its output, from the
+    fp32 inputs' values, the plain fp32 ``o`` and ``lse`` and dL/dO ``gf``.
+    eps = 2^-8 bounds one rounding to bf16 (2^-9 to nearest, doubled for
+    the fp32 sums around it):
+
+    * P rounded before P V: eps P|V| (O);
+    * P^T rounded before P^T dO: eps P^T|dO| (dV);
+    * dS^T rounded before dS^T Q: eps s |dS|^T |Q| (dK);
+    * the bf16 O that Di = rowsum(dO O) reads (the library's backward
+      reads its bf16 O too): |dDi| <= eps rowsum|O dO|, reaching dQ as
+      s |dDi| P|K| and dK as s P^T(|dDi| |Q|).
+
+    Each output's own rounding, eps |ref|, is ``flash_excess``'s."""
+    eps = 2.0**-8
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    ddi = eps * (o.abs() * gf.abs()).sum(-1, keepdim=True)
+    al_o = eps * torch.matmul(p, vf.abs())
+    al_dq = scale * ddi * torch.matmul(p, kf.abs())
+    al_dv = eps * torch.matmul(p.transpose(-1, -2), gf.abs())
+    al_dk = scale * torch.matmul(p.transpose(-1, -2), ddi * qf.abs())
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds_abs = p.mul_(dp.sub_((o * gf).sum(-1, keepdim=True))).abs_()
+    del dp
+    al_dk += eps * scale * torch.matmul(ds_abs.transpose(-1, -2), qf.abs())
+    return al_o, al_dq, al_dk, al_dv
+
+
+def flash_excess(got, ref, rounding, allowance):
+    """max(|got - ref| - rounding |ref| - allowance): how far ``got`` lies
+    beyond its own rounding and the propagated allowance; a NaN counts as
+    infinitely far (Python's ``max`` over floats would skip it)."""
+    return float(((got.float() - ref).abs() - rounding * ref.abs()
+                  - allowance).nan_to_num(nan=float('inf')).max())
+
+
 def flash_errors(q, k, v, g, scale):
     """The three flash kernels on (q, k, v) and dL/dO ``g`` against the
     plain versions, with the limits of phase 3c. Returns ``(o, lse,
-    errors)``; ``errors`` holds each excess beyond its rounding allowance
-    next to its limit, and the raw max |kernel - ref| of O and of dQ, dK,
-    dV against autograd."""
+    errors)``; ``errors`` holds each excess beyond its allowance next to
+    its limit, the raw max |kernel - ref| of O and of dQ, dK, dV against
+    autograd and, for bf16 input, for information, the max |kernel -
+    plain| with the plain versions run in bf16."""
     bf16 = q.dtype == torch.bfloat16
     rounding = 2.0**-8 if bf16 else 0.0
     o, lse = cuda_flash_attention(q, k, v, scale)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     ref, ref_lse = torch_attention(qf, kf, vf, scale, return_lse=True)
+    spread = (flash_allowances(qf, kf, vf, gf, ref, ref_lse, scale) if bf16
+              else (0.0,) * 4)
     err = dict(fwd_err=float((o.float() - ref).abs().max()),
-               fwd_excess=float(((o.float() - ref).abs()
-                                 - rounding * ref.abs()).max()),
+               fwd_excess=flash_excess(o, ref, rounding, spread[0]),
                fwd_limit=FLASH_FWD_TOL * max(1.0, float(ref.abs().max())),
                lse_rel_err=float(((lse - ref_lse).abs()
                                   / ref_lse.abs()).max()))
@@ -377,25 +424,22 @@ def flash_errors(q, k, v, g, scale):
     xs = [t.clone().requires_grad_() for t in (qf, kf, vf)]
     auto = torch.autograd.grad(torch_attention(*xs, scale), xs, gf)
     plain = torch_attention_backward(qf, kf, vf, ref, ref_lse, gf, scale)
-    if bf16:
-        # Di = rowsum(dO O) reads the bf16 O: |dDi| <= 2^-8 rowsum|O dO|
-        p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
-                      - ref_lse[..., None])
-        eps = 2.0**-8 * (ref.abs() * gf.abs()).sum(-1, keepdim=True)
-        spread = (scale * eps * torch.matmul(p, kf.abs()),
-                  scale * torch.matmul(p.transpose(-1, -2), eps * qf.abs()),
-                  0.0)
-        del p
-    else:
-        spread = (0.0, 0.0, 0.0)
     err['bwd_limit'] = FLASH_BWD_TOL * max(1.0, max(float(a.abs().max())
                                                     for a in auto))
     err['bwd_excess'] = max(
-        float(((got.float() - r).abs() - rounding * r.abs() - e).max())
-        for got, a, pl, e in zip(grads, auto, plain, spread)
+        flash_excess(got, r, rounding, e)
+        for got, a, pl, e in zip(grads, auto, plain, spread[1:])
         for r in (a, pl))
     for name, got, a in zip(('dq_err', 'dk_err', 'dv_err'), grads, auto):
         err[name] = float((got.float() - a).abs().max())
+    del spread, auto, plain, xs
+    if bf16:
+        po, plse = torch_attention(q, k, v, scale, return_lse=True)
+        err['fwd_err_plain_bf16'] = float((o.float() - po.float()).abs()
+                                          .max())
+        err['bwd_err_plain_bf16'] = max(
+            float((a.float() - b.float()).abs().max()) for a, b in zip(
+                grads, torch_attention_backward(q, k, v, po, plse, g, scale)))
     err['ok'] = (err['fwd_excess'] <= err['fwd_limit']
                  and err['lse_rel_err'] <= FLASH_LSE_TOL
                  and err['bwd_excess'] <= err['bwd_limit'])
@@ -413,11 +457,11 @@ def phase_flash_vs_plain():
     the plain fp32 forward and against ``torch_attention_backward``, on
     the same values and a random dL/dO, within ``FLASH_BWD_TOL * max(1,
     max|ref|)``: sums of N = 1025 to 4096 fp32 terms in another order
-    (the first chip run measured <= 6e-7). For bf16 input, the rounding of
-    the gradient, 2^-8 |ref|, and of the O that Di = rowsum(dO O) reads
-    (the library's backward reads its bf16 O too): |dDi| <= 2^-8
-    rowsum|O dO| reaches dQ as s |dDi| P|K| and dK as s P^T(|dDi| |Q|).
-    ``max_abs_err`` is the raw max |kernel - ref|."""
+    (the fp32 kernels measured <= 8.1e-6 as 3xTF32, <= 6.9e-7 as fp32
+    FMAs on the CUDA cores). For bf16 input, each output's own
+    rounding, 2^-8 |ref|, and the roundings that ``flash_allowances``
+    propagates: P (forward), P^T and dS^T (dK/dV), and the bf16 O that
+    Di reads. ``max_abs_err`` is the raw max |kernel - ref|."""
     gen = torch.Generator().manual_seed(4)
     cases = []
     for shape, dtype, layout in FLASH_CASES:

@@ -12,7 +12,9 @@ q, k, v are ``(B, H, N, D)``; non-causal, no bias, no segment ids.
 * ``torch_attention_backward``: the plain FlashAttention-2 backward in
   fp32 from the forward's ``o`` and ``lse``: ``P = exp(S - lse)``,
   ``Di = rowsum(dO o)``, ``dS = P (dO V^T - Di)``, ``dQ = dS K s``,
-  ``dK = dS^T Q s``, ``dV = P^T dO``.
+  ``dK = dS^T Q s``, ``dV = P^T dO``, with P^T and dS^T rounded to the
+  inputs' type before the dV and dK products, where the dK/dV kernel
+  rounds them.
 * ``cuda_flash_attention``: the forward kernel (``csrc/flash_attention.cu``)
   -> ``(o, lse)``; ``cuda_flash_attention_bwd_dkv`` and
   ``cuda_flash_attention_bwd_dq``: the two backward kernels, each with its
@@ -21,8 +23,15 @@ q, k, v are ``(B, H, N, D)``; non-causal, no bias, no segment ids.
   forward and backward are the kernels; a CPU tensor goes to the plain
   version under ordinary autograd. There is no switch between them.
 
-The kernels keep P in fp32 where the plain version rounds it to v's type
-(bf16 input only): within the bf16 tolerance of the card's checks.
+The forward and dK/dV kernels run on the tensor cores: bf16 input as
+bf16 products with fp32 sums, rounding P (forward), P^T and dS^T (dK/dV)
+to bf16 where the TPU kernel rounds them (``p.astype(v.dtype)``,
+``p.T.astype``, ``ds.T.astype``); fp32 input as 3xTF32, accurate to fp32.
+The dQ kernel computes in fp32 on the CUDA cores. The kernels copy data
+in 16-byte chunks, so each q, k, v, dO they read has a 16-byte-aligned
+base and batch, head and row strides that are multiples of 16 bytes;
+``_aligned`` copies a tensor that breaks this (the ViT's qkv views never
+do).
 """
 from __future__ import annotations
 
@@ -48,15 +57,16 @@ def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def torch_attention_backward(q, k, v, o, lse, grad, scale):
     """Plain version of the backward kernels: ``(dq, dk, dv)`` in the
     inputs' types for ``o = attention(q, k, v)`` with its ``lse`` and
-    ``grad = dL/do``, computed in fp32."""
+    ``grad = dL/do``, computed in fp32; for bf16 input P^T and dS^T are
+    rounded to bf16 before the dV and dK products, as in the kernel."""
     qf, kf, vf, gf = q.float(), k.float(), v.float(), grad.float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.float()[..., None])
     di = (o.float() * gf).sum(dim=-1, keepdim=True)
     ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - di)
     dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), gf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -88,10 +98,17 @@ def _check_kernel_input(q, k, v):
                              f'got {q.device}, {k.device}, {v.device}')
 
 
-def _rows(t):
-    """``t`` with a contiguous last dimension (the kernels take any other
-    strides)."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+def _aligned(t):
+    """``t`` if the kernels can read it through its strides: a contiguous
+    last dimension, a 16-byte-aligned base, and batch, head and row strides
+    that are multiples of 16 bytes (the strides of size-1 dimensions are
+    never used); else a contiguous copy."""
+    step = 16 // t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            st % step == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+            if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(*tensors):
@@ -177,7 +194,8 @@ def cuda_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of a (B, N, H, D) tensor), lse (B, H, N) fp32, launched on the current
     stream. ``launches`` counts launches."""
     _check_kernel_input(q, k, v)
-    out = _launch_forward(_library(), _rows(q), _rows(k), _rows(v), scale)
+    out = _launch_forward(_library(), _aligned(q), _aligned(k), _aligned(v),
+                          scale)
     cuda_flash_attention.launches += 1
     return out
 
@@ -208,8 +226,8 @@ def cuda_flash_attention_bwd_dkv(q, k, v, grad, lse, di, scale):
     forward's ``lse`` and ``di = rowsum(grad * o)`` (B, H, N) fp32. One
     launch on the current stream; ``launches`` counts launches."""
     _check_backward_input(q, k, v, grad, lse, di)
-    out = _launch_bwd_dkv(_library(), _rows(q), _rows(k), _rows(v),
-                          _rows(grad), lse, di, scale)
+    out = _launch_bwd_dkv(_library(), _aligned(q), _aligned(k), _aligned(v),
+                          _aligned(grad), lse, di, scale)
     cuda_flash_attention_bwd_dkv.launches += 1
     return out
 
@@ -221,8 +239,8 @@ def cuda_flash_attention_bwd_dq(q, k, v, grad, lse, di, scale):
     """The dQ kernel: ``dq`` from the same inputs as the dK/dV kernel.
     ``launches`` counts launches."""
     _check_backward_input(q, k, v, grad, lse, di)
-    out = _launch_bwd_dq(_library(), _rows(q), _rows(k), _rows(v),
-                         _rows(grad), lse, di, scale)
+    out = _launch_bwd_dq(_library(), _aligned(q), _aligned(k), _aligned(v),
+                         _aligned(grad), lse, di, scale)
     cuda_flash_attention_bwd_dq.launches += 1
     return out
 

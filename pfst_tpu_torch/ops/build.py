@@ -4,8 +4,8 @@ Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds and needs no ninja). The library lands in
 ``<repo>/build/pfst_tpu_torch/`` under a name keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. A failed build raises: nothing falls back to the plain
+source, of every header in ``csrc/`` and of the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. A failed build raises: nothing falls back to the plain
 PyTorch versions.
 """
 from __future__ import annotations
@@ -45,9 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` is built, keyed by source and flags."""
-    with open(osp.join(CSRC_DIR, f'{name}.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built, keyed by the source, every
+    ``csrc/*.cuh`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for fname in [f'{name}.cu', *headers]:
+        with open(osp.join(CSRC_DIR, fname), 'rb') as f:
+            digest.update(fname.encode() + b'\0' + f.read() + b'\0')
     return osp.join(BUILD_DIR, f'{name}_{digest.hexdigest()[:16]}.so')
 
 

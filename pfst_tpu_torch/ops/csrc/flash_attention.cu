@@ -12,48 +12,66 @@
 //             as the library computes it in XLA), dS = P * (dO V^T - Di),
 //             dV = P^T dO, dK = dS^T Q * scale, dQ = dS K * scale
 //
-// q, k, v, dO are (B, H, N, D) fp32 or bf16 with any batch, head and row
-// strides and a contiguous last dimension; O, dQ, dK, dV are written with
-// the strides the caller gives, in the input type; LSE and Di are (B, H, N)
-// fp32, contiguous. D is 32, 64 or 128. Every product and sum is fp32 on
-// the CUDA cores (no tensor cores, no TF32), so an fp32 input is held to
-// the plain fp32 formula; a bf16 input is widened on load and P stays fp32.
+// q, k, v, dO are (B, H, N, D) fp32 or bf16 with a contiguous last
+// dimension, base addresses and batch, head and row strides that are
+// multiples of 16 bytes (cp.async moves 16-byte chunks; the wrapper copies
+// a tensor that breaks this); O, dQ, dK, dV are written with the strides
+// the caller gives, in the input type; LSE and Di are (B, H, N) fp32,
+// contiguous. D is 32, 64 or 128.
 //
 // What bounds it: the forward does 4*B*H*N^2*D flops on B*H*N*(4D) values
 // (N/2 flops per byte at D = 64, fp32), the backward 10*B*H*N^2*D, so at
-// the ViT's N = 1025 every kernel is bound by arithmetic, not memory: on
-// the CUDA cores by the 67 TFLOP/s fp32 peak, on the tensor cores (a later
-// design: wgmma, TMA, warp specialisation) by 989 TFLOP/s bf16.
+// the ViT's N = 1025 every kernel is bound by arithmetic, not memory: by
+// 989 TFLOP/s on the tensor cores for bf16, by 495 / 3 = 165 TFLOP/s for
+// fp32 as 3xTF32.
 //
-// Design. A block of 128 threads owns a tile of 64 rows: query rows in the
-// forward and dQ kernels, key rows in dK/dV; it streams the other side's
-// rows through shared memory in tiles (64 rows; 32 in dK/dV), so no block
-// needs another's result: no atomics, and the result is deterministic.
-// Thread t = 8 ty + tx owns rows 4 ty .. 4 ty + 3 of its block's tile and,
-// of a streamed tile, the columns (j / 4) * 32 + 4 tx + j % 4; of the head
-// dimension, the columns (e / 4) * 32 + 4 tx + e % 4. Tiles are kept in
-// shared memory as fp32, transposed ([d][row]) where a thread reads four
-// consecutive rows of one d, row-major ([row][d]) where it reads four
-// consecutive d of one row, so every inner-loop read is one 16-byte load
-// without bank conflicts. The forward keeps the online softmax (running
-// max m and sum l, one per row) in registers; the eight threads of a row
-// combine their maxima with warp shuffles. Rows at or past N are read as
-// zero, their scores masked (-inf in the forward, P = 0 in the backward)
-// and never written, so N need not be a multiple of a tile (N = 1025: the
-// last tile holds one key).
+// Forward and dK/dV (tensor cores, mma.cuh). A block of 4 warps owns 64
+// rows of one (b, h): query rows in the forward, key rows in dK/dV, 16 per
+// warp. The other side's rows stream through a two-stage cp.async ring in
+// shared memory, in the input type: the copy of tile t + 1 is issued
+// before the arithmetic on tile t. Rows at or past N are zero-filled by
+// cp.async and their scores masked (-inf in the forward, P = 0 in dK/dV),
+// so N need not be a multiple of a tile (N = 1025: the last tile holds
+// one key); such rows of the block's own are never written.
+// * Forward: each warp keeps its Q fragments in registers; S = Q K^T lands
+//   in accumulators, where the online softmax runs (row max and sum over a
+//   lane quad by two shuffles each). P = exp(S - m) is rounded to the
+//   input type, as the TPU kernel does (p.astype(v.dtype)), and fed from
+//   the accumulators straight into P V as the A operand; the row sum l is
+//   taken over the unrounded P. O = acc / l in the input type, LSE fp32.
+// * dK/dV: keys are the M side of every product, so S^T = K Q^T and
+//   dP^T = V dO^T land in accumulators indexed by key row: P^T = exp(S^T -
+//   LSE) (0 past N), dS^T = P^T (dP^T - Di), both rounded to the input
+//   type (the TPU kernel's p.T.astype, ds.T.astype) and reused in
+//   registers as the A operands of dV += P^T dO and dK += dS^T Q. dK is
+//   scaled once at the end. No atomics: the result is deterministic.
+// fp32 input runs the same code as 3xTF32 (mma.cuh), where P, P^T and
+// dS^T are split into hi and lo parts instead of rounded: accurate to fp32.
+//
+// dQ (CUDA cores, fp32 arithmetic). A block of 128 threads owns 64 query
+// rows and streams the key rows through shared memory in tiles of 64.
+// Thread t = 8 ty + tx owns rows 4 ty .. 4 ty + 3 and, of a streamed tile,
+// the columns (j / 4) * 32 + 4 tx + j % 4; of the head dimension, the
+// columns (e / 4) * 32 + 4 tx + e % 4. Tiles are kept in shared memory as
+// fp32, transposed ([d][row]) where a thread reads four consecutive rows
+// of one d, row-major ([row][d]) where it reads four consecutive d of one
+// row, so every inner-loop read is one 16-byte load without bank
+// conflicts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;  // 16 row groups (ty) x 8 column groups (tx)
+constexpr int kThreads = 128;  // 4 warps; dQ: 16 row groups x 8 columns
 constexpr int kRows = 64;      // rows a block owns
-constexpr int kCols = 64;      // streamed rows per tile, forward and dQ
-constexpr int kBwdCols = 32;   // streamed query rows per tile, dK/dV
+constexpr int kCols = 64;      // streamed rows per tile, dQ
 constexpr int kPad = 4;        // keeps 16-byte alignment of padded rows
 constexpr int kRowsP = kRows + kPad;
-constexpr int kBwdColsP = kBwdCols + kPad;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // batch, head and row strides (elements) of up to six tensors
 struct Strides {
@@ -100,9 +118,21 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
   }
 }
 
-template <int D>
-constexpr int fwd_smem_floats() {
-  return 2 * D * kRowsP + kCols * (D + kPad) + kCols * kRowsP;
+// Tile shapes of the tensor-core kernels. A streamed tile holds 64 rows
+// where a row is at most 128 bytes (bf16 up to D = 64, fp32 D = 32) and
+// 32 rows otherwise, which keeps the forward's shared memory at 25-52 KB
+// (bf16 D = 64: Q 9 KB + 2 x (K + V) 36 KB) except fp32 D = 128 (101 KB),
+// and dK/dV's at 31-70 KB except fp32 D = 128 (136 KB); it also bounds the
+// accumulators (S and dP) that live in registers.
+template <typename T, int D>
+struct Tile {
+  static constexpr int kLd = pfst::pitch<T, D>();
+  static constexpr int kCols = D * sizeof(T) <= 128 ? 64 : 32;
+};
+
+template <typename T, int D>
+constexpr size_t fwd_smem_bytes() {
+  return (kRows + 4 * Tile<T, D>::kCols) * Tile<T, D>::kLd * sizeof(T);
 }
 
 template <typename T, int D>
@@ -111,133 +141,140 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int H, int N, float scale,
                      Strides st) {
-  constexpr int DP = D + kPad;
-  constexpr int DC = D / 8;
+  using M = pfst::Mma<T>;
+  constexpr int LD = Tile<T, D>::kLd;
+  constexpr int KT = Tile<T, D>::kCols;  // keys per tile
+  constexpr int NB = KT / 8;             // 8-key blocks of S
+  constexpr int KS = D / M::kK;          // k-steps of Q K^T
+  constexpr int PS = KT / M::kK;         // k-steps of P V
+  constexpr int DB = D / 8;              // 8-column blocks of O
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;               // [D][kRowsP]  query rows, transposed
-  float* kt = qt + D * kRowsP;    // [D][kRowsP]  key rows, transposed
-  float* vm = kt + D * kRowsP;    // [kCols][DP]  value rows
-  float* pt = vm + kCols * DP;    // [kCols][kRowsP]  P, key-major
+  T* qs = reinterpret_cast<T*>(smem);  // [kRows][LD]
+  T* ks = qs + kRows * LD;             // [2][KT][LD]  key ring
+  T* vs = ks + 2 * KT * LD;            // [2][KT][LD]  value ring
 
-  const int tx = threadIdx.x & 7;
-  const int ty = threadIdx.x >> 3;
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * kRows;
   const T* kb = k + b * st.t[1][0] + h * st.t[1][1];
   const T* vb = v + b * st.t[2][0] + h * st.t[2][1];
-  load_tile<T, D, kRows>(q + b * st.t[0][0] + h * st.t[0][1], st.t[0][2],
-                         row0, N, qt, nullptr);
+  const int tiles = (N + KT - 1) / KT;
+  pfst::load_rows<T, D, kRows, kThreads>(
+      qs, q + b * st.t[0][0] + h * st.t[0][1], st.t[0][2], row0, N);
+  pfst::load_rows<T, D, KT, kThreads>(ks, kb, st.t[1][2], 0, N);
+  pfst::load_rows<T, D, KT, kThreads>(vs, vb, st.t[2][2], 0, N);
+  pfst::cp_async_commit();
 
-  float acc[4][DC];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DC; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int c0 = 0; c0 < N; c0 += kCols) {
-    __syncthreads();  // the query tile is in; the last tile's reads are done
-    load_tile<T, D, kCols>(kb, st.t[1][2], c0, N, kt, nullptr);
-    load_tile<T, D, kCols>(vb, st.t[2][2], c0, N, nullptr, vm);
+  uint32_t qf[KS][4];
+  float acc[DB][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};  // running max of S log2 e, rows g, g+8
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+  const float sl2 = scale * kLog2e;
+  for (int it = 0; it < tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < tiles) {
+      const int next = (stage ^ 1) * KT * LD;
+      pfst::load_rows<T, D, KT, kThreads>(ks + next, kb, st.t[1][2],
+                                          (it + 1) * KT, N);
+      pfst::load_rows<T, D, KT, kThreads>(vs + next, vb, st.t[2][2],
+                                          (it + 1) * KT, N);
+    }
+    pfst::cp_async_commit();
+    pfst::cp_async_wait<1>();  // tile it (and on it = 0 the query rows)
     __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        pfst::load_a<T, LD>(qf[kk], qs, wr, kk * M::kK, lane);
+    }
+    const T* kt = ks + stage * KT * LD;
+    const T* vt = vs + stage * KT * LD;
 
-    float s[4][8];
+    float s[NB][4] = {};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < KS; ++kk) {
+      const typename M::A a = M::a(qf[kk]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = ld4(qt + d * kRowsP + ty * 4);
-      const float4 k0 = ld4(kt + d * kRowsP + tx * 4);
-      const float4 k1 = ld4(kt + d * kRowsP + 32 + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t bf[4];
+        pfst::load_b<T, LD>(bf, kt, j * 8, kk * M::kK, lane);
+        M::mma(s[j], a, bf[0], bf[1]);
+        M::mma(s[j + 1], a, bf[2], bf[3]);
+      }
     }
 
-    // online softmax: scale, mask the keys past N, new running max
+    // online softmax on the fragments: rows g (e < 2) and g + 8, keys
+    // it KT + 8 j + 2 t + e % 2; keys past N masked
+    const int c0 = it * KT + 2 * (lane & 3);
+    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = -INFINITY;
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = c0 + col_of(j, tx) < N ? s[i][j] * scale : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = c0 + 8 * j + (e & 1) < N ? s[j][e] * sl2 : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
       }
 #pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      // the tile holds key c0 < N, so mn is finite and alpha is 0 on the
-      // first tile (m = -inf), never NaN
-      const float mn = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - mn);
+    for (int i = 0; i < 2; ++i) {
+      // the tile holds key it KT < N, so mn is finite and alpha is 0 on
+      // the first tile (m = -inf), never NaN
+      const float mn = fmaxf(m[i], pfst::quad_max(mt[i]));
+      const float alpha = exp2f(m[i] - mn);
       m[i] = mn;
       l[i] *= alpha;
 #pragma unroll
-      for (int e = 0; e < DC; ++e) acc[i][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
-        l[i] += s[i][j];
+      for (int e = 0; e < DB; ++e) {
+        acc[e][2 * i] *= alpha;
+        acc[e][2 * i + 1] *= alpha;
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      st4(pt + col_of(j, tx) * kRowsP + ty * 4, s[0][j], s[1][j], s[2][j],
-          s[3][j]);
-    __syncthreads();
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
 
-    // O += P V
-#pragma unroll 4
-    for (int c = 0; c < kCols; ++c) {
-      const float4 pa = ld4(pt + c * kRowsP + ty * 4);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+    // O += P V, P from the accumulators
 #pragma unroll
-      for (int g = 0; g < DC / 4; ++g) {
-        const float4 va = ld4(vm + c * DP + g * 32 + tx * 4);
-        const float vv[4] = {va.x, va.y, va.z, va.w};
+    for (int kc = 0; kc < PS; ++kc) {
+      const typename M::A p = M::a_from_acc(s, kc);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][g * 4 + e] = fmaf(pv[i], vv[e], acc[i][g * 4 + e]);
+      for (int e = 0; e < DB; e += 2) {
+        uint32_t bf[4];
+        M::template load_b_trans<LD>(bf, vt, kc * M::kK, e * 8, lane);
+        M::mma(acc[e], p, bf[0], bf[1]);
+        M::mma(acc[e + 1], p, bf[2], bf[3]);
       }
     }
+    __syncthreads();  // the stage is read; the next copy may overwrite it
   }
 
   T* ob = o + b * st.t[3][0] + h * st.t[3][1];
   float* lb = lse + (static_cast<long long>(b) * H + h) * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    const int row = row0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const float li = pfst::quad_sum(l[i]);
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
     if (row < N) {
-      const float inv = 1.f / l[i];
+      const float inv = 1.f / li;
+      T* orow = ob + row * st.t[3][2] + 2 * (lane & 3);
 #pragma unroll
-      for (int e = 0; e < DC; ++e)
-        narrow(ob + row * st.t[3][2] + col_of(e, tx), acc[i][e] * inv);
-      if (tx == 0) lb[row] = m[i] + logf(l[i]);
+      for (int e = 0; e < DB; ++e)
+        pfst::store2(orow + 8 * e, acc[e][2 * i] * inv,
+                     acc[e][2 * i + 1] * inv);
+      if ((lane & 3) == 0) lb[row] = (m[i] + log2f(li)) * kLn2;
     }
   }
 }
 
-// dK and dV of a block's 64 key rows, streaming the query rows in tiles of
-// 32: per tile, S and dP (key rows x query rows), P and dS in shared
-// memory (query-major), then dV += P^T dO and dK += dS^T Q.
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 2 * D * kRowsP + 2 * D * kBwdColsP + 2 * kBwdCols * (D + kPad) +
-         2 * kBwdCols * kRowsP + 2 * kBwdCols;
+template <typename T, int D>
+constexpr size_t dkv_smem_bytes() {
+  return (2 * kRows + 4 * Tile<T, D>::kCols) * Tile<T, D>::kLd * sizeof(T) +
+         4 * Tile<T, D>::kCols * sizeof(float);
 }
 
 template <typename T, int D>
@@ -248,121 +285,151 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ di, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int N, float scale,
                          Strides st) {
-  constexpr int DP = D + kPad;
-  constexpr int DC = D / 8;
+  using M = pfst::Mma<T>;
+  constexpr int LD = Tile<T, D>::kLd;
+  constexpr int QT = Tile<T, D>::kCols;  // query rows per tile
+  constexpr int NB = QT / 8;             // 8-query blocks of S^T, dP^T
+  constexpr int KS = D / M::kK;          // k-steps of K Q^T, V dO^T
+  constexpr int PS = QT / M::kK;         // k-steps of P^T dO, dS^T Q
+  constexpr int DB = D / 8;              // 8-column blocks of dK, dV
+  // K and V fragments stay in registers for the block's life where they
+  // are small (bf16 up to D = 64, fp32 D = 32); else each tile re-reads
+  // them from shared memory, which keeps the accumulators out of local
+  // memory
+  constexpr bool kHold = D * sizeof(T) <= 128;
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                     // [D][kRowsP]   key rows, transposed
-  float* vt = kt + D * kRowsP;          // [D][kRowsP]   value rows, transposed
-  float* qt = vt + D * kRowsP;          // [D][kBwdColsP] query rows, transposed
-  float* dot = qt + D * kBwdColsP;      // [D][kBwdColsP] dO rows, transposed
-  float* qm = dot + D * kBwdColsP;      // [kBwdCols][DP] query rows
-  float* dom = qm + kBwdCols * DP;      // [kBwdCols][DP] dO rows
-  float* ps = dom + kBwdCols * DP;      // [kBwdCols][kRowsP] P, query-major
-  float* dss = ps + kBwdCols * kRowsP;  // [kBwdCols][kRowsP] dS, query-major
-  float* lse_s = dss + kBwdCols * kRowsP;  // [kBwdCols]
-  float* di_s = lse_s + kBwdCols;       // [kBwdCols]
+  T* ks = reinterpret_cast<T*>(smem);  // [kRows][LD]  key rows
+  T* vs = ks + kRows * LD;             // [kRows][LD]  value rows
+  T* qs = vs + kRows * LD;             // [2][QT][LD]  query ring
+  T* dos = qs + 2 * QT * LD;           // [2][QT][LD]  dO ring
+  float* ls = reinterpret_cast<float*>(dos + 2 * QT * LD);  // [2][QT] LSE
+  float* ds = ls + 2 * QT;                                  // [2][QT] Di
 
-  const int tx = threadIdx.x & 7;
-  const int ty = threadIdx.x >> 3;
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * kRows;
   const T* qb = q + b * st.t[0][0] + h * st.t[0][1];
   const T* dob = dout + b * st.t[3][0] + h * st.t[3][1];
   const long long stat0 = (static_cast<long long>(b) * H + h) * N;
-  load_tile<T, D, kRows>(k + b * st.t[1][0] + h * st.t[1][1], st.t[1][2],
-                         row0, N, kt, nullptr);
-  load_tile<T, D, kRows>(v + b * st.t[2][0] + h * st.t[2][1], st.t[2][2],
-                         row0, N, vt, nullptr);
+  const int tiles = (N + QT - 1) / QT;
+  pfst::load_rows<T, D, kRows, kThreads>(
+      ks, k + b * st.t[1][0] + h * st.t[1][1], st.t[1][2], row0, N);
+  pfst::load_rows<T, D, kRows, kThreads>(
+      vs, v + b * st.t[2][0] + h * st.t[2][1], st.t[2][2], row0, N);
+  pfst::load_rows<T, D, QT, kThreads>(qs, qb, st.t[0][2], 0, N);
+  pfst::load_rows<T, D, QT, kThreads>(dos, dob, st.t[3][2], 0, N);
+  pfst::load_vec<QT>(ls, lse + stat0, 0, N);
+  pfst::load_vec<QT>(ds, di + stat0, 0, N);
+  pfst::cp_async_commit();
 
-  float acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DC; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
-
-  for (int c0 = 0; c0 < N; c0 += kBwdCols) {
-    __syncthreads();
-    load_tile<T, D, kBwdCols>(qb, st.t[0][2], c0, N, qt, qm);
-    load_tile<T, D, kBwdCols>(dob, st.t[3][2], c0, N, dot, dom);
-    if (threadIdx.x < kBwdCols) {
-      const int row = c0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < N ? lse[stat0 + row] : 0.f;
-      di_s[threadIdx.x] = row < N ? di[stat0 + row] : 0.f;
+  uint32_t kf[kHold ? KS : 1][4], vf[kHold ? KS : 1][4];
+  float dka[DB][4] = {}, dva[DB][4] = {};
+  const float sl2 = scale * kLog2e;
+  for (int it = 0; it < tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < tiles) {
+      const int next = (stage ^ 1) * QT;
+      pfst::load_rows<T, D, QT, kThreads>(qs + next * LD, qb, st.t[0][2],
+                                          (it + 1) * QT, N);
+      pfst::load_rows<T, D, QT, kThreads>(dos + next * LD, dob, st.t[3][2],
+                                          (it + 1) * QT, N);
+      pfst::load_vec<QT>(ls + next, lse + stat0, (it + 1) * QT, N);
+      pfst::load_vec<QT>(ds + next, di + stat0, (it + 1) * QT, N);
     }
+    pfst::cp_async_commit();
+    pfst::cp_async_wait<1>();  // tile it (and on it = 0 the key rows)
     __syncthreads();
-
-    float s[4][4], dp[4][4];
+    if constexpr (kHold) {
+      if (it == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 ka = ld4(kt + d * kRowsP + ty * 4);
-      const float4 va = ld4(vt + d * kRowsP + ty * 4);
-      const float4 qa = ld4(qt + d * kBwdColsP + tx * 4);
-      const float4 da = ld4(dot + d * kBwdColsP + tx * 4);
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-      const float vv[4] = {va.x, va.y, va.z, va.w};
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float dv_[4] = {da.x, da.y, da.z, da.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], dv_[j], dp[i][j]);
+        for (int kk = 0; kk < KS; ++kk) {
+          pfst::load_a<T, LD>(kf[kk], ks, wr, kk * M::kK, lane);
+          pfst::load_a<T, LD>(vf[kk], vs, wr, kk * M::kK, lane);
         }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx * 4 + j;
-      const bool valid = c0 + c < N;
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = valid ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
-        ds[i] = p[i] * (dp[i][j] - di_s[c]);
       }
-      st4(ps + c * kRowsP + ty * 4, p[0], p[1], p[2], p[3]);
-      st4(dss + c * kRowsP + ty * 4, ds[0], ds[1], ds[2], ds[3]);
     }
-    __syncthreads();
+    const T* qt = qs + stage * QT * LD;
+    const T* dot = dos + stage * QT * LD;
+    const float* lt = ls + stage * QT;
+    const float* dt = ds + stage * QT;
 
-#pragma unroll 4
-    for (int c = 0; c < kBwdCols; ++c) {
-      const float4 pa = ld4(ps + c * kRowsP + ty * 4);
-      const float4 sa = ld4(dss + c * kRowsP + ty * 4);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float sv[4] = {sa.x, sa.y, sa.z, sa.w};
+    float s[NB][4] = {}, dp[NB][4] = {};
 #pragma unroll
-      for (int g = 0; g < DC / 4; ++g) {
-        const float4 oa = ld4(dom + c * DP + g * 32 + tx * 4);
-        const float4 qa = ld4(qm + c * DP + g * 32 + tx * 4);
-        const float ov[4] = {oa.x, oa.y, oa.z, oa.w};
-        const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kr[4], vr[4];
+      if constexpr (kHold) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          kr[i] = kf[kk][i];
+          vr[i] = vf[kk][i];
+        }
+      } else {
+        pfst::load_a<T, LD>(kr, ks, wr, kk * M::kK, lane);
+        pfst::load_a<T, LD>(vr, vs, wr, kk * M::kK, lane);
+      }
+      const typename M::A ka = M::a(kr);
+      const typename M::A va = M::a(vr);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc_v[i][g * 4 + e] = fmaf(pv[i], ov[e], acc_v[i][g * 4 + e]);
-            acc_k[i][g * 4 + e] = fmaf(sv[i], qv[e], acc_k[i][g * 4 + e]);
-          }
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t bf[4];
+        pfst::load_b<T, LD>(bf, qt, j * 8, kk * M::kK, lane);
+        M::mma(s[j], ka, bf[0], bf[1]);
+        M::mma(s[j + 1], ka, bf[2], bf[3]);
+        pfst::load_b<T, LD>(bf, dot, j * 8, kk * M::kK, lane);
+        M::mma(dp[j], va, bf[0], bf[1]);
+        M::mma(dp[j + 1], va, bf[2], bf[3]);
       }
     }
+
+    // P^T and dS^T on the fragments: key rows g, g + 8, query columns
+    // 8 j + 2 t + e % 2 of the tile; queries past N give P = 0
+    const int c0 = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 8 * j + (e & 1);
+        const float p = it * QT + c < N
+                            ? exp2f(s[j][e] * sl2 - lt[c] * kLog2e)
+                            : 0.f;
+        dp[j][e] = p * (dp[j][e] - dt[c]);
+        s[j][e] = p;
+      }
+
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc) {
+      const typename M::A pa = M::a_from_acc(s, kc);
+      const typename M::A sa = M::a_from_acc(dp, kc);
+#pragma unroll
+      for (int e = 0; e < DB; e += 2) {
+        uint32_t bf[4];
+        M::template load_b_trans<LD>(bf, dot, kc * M::kK, e * 8, lane);
+        M::mma(dva[e], pa, bf[0], bf[1]);
+        M::mma(dva[e + 1], pa, bf[2], bf[3]);
+        M::template load_b_trans<LD>(bf, qt, kc * M::kK, e * 8, lane);
+        M::mma(dka[e], sa, bf[0], bf[1]);
+        M::mma(dka[e + 1], sa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // the stage is read; the next copy may overwrite it
   }
 
   T* dkb = dk + b * st.t[4][0] + h * st.t[4][1];
   T* dvb = dv + b * st.t[5][0] + h * st.t[5][1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
     if (row < N) {
+      T* dkr = dkb + row * st.t[4][2] + 2 * (lane & 3);
+      T* dvr = dvb + row * st.t[5][2] + 2 * (lane & 3);
 #pragma unroll
-      for (int e = 0; e < DC; ++e) {
-        narrow(dkb + row * st.t[4][2] + col_of(e, tx), acc_k[i][e] * scale);
-        narrow(dvb + row * st.t[5][2] + col_of(e, tx), acc_v[i][e]);
+      for (int e = 0; e < DB; ++e) {
+        pfst::store2(dkr + 8 * e, dka[e][2 * i] * scale,
+                     dka[e][2 * i + 1] * scale);
+        pfst::store2(dvr + 8 * e, dva[e][2 * i], dva[e][2 * i + 1]);
       }
     }
   }
@@ -516,7 +583,7 @@ cudaError_t launch(Kind kind, const Args& a, cudaStream_t stream) {
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (kind == kForward) {
-    const size_t bytes = fwd_smem_floats<D>() * sizeof(float);
+    const size_t bytes = fwd_smem_bytes<T, D>();
     err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
@@ -524,7 +591,7 @@ cudaError_t launch(Kind kind, const Args& a, cudaStream_t stream) {
     flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         q, k, v, static_cast<T*>(a.out0), a.lse_out, a.H, a.N, a.scale, a.st);
   } else if (kind == kDkv) {
-    const size_t bytes = dkv_smem_floats<D>() * sizeof(float);
+    const size_t bytes = dkv_smem_bytes<T, D>();
     err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));

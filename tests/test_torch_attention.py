@@ -13,7 +13,12 @@ kernels are held to the same plain versions on the card by
 Tolerances: fp32 forward and backward 1e-5 (the same formula, sums in
 another order); bf16 input: the output's bf16 rounding and that of P,
 both rounded to nearest (2^-9 relative each), so 2^-7 max|ref|.
+
+Phase 3c's own check, ``chip_smoke.flash_allowances`` and
+``flash_excess``, is held here to the plain versions run in bf16, which
+round P, P^T and dS^T where the bf16 kernels do.
 """
+import functools
 import os.path as osp
 import sys
 
@@ -35,8 +40,11 @@ from pfst_tpu_torch.ops import (attention, cuda_flash_attention,  # noqa: E402
                                 torch_attention_backward)
 
 sys.path.insert(0, osp.join(osp.dirname(__file__), '..', 'tools'))
+sys.path.insert(0, osp.join(osp.dirname(__file__), '..'))
 import attn_microbench  # noqa: E402
 import attn_microbench_torch  # noqa: E402
+import chip_smoke  # noqa: E402
+from pfst_tpu_torch.ops.attention import _aligned  # noqa: E402
 
 SHAPES = [(2, 3, 37, 16), (1, 2, 65, 32)]
 
@@ -148,3 +156,83 @@ def test_microbench_needs_a_card(monkeypatch):
                                             device='cpu')
     assert [r['mode'] for r in rows] == ['fwd', 'fwd+bwd']
     assert all('flash' not in r and 'naive_ms' in r for r in rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_case():
+    """The plain versions in bf16 and in fp32 on the same bf16 values,
+    with phase 3c's allowances and limits."""
+    shape = (1, 2, 40, 16)
+    scale = shape[-1]**-0.5
+    q, k, v, g = [t.to(torch.bfloat16) for t in _t(*_qkvg(shape, 5))]
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    ref, ref_lse = torch_attention(qf, kf, vf, scale, return_lse=True)
+    refs = (ref, *torch_attention_backward(qf, kf, vf, ref, ref_lse, gf,
+                                           scale))
+    o, lse = torch_attention(q, k, v, scale, return_lse=True)
+    got = (o, *torch_attention_backward(q, k, v, o, lse, g, scale))
+    allow = chip_smoke.flash_allowances(qf, kf, vf, gf, ref, ref_lse, scale)
+    limits = (chip_smoke.FLASH_FWD_TOL * max(1.0, float(ref.abs().max())),
+              *[chip_smoke.FLASH_BWD_TOL
+                * max(1.0, max(float(r.abs().max()) for r in refs[1:]))] * 3)
+    return got, refs, allow, limits
+
+
+def test_bf16_allowances_hold_the_plain_bf16_versions():
+    """O, dQ, dK, dV of the plain versions in bf16 lie within phase 3c's
+    allowances of the fp32 plain versions; without the propagated part
+    the forward's and dK's would not."""
+    got, refs, allow, limits = _bf16_case()
+    for name, x, r, a, lim in zip(('o', 'dq', 'dk', 'dv'), got, refs,
+                                  allow, limits):
+        assert x.dtype == torch.bfloat16
+        assert chip_smoke.flash_excess(x, r, 2.0**-8, a) <= lim, name
+    for i in (0, 2):
+        assert chip_smoke.flash_excess(got[i], refs[i], 2.0**-8, 0.0) > \
+            limits[i]
+
+
+@pytest.mark.parametrize('which', ['o', 'dq', 'dk', 'dv', 'nan'])
+def test_bf16_allowances_catch_an_injected_error(which):
+    """Twice an element's whole allowance (rounding, propagated part and
+    limit), added where the propagated part is largest, is caught; so is
+    a NaN, which Python's ``max`` over floats would skip."""
+    got, refs, allow, limits = _bf16_case()
+    i = 'o dq dk dv'.split().index(which) if which != 'nan' else 2
+    x, r, a = got[i].float().clone(), refs[i], allow[i]
+    j = int(a.argmax())
+    slack = 2.0**-8 * r.abs() + a + limits[i]
+    flat = x.view(-1)
+    if which == 'nan':
+        flat[j] = float('nan')
+    else:
+        flat[j] += torch.sign(flat[j] - r.view(-1)[j]) * 2 * slack.view(-1)[j]
+    assert chip_smoke.flash_excess(x, r, 2.0**-8, a) > limits[i]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('d', [32, 64])
+def test_kernels_read_vit_qkv_views_without_a_copy(dtype, d):
+    """The ViT block's q, k, v, strided views of its (B, N, 3, H, d)
+    projection, meet the kernels' 16-byte rule as they are."""
+    b, n, h = 2, 9, 3
+    qkv = torch.zeros(b, n, 3 * h * d, dtype=dtype)
+    for t in qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0):
+        assert _aligned(t) is t
+
+
+def test_kernels_get_a_copy_of_an_unaligned_view():
+    """An offset base, or a row stride that is no multiple of 16 bytes, is
+    copied to a contiguous tensor with the same values; a size-1
+    dimension's stride does not matter."""
+    flat = torch.arange(2 * 3 * 5 * 32 + 1, dtype=torch.float32)
+    offset = flat[1:].view(2, 3, 5, 32)
+    wide = torch.zeros(2, 3, 5, 34)[..., :32]
+    single = flat[:32 * 5].view(1, 1, 5, 32).as_strided(
+        (1, 1, 5, 32), (7, 3, 32, 1))
+    for t in (offset, wide):
+        got = _aligned(t)
+        assert got.data_ptr() != t.data_ptr() and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0
+        torch.testing.assert_close(got, t, rtol=0, atol=0)
+    assert _aligned(single) is single

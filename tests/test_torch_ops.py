@@ -148,3 +148,18 @@ def test_kernel_library_path_is_keyed_by_source():
     assert path == build.library_path('neighborhood_sim')
     name = path.rsplit('/', 1)[1]
     assert name.startswith('neighborhood_sim_') and name.endswith('.so')
+
+
+def test_kernel_library_path_is_keyed_by_every_header(tmp_path, monkeypatch):
+    """A source may include any ``csrc/*.cuh``: editing one, or adding
+    one, gives a new library, so a stale build is never loaded."""
+    (tmp_path / 'k.cu').write_text('#include "a.cuh"\n')
+    (tmp_path / 'a.cuh').write_text('// v1\n')
+    monkeypatch.setattr(build, 'CSRC_DIR', str(tmp_path))
+    first = build.library_path('k')
+    assert build.library_path('k') == first
+    (tmp_path / 'a.cuh').write_text('// v2\n')
+    second = build.library_path('k')
+    assert second != first
+    (tmp_path / 'b.cuh').write_text('// new\n')
+    assert build.library_path('k') not in (first, second)

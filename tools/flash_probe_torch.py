@@ -1,18 +1,25 @@
 #!/usr/bin/env python
 """Short first check of the flash-attention kernels on a card: build
 ``pfst_tpu_torch/ops/csrc/flash_attention.cu`` with ``nvcc -Xptxas -v``
-(registers and spills of every instantiation), then run each kernel once
-per shape, compare it with the plain versions and print its median time.
+(registers and spills of every instantiation), count the tensor-core
+instructions (``HMMA``) of each kernel in the built library's SASS
+(``cuobjdump --dump-sass``), then run each kernel once per case of
+``chip_smoke.py``'s phase 3c (and at head dimensions 32 and 128), compare
+it with the plain versions and print its median time, per call as phase
+3c times it (one launch between two CUDA events, the wrapper's host path
+included) and per replay of a CUDA graph that holds one launch (``graph``:
+the device's time, with the host path out of the way), beside SDPA's.
 
 For a first call after a kernel change, before ``chip_smoke.py``::
 
     python3 tools/flash_probe_torch.py
 
-The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c). q,
-k, v are the strided views of a (B, N, 3, H, d) projection, as the ViT
-block gives them. Exits 1 if a shape fails.
+The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c). Exits
+1 if a case fails, or if a forward or dK/dV instantiation has no HMMA.
 """
+import collections
 import os.path as osp
+import re
 import statistics
 import subprocess
 import sys
@@ -20,17 +27,26 @@ import tempfile
 import time
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
-from chip_smoke import flash_errors  # noqa: E402
+from chip_smoke import FLASH_CASES, _flash_inputs, flash_errors  # noqa: E402
 from pfst_tpu_torch.ops import (build, cuda_flash_attention,  # noqa: E402
                                 cuda_flash_attention_bwd_dkv,
                                 cuda_flash_attention_bwd_dq)
 
-CASES = [(1, 2, 17, 64, torch.float32), (1, 12, 1025, 64, torch.float32),
-         (1, 12, 1025, 64, torch.bfloat16), (2, 12, 1025, 64, torch.float32),
-         (2, 3, 130, 32, torch.bfloat16), (1, 2, 300, 128, torch.float32),
-         (8, 12, 1024, 64, torch.bfloat16), (8, 12, 4096, 64, torch.bfloat16)]
+CASES = FLASH_CASES + [((2, 3, 130, 32), torch.bfloat16, 'qkv'),
+                       ((1, 2, 300, 128), torch.float32, 'qkv'),
+                       ((1, 2, 300, 128), torch.bfloat16, 'contiguous')]
+
+
+def kernel_name(mangled):
+    """'flash_fwd_kernel fp32 D=64' from a mangled instantiation name."""
+    kernel = re.search(r'flash_\w+?_kernel', mangled)
+    d = re.search(r'Li(\d+)EE', mangled)
+    dtype = 'bf16' if '__nv_bfloat16' in mangled else 'fp32'
+    return f'{kernel.group(0) if kernel else mangled} {dtype} ' \
+           f'D={d.group(1) if d else "?"}'
 
 
 def ptxas_report():
@@ -41,10 +57,30 @@ def ptxas_report():
              osp.join(build.CSRC_DIR, 'flash_attention.cu')],
             capture_output=True, text=True)
     print('ptxas rc', proc.returncode)
+    name = None
     for line in (proc.stdout + proc.stderr).splitlines():
-        if any(w in line for w in ('registers', 'spill', 'error',
-                                   'Compiling')):
-            print(line)
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+        elif 'registers' in line or 'spill' in line or 'error' in line:
+            print(f'{name}: {line.split(":", 1)[-1].strip()}')
+
+
+def hmma_counts(lib_path):
+    """HMMA instructions per kernel instantiation in the library's SASS."""
+    cuobjdump = osp.join(osp.dirname(build._nvcc()), 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '--dump-sass', lib_path],
+                          capture_output=True, text=True, check=True).stdout
+    counts = collections.Counter()
+    name = None
+    for line in sass.splitlines():
+        fn = re.search(r'Function : (\S+)', line)
+        if fn:
+            name = kernel_name(fn.group(1))
+            counts[name] += 0
+        elif name and 'HMMA' in line:
+            counts[name] += 1
+    return counts
 
 
 def cuda_ms(fn, reps=10):
@@ -62,11 +98,34 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def check(b, h, n, d, dtype):
-    qkv = torch.randn(b, n, 3, h, d, device='cuda').to(dtype)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+def graph_ms(fn, reps=50):
+    """Mean time of one replay of a CUDA graph that captured ``fn``, over
+    ``reps`` replays back to back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(shape, dtype, layout, gen):
+    b, h, n, d = shape
+    q, k, v = _flash_inputs(shape, dtype, layout, gen)
+    g = torch.randn(shape, generator=gen).to('cuda', dtype)
     s = d**-0.5
-    g = torch.randn(b, h, n, d, device='cuda').to(dtype)
     o, lse, err = flash_errors(q, k, v, g, s)
     di = (o.float() * g.float()).sum(-1).contiguous()
     t_fwd = cuda_ms(lambda: cuda_flash_attention(q, k, v, s))
@@ -74,13 +133,22 @@ def check(b, h, n, d, dtype):
                                                          s))
     t_dq = cuda_ms(lambda: cuda_flash_attention_bwd_dq(q, k, v, g, lse, di,
                                                        s))
+    graph = [graph_ms(lambda: cuda_flash_attention(q, k, v, s)),
+             graph_ms(lambda: cuda_flash_attention_bwd_dkv(q, k, v, g, lse,
+                                                           di, s)),
+             graph_ms(lambda: cuda_flash_attention_bwd_dq(q, k, v, g, lse,
+                                                          di, s)),
+             graph_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             scale=s))]
     flops = 4 * b * h * n * n * d
-    print(f'{(b, h, n, d)} {dtype}: fwd excess {err["fwd_excess"]:.2e} '
+    print(f'{shape} {dtype} {layout}: fwd excess {err["fwd_excess"]:.2e} '
           f'(limit {err["fwd_limit"]:.1e}) lse {err["lse_rel_err"]:.2e}; '
           f'bwd excess {err["bwd_excess"]:.2e} (limit '
           f'{err["bwd_limit"]:.1e}) {"OK" if err["ok"] else "FAIL"}; ms fwd '
-          f'{t_fwd:.3f} ({flops / t_fwd / 1e9:.1f} TFLOP/s) dkv {t_dkv:.3f} '
-          f'dq {t_dq:.3f}', flush=True)
+          f'{t_fwd:.4f} ({flops / t_fwd / 1e9:.1f} TFLOP/s) dkv {t_dkv:.4f} '
+          f'({1.5 * flops / t_dkv / 1e9:.1f}) dq {t_dq:.4f}; graph ms fwd '
+          f'{graph[0]:.4f} dkv {graph[1]:.4f} dq {graph[2]:.4f} SDPA fwd '
+          f'{graph[3]:.4f}', flush=True)
     return err['ok']
 
 
@@ -93,10 +161,17 @@ def main():
     t0 = time.time()
     build.load('flash_attention')
     print(f'build {time.time() - t0:.1f}s')
-    torch.manual_seed(0)
-    ok = True
+    counts = hmma_counts(build.library_path('flash_attention'))
+    for name, count in sorted(counts.items()):
+        print(f'HMMA {name}: {count}')
+    ok = all(count > 0 for name, count in counts.items()
+             if 'dq' not in name) and len(counts) == 18
+    if not ok:
+        print('FAIL: a forward or dK/dV instantiation has no HMMA '
+              f'(or not 18 kernels: {len(counts)})')
+    gen = torch.Generator().manual_seed(4)
     for case in CASES:
-        ok = check(*case) and ok
+        ok = check(*case, gen) and ok
         torch.cuda.empty_cache()
     sys.exit(0 if ok else 1)
 
