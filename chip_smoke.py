@@ -12,7 +12,8 @@ Phases (any failure exits non-zero before the result lines):
 2. build the CUDA kernels from ``pfst_tpu_torch/ops/csrc`` (nvcc, sm_90a,
    cached under ``build/pfst_tpu_torch/``);
 3. each kernel against its plain PyTorch version at the path's shapes,
-   with its median time, the plain version's and the memory/compute bound;
+   with its median time (per call, and on the device in a CUDA graph of
+   ten launches), the plain version's and the memory/compute bound;
 3b. the similarity's backward kernel against autograd of the plain
    forward and against the plain gather backward, at the training shape
    (2, 512, 64, 64), both similarity types, fp32 and bf16 input;
@@ -35,8 +36,9 @@ Phases (any failure exits non-zero before the result lines):
    against its plain version at the ViT's shapes (1 and 2 x 12 x 1025 x
    64, fp32 and bf16, read through the strides of the block's qkv
    layout), the microbench's (8 x 12 x {1024, 4096} x 64 bf16) and an
-   edge case (1 x 2 x 17 x 64), with the median times of the kernel, the
-   plain version and SDPA, and the bound;
+   edge case (1 x 2 x 17 x 64), with the median times of the kernel (per
+   call, and on the device in a CUDA graph of ten launches), the plain
+   version and SDPA, and the bound;
 9. ViT-B/16 UPerNet serving at full width (``upernet_vit-b16_ln_mln``,
    seeded weights): 512x512 requests through ``make_inference_fn`` ->
    ``_finalize_views`` and ``make_state_fn`` -> ``sim_feat``, with the
@@ -158,6 +160,33 @@ def cuda_time_ms(fn, reps):
     return statistics.median(times)
 
 
+def graph_ms(fn, reps=20, calls=10):
+    """Device time of ``fn``: a CUDA graph that captured ``calls`` calls
+    back to back is replayed ``reps`` times; the mean time per call. The
+    host path of the call is out of the way, and so is most of a replay's
+    own launch cost (about 1 us on the H100, which a graph of one call
+    would add to each)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def phase_card():
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: this smoke test runs on the card')
@@ -205,10 +234,33 @@ def sim_bound(shape, dtype, sim_type):
         else 'operations'
 
 
+def sim_errors(x, kernel_size, dilation, sim_type, sigma=SIGMA):
+    """The forward kernel on ``x`` as its path calls it (the cosine,
+    training, case also saves the per-pixel norms) against the plain
+    version: the max |kernel - plain| and the norms' error against
+    ``x.norm``, relative where the norm exceeds 1; ``ok`` when both are
+    within ``SIM_TOL`` (a NaN fails)."""
+    cosine = sim_type == 'cosine'
+    out = cuda_neighborhood_similarity(x, kernel_size, dilation, sim_type,
+                                       sigma, with_norms=cosine)
+    ref = torch_neighborhood_similarity(x, kernel_size, dilation, sim_type,
+                                        sigma)
+    norm_err = 0.0
+    if cosine:
+        out, norms = out
+        norm_ref = x.float().norm(dim=1)
+        norm_err = float(((norms - norm_ref).abs()
+                          / norm_ref.clamp(min=1.0)).max())
+    err = float((out - ref).abs().max())
+    return dict(max_abs_err=err, norm_rel_err=norm_err,
+                ok=err <= SIM_TOL and norm_err <= SIM_TOL)
+
+
 def phase_kernel_vs_plain():
-    """Each forward case as its path calls it: the cosine (training) case
-    also saves the per-pixel norms, checked against ``x.norm`` to the
-    same relative limit."""
+    """Each forward case against its plain version (``sim_errors``), with
+    its median time per call (the wrapper's host path included), its
+    device time (``graph_ms``), the plain version's time and the
+    bound."""
     gen = torch.Generator().manual_seed(0)
     cases = []
     for shape, sim_type in SIM_CASES:
@@ -219,28 +271,20 @@ def phase_kernel_vs_plain():
             def kernel():
                 return cuda_neighborhood_similarity(
                     x, SIM_K, SIM_D, sim_type, SIGMA, with_norms=cosine)
-            out = kernel()
-            ref = torch_neighborhood_similarity(x, SIM_K, SIM_D, sim_type,
-                                                SIGMA)
-            if cosine:
-                out, norms = out
-                norm_ref = x.float().norm(dim=1)
-                norm_err = float(((norms - norm_ref).abs()
-                                  / norm_ref.clamp(min=1.0)).max())
-            else:
-                norm_err = 0.0
+            err = sim_errors(x, SIM_K, SIM_D, sim_type)
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
+            ok = err.pop('ok')
             ms = cuda_time_ms(kernel, 30)
+            device_ms = graph_ms(kernel)
             plain_ms = cuda_time_ms(lambda: torch_neighborhood_similarity(
                 x, SIM_K, SIM_D, sim_type, SIGMA), 20)
             bound_ms, bound_by = sim_bound(shape, dtype, sim_type)
             case = dict(shape=list(shape), dtype=str(dtype).split('.')[-1],
-                        sim_type=sim_type, max_abs_err=err,
-                        norm_rel_err=norm_err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
+                        sim_type=sim_type, **err, ms=ms, device_ms=device_ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
             log(f'[kernel] neighborhood_sim {case}')
-            if not (err <= SIM_TOL and norm_err <= SIM_TOL):
+            if not ok:
                 raise AssertionError(f'kernel disagrees with its plain '
                                      f'version: {case}')
             cases.append(case)
@@ -372,7 +416,8 @@ def flash_allowances(qf, kf, vf, gf, o, lse, scale):
 
     * P rounded before P V: eps P|V| (O);
     * P^T rounded before P^T dO: eps P^T|dO| (dV);
-    * dS^T rounded before dS^T Q: eps s |dS|^T |Q| (dK);
+    * dS^T s rounded before (dS^T s) Q: eps s |dS|^T |Q| (dK);
+    * dS s rounded before (dS s) K: eps s |dS| |K| (dQ);
     * the bf16 O that Di = rowsum(dO O) reads (the library's backward
       reads its bf16 O too): |dDi| <= eps rowsum|O dO|, reaching dQ as
       s |dDi| P|K| and dK as s P^T(|dDi| |Q|).
@@ -390,6 +435,7 @@ def flash_allowances(qf, kf, vf, gf, o, lse, scale):
     ds_abs = p.mul_(dp.sub_((o * gf).sum(-1, keepdim=True))).abs_()
     del dp
     al_dk += eps * scale * torch.matmul(ds_abs.transpose(-1, -2), qf.abs())
+    al_dq += eps * scale * torch.matmul(ds_abs, kf.abs())
     return al_o, al_dq, al_dk, al_dv
 
 
@@ -460,8 +506,8 @@ def phase_flash_vs_plain():
     (the fp32 kernels measured <= 8.1e-6 as 3xTF32, <= 6.9e-7 as fp32
     FMAs on the CUDA cores). For bf16 input, each output's own
     rounding, 2^-8 |ref|, and the roundings that ``flash_allowances``
-    propagates: P (forward), P^T and dS^T (dK/dV), and the bf16 O that
-    Di reads. ``max_abs_err`` is the raw max |kernel - ref|."""
+    propagates: P (forward), P^T and dS^T s (dK/dV), dS s (dQ), and the
+    bf16 O that Di reads. ``max_abs_err`` is the raw max |kernel - ref|."""
     gen = torch.Generator().manual_seed(4)
     cases = []
     for shape, dtype, layout in FLASH_CASES:
@@ -477,6 +523,12 @@ def phase_flash_vs_plain():
                   q, k, v, g, lse, di, scale), 10),
               'dq': cuda_time_ms(lambda: cuda_flash_attention_bwd_dq(
                   q, k, v, g, lse, di, scale), 10)}
+        device_ms = {
+            'fwd': graph_ms(lambda: cuda_flash_attention(q, k, v, scale)),
+            'dkv': graph_ms(lambda: cuda_flash_attention_bwd_dkv(
+                q, k, v, g, lse, di, scale)),
+            'dq': graph_ms(lambda: cuda_flash_attention_bwd_dq(
+                q, k, v, g, lse, di, scale))}
         plain_fwd_ms = cuda_time_ms(lambda: torch_attention(q, k, v, scale),
                                     5)
         plain_bwd_ms = cuda_time_ms(lambda: torch_attention_backward(
@@ -491,7 +543,8 @@ def phase_flash_vs_plain():
         bounds = flash_bounds(shape, dtype)
         ok = err.pop('ok')
         case = dict(shape=list(shape), dtype=str(dtype).split('.')[-1],
-                    layout=layout, **err, ms=ms, plain_fwd_ms=plain_fwd_ms,
+                    layout=layout, **err, ms=ms, device_ms=device_ms,
+                    plain_fwd_ms=plain_fwd_ms,
                     plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
                     library_bwd_ms=lib_bwd_ms,
                     bound_ms={kk: b[0] for kk, b in bounds.items()},
@@ -1083,7 +1136,7 @@ def _flash_entries(cases, serve, train):
             max_abs_err=max(errs),
             max_abs_err_fp32=max(e for e, c in zip(errs, cases)
                                  if c['dtype'] == 'float32'),
-            ms=case['ms'][kernel],
+            ms=case['ms'][kernel], device_ms=case['device_ms'][kernel],
             plain_ms=case['plain_fwd_ms'] if i == 0
             else case['plain_bwd_ms'],
             bound_ms=case['bound_ms'][kernel],
@@ -1093,6 +1146,7 @@ def _flash_entries(cases, serve, train):
             timed_at=case['shape'],
             cases=[{k: c[k] for k in ('shape', 'dtype', 'layout')}
                    | {'ms': c['ms'][kernel],
+                      'device_ms': c['device_ms'][kernel],
                       'bound_ms': c['bound_ms'][kernel]} for c in cases]))
     return rows
 
@@ -1136,7 +1190,8 @@ def main():
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
         max_abs_err=max(c['max_abs_err'] for c in cases),
-        ms=main_case['ms'], plain_ms=main_case['plain_ms'],
+        ms=main_case['ms'], device_ms=main_case['device_ms'],
+        plain_ms=main_case['plain_ms'],
         bound_ms=main_case['bound_ms'], bound_by=main_case['bound_by'],
         library_ms=None, cases=cases), dict(
         name='neighborhood_similarity_backward', route='cuda',

@@ -11,10 +11,11 @@ q, k, v are ``(B, H, N, D)``; non-causal, no bias, no segment ids.
   ``return_lse`` it also gives the fp32 log-sum-exp of each query row.
 * ``torch_attention_backward``: the plain FlashAttention-2 backward in
   fp32 from the forward's ``o`` and ``lse``: ``P = exp(S - lse)``,
-  ``Di = rowsum(dO o)``, ``dS = P (dO V^T - Di)``, ``dQ = dS K s``,
-  ``dK = dS^T Q s``, ``dV = P^T dO``, with P^T and dS^T rounded to the
-  inputs' type before the dV and dK products, where the dK/dV kernel
-  rounds them.
+  ``Di = rowsum(dO o)``, ``dS = P (dO V^T - Di)``, ``dQ = (dS s) K``,
+  ``dK = (dS s)^T Q``, ``dV = P^T dO``, with P and ``dS s`` rounded to
+  the inputs' type before the products, where the backward kernels round
+  them: the TPU kernels scale dS before they round it
+  (``ds * sm_scale``, then ``ds.astype``).
 * ``cuda_flash_attention``: the forward kernel (``csrc/flash_attention.cu``)
   -> ``(o, lse)``; ``cuda_flash_attention_bwd_dkv`` and
   ``cuda_flash_attention_bwd_dq``: the two backward kernels, each with its
@@ -23,11 +24,11 @@ q, k, v are ``(B, H, N, D)``; non-causal, no bias, no segment ids.
   forward and backward are the kernels; a CPU tensor goes to the plain
   version under ordinary autograd. There is no switch between them.
 
-The forward and dK/dV kernels run on the tensor cores: bf16 input as
-bf16 products with fp32 sums, rounding P (forward), P^T and dS^T (dK/dV)
-to bf16 where the TPU kernel rounds them (``p.astype(v.dtype)``,
-``p.T.astype``, ``ds.T.astype``); fp32 input as 3xTF32, accurate to fp32.
-The dQ kernel computes in fp32 on the CUDA cores. The kernels copy data
+The three kernels run on the tensor cores: bf16 input as bf16 products
+with fp32 sums, rounding P (forward), P^T and dS^T s (dK/dV) and dS s (dQ)
+to bf16 where the TPU kernels round them (``p.astype(v.dtype)``,
+``p.T.astype``, ``ds.T.astype``, ``ds.astype``); fp32 input as 3xTF32,
+accurate to fp32. The kernels copy data
 in 16-byte chunks, so each q, k, v, dO they read has a 16-byte-aligned
 base and batch, head and row strides that are multiples of 16 bytes;
 ``_aligned`` copies a tensor that breaks this (the ViT's qkv views never
@@ -57,15 +58,17 @@ def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def torch_attention_backward(q, k, v, o, lse, grad, scale):
     """Plain version of the backward kernels: ``(dq, dk, dv)`` in the
     inputs' types for ``o = attention(q, k, v)`` with its ``lse`` and
-    ``grad = dL/do``, computed in fp32; for bf16 input P^T and dS^T are
-    rounded to bf16 before the dV and dK products, as in the kernel."""
+    ``grad = dL/do``, computed in fp32; for bf16 input P and the scaled
+    dS are rounded to bf16 before the dV, dK and dQ products, as in the
+    kernels and the TPU kernels."""
     qf, kf, vf, gf = q.float(), k.float(), v.float(), grad.float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.float()[..., None])
     di = (o.float() * gf).sum(dim=-1, keepdim=True)
-    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - di)
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf) * scale
+    ds = (p * (torch.matmul(gf, vf.transpose(-1, -2)) - di) * scale).to(
+        q.dtype).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), gf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

@@ -10,7 +10,7 @@
 //             LSE = max_j S + log sum_j exp(S - max_j S)   (fp32)
 //   backward: P = exp(S - LSE), Di = rowsum(dO * O)  (computed by the caller,
 //             as the library computes it in XLA), dS = P * (dO V^T - Di),
-//             dV = P^T dO, dK = dS^T Q * scale, dQ = dS K * scale
+//             dV = P^T dO, dK = (dS scale)^T Q, dQ = (dS scale) K
 //
 // q, k, v, dO are (B, H, N, D) fp32 or bf16 with a contiguous last
 // dimension, base addresses and batch, head and row strides that are
@@ -25,14 +25,16 @@
 // 989 TFLOP/s on the tensor cores for bf16, by 495 / 3 = 165 TFLOP/s for
 // fp32 as 3xTF32.
 //
-// Forward and dK/dV (tensor cores, mma.cuh). A block of 4 warps owns 64
-// rows of one (b, h): query rows in the forward, key rows in dK/dV, 16 per
-// warp. The other side's rows stream through a two-stage cp.async ring in
-// shared memory, in the input type: the copy of tile t + 1 is issued
-// before the arithmetic on tile t. Rows at or past N are zero-filled by
-// cp.async and their scores masked (-inf in the forward, P = 0 in dK/dV),
-// so N need not be a multiple of a tile (N = 1025: the last tile holds
-// one key); such rows of the block's own are never written.
+// All three kernels run on the tensor cores (mma.cuh). A block of 4 warps
+// owns 64 rows of one (b, h): query rows in the forward and dQ, key rows
+// in dK/dV, 16 per warp. The other side's rows stream through a two-stage
+// cp.async ring in shared memory, in the input type: the copy of tile
+// t + 1 is issued before the arithmetic on tile t. Rows at or past N are
+// zero-filled by cp.async and their scores masked (-inf in the forward,
+// P = 0 in the backward), so N need not be a multiple of a tile (N = 1025:
+// the last tile holds one key); such rows of the block's own are never
+// written. Blocks own disjoint outputs, so no kernel uses atomics and
+// every result is deterministic.
 // * Forward: each warp keeps its Q fragments in registers; S = Q K^T lands
 //   in accumulators, where the online softmax runs (row max and sum over a
 //   lane quad by two shuffles each). P = exp(S - m) is rounded to the
@@ -41,22 +43,19 @@
 //   taken over the unrounded P. O = acc / l in the input type, LSE fp32.
 // * dK/dV: keys are the M side of every product, so S^T = K Q^T and
 //   dP^T = V dO^T land in accumulators indexed by key row: P^T = exp(S^T -
-//   LSE) (0 past N), dS^T = P^T (dP^T - Di), both rounded to the input
-//   type (the TPU kernel's p.T.astype, ds.T.astype) and reused in
-//   registers as the A operands of dV += P^T dO and dK += dS^T Q. dK is
-//   scaled once at the end. No atomics: the result is deterministic.
-// fp32 input runs the same code as 3xTF32 (mma.cuh), where P, P^T and
-// dS^T are split into hi and lo parts instead of rounded: accurate to fp32.
-//
-// dQ (CUDA cores, fp32 arithmetic). A block of 128 threads owns 64 query
-// rows and streams the key rows through shared memory in tiles of 64.
-// Thread t = 8 ty + tx owns rows 4 ty .. 4 ty + 3 and, of a streamed tile,
-// the columns (j / 4) * 32 + 4 tx + j % 4; of the head dimension, the
-// columns (e / 4) * 32 + 4 tx + e % 4. Tiles are kept in shared memory as
-// fp32, transposed ([d][row]) where a thread reads four consecutive rows
-// of one d, row-major ([row][d]) where it reads four consecutive d of one
-// row, so every inner-loop read is one 16-byte load without bank
-// conflicts.
+//   LSE) (0 past N), dS^T s = P^T (dP^T - Di) s, both rounded to the input
+//   type (the TPU kernel's p.T.astype, and ds.T.astype after its
+//   ds * sm_scale) and reused in registers as the A operands of
+//   dV += P^T dO and dK += (dS^T s) Q.
+// * dQ: the forward's layout with two products per tile: S = Q K^T and
+//   dP = dO V^T land in accumulators indexed by query row (Q and dO
+//   fragments stay in registers where they are small); dS s = P (dP - Di) s
+//   is rounded to the input type (the TPU kernel's ds * sm_scale, then
+//   ds.astype(k.dtype)) and fed from the accumulators into dQ += (dS s) K
+//   as the A operand, K read as the B operand the way the forward reads V.
+// fp32 input runs the same code as 3xTF32 (mma.cuh), where P, P^T, dS s
+// and dS^T s are split into hi and lo parts instead of rounded: accurate
+// to fp32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,11 +64,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps; dQ: 16 row groups x 8 columns
+constexpr int kThreads = 128;  // 4 warps, 16 rows each
 constexpr int kRows = 64;      // rows a block owns
-constexpr int kCols = 64;      // streamed rows per tile, dQ
-constexpr int kPad = 4;        // keeps 16-byte alignment of padded rows
-constexpr int kRowsP = kRows + kPad;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -78,52 +74,12 @@ struct Strides {
   long long t[6][3];
 };
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// column j of a thread's share of a tile (or of the head dimension)
-__device__ __forceinline__ int col_of(int j, int tx) {
-  return (j >> 2) * 32 + tx * 4 + (j & 3);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c,
-                                    float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// Rows row0 .. row0 + R - 1 of an (N, D) matrix with row stride rs into
-// shared memory, widened to fp32: transposed (tr[d * (R + kPad) + r]) and/or
-// row-major (rm[r * (D + kPad) + d]). Rows at or past n read as 0.
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          long long rs, int row0, int n,
-                                          float* tr, float* rm) {
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    const int r = e / D;
-    const int d = e - r * D;
-    const int row = row0 + r;
-    const float v = row < n ? widen(src[row * rs + d]) : 0.f;
-    if (tr != nullptr) tr[d * (R + kPad) + r] = v;
-    if (rm != nullptr) rm[r * (D + kPad) + d] = v;
-  }
-}
-
 // Tile shapes of the tensor-core kernels. A streamed tile holds 64 rows
 // where a row is at most 128 bytes (bf16 up to D = 64, fp32 D = 32) and
 // 32 rows otherwise, which keeps the forward's shared memory at 25-52 KB
 // (bf16 D = 64: Q 9 KB + 2 x (K + V) 36 KB) except fp32 D = 128 (101 KB),
-// and dK/dV's at 31-70 KB except fp32 D = 128 (136 KB); it also bounds the
-// accumulators (S and dP) that live in registers.
+// and dK/dV's and dQ's at 31-70 KB except fp32 D = 128 (135-136 KB); it
+// also bounds the accumulators (S and dP) that live in registers.
 template <typename T, int D>
 struct Tile {
   static constexpr int kLd = pfst::pitch<T, D>();
@@ -290,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int QT = Tile<T, D>::kCols;  // query rows per tile
   constexpr int NB = QT / 8;             // 8-query blocks of S^T, dP^T
   constexpr int KS = D / M::kK;          // k-steps of K Q^T, V dO^T
-  constexpr int PS = QT / M::kK;         // k-steps of P^T dO, dS^T Q
+  constexpr int PS = QT / M::kK;         // k-steps of P^T dO, (dS^T s) Q
   constexpr int DB = D / 8;              // 8-column blocks of dK, dV
   // K and V fragments stay in registers for the block's life where they
   // are small (bf16 up to D = 64, fp32 D = 32); else each tile re-reads
@@ -383,8 +339,10 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // P^T and dS^T on the fragments: key rows g, g + 8, query columns
-    // 8 j + 2 t + e % 2 of the tile; queries past N give P = 0
+    // P^T and dS^T s on the fragments: key rows g, g + 8, query columns
+    // 8 j + 2 t + e % 2 of the tile; queries past N give P = 0. dS^T is
+    // scaled before a_from_acc rounds it, as the TPU kernel scales ds
+    // before ds.T.astype
     const int c0 = 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
@@ -394,11 +352,11 @@ __global__ void __launch_bounds__(kThreads)
         const float p = it * QT + c < N
                             ? exp2f(s[j][e] * sl2 - lt[c] * kLog2e)
                             : 0.f;
-        dp[j][e] = p * (dp[j][e] - dt[c]);
+        dp[j][e] = p * (dp[j][e] - dt[c]) * scale;
         s[j][e] = p;
       }
 
-    // dV += P^T dO, dK += dS^T Q
+    // dV += P^T dO, dK += (dS^T s) Q
 #pragma unroll
     for (int kc = 0; kc < PS; ++kc) {
       const typename M::A pa = M::a_from_acc(s, kc);
@@ -427,20 +385,16 @@ __global__ void __launch_bounds__(kThreads)
       T* dvr = dvb + row * st.t[5][2] + 2 * (lane & 3);
 #pragma unroll
       for (int e = 0; e < DB; ++e) {
-        pfst::store2(dkr + 8 * e, dka[e][2 * i] * scale,
-                     dka[e][2 * i + 1] * scale);
+        pfst::store2(dkr + 8 * e, dka[e][2 * i], dka[e][2 * i + 1]);
         pfst::store2(dvr + 8 * e, dva[e][2 * i], dva[e][2 * i + 1]);
       }
     }
   }
 }
 
-// dQ of a block's 64 query rows, streaming the key rows in tiles of 64:
-// per tile, S and dP (query rows x key rows), dS in shared memory
-// (key-major), then dQ += dS K.
-template <int D>
-constexpr int dq_smem_floats() {
-  return 4 * D * kRowsP + kCols * (D + kPad) + kCols * kRowsP;
+template <typename T, int D>
+constexpr size_t dq_smem_bytes() {
+  return (2 * kRows + 4 * Tile<T, D>::kCols) * Tile<T, D>::kLd * sizeof(T);
 }
 
 template <typename T, int D>
@@ -450,108 +404,141 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ di, T* __restrict__ dq,
                         int H, int N, float scale, Strides st) {
-  constexpr int DP = D + kPad;
-  constexpr int DC = D / 8;
+  using M = pfst::Mma<T>;
+  constexpr int LD = Tile<T, D>::kLd;
+  constexpr int KT = Tile<T, D>::kCols;  // keys per tile
+  constexpr int NB = KT / 8;             // 8-key blocks of S, dP
+  constexpr int KS = D / M::kK;          // k-steps of Q K^T, dO V^T
+  constexpr int PS = KT / M::kK;         // k-steps of dS K
+  constexpr int DB = D / 8;              // 8-column blocks of dQ
+  // Q and dO fragments stay in registers where they are small, as K and
+  // V do in dK/dV
+  constexpr bool kHold = D * sizeof(T) <= 128;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;               // [D][kRowsP]  query rows, transposed
-  float* dot = qt + D * kRowsP;   // [D][kRowsP]  dO rows, transposed
-  float* kt = dot + D * kRowsP;   // [D][kRowsP]  key rows, transposed
-  float* vt = kt + D * kRowsP;    // [D][kRowsP]  value rows, transposed
-  float* km = vt + D * kRowsP;    // [kCols][DP]  key rows
-  float* dst = km + kCols * DP;   // [kCols][kRowsP]  dS, key-major
+  T* qs = reinterpret_cast<T*>(smem);  // [kRows][LD]  query rows
+  T* dos = qs + kRows * LD;            // [kRows][LD]  dO rows
+  T* ks = dos + kRows * LD;            // [2][KT][LD]  key ring
+  T* vs = ks + 2 * KT * LD;            // [2][KT][LD]  value ring
 
-  const int tx = threadIdx.x & 7;
-  const int ty = threadIdx.x >> 3;
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * kRows;
   const T* kb = k + b * st.t[1][0] + h * st.t[1][1];
   const T* vb = v + b * st.t[2][0] + h * st.t[2][1];
-  load_tile<T, D, kRows>(q + b * st.t[0][0] + h * st.t[0][1], st.t[0][2],
-                         row0, N, qt, nullptr);
-  load_tile<T, D, kRows>(dout + b * st.t[3][0] + h * st.t[3][1], st.t[3][2],
-                         row0, N, dot, nullptr);
+  const int tiles = (N + KT - 1) / KT;
+  pfst::load_rows<T, D, kRows, kThreads>(
+      qs, q + b * st.t[0][0] + h * st.t[0][1], st.t[0][2], row0, N);
+  pfst::load_rows<T, D, kRows, kThreads>(
+      dos, dout + b * st.t[3][0] + h * st.t[3][1], st.t[3][2], row0, N);
+  pfst::load_rows<T, D, KT, kThreads>(ks, kb, st.t[1][2], 0, N);
+  pfst::load_rows<T, D, KT, kThreads>(vs, vb, st.t[2][2], 0, N);
+  pfst::cp_async_commit();
+
+  // LSE (times log2 e) and Di of the lane's rows g and g + 8
   const long long stat0 = (static_cast<long long>(b) * H + h) * N;
-  float lse_r[4], di_r[4], acc[4][DC];
+  float lr[2], dr[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    lse_r[i] = row < N ? lse[stat0 + row] : 0.f;
-    di_r[i] = row < N ? di[stat0 + row] : 0.f;
-#pragma unroll
-    for (int e = 0; e < DC; ++e) acc[i][e] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
+    lr[i] = row < N ? lse[stat0 + row] * kLog2e : 0.f;
+    dr[i] = row < N ? di[stat0 + row] : 0.f;
   }
 
-  for (int c0 = 0; c0 < N; c0 += kCols) {
+  uint32_t qf[kHold ? KS : 1][4], of[kHold ? KS : 1][4];
+  float acc[DB][4] = {};
+  const float sl2 = scale * kLog2e;
+  for (int it = 0; it < tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < tiles) {
+      const int next = (stage ^ 1) * KT * LD;
+      pfst::load_rows<T, D, KT, kThreads>(ks + next, kb, st.t[1][2],
+                                          (it + 1) * KT, N);
+      pfst::load_rows<T, D, KT, kThreads>(vs + next, vb, st.t[2][2],
+                                          (it + 1) * KT, N);
+    }
+    pfst::cp_async_commit();
+    pfst::cp_async_wait<1>();  // tile it (and on it = 0 the query rows)
     __syncthreads();
-    load_tile<T, D, kCols>(kb, st.t[1][2], c0, N, kt, km);
-    load_tile<T, D, kCols>(vb, st.t[2][2], c0, N, vt, nullptr);
-    __syncthreads();
-
-    float s[4][8], dp[4][8];
+    if constexpr (kHold) {
+      if (it == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = ld4(qt + d * kRowsP + ty * 4);
-      const float4 oa = ld4(dot + d * kRowsP + ty * 4);
-      const float4 k0 = ld4(kt + d * kRowsP + tx * 4);
-      const float4 k1 = ld4(kt + d * kRowsP + 32 + tx * 4);
-      const float4 v0 = ld4(vt + d * kRowsP + tx * 4);
-      const float4 v1 = ld4(vt + d * kRowsP + 32 + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float ov[4] = {oa.x, oa.y, oa.z, oa.w};
-      const float kv[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        for (int kk = 0; kk < KS; ++kk) {
+          pfst::load_a<T, LD>(qf[kk], qs, wr, kk * M::kK, lane);
+          pfst::load_a<T, LD>(of[kk], dos, wr, kk * M::kK, lane);
         }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col_of(j, tx);
-      const bool valid = c0 + c < N;
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = valid ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        ds[i] = p * (dp[i][j] - di_r[i]);
       }
-      st4(dst + c * kRowsP + ty * 4, ds[0], ds[1], ds[2], ds[3]);
     }
-    __syncthreads();
+    const T* kt = ks + stage * KT * LD;
+    const T* vt = vs + stage * KT * LD;
 
-#pragma unroll 4
-    for (int c = 0; c < kCols; ++c) {
-      const float4 sa = ld4(dst + c * kRowsP + ty * 4);
-      const float sv[4] = {sa.x, sa.y, sa.z, sa.w};
+    float s[NB][4] = {}, dp[NB][4] = {};
 #pragma unroll
-      for (int g = 0; g < DC / 4; ++g) {
-        const float4 ka = ld4(km + c * DP + g * 32 + tx * 4);
-        const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qr[4], gr[4];
+      if constexpr (kHold) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qr[i] = qf[kk][i];
+          gr[i] = of[kk][i];
+        }
+      } else {
+        pfst::load_a<T, LD>(qr, qs, wr, kk * M::kK, lane);
+        pfst::load_a<T, LD>(gr, dos, wr, kk * M::kK, lane);
+      }
+      const typename M::A qa = M::a(qr);
+      const typename M::A oa = M::a(gr);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][g * 4 + e] = fmaf(sv[i], kv[e], acc[i][g * 4 + e]);
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t bf[4];
+        pfst::load_b<T, LD>(bf, kt, j * 8, kk * M::kK, lane);
+        M::mma(s[j], qa, bf[0], bf[1]);
+        M::mma(s[j + 1], qa, bf[2], bf[3]);
+        pfst::load_b<T, LD>(bf, vt, j * 8, kk * M::kK, lane);
+        M::mma(dp[j], oa, bf[0], bf[1]);
+        M::mma(dp[j + 1], oa, bf[2], bf[3]);
       }
     }
+
+    // dS s on the fragments: query rows g, g + 8, keys it KT + 8 j + 2 t
+    // + e % 2; keys past N give P = 0. Scaled before a_from_acc rounds it,
+    // as the TPU kernel scales ds before ds.astype(k.dtype)
+    const int c0 = it * KT + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = c0 + 8 * j + (e & 1) < N
+                            ? exp2f(s[j][e] * sl2 - lr[e >> 1])
+                            : 0.f;
+        dp[j][e] = p * (dp[j][e] - dr[e >> 1]) * scale;
+      }
+
+    // dQ += dS K, K read as the B operand as V is in the forward's P V
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc) {
+      const typename M::A sa = M::a_from_acc(dp, kc);
+#pragma unroll
+      for (int e = 0; e < DB; e += 2) {
+        uint32_t bf[4];
+        M::template load_b_trans<LD>(bf, kt, kc * M::kK, e * 8, lane);
+        M::mma(acc[e], sa, bf[0], bf[1]);
+        M::mma(acc[e + 1], sa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // the stage is read; the next copy may overwrite it
   }
 
   T* dqb = dq + b * st.t[4][0] + h * st.t[4][1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
     if (row < N) {
+      T* dqr = dqb + row * st.t[4][2] + 2 * (lane & 3);
 #pragma unroll
-      for (int e = 0; e < DC; ++e)
-        narrow(dqb + row * st.t[4][2] + col_of(e, tx), acc[i][e] * scale);
+      for (int e = 0; e < DB; ++e)
+        pfst::store2(dqr + 8 * e, acc[e][2 * i], acc[e][2 * i + 1]);
     }
   }
 }
@@ -600,7 +587,7 @@ cudaError_t launch(Kind kind, const Args& a, cudaStream_t stream) {
         q, k, v, dout, a.lse_in, a.di, static_cast<T*>(a.out0),
         static_cast<T*>(a.out1), a.H, a.N, a.scale, a.st);
   } else {
-    const size_t bytes = dq_smem_floats<D>() * sizeof(float);
+    const size_t bytes = dq_smem_bytes<T, D>();
     err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));

@@ -16,111 +16,411 @@
 // What bounds it: one read of the map and one write of the k*k planes,
 // about 4*k*k flops per input element. At the serving shape
 // (1, 512, 128, 128) that is 34 MB against 0.3 GFLOP, so the card's
-// memory rate is the bound. Design: one thread per output pixel, with
-// consecutive threads on consecutive w so every channel plane is read
-// with coalesced loads; the k*k re-reads of a plane hit L1/L2, not
-// device memory. The loop over C keeps k*k fp32 accumulators (2*k*k for
-// cosine) in registers, so the unfolded (k*k x C) tensor never exists.
-// Masked loads replace the padded copy the Pallas kernel makes.
+// memory rate is the bound (10 us fp32 at 3.35 TB/s). The map fits the
+// 50 MB L2, so what a design pays for is the traffic from L2 into the
+// SMs: every staged row costs its halo, and a block that stages rows for
+// one output row only re-reads each input row k times.
+//
+// Forward design. A block owns a row segment of 32 columns (one per lane)
+// in RO output rows of one dilation coset, h and h + d (RO = 2; 1 for
+// k = 7, whose 98 cosine partials fill the registers), and splits the
+// channels across its warps: warp w takes channels [w cs, (w + 1) cs),
+// cs = ceil(C / warps). Each warp streams its channels through its own
+// ring of kStages stages in shared memory, a stage holding G channels:
+// the k + RO - 1 rows h + (i - k/2) d of the segment and its halo, copied
+// by cp.async (16-byte chunks where the row and base allow it, else 4
+// bytes: one fp32 or a bf16 pair; plain loads for the bf16 cases whose
+// pairs are not aligned) while the warp computes on an earlier stage,
+// with only __syncwarp between them. Rows and columns outside the map are
+// zero-filled. The two output rows share k - 1 of their staged rows, which
+// cuts the L2 traffic and the shared-memory loads by a third against one
+// output row a block. Each lane keeps its two pixels' k*k partial sums
+// (2 k*k for cosine: dot and |n|^2; |c|^2 is the center's |n|^2) over its
+// warp's channels in registers. The partials then meet in shared memory
+// and are summed over the warps in a fixed order: deterministic, no
+// atomics. The staged row is contiguous for d <= 32 (the segment, (k/2) d
+// columns each side, a shift that aligns its start to the copy size): tap
+// j is at column j d + shift + lane. For d > 32 the k windows of 32
+// columns do not overlap and are staged side by side (tap j at 32 j +
+// lane), which bounds a row at 32 k columns for any d. For d = 2, the
+// dilation of the path, with 16-byte copies, the geometry is fixed at
+// compile time (Fixed below): every tap offset is an immediate and each
+// lane's copies are worked out once. 16 warps a block for k = 3, 8
+// otherwise: (2, 512, 64, 64) gives 128 blocks of 16 warps,
+// (1, 512, 128, 128) 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "ptx.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kSeg = 32;       // columns of a forward block
+constexpr int kMaxStage = 4;   // channels per stage, at most
+constexpr int kStages = 2;     // stages of a warp's ring
+constexpr int kRingBudget = 64 * 1024;  // bytes of a block's rings
+constexpr int kFixedD = 2;     // the dilation with a compile-time geometry
+constexpr int kFixedGroup = 4;  // channels per stage there
+
+template <int K>
+__host__ __device__ constexpr int fwd_warps() {
+  return K == 3 ? 16 : 8;
+}
+
+// output rows of a forward block (a lane's pixels)
+template <int K>
+__host__ __device__ constexpr int fwd_rows() {
+  return K == 7 ? 1 : 2;
+}
+
+// The staging geometry of d = DS with 16-byte copies, at compile time.
+template <typename T, int K, int DS>
+struct Fixed {
+  static constexpr int kUnit = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kShift = (kUnit - (K / 2 * DS) % kUnit) % kUnit;
+  static constexpr int kChunks =
+      (kShift + (K - 1) * DS + kSeg + kUnit - 1) / kUnit;
+  static constexpr int kPitch = kChunks * kUnit;
+  static constexpr int kCopies = (K + fwd_rows<K>() - 1) * kChunks;
+  static constexpr int kSlots = (kCopies + 31) / 32;  // per lane
+};
+
+// The forward's staging plan, the same for every block of a launch.
+struct Plan {
+  int span;    // staged columns between taps j and j + 1: d, or 32
+  int shift;   // staged column of tap 0, lane 0
+  int unit;    // elements per copy: 16 or 4 bytes by cp.async, or 1
+               // (a bf16 element by a plain load)
+  int chunks;  // copies per staged row
+  int pitch;   // elements per staged row, a multiple of 16 bytes
+  int group;   // channels per stage
+  int cs;      // channels per warp
+  bool fixed;  // d = kFixedD with 16-byte copies: Fixed's geometry
+};
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T, int K, bool COSINE>
-__global__ void __launch_bounds__(kThreads)
-    neighborhood_sim_kernel(const T* __restrict__ x, float* __restrict__ out,
-                            float* __restrict__ norms, int C, int H, int W,
-                            int d, float sigma2) {
-  constexpr int KK = K * K;
+// One copy of u elements (u * sizeof(T) bytes) into shared memory, zero
+// when !ok.
+template <typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src, bool ok,
+                                           int u) {
+  const int bytes = u * static_cast<int>(sizeof(T));
+  if (bytes == 16) {
+    pfst::cp_async16(dst, src, ok);
+  } else if (bytes == 4) {
+    pfst::cp_async4(dst, src, ok);
+  } else {  // a bf16 element whose pair is not 4-byte aligned
+    *reinterpret_cast<uint16_t*>(dst) =
+        ok ? *reinterpret_cast<const uint16_t*>(src) : uint16_t{0};
+  }
+}
+
+// One stage of a warp's ring: channels c, ..., c + group - 1 (those at or
+// past c1 zero-filled), each as its SR staged rows h0 + (i - K/2) d.
+template <typename T, int K, int SR>
+__device__ __forceinline__ void stage_rows(T* buf, const T* x, const T* xb,
+                                           long long hw, int c, int c1,
+                                           int h0, int H, int W, int d,
+                                           int lane, const int (&gcol)[K],
+                                           const Plan& pl) {
   constexpr int R = K / 2;
-  const int hw = H * W;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= hw) return;
-  const int b = blockIdx.y;
-  const int h = p / W;
-  const int w = p - h * W;
-
-  int off[KK];
-  bool valid[KK];
+  for (int g = 0; g < pl.group; ++g, ++c) {
+    const T* xc = xb + (c < c1 ? c : 0) * hw;
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
+    for (int i = 0; i < SR; ++i) {
+      const int hr = h0 + (i - R) * d;
+      const bool row_ok = c < c1 && hr >= 0 && hr < H;
+      const T* src = xc + (row_ok ? hr : 0) * static_cast<long long>(W);
+      T* dst = buf + (g * SR + i) * pl.pitch;
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int hh = h + (i - R) * d;
-      const int ww = w + (j - R) * d;
-      const bool ok = hh >= 0 && hh < H && ww >= 0 && ww < W;
-      valid[i * K + j] = ok;
-      off[i * K + j] = ok ? hh * W + ww : 0;
-    }
-  }
-
-  float acc[KK];
-  float nsq[KK];
-  float csq = 0.f;
-#pragma unroll
-  for (int q = 0; q < KK; ++q) {
-    acc[q] = 0.f;
-    nsq[q] = 0.f;
-  }
-
-  const T* plane = x + static_cast<size_t>(b) * C * hw;
-#pragma unroll 2
-  for (int c = 0; c < C; ++c, plane += hw) {
-    const float cv = widen(plane[p]);
-    if constexpr (COSINE) csq += cv * cv;
-#pragma unroll
-    for (int q = 0; q < KK; ++q) {
-      const float nv = valid[q] ? widen(plane[off[q]]) : 0.f;
-      if constexpr (COSINE) {
-        acc[q] += nv * cv;
-        nsq[q] += nv * nv;
-      } else {
-        const float df = nv - cv;
-        acc[q] += df * df;
+      for (int m = 0; m < K; ++m) {
+        const int ch = lane + 32 * m;
+        if (ch < pl.chunks) {
+          const bool ok = row_ok && gcol[m] >= 0;
+          stage_copy(dst + ch * pl.unit, ok ? src + gcol[m] : x, ok,
+                     pl.unit);
+        }
       }
     }
   }
+}
 
-  float* o = out + static_cast<size_t>(b) * KK * hw + p;
-  const float cn = sqrtf(csq);
+// The same for the fixed geometry: each lane issues its precomputed
+// copies (source offset in the channel's plane, -1 for zero-fill;
+// destination in the channel's slot of SR x pitch, -1 for none).
+template <typename T, int S>
+__device__ __forceinline__ void stage_fixed(T* buf, const T* x, const T* xb,
+                                            long long hw, int c, int c1,
+                                            int slot, const int (&soff)[S],
+                                            const int (&doff)[S]) {
 #pragma unroll
-  for (int q = 0; q < KK; ++q) {
+  for (int g = 0; g < kFixedGroup; ++g, ++c) {
+    const bool c_ok = c < c1;
+    const T* xc = xb + (c_ok ? c : 0) * hw;
+    T* dst = buf + g * slot;
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      if (doff[m] >= 0) {
+        const bool ok = c_ok && soff[m] >= 0;
+        pfst::cp_async16(dst + doff[m], ok ? xc + soff[m] : x, ok);
+      }
+    }
+  }
+}
+
+template <typename T, int K, bool COSINE, int DS>
+__global__ void __launch_bounds__(fwd_warps<K>() * 32)
+    neighborhood_sim_kernel(const T* __restrict__ x, float* __restrict__ out,
+                            float* __restrict__ norms, int C, int H, int W,
+                            int d, float sigma2, Plan pl) {
+  constexpr int KK = K * K;
+  constexpr int R = K / 2;
+  constexpr int NW = fwd_warps<K>();
+  constexpr int RO = fwd_rows<K>();
+  constexpr int SR = K + RO - 1;           // staged rows per channel
+  constexpr int V = COSINE ? 2 * KK : KK;  // partial sums per pixel
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int segs = (W + kSeg - 1) / kSeg;
+  const int pair = blockIdx.x / segs;
+  const int w0 = (blockIdx.x - pair * segs) * kSeg;
+  // output rows h0 + r d, r < RO: pairs of one coset of rows modulo d
+  const int h0 = pair / d * (RO * d) + pair % d;
+  const int b = blockIdx.y;
+  if (h0 >= H) return;  // the whole block
+  const long long hw = static_cast<long long>(H) * W;
+
+  // the geometry: constants for DS, else the plan's
+  using F = Fixed<T, K, DS ? DS : 1>;
+  const int span = DS ? DS : pl.span;
+  const int shift = DS ? F::kShift : pl.shift;
+  const int pitch = DS ? F::kPitch : pl.pitch;
+  const int group = DS ? kFixedGroup : pl.group;
+  const int slot = SR * pitch;  // a channel's rows in a stage
+
+  // DS: this lane's copies of a channel; else the global column of each
+  // of its copies in a staged row (-1 where the copy lies outside the map
+  // or past the row's chunks)
+  constexpr int S = DS ? F::kSlots : 1;
+  [[maybe_unused]] int soff[S], doff[S], gcol[DS ? 1 : K];
+  if constexpr (DS != 0) {
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      const int e = lane + 32 * m;
+      const int i = e / F::kChunks;
+      const int ch = e - i * F::kChunks;
+      const int hr = h0 + (i - R) * DS;
+      const int col = w0 - R * DS - F::kShift + ch * F::kUnit;
+      const bool in = e < F::kCopies;
+      doff[m] = in ? i * F::kPitch + ch * F::kUnit : -1;
+      soff[m] = in && hr >= 0 && hr < H && col >= 0 && col + F::kUnit <= W
+                    ? hr * W + col
+                    : -1;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      const int ch = lane + 32 * m;
+      const int o = ch * pl.unit - pl.shift;  // offset from tap 0, lane 0
+      const int col = pl.span == d ? w0 - R * d + o
+                                   : w0 + (o / 32 - R) * d + o % 32;
+      gcol[m] = ch < pl.chunks && col >= 0 && col + pl.unit <= W ? col : -1;
+    }
+  }
+
+  // this warp's ring: [kStages][group][SR][pitch]
+  const int stage_elems = group * slot;
+  T* ring = reinterpret_cast<T*>(smem) + warp * kStages * stage_elems;
+  const int c0 = warp * pl.cs;
+  const int c1 = c0 + pl.cs < C ? c0 + pl.cs : C;
+  const T* xb = x + static_cast<long long>(b) * C * hw;
+
+  float acc[RO][V];
+#pragma unroll
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
+  const int iters = (pl.cs + group - 1) / group;
+  for (int it = 1 - kStages; it < iters; ++it) {
+    // copy stage it + kStages - 1 while stage it is computed; the first
+    // kStages - 1 rounds only copy
+    const int next = it + kStages - 1;
+    if (next < iters) {
+      T* buf = ring + next % kStages * stage_elems;
+      const int c = c0 + next * group;
+      if constexpr (DS != 0) {
+        stage_fixed<T, S>(buf, x, xb, hw, c, c1, slot, soff, doff);
+      } else {
+        stage_rows<T, K, SR>(buf, x, xb, hw, c, c1, h0, H, W, d, lane, gcol,
+                             pl);
+      }
+    }
+    pfst::cp_async_commit();
+    if (it < 0) continue;
+    pfst::cp_async_wait<kStages - 1>();  // stage it, this lane's copies
+    __syncwarp();                        // and every lane's
+    // channels past c1 were zero-filled and add nothing
+    const T* buf = ring + it % kStages * stage_elems + shift + lane;
+#pragma unroll
+    for (int g = 0; g < group; ++g) {
+      const T* rows = buf + g * slot;
+      float cv[RO];
+#pragma unroll
+      for (int r = 0; r < RO; ++r)
+        cv[r] = widen(rows[(R + r) * pitch + R * span]);
+      // staged row i is tap row i - r of output row r
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float nv = widen(rows[i * pitch + j * span]);
+#pragma unroll
+          for (int r = 0; r < RO; ++r) {
+            const int q = (i - r) * K + j;
+            if (i - r < 0 || i - r >= K) continue;
+            if constexpr (COSINE) {
+              acc[r][q] += nv * cv[r];
+              acc[r][KK + q] += nv * nv;
+            } else {
+              const float df = nv - cv[r];
+              acc[r][q] += df * df;
+            }
+          }
+        }
+    }
+    __syncwarp();  // the stage is read; the next copy may overwrite it
+  }
+
+  // partials of all warps, [warp][RO][V][lane], over the rings
+  pfst::cp_async_wait<0>();
+  __syncthreads();
+  float* red = smem;
+#pragma unroll
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      red[((warp * RO + r) * V + v) * 32 + lane] = acc[r][v];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < RO * KK * 32; idx += NW * 32) {
+    const int r = idx / (KK * 32);
+    const int q = (idx >> 5) - r * KK;
+    const int l = idx & 31;
+    const int h = h0 + r * d;
+    const int w = w0 + l;
+    if (h >= H || w >= W) continue;
+    float sum = 0.f, nsq = 0.f, csq = 0.f;
+#pragma unroll
+    for (int wr = 0; wr < NW; ++wr) {
+      const float* pr = red + (wr * RO + r) * V * 32 + l;
+      sum += pr[q * 32];
+      if constexpr (COSINE) {
+        nsq += pr[(KK + q) * 32];
+        csq += pr[(KK + KK / 2) * 32];
+      }
+    }
+    const long long px = static_cast<long long>(h) * W + w;
     float s;
     if constexpr (COSINE) {
-      s = acc[q] / fmaxf(sqrtf(nsq[q]) * cn, 1e-8f);
+      const float cn = sqrtf(csq);
+      s = sum / fmaxf(sqrtf(nsq) * cn, 1e-8f);
+      if (q == KK / 2 && norms != nullptr) norms[b * hw + px] = cn;
     } else {
-      s = expf(-acc[q] / sigma2);
+      s = expf(-sum / sigma2);
     }
-    o[static_cast<size_t>(q) * hw] = s;
+    out[(static_cast<long long>(b) * KK + q) * hw + px] = s;
   }
-  if constexpr (COSINE) {
-    if (norms != nullptr) norms[static_cast<size_t>(b) * hw + p] = cn;
+}
+
+// The staging plan for a launch; its shared memory in *bytes.
+template <typename T, int K>
+Plan make_plan(const void* x, int C, int W, int d, bool cosine,
+               size_t* bytes) {
+  constexpr int R = K / 2;
+  constexpr int NW = fwd_warps<K>();
+  constexpr int RO = fwd_rows<K>();
+  constexpr int sz = static_cast<int>(sizeof(T));
+  Plan pl{};
+  pl.span = d <= kSeg ? d : kSeg;
+  // the widest copy that the rows, the window starts and x's base allow
+  pl.unit = 1;
+  const int copies[2] = {16, 4};
+  for (const int copy : copies) {
+    const int u = copy / sz;
+    if (W % u == 0 && (pl.span == d || d % u == 0) &&
+        reinterpret_cast<uintptr_t>(x) % copy == 0) {
+      pl.unit = u;
+      break;
+    }
   }
+  // contiguous rows start at w0 - R d rounded down to a copy; w0 is a
+  // multiple of 32, so the shift is the same in every block
+  pl.shift = pl.span == d ? ((R * d) % pl.unit ? pl.unit - (R * d) % pl.unit
+                                               : 0)
+                          : 0;
+  const int width = pl.shift + (K - 1) * pl.span + kSeg;
+  pl.chunks = (width + pl.unit - 1) / pl.unit;
+  const int align = 16 / sz;
+  pl.pitch = (pl.chunks * pl.unit + align - 1) / align * align;
+  pl.cs = (C + NW - 1) / NW;
+  pl.fixed = d == kFixedD && pl.unit == align;
+  const size_t per_channel =
+      1ull * kStages * NW * (K + RO - 1) * pl.pitch * sz;
+  if (pl.fixed) {  // the same geometry as Fixed<T, K, kFixedD>
+    pl.group = kFixedGroup;
+  } else {
+    int group = static_cast<int>(kRingBudget / per_channel);
+    group = group < 1 ? 1 : group > kMaxStage ? kMaxStage : group;
+    pl.group = group < pl.cs ? group : pl.cs;
+  }
+  const size_t ring = per_channel * pl.group;
+  const size_t red = static_cast<size_t>(NW) * RO * (cosine ? 2 : 1) * K *
+                     K * 32 * sizeof(float);
+  *bytes = ring > red ? ring : red;
+  return pl;
+}
+
+template <typename T, int K, bool COSINE, int DS>
+cudaError_t start(dim3 grid, size_t bytes, cudaStream_t stream,
+                  const T* x, float* out, float* norms, int C, int H, int W,
+                  int d, float sigma2, const Plan& pl) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      neighborhood_sim_kernel<T, K, COSINE, DS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  neighborhood_sim_kernel<T, K, COSINE, DS>
+      <<<grid, fwd_warps<K>() * 32, bytes, stream>>>(x, out, norms, C, H, W,
+                                                     d, sigma2, pl);
+  return cudaGetLastError();
 }
 
 template <typename T, int K>
 cudaError_t launch(const void* x, float* out, float* norms, int B, int C,
                    int H, int W, int d, int cosine, float sigma,
                    cudaStream_t stream) {
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
+  size_t bytes = 0;
+  const Plan pl = make_plan<T, K>(x, C, W, d, cosine, &bytes);
+  // blocks: (row pairs of one coset) x (segments of 32 columns)
+  constexpr int RO = fwd_rows<K>();
+  const int pairs = (H + RO * d - 1) / (RO * d) * d;
+  const dim3 grid(pairs * ((W + kSeg - 1) / kSeg), B);
   const T* xt = static_cast<const T*>(x);
-  const float sigma2 = sigma * sigma;
-  if (cosine) {
-    neighborhood_sim_kernel<T, K, true>
-        <<<grid, kThreads, 0, stream>>>(xt, out, norms, C, H, W, d, sigma2);
-  } else {
-    neighborhood_sim_kernel<T, K, false>
-        <<<grid, kThreads, 0, stream>>>(xt, out, norms, C, H, W, d, sigma2);
-  }
-  return cudaGetLastError();
+  const float s2 = sigma * sigma;
+  if (cosine)
+    return pl.fixed ? start<T, K, true, kFixedD>(grid, bytes, stream, xt, out,
+                                                 norms, C, H, W, d, s2, pl)
+                    : start<T, K, true, 0>(grid, bytes, stream, xt, out,
+                                           norms, C, H, W, d, s2, pl);
+  return pl.fixed ? start<T, K, false, kFixedD>(grid, bytes, stream, xt, out,
+                                                norms, C, H, W, d, s2, pl)
+                  : start<T, K, false, 0>(grid, bytes, stream, xt, out,
+                                          norms, C, H, W, d, s2, pl);
 }
 
 template <typename T>
@@ -164,11 +464,12 @@ cudaError_t dispatch_k(const void* x, float* out, float* norms, int B, int C,
 // sim, dL/dsim and the norms; about 2*k*k flops per element of x. At the
 // training shape (2, 512, 64, 64) that is 34 MB (fp32; 17 MB bf16) against
 // 0.08 GFLOP, so the memory rate is the bound (10.2 us fp32, 5.2 us bf16
-// at the H100 SXM's 3.35 TB/s). Design: as the forward, one thread per
-// pixel with consecutive threads on consecutive w (coalesced plane loads,
-// the k*k re-reads hit L1/L2), the loop over C keeping one fp32
-// accumulator; 64 threads a block so the 8,192 pixels of the training
-// shape spread over 128 blocks.
+// at the H100 SXM's 3.35 TB/s). Design: one thread per pixel with
+// consecutive threads on consecutive w (coalesced plane loads, the k*k
+// re-reads hit L1/L2), the loop over C keeping one fp32 accumulator; 64
+// threads a block so the 8,192 pixels of the training shape spread over
+// 128 blocks. It is latency-bound at these shapes (few warps per SM,
+// each walking all of C).
 constexpr int kBwdThreads = 64;
 
 __device__ __forceinline__ void narrow(float* p, float v) { *p = v; }

@@ -10,7 +10,11 @@ Input ``(B, C, H, W)``, output ``(B, k*k, H, W)`` fp32.
   (``pallas_sim.py:86-98``). It runs for tensors on the CPU and is what
   the kernel is held against on the card.
 * ``cuda_neighborhood_similarity``: the hand-written ``sm_90a`` kernel
-  (``csrc/neighborhood_sim.cu``), built at first use.
+  (``csrc/neighborhood_sim.cu``), built at first use. A block owns a row
+  segment of 32 pixels and splits the channels across its warps, each
+  streaming its channels' rows and halo through shared memory by
+  ``cp.async``; the warps' partial sums meet in shared memory in a fixed
+  order, so the result is deterministic.
 * ``torch_neighborhood_similarity_backward`` and
   ``cuda_neighborhood_similarity_backward``: ``grad_x`` from the saved
   ``sim`` and ``grad_sim``, in gather form (see below), as plain PyTorch
@@ -181,6 +185,11 @@ def _raise_on(lib, err, what):
                            + lib.pfst_cuda_error_string(err).decode())
 
 
+def _device_and_stream(t):
+    """The launch's device index and PyTorch's current stream there."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
 def cuda_neighborhood_similarity(x: torch.Tensor, kernel_size: int,
                                  dilation: int, sim_type: str = 'cosine',
                                  sigma: float = 30.0,
@@ -203,8 +212,7 @@ def cuda_neighborhood_similarity(x: torch.Tensor, kernel_size: int,
         x.data_ptr(), out.data_ptr(),
         None if norms is None else norms.data_ptr(), b, c, h, w,
         kernel_size, dilation, int(sim_type == 'cosine'), float(sigma),
-        int(x.dtype == torch.bfloat16), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), *_device_and_stream(x))
     _raise_on(lib, err, 'neighborhood_sim')
     cuda_neighborhood_similarity.launches += 1
     return (out, norms) if with_norms else out
@@ -237,8 +245,7 @@ def cuda_neighborhood_similarity_backward(
         None if norms is None else norms.data_ptr(), grad.data_ptr(),
         out.data_ptr(), b, c, h, w, kernel_size, dilation,
         int(sim_type == 'cosine'), float(sigma),
-        int(x.dtype == torch.bfloat16), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), *_device_and_stream(x))
     _raise_on(lib, err, 'neighborhood_sim backward')
     cuda_neighborhood_similarity_backward.launches += 1
     return out

@@ -16,7 +16,9 @@ both rounded to nearest (2^-9 relative each), so 2^-7 max|ref|.
 
 Phase 3c's own check, ``chip_smoke.flash_allowances`` and
 ``flash_excess``, is held here to the plain versions run in bf16, which
-round P, P^T and dS^T where the bf16 kernels do.
+round P, P^T, dS s and dS^T s where the bf16 kernels do; and the plain
+bf16 backward to a jnp transcription of the TPU kernels' own formulas,
+which scale dS before they round it.
 """
 import functools
 import os.path as osp
@@ -208,6 +210,58 @@ def test_bf16_allowances_catch_an_injected_error(which):
     else:
         flat[j] += torch.sign(flat[j] - r.view(-1)[j]) * 2 * slack.view(-1)[j]
     assert chip_smoke.flash_excess(x, r, 2.0**-8, a) > limits[i]
+
+
+def _library_backward(q, k, v, o, do, sm_scale):
+    """The backward formulas of the TPU kernels that the flash library
+    runs (``flash_attention.py``: dK/dV ``:844-921``, dQ ``:1187-1261``,
+    Di ``:273-275``), for one block holding every row, in jnp with their
+    roundings: P and the scaled dS are rounded to the input type before
+    the products; fp32 results, before the final cast."""
+    f32 = jnp.float32
+    logits = jnp.einsum('...qd,...kd->...qk', q, k,
+                        preferred_element_type=f32) * sm_scale
+    m = logits.max(-1, keepdims=True)
+    l = jnp.exp(logits - m).sum(-1, keepdims=True)
+    p = jnp.exp(logits - m) * (1 / l)
+    di = jnp.sum(o.astype(f32) * do.astype(f32), -1, keepdims=True)
+    dv = jnp.einsum('...qk,...qd->...kd', p.astype(do.dtype), do,
+                    preferred_element_type=f32)
+    dp = jnp.einsum('...qd,...kd->...qk', do, v, preferred_element_type=f32)
+    ds = (dp - di) * p
+    ds = ds * sm_scale
+    dk = jnp.einsum('...qk,...qd->...kd', ds.astype(do.dtype), q,
+                    preferred_element_type=f32)
+    dq = jnp.einsum('...qk,...kd->...qd', ds.astype(k.dtype), k,
+                    preferred_element_type=f32)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize('d', [32, 64])
+def test_bf16_backward_rounds_where_the_tpu_kernels_do(d):
+    """The plain bf16 backward against a transcription of the library
+    kernels' formulas on the same bf16 values: both round P and dS * s
+    (scaled first) to bf16, so after the final cast to bf16 they agree,
+    but for rare elements (at most 1 %, each within one bf16 step, 2^-7
+    |ref|) that fp32 sums in another order, or P = exp(S - lse) against
+    exp(S - m) / l, move across a rounding boundary. Rounding dS before
+    the scale (or not at all for dQ) changes some 40 % of dQ, and of dK
+    where s = d^-1/2 is no power of two (d = 32)."""
+    shape = (1, 2, 40, d)
+    scale = d**-0.5
+    q, k, v, g = [t.to(torch.bfloat16) for t in _t(*_qkvg(shape, 6))]
+    o, lse = torch_attention(q, k, v, scale, return_lse=True)
+    got = torch_attention_backward(q, k, v, o, lse, g, scale)
+    bf = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v, o, g)]
+    refs = _library_backward(*bf, scale)
+    for name, x, r in zip(('dq', 'dk', 'dv'), got, refs):
+        assert x.dtype == torch.bfloat16
+        r = torch.from_numpy(np.array(r))
+        x = x.float()
+        differ = x != r.to(torch.bfloat16).float()
+        assert float(differ.float().mean()) <= 0.01, name
+        assert bool(((x - r).abs() <= 2.0**-7 * r.abs()).all()), name
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

@@ -1,27 +1,31 @@
 #!/usr/bin/env python
-"""Run the flash-attention kernels of ``pfst_tpu_torch/ops/csrc`` on the CPU
-under an emulation of CUDA, and hold them to the plain versions with the
-limits of ``chip_smoke.py``'s phase 3c (``chip_smoke.flash_errors``).
+"""Run the kernels of ``pfst_tpu_torch/ops/csrc`` that use shared memory,
+warp collectives or the tensor cores on the CPU under an emulation of
+CUDA: the flash-attention kernels (``flash_attention.cu``), held to the
+plain versions with the limits of ``chip_smoke.py``'s phase 3c
+(``chip_smoke.flash_errors``), and the similarity forward
+(``neighborhood_sim.cu``), held with phase 3's (``chip_smoke.sim_errors``).
 
-For a change to ``flash_attention.cu`` or its headers, before any run on a
-card (needs ``g++`` with C++20; no ``nvcc``)::
+For a change to either source or its headers, before any run on a card
+(needs ``g++`` with C++20; no ``nvcc``)::
 
     python3 tools/flash_emulate_torch.py
 
 How: the sources are copied into a temporary directory, where ``ptx.cuh``
 (the inline-PTX wrappers) is replaced by C++ with the PTX ISA's semantics,
 and a prelude stands in for the CUDA keywords and runtime. Each block runs
-as 128 ``std::thread``s: ``__syncthreads`` is a block barrier; a warp
-collective (shuffle, ``ldmatrix``, ``mma.sync``) publishes every lane's
-operands, meets at a warp barrier, computes each lane's result from all
-lanes' operands, and meets again. ``cp.async`` copies are queued per
-thread and done at the ``cp.async.wait_group`` that retires their group,
-so a read before its wait sees stale data; shared memory starts as NaN,
-so a read of a slot that no copy filled shows up. The TF32 product
-truncates its inputs to 10 mantissa bits, as the hardware reads them. A
-launch's ``<<<...>>>`` becomes a loop over blocks. The library is built by
-``g++`` and driven through ``ops/attention.py``'s own wrappers on CPU
-tensors. Exits 1 if a case fails.
+as one ``std::thread`` per CUDA thread: ``__syncthreads`` is a block
+barrier, ``__syncwarp`` a warp barrier; a warp collective (shuffle,
+``ldmatrix``, ``mma.sync``) publishes every lane's operands, meets at a
+warp barrier, computes each lane's result from all lanes' operands, and
+meets again. ``cp.async`` copies are queued per thread and done at the
+``cp.async.wait_group`` that retires their group, so a read before its
+wait sees stale data; shared memory starts as NaN, so a read of a slot
+that no copy filled shows up. The TF32 product truncates its inputs to 10
+mantissa bits, as the hardware reads them. A launch's ``<<<...>>>``
+becomes a loop over blocks. Each library is built by ``g++`` and driven
+through its module's own wrappers (``ops/attention.py``,
+``ops/neighborhood_sim.py``) on CPU tensors. Exits 1 if a case fails.
 """
 import argparse
 import ctypes
@@ -39,7 +43,7 @@ import torch
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import flash_errors  # noqa: E402
+from chip_smoke import flash_errors, sim_errors  # noqa: E402
 from pfst_tpu_torch.ops import build  # noqa: E402
 
 # (shape (B, H, N, D), dtype, layout): every head dimension and type, N
@@ -53,6 +57,19 @@ CASES = [((1, 2, 17, 64), torch.float32, 'qkv'),
          ((1, 2, 70, 32), torch.float32, 'offset'),
          ((1, 1, 80, 128), torch.bfloat16, 'offset'),
          ((1, 1, 80, 128), torch.float32, 'contiguous')]
+# similarity forward: (shape (B, C, H, W), k, d), each for both similarity
+# types and input types: W past a 32-pixel segment, odd W (unaligned bf16
+# pairs), d = 2 with W a multiple of 8 (the compile-time geometry), C
+# leaving warps without channels or with a ragged last stage, k = 7 (8
+# warps a block) and d > 32 (windows side by side)
+SIM_CASES = [((2, 20, 9, 37), 3, 1),
+             ((1, 70, 11, 64), 3, 2),
+             ((1, 8, 12, 40), 5, 1),
+             ((1, 20, 10, 33), 5, 2),
+             ((2, 36, 7, 48), 5, 2),
+             ((1, 12, 9, 20), 7, 1),
+             ((1, 10, 9, 24), 7, 2),
+             ((1, 3, 37, 70), 3, 33)]
 
 PRELUDE = r'''
 #pragma once
@@ -118,7 +135,7 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
 }
 
 namespace emu {
-constexpr int kMaxThreads = 128;
+constexpr int kMaxThreads = 512;
 struct Warp {
   std::barrier<> bar{32};
   const void* ptr[32];
@@ -173,6 +190,7 @@ inline cudaError_t cudaGetLastError() {
   return e;
 }
 inline void __syncthreads() { emu::g_block->bar.arrive_and_wait(); }
+inline void __syncwarp() { emu::warp().bar.arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   emu::Warp& w = emu::warp();
   const int l = emu::lane();
@@ -313,55 +331,70 @@ inline uint32_t tf32_round(float x) {
 '''
 
 
-def emulated_source(src):
-    """``flash_attention.cu`` with its launches and shared memory turned
-    into the emulation's."""
+# kernel launches per emulated source
+LAUNCHES = {'flash_attention': 3, 'neighborhood_sim': 3}
+
+
+def emulated_source(src, launches):
+    """A ``.cu`` source with its launches and shared memory turned into
+    the emulation's."""
     src = src.replace('extern __shared__ __align__(16) float smem[];',
                       'float* smem = emu::smem();')
-    src, n = re.subn(r'(\w+<T, D>)<<<(.*?)>>>\((.*?)\);',
+    src, n = re.subn(r'(\w+<[\w, ]+>)\s*<<<(.*?)>>>\((.*?)\);',
                      r'emu::launch(\2, [&] { \1(\3); });', src,
                      flags=re.S)
-    if n != 3:
-        raise RuntimeError(f'expected 3 kernel launches, found {n}')
+    if n != launches:
+        raise RuntimeError(f'expected {launches} kernel launches, found {n}')
     return src
 
 
-def build_emulated(tmp):
-    """Compile the emulated library in ``tmp``; returns its path."""
-    for name in os.listdir(build.CSRC_DIR):
-        if name.endswith('.cuh') and name != 'ptx.cuh':
-            shutil.copy(osp.join(build.CSRC_DIR, name), tmp)
-    for name, text in (('ptx.cuh', PTX), ('prelude.h', PRELUDE),
-                       ('cuda_bf16.h', ''), ('cuda_runtime.h', '')):
-        with open(osp.join(tmp, name), 'w') as f:
+def build_emulated(tmp, name):
+    """Compile the emulated library of ``csrc/<name>.cu`` in ``tmp``;
+    returns its path."""
+    for fname in os.listdir(build.CSRC_DIR):
+        if fname.endswith('.cuh') and fname != 'ptx.cuh':
+            shutil.copy(osp.join(build.CSRC_DIR, fname), tmp)
+    for fname, text in (('ptx.cuh', PTX), ('prelude.h', PRELUDE),
+                        ('cuda_bf16.h', ''), ('cuda_runtime.h', '')):
+        with open(osp.join(tmp, fname), 'w') as f:
             f.write(text)
-    with open(osp.join(build.CSRC_DIR, 'flash_attention.cu')) as f:
-        src = emulated_source(f.read())
-    with open(osp.join(tmp, 'flash_attention.cpp'), 'w') as f:
+    with open(osp.join(build.CSRC_DIR, f'{name}.cu')) as f:
+        src = emulated_source(f.read(), LAUNCHES[name])
+    with open(osp.join(tmp, f'{name}.cpp'), 'w') as f:
         f.write(src)
-    out = osp.join(tmp, 'flash_emulated.so')
+    out = osp.join(tmp, f'{name}_emulated.so')
     subprocess.run(['g++', '-std=c++20', '-O2', '-shared', '-fPIC',
                     '-pthread', '-I', tmp, '-include',
                     osp.join(tmp, 'prelude.h'),
-                    osp.join(tmp, 'flash_attention.cpp'), '-o', out],
+                    osp.join(tmp, f'{name}.cpp'), '-o', out],
                    check=True)
     return out
 
 
-def use_library(lib):
-    """Point ``ops/attention.py`` at ``lib`` and let it launch on CPU
-    tensors (device 0, no stream)."""
+def use_libraries(libs):
+    """Point ``ops/attention.py`` and ``ops/neighborhood_sim.py`` at the
+    emulated libraries ``libs`` (by source name) and let them launch on
+    CPU tensors (device 0, no stream)."""
     attn = importlib.import_module('pfst_tpu_torch.ops.attention')
-    build.load = lambda name: lib
+    sim = importlib.import_module('pfst_tpu_torch.ops.neighborhood_sim')
+    build.load = lambda name: libs[name]
 
-    def check_cpu_input(q, k, v):
+    def check_attn_input(q, k, v):
         attn._check_args(q, k, v)
         if q.dtype not in (torch.float32, torch.bfloat16) or \
                 q.shape[-1] not in attn.HEAD_DIMS:
             raise ValueError(f'not a kernel input: {q.dtype} {q.shape}')
 
-    attn._check_kernel_input = check_cpu_input
-    attn._device_and_stream = lambda t: (0, None)
+    def check_sim_input(x, kernel_size, dilation, sim_type):
+        sim._check_args(x, kernel_size, dilation, sim_type)
+        if x.dtype not in (torch.float32, torch.bfloat16) or \
+                not x.is_contiguous():
+            raise ValueError(f'not a kernel input: {x.dtype} {x.shape}')
+
+    attn._check_kernel_input = check_attn_input
+    sim._check_kernel_input = check_sim_input
+    for module in (attn, sim):
+        module._device_and_stream = lambda t: (0, None)
 
 
 def inputs(shape, dtype, layout, gen):
@@ -375,30 +408,61 @@ def inputs(shape, dtype, layout, gen):
     return [torch.randn(shape, generator=gen).to(dtype) for _ in range(3)]
 
 
+def run_flash(gen):
+    ok = True
+    for shape, dtype, layout in CASES:
+        q, k, v = inputs(shape, dtype, layout, gen)
+        g = torch.randn(shape, generator=gen).to(dtype)
+        t0 = time.time()
+        _, _, err = flash_errors(q, k, v, g, shape[-1]**-0.5)
+        ok = err['ok'] and ok
+        print(f'{shape} {str(dtype)[6:]} {layout}: '
+              f'{"OK" if err["ok"] else "FAIL"} ({time.time() - t0:.1f}s) '
+              + ' '.join(f'{k_} {v_:.2e}' for k_, v_ in err.items()
+                         if k_ != 'ok'), flush=True)
+    return ok
+
+
+def run_sim(gen):
+    ok = True
+    for shape, k, d in SIM_CASES:
+        for sim_type in ('cosine', 'gaussian'):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(shape, generator=gen).to(dtype)
+                t0 = time.time()
+                err = sim_errors(x, k, d, sim_type)
+                ok = err['ok'] and ok
+                print(f'similarity {shape} k{k} d{d} {sim_type} '
+                      f'{str(dtype)[6:]}: '
+                      f'{"OK" if err["ok"] else "FAIL"} '
+                      f'({time.time() - t0:.1f}s) max_abs_err '
+                      f'{err["max_abs_err"]:.2e} norm_rel_err '
+                      f'{err["norm_rel_err"]:.2e}', flush=True)
+    return ok
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--keep', help='build in this directory and keep it')
+    parser.add_argument('--only', choices=sorted(LAUNCHES),
+                        help='emulate one source only')
     args = parser.parse_args(argv)
     torch.set_num_threads(1)
     tmp = args.keep or tempfile.mkdtemp()
     os.makedirs(tmp, exist_ok=True)
+    names = [args.only] if args.only else sorted(LAUNCHES)
     try:
         t0 = time.time()
-        lib = ctypes.CDLL(build_emulated(tmp))
+        libs = {name: ctypes.CDLL(build_emulated(tmp, name))
+                for name in names}
         print(f'g++ build {time.time() - t0:.1f}s', flush=True)
-        use_library(lib)
+        use_libraries(libs)
         gen = torch.Generator().manual_seed(0)
         ok = True
-        for shape, dtype, layout in CASES:
-            q, k, v = inputs(shape, dtype, layout, gen)
-            g = torch.randn(shape, generator=gen).to(dtype)
-            t0 = time.time()
-            _, _, err = flash_errors(q, k, v, g, shape[-1]**-0.5)
-            ok = err['ok'] and ok
-            print(f'{shape} {str(dtype)[6:]} {layout}: '
-                  f'{"OK" if err["ok"] else "FAIL"} ({time.time() - t0:.1f}s) '
-                  + ' '.join(f'{k_} {v_:.2e}' for k_, v_ in err.items()
-                             if k_ != 'ok'), flush=True)
+        if 'flash_attention' in libs:
+            ok = run_flash(gen) and ok
+        if 'neighborhood_sim' in libs:
+            ok = run_sim(gen) and ok
     finally:
         if not args.keep:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -1,21 +1,26 @@
 #!/usr/bin/env python
-"""Short first check of the flash-attention kernels on a card: build
-``pfst_tpu_torch/ops/csrc/flash_attention.cu`` with ``nvcc -Xptxas -v``
-(registers and spills of every instantiation), count the tensor-core
-instructions (``HMMA``) of each kernel in the built library's SASS
-(``cuobjdump --dump-sass``), then run each kernel once per case of
-``chip_smoke.py``'s phase 3c (and at head dimensions 32 and 128), compare
-it with the plain versions and print its median time, per call as phase
-3c times it (one launch between two CUDA events, the wrapper's host path
-included) and per replay of a CUDA graph that holds one launch (``graph``:
-the device's time, with the host path out of the way), beside SDPA's.
+"""Short first check of the kernels on a card: build
+``pfst_tpu_torch/ops/csrc/flash_attention.cu`` and ``neighborhood_sim.cu``
+with ``nvcc -Xptxas -v`` (registers and spills of every instantiation),
+count the tensor-core instructions (``HMMA``) of each flash kernel in the
+built library's SASS (``cuobjdump --dump-sass``), then run each flash
+kernel once per case of ``chip_smoke.py``'s phase 3c (and at head
+dimensions 32 and 128) and the similarity forward once per case of its
+phase 3 (and at d = 4 and an odd width, its general geometry), compare
+each with the plain versions and print its median time, per call as
+phases 3 and 3c time it (one launch between two CUDA events,
+the wrapper's host path included) and on the device (``graph``:
+``chip_smoke.graph_ms``, a CUDA graph of ten launches back to back, the
+host path out of the way), beside SDPA's (flash) or the bound
+(similarity).
 
 For a first call after a kernel change, before ``chip_smoke.py``::
 
     python3 tools/flash_probe_torch.py
 
-The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c). Exits
-1 if a case fails, or if a forward or dK/dV instantiation has no HMMA.
+The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c) and
+``chip_smoke.sim_errors``'s (phase 3). Exits 1 if a case fails, or if a
+flash instantiation (forward, dK/dV or dQ) has no HMMA.
 """
 import collections
 import os.path as osp
@@ -30,10 +35,13 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
-from chip_smoke import FLASH_CASES, _flash_inputs, flash_errors  # noqa: E402
+from chip_smoke import (FLASH_CASES, SIGMA, SIM_CASES, SIM_D,  # noqa: E402
+                        SIM_K, _flash_inputs, flash_errors, graph_ms,
+                        sim_bound, sim_errors)
 from pfst_tpu_torch.ops import (build, cuda_flash_attention,  # noqa: E402
                                 cuda_flash_attention_bwd_dkv,
-                                cuda_flash_attention_bwd_dq)
+                                cuda_flash_attention_bwd_dq,
+                                cuda_neighborhood_similarity)
 
 CASES = FLASH_CASES + [((2, 3, 130, 32), torch.bfloat16, 'qkv'),
                        ((1, 2, 300, 128), torch.float32, 'qkv'),
@@ -41,22 +49,25 @@ CASES = FLASH_CASES + [((2, 3, 130, 32), torch.bfloat16, 'qkv'),
 
 
 def kernel_name(mangled):
-    """'flash_fwd_kernel fp32 D=64' from a mangled instantiation name."""
-    kernel = re.search(r'flash_\w+?_kernel', mangled)
-    d = re.search(r'Li(\d+)EE', mangled)
+    """'flash_fwd_kernel fp32 D=64' (or 'neighborhood_sim_kernel bf16
+    K=3 cosine') from a mangled instantiation name."""
+    kernel = re.search(r'(flash_\w+?|neighborhood_sim\w*?)_kernel', mangled)
+    arg = re.search(r'Li(\d+)E', mangled)
     dtype = 'bf16' if '__nv_bfloat16' in mangled else 'fp32'
-    return f'{kernel.group(0) if kernel else mangled} {dtype} ' \
-           f'D={d.group(1) if d else "?"}'
+    name = f'{kernel.group(0) if kernel else mangled} {dtype}'
+    if kernel and kernel.group(0).startswith('flash'):
+        return f'{name} D={arg.group(1) if arg else "?"}'
+    cosine = 'cosine' if 'Lb1E' in mangled else 'gaussian'
+    return f'{name} K={arg.group(1) if arg else "?"} {cosine}'
 
 
-def ptxas_report():
+def ptxas_report(source):
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
             [build._nvcc(), *build.NVCC_FLAGS, '-Xptxas', '-v', '-o',
-             osp.join(tmp, 'fa.so'),
-             osp.join(build.CSRC_DIR, 'flash_attention.cu')],
+             osp.join(tmp, 'lib.so'), osp.join(build.CSRC_DIR, source)],
             capture_output=True, text=True)
-    print('ptxas rc', proc.returncode)
+    print(f'ptxas {source} rc', proc.returncode)
     name = None
     for line in (proc.stdout + proc.stderr).splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -98,29 +109,6 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def graph_ms(fn, reps=50):
-    """Mean time of one replay of a CUDA graph that captured ``fn``, over
-    ``reps`` replays back to back."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def check(shape, dtype, layout, gen):
     b, h, n, d = shape
     q, k, v = _flash_inputs(shape, dtype, layout, gen)
@@ -146,9 +134,32 @@ def check(shape, dtype, layout, gen):
           f'bwd excess {err["bwd_excess"]:.2e} (limit '
           f'{err["bwd_limit"]:.1e}) {"OK" if err["ok"] else "FAIL"}; ms fwd '
           f'{t_fwd:.4f} ({flops / t_fwd / 1e9:.1f} TFLOP/s) dkv {t_dkv:.4f} '
-          f'({1.5 * flops / t_dkv / 1e9:.1f}) dq {t_dq:.4f}; graph ms fwd '
+          f'({1.5 * flops / t_dkv / 1e9:.1f}) dq {t_dq:.4f} '
+          f'({flops / t_dq / 1e9:.1f}); graph ms fwd '
           f'{graph[0]:.4f} dkv {graph[1]:.4f} dq {graph[2]:.4f} SDPA fwd '
           f'{graph[3]:.4f}', flush=True)
+    return err['ok']
+
+
+def check_sim(shape, sim_type, dtype, gen, dilation=SIM_D):
+    """The similarity forward at one of phase 3's cases (or at another
+    dilation, which takes the kernel's general geometry): error, time per
+    call and on the device, against its bound."""
+    x = torch.randn(shape, generator=gen).to('cuda', dtype)
+    cosine = sim_type == 'cosine'
+
+    def kernel():
+        return cuda_neighborhood_similarity(x, SIM_K, dilation, sim_type,
+                                            SIGMA, with_norms=cosine)
+    err = sim_errors(x, SIM_K, dilation, sim_type)
+    t_call = cuda_ms(kernel, 30)
+    t_graph = graph_ms(kernel)
+    bound, bound_by = sim_bound(shape, dtype, sim_type)
+    print(f'similarity {shape} d{dilation} {sim_type} {dtype}: max_abs_err '
+          f'{err["max_abs_err"]:.2e} norm_rel_err {err["norm_rel_err"]:.2e} '
+          f'{"OK" if err["ok"] else "FAIL"}; ms {t_call:.4f}, graph ms '
+          f'{t_graph:.4f}, bound {bound:.4f} ({bound_by}), graph / bound '
+          f'{t_graph / bound:.2f}', flush=True)
     return err['ok']
 
 
@@ -157,19 +168,28 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
     print(torch.__version__, torch.version.cuda)
-    ptxas_report()
+    for source in ('flash_attention.cu', 'neighborhood_sim.cu'):
+        ptxas_report(source)
     t0 = time.time()
     build.load('flash_attention')
+    build.load('neighborhood_sim')
     print(f'build {time.time() - t0:.1f}s')
     counts = hmma_counts(build.library_path('flash_attention'))
     for name, count in sorted(counts.items()):
         print(f'HMMA {name}: {count}')
-    ok = all(count > 0 for name, count in counts.items()
-             if 'dq' not in name) and len(counts) == 18
+    ok = all(count > 0 for count in counts.values()) and len(counts) == 18
     if not ok:
-        print('FAIL: a forward or dK/dV instantiation has no HMMA '
+        print('FAIL: a flash instantiation has no HMMA '
               f'(or not 18 kernels: {len(counts)})')
     gen = torch.Generator().manual_seed(4)
+    for shape, sim_type in SIM_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ok = check_sim(shape, sim_type, dtype, gen) and ok
+    # the general geometry: the pfst base config's dilation, and an odd
+    # width (4-byte copies, plain loads for bf16)
+    for shape, dilation in (((2, 512, 64, 64), 4), ((1, 256, 63, 99), 2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            ok = check_sim(shape, 'cosine', dtype, gen, dilation) and ok
     for case in CASES:
         ok = check(*case, gen) and ok
         torch.cuda.empty_cache()
