@@ -16,7 +16,8 @@ Phases (any failure exits non-zero before the result lines):
    ten launches), the plain version's and the memory/compute bound;
 3b. the similarity's backward kernel against autograd of the plain
    forward and against the plain gather backward, at the training shape
-   (2, 512, 64, 64), both similarity types, fp32 and bf16 input;
+   (2, 512, 64, 64), both similarity types, fp32 and bf16 input, with
+   its time per call and on the device;
 4. the serving path at full width: the Pots->Vaih DeepLabV3+ R50-D8 leaf
    config with seeded random weights answers 1024x1024 requests
    (``make_inference_fn`` -> ``_finalize_views`` -> labels, then
@@ -38,7 +39,8 @@ Phases (any failure exits non-zero before the result lines):
    layout), the microbench's (8 x 12 x {1024, 4096} x 64 bf16) and an
    edge case (1 x 2 x 17 x 64), with the median times of the kernel (per
    call, and on the device in a CUDA graph of ten launches), the plain
-   version and SDPA, and the bound;
+   version and SDPA (per call, and on the device: its forward, and its
+   backward alone), and the bound;
 9. ViT-B/16 UPerNet serving at full width (``upernet_vit-b16_ln_mln``,
    seeded weights): 512x512 requests through ``make_inference_fn`` ->
    ``_finalize_views`` and ``make_state_fn`` -> ``sim_feat``, with the
@@ -347,6 +349,7 @@ def phase_backward_vs_plain():
             excess = max(float(((out - ref).abs() - rounding * ref.abs())
                                .max()) for ref in (auto, plain))
             ms = cuda_time_ms(kernel, 30)
+            device_ms = graph_ms(kernel)
             plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
                 sim_ref, xf, g, retain_graph=True), 20)
             gather_ms = cuda_time_ms(
@@ -357,7 +360,8 @@ def phase_backward_vs_plain():
             case = dict(shape=list(BWD_SHAPE), dtype=str(dtype).split('.')[-1],
                         sim_type=sim_type, max_abs_err=err,
                         err_beyond_rounding=excess, limit=limit, ms=ms,
-                        plain_ms=plain_ms, plain_gather_ms=gather_ms,
+                        device_ms=device_ms, plain_ms=plain_ms,
+                        plain_gather_ms=gather_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
             log(f'[kernel] neighborhood_sim backward {case}')
             if not excess <= limit:
@@ -492,6 +496,19 @@ def flash_errors(q, k, v, g, scale):
     return o, lse, err
 
 
+def sdpa_backward_ms(out, g):
+    """Device time of SDPA's backward alone: the backward node that
+    autograd would call for ``out`` (whichever backend SDPA chose), called
+    directly under ``graph_ms``, so the forward stays outside the timed
+    graph."""
+    node = out.grad_fn
+
+    def backward():
+        with torch.no_grad():
+            return node(g)
+    return graph_ms(backward)
+
+
 def phase_flash_vs_plain():
     """Each flash kernel against its plain version on the same inputs, as
     the path launches it (bf16 or fp32, q, k, v through their strides).
@@ -507,7 +524,10 @@ def phase_flash_vs_plain():
     FMAs on the CUDA cores). For bf16 input, each output's own
     rounding, 2^-8 |ref|, and the roundings that ``flash_allowances``
     propagates: P (forward), P^T and dS^T s (dK/dV), dS s (dQ), and the
-    bf16 O that Di reads. ``max_abs_err`` is the raw max |kernel - ref|."""
+    bf16 O that Di reads. ``max_abs_err`` is the raw max |kernel - ref|.
+    SDPA is timed per call (forward; forward's autograd backward) and on
+    the device (``library_device_ms``: forward, and its backward node
+    alone)."""
     gen = torch.Generator().manual_seed(4)
     cases = []
     for shape, dtype, layout in FLASH_CASES:
@@ -539,6 +559,11 @@ def phase_flash_vs_plain():
         lib_out = F.scaled_dot_product_attention(*xs, scale=scale)
         lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
             lib_out, xs, g, retain_graph=True), 10)
+        lib_device_ms = {
+            'fwd': graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale)),
+            'bwd': sdpa_backward_ms(lib_out, g)}
+        lib_bwd_op = lib_out.grad_fn.name()
         del xs, lib_out, di, o, lse
         bounds = flash_bounds(shape, dtype)
         ok = err.pop('ok')
@@ -547,6 +572,8 @@ def phase_flash_vs_plain():
                     plain_fwd_ms=plain_fwd_ms,
                     plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
                     library_bwd_ms=lib_bwd_ms,
+                    library_device_ms=lib_device_ms,
+                    library_bwd_op=lib_bwd_op,
                     bound_ms={kk: b[0] for kk, b in bounds.items()},
                     bound_by={kk: b[1] for kk, b in bounds.items()})
         log(f'[kernel] flash_attention {case}')
@@ -1143,11 +1170,16 @@ def _flash_entries(cases, serve, train):
             bound_by=case['bound_by'][kernel],
             library_ms=case['library_fwd_ms'] if i == 0
             else case['library_bwd_ms'],
+            library_device_ms=case['library_device_ms'][
+                'fwd' if i == 0 else 'bwd'],
+            library_bwd_op=case['library_bwd_op'],
             timed_at=case['shape'],
             cases=[{k: c[k] for k in ('shape', 'dtype', 'layout')}
                    | {'ms': c['ms'][kernel],
                       'device_ms': c['device_ms'][kernel],
-                      'bound_ms': c['bound_ms'][kernel]} for c in cases]))
+                      'bound_ms': c['bound_ms'][kernel],
+                      'library_device_ms': c['library_device_ms'][
+                          'fwd' if i == 0 else 'bwd']} for c in cases]))
     return rows
 
 
@@ -1200,7 +1232,8 @@ def main():
         launches=train_bwd, launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases),
-        ms=bwd_case['ms'], plain_ms=bwd_case['plain_ms'],
+        ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
+        plain_ms=bwd_case['plain_ms'],
         bound_ms=bwd_case['bound_ms'], bound_by=bwd_case['bound_by'],
         library_ms=None, cases=bwd_cases)]
     kernels += _flash_entries(flash_cases, vit_serve, vit_train)

@@ -28,11 +28,12 @@ The three kernels run on the tensor cores: bf16 input as bf16 products
 with fp32 sums, rounding P (forward), P^T and dS^T s (dK/dV) and dS s (dQ)
 to bf16 where the TPU kernels round them (``p.astype(v.dtype)``,
 ``p.T.astype``, ``ds.T.astype``, ``ds.astype``); fp32 input as 3xTF32,
-accurate to fp32. The kernels copy data
-in 16-byte chunks, so each q, k, v, dO they read has a 16-byte-aligned
-base and batch, head and row strides that are multiples of 16 bytes;
-``_aligned`` copies a tensor that breaks this (the ViT's qkv views never
-do).
+accurate to fp32. The bf16 forward and dK/dV are warpgroup (``wgmma``)
+kernels fed by TMA; the rest are warp (``mma.sync``) kernels fed by
+``cp.async``. Both copy data in 16-byte units, so each q, k, v, dO they
+read has a 16-byte-aligned base and batch, head and row strides that are
+multiples of 16 bytes; ``_aligned`` copies a tensor that breaks this (the
+ViT's qkv views never do).
 """
 from __future__ import annotations
 

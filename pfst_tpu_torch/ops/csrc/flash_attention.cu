@@ -14,10 +14,11 @@
 //
 // q, k, v, dO are (B, H, N, D) fp32 or bf16 with a contiguous last
 // dimension, base addresses and batch, head and row strides that are
-// multiples of 16 bytes (cp.async moves 16-byte chunks; the wrapper copies
-// a tensor that breaks this); O, dQ, dK, dV are written with the strides
-// the caller gives, in the input type; LSE and Di are (B, H, N) fp32,
-// contiguous. D is 32, 64 or 128.
+// multiples of 16 bytes (cp.async moves 16-byte chunks, TMA wants 16-byte
+// aligned bases and strides; the wrapper copies a tensor that breaks
+// this); O, dQ, dK, dV are written with the strides the caller gives, in
+// the input type; LSE and Di are (B, H, N) fp32, contiguous. D is 32, 64
+// or 128.
 //
 // What bounds it: the forward does 4*B*H*N^2*D flops on B*H*N*(4D) values
 // (N/2 flops per byte at D = 64, fp32), the backward 10*B*H*N^2*D, so at
@@ -25,22 +26,33 @@
 // 989 TFLOP/s on the tensor cores for bf16, by 495 / 3 = 165 TFLOP/s for
 // fp32 as 3xTF32.
 //
-// All three kernels run on the tensor cores (mma.cuh). A block of 4 warps
-// owns 64 rows of one (b, h): query rows in the forward and dQ, key rows
-// in dK/dV, 16 per warp. The other side's rows stream through a two-stage
-// cp.async ring in shared memory, in the input type: the copy of tile
-// t + 1 is issued before the arithmetic on tile t. Rows at or past N are
-// zero-filled by cp.async and their scores masked (-inf in the forward,
-// P = 0 in the backward), so N need not be a multiple of a tile (N = 1025:
-// the last tile holds one key); such rows of the block's own are never
-// written. Blocks own disjoint outputs, so no kernel uses atomics and
-// every result is deterministic.
-// * Forward: each warp keeps its Q fragments in registers; S = Q K^T lands
-//   in accumulators, where the online softmax runs (row max and sum over a
-//   lane quad by two shuffles each). P = exp(S - m) is rounded to the
-//   input type, as the TPU kernel does (p.astype(v.dtype)), and fed from
-//   the accumulators straight into P V as the A operand; the row sum l is
-//   taken over the unrounded P. O = acc / l in the input type, LSE fp32.
+// Two designs, chosen by input type and kernel:
+//
+// * bf16 forward and dK/dV (flash_fwd_wgmma_kernel,
+//   flash_bwd_dkv_wgmma_kernel, sm_90a): warpgroup products (wgmma) from
+//   tiles that TMA copies into swizzled shared memory, a producer
+//   warpgroup feeding consumer warpgroups through an mbarrier ring (the
+//   section below says more). Only wgmma reaches the card's full bf16
+//   rate; TMA takes the copies off the consumers' issue slots.
+// * fp32 forward and dK/dV, and dQ in both types (flash_fwd_kernel,
+//   flash_bwd_dkv_kernel, flash_bwd_dq_kernel): warp products (mma.sync,
+//   mma.cuh). A block of 4 warps owns 64 rows of one (b, h): query rows in
+//   the forward and dQ, key rows in dK/dV, 16 per warp. The other side's
+//   rows stream through a two-stage cp.async ring in shared memory, in the
+//   input type: the copy of tile t + 1 is issued before the arithmetic on
+//   tile t.
+//
+// Both: rows at or past N are zero-filled by the copies and their scores
+// masked (-inf in the forward, P = 0 in the backward), so N need not be a
+// multiple of a tile (N = 1025: the last tile holds one key); such rows of
+// the block's own are never written. Blocks own disjoint outputs, so no
+// kernel uses atomics and every result is deterministic.
+// * Forward: S = Q K^T lands in accumulators, where the online softmax
+//   runs (row max and sum over a lane quad by two shuffles each). P =
+//   exp(S - m) is rounded to the input type, as the TPU kernel does
+//   (p.astype(v.dtype)), and fed from the accumulators straight into P V
+//   as the A operand; the row sum l is taken over the unrounded P. O =
+//   acc / l in the input type, LSE fp32.
 // * dK/dV: keys are the M side of every product, so S^T = K Q^T and
 //   dP^T = V dO^T land in accumulators indexed by key row: P^T = exp(S^T -
 //   LSE) (0 past N), dS^T s = P^T (dP^T - Di) s, both rounded to the input
@@ -53,14 +65,18 @@
 //   is rounded to the input type (the TPU kernel's ds * sm_scale, then
 //   ds.astype(k.dtype)) and fed from the accumulators into dQ += (dS s) K
 //   as the A operand, K read as the B operand the way the forward reads V.
-// fp32 input runs the same code as 3xTF32 (mma.cuh), where P, P^T, dS s
-// and dS^T s are split into hi and lo parts instead of rounded: accurate
-// to fp32.
+// fp32 input runs as 3xTF32 (mma.cuh), where P, P^T, dS s and dS^T s are
+// split into hi and lo parts instead of rounded: accurate to fp32.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+#include <type_traits>
+
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -543,6 +559,463 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- bf16 forward and dK/dV on wgmma + TMA (sm_90a) ----
+//
+// A block is one producer warpgroup and C consumer warpgroups. The
+// producer gives its registers back (setmaxnreg.dec) and one of its
+// threads keeps TMA loads in flight through a ring of tiles in shared
+// memory (in dK/dV its warp's lanes also load LSE and Di): each
+// stage has a full mbarrier (armed with the stage's bytes by expect_tx,
+// completed by the TMA) and an empty one (one arrival per consumer
+// thread once the stage is read). The consumers take the registers
+// (setmaxnreg.inc), each owns 64 rows of the block's side, and runs its
+// products as warpgroup wgmmas from the swizzled tiles (wgmma.cuh),
+// waiting for each group before the arithmetic that reads it; dK/dV
+// issues a tile's first products right behind the tile before's second
+// ones. The accumulators keep mma.sync's m16n8 layout per warp, so the
+// softmax, the masks, the roundings (Mma<bf16>::a_from_acc, which also
+// forms the register A operand of the second product) and the stores are
+// the mma.sync kernels'. Rows past N are zero-filled by TMA and masked as
+// there.
+
+// Consumer warpgroups a block. The forward runs one (two blocks an SM),
+// dK/dV two (one block an SM): the faster count for each on the H100 at
+// the ViT shapes (PERF.md, section 6); at one, dK/dV's four accumulators
+// spill.
+constexpr int kFwdWG = 1, kDkvWG = 2;
+
+// Registers a thread after setmaxnreg: a block of 256 threads runs two to
+// an SM (128 each at launch), one of 384 threads alone (168); the
+// producer keeps 40 for its loop.
+constexpr int kProducerRegs = 40;
+template <int C>
+__host__ __device__ constexpr int consumer_regs() {
+  return C == 1 ? 216 : 232;
+}
+
+// Shared memory of the forward (byte offsets from a 1024-byte boundary):
+// the block's query rows, then kStages key tiles, kStages value tiles and
+// the barriers (Q full; per stage K full, V full, empty). At D = 128 and
+// one consumer warpgroup (128 registers a thread) a tile holds 64 keys,
+// which keeps S and P out of local memory. Two stages: a third measured
+// within 3 % (PERF.md, section 6) and would take 32 KB more a block.
+template <int D, int C>
+struct FwdSmem {
+  static constexpr int kStages = 2;
+  static constexpr int kRows = 64 * C;
+  static constexpr int kKeys = C == 1 && D == 128 ? 64 : 128;  // a tile
+  static constexpr int kK = pfst::tile_bytes<D, kRows>();
+  static constexpr int kV = kK + kStages * pfst::tile_bytes<D, kKeys>();
+  static constexpr int kBar = kV + kStages * pfst::tile_bytes<D, kKeys>();
+  static constexpr int kBytes = kBar + (1 + 3 * kStages) * 8 + 1024;
+};
+
+template <int W, int M>
+__device__ __forceinline__ float (&slice(float (&acc)[M][4], int r))[W / 8]
+                                                                     [4] {
+  return *reinterpret_cast<float(*)[W / 8][4]>(&acc[r * (W / 8)]);
+}
+
+template <int D, int C>
+__global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int H, int N,
+                           float scale, Strides st) {
+  using T = __nv_bfloat16;
+  using M = pfst::Mma<T>;
+  using L = FwdSmem<D, C>;
+  constexpr int kStages = L::kStages;
+  constexpr int KT = L::kKeys;
+  constexpr int NB = KT / 8;   // 8-key blocks of S
+  constexpr int KS = D / 16;   // k-steps of Q K^T
+  constexpr int PS = KT / 16;  // k-steps of P V
+  constexpr int DB = D / 8;    // 8-column blocks of O
+  constexpr int W = pfst::Atom<D>::kCols;
+  constexpr int RG = pfst::Atom<D>::kRegions;
+  constexpr int kTile = pfst::tile_bytes<D, KT>();
+  extern __shared__ __align__(16) float smem[];
+  char* base = pfst::smem_align(smem);
+  T* qs = reinterpret_cast<T*>(base);
+  T* ks = reinterpret_cast<T*>(base + L::kK);
+  T* vs = reinterpret_cast<T*>(base + L::kV);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * L::kRows;
+  const int tiles = (N + KT - 1) / KT;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    pfst::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      pfst::mbar_init(k_full + s, 1);
+      pfst::mbar_init(v_full + s, 1);
+      pfst::mbar_init(empty + s, 128 * C);
+    }
+    pfst::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    pfst::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      pfst::mbar_expect_tx(q_full, pfst::tile_bytes<D, L::kRows>());
+      pfst::tma_tile<D, L::kRows>(qs, &tq, q_full, row0, h, b);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kStages;
+        pfst::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        pfst::mbar_expect_tx(k_full + s, kTile);
+        pfst::tma_tile<D, KT>(ks + s * KT * D, &tk, k_full + s, it * KT, h,
+                              b);
+        pfst::mbar_expect_tx(v_full + s, kTile);
+        pfst::tma_tile<D, KT>(vs + s * KT * D, &tv, v_full + s, it * KT, h,
+                              b);
+      }
+    }
+    return;
+  }
+
+  pfst::setmaxnreg_inc<consumer_regs<C>()>();
+  const int lane = threadIdx.x & 31;
+  const int qr = (wg - 1) * 64;                   // the warpgroup's rows
+  const int wr = qr + ((threadIdx.x >> 5) & 3) * 16;  // the warp's rows
+  float acc[DB][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};  // running max of S log2 e, rows g, g+8
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+  const float sl2 = scale * kLog2e;
+
+  pfst::mbar_wait(q_full, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kStages;
+    const int phase = (it / kStages) & 1;
+    const T* kt = ks + s * KT * D;
+    const T* vt = vs + s * KT * D;
+
+    // S = Q K^T, both K-major in shared memory
+    float sc[NB][4];
+    pfst::mbar_wait(k_full + s, phase);
+    pfst::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      pfst::wgmma_ss<KT, 0>(sc, pfst::desc_k<D, L::kRows>(qs, qr, kk),
+                            pfst::desc_k<D, KT>(kt, 0, kk), kk > 0);
+    pfst::wgmma_commit();
+    pfst::wgmma_wait<0>();
+    pfst::fence_regs(sc);
+
+    // online softmax on the fragments, as in flash_fwd_kernel, with the
+    // scale folded into one FMA before 2^x; only the last tile holds keys
+    // past N (masked to -inf)
+    if ((it + 1) * KT > N) {
+      const int c0 = it * KT + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * j + (e & 1) >= N) sc[j][e] = -INFINITY;
+    }
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], sc[j][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // the tile holds key it KT < N, so mn is finite and alpha is 0 on
+      // the first tile (m = -inf), never NaN
+      const float mn = fmaxf(m[i], pfst::quad_max(mt[i]) * sl2);
+      const float alpha = pfst::ex2(m[i] - mn);
+      m[i] = mn;
+      l[i] *= alpha;
+#pragma unroll
+      for (int e = 0; e < DB; ++e) {
+        acc[e][2 * i] *= alpha;
+        acc[e][2 * i + 1] *= alpha;
+      }
+    }
+    uint32_t pa[PS][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = pfst::ex2(fmaf(sc[j][e], sl2, -m[e >> 1]));
+        l[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc) {
+      const M::A p = M::a_from_acc(sc, kc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[kc][i] = p.r[i];
+    }
+
+    // O += P V: P from registers, V MN-major, one wgmma per region. (The
+    // next tile's S issued behind it, as dK/dV does, keeps S, P and O
+    // live at once: more than one warpgroup's 128 registers hold.)
+    pfst::mbar_wait(v_full + s, phase);
+    pfst::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc)
+#pragma unroll
+      for (int r = 0; r < RG; ++r)
+        pfst::wgmma_rs<W, 1>(slice<W>(acc, r), pa[kc],
+                             pfst::desc_mn<D, KT>(vt, kc, r), 1);
+    pfst::wgmma_commit();
+    pfst::wgmma_wait<0>();
+    pfst::fence_regs(acc);
+    pfst::fence_regs(pa);
+    pfst::mbar_arrive(empty + s);  // the stage is read
+  }
+
+  T* ob = o + b * st.t[3][0] + h * st.t[3][1];
+  float* lb = lse + (static_cast<long long>(b) * H + h) * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = pfst::quad_sum(l[i]);
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
+    if (row < N) {
+      const float inv = 1.f / li;
+      T* orow = ob + row * st.t[3][2] + 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < DB; ++e)
+        pfst::store2(orow + 8 * e, acc[e][2 * i] * inv,
+                     acc[e][2 * i + 1] * inv);
+      if ((lane & 3) == 0) lb[row] = (m[i] + log2f(li)) * kLn2;
+    }
+  }
+}
+
+// Shared memory of dK/dV: the block's key and value rows, then per stage
+// a query tile, a dO tile, their LSE and Di, and the barriers (K/V full;
+// per stage full, empty). TMA brings the tiles; the producer warp's
+// lanes load LSE and Di (a row of N fp32 values has no 16-byte stride
+// for a tensor map) and each arrives on the stage's full barrier. Query
+// tiles of 32 rows at D = 128 keep the four accumulators (dK, dV 64
+// registers each, S^T, dP^T) and the two A operands near the consumers'
+// registers. Three stages: a tile's first products are issued while the
+// tile before is still read, so two stages are in use at once, and the
+// third lets the producer run a tile ahead (22-26 % faster at N >= 1024,
+// PERF.md, section 6).
+template <int D, int C>
+struct DkvSmem {
+  static constexpr int kStages = 3;
+  static constexpr int kRows = 64 * C;
+  static constexpr int kQueries = D == 128 ? 32 : 64;  // per tile
+  static constexpr int kV = pfst::tile_bytes<D, kRows>();
+  static constexpr int kQ = kV + pfst::tile_bytes<D, kRows>();
+  static constexpr int kO = kQ + kStages * pfst::tile_bytes<D, kQueries>();
+  static constexpr int kL = kO + kStages * pfst::tile_bytes<D, kQueries>();
+  static constexpr int kDi = kL + kStages * kQueries * 4;
+  static constexpr int kBar = kDi + kStages * kQueries * 4;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D, int C>
+__global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ di,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int H, int N,
+                               float scale, Strides st) {
+  using T = __nv_bfloat16;
+  using M = pfst::Mma<T>;
+  using L = DkvSmem<D, C>;
+  constexpr int kStages = L::kStages;
+  constexpr int QT = L::kQueries;
+  constexpr int NB = QT / 8;   // 8-query blocks of S^T, dP^T
+  constexpr int KS = D / 16;   // k-steps of K Q^T, V dO^T
+  constexpr int PS = QT / 16;  // k-steps of P^T dO, (dS^T s) Q
+  constexpr int DB = D / 8;    // 8-column blocks of dK, dV
+  constexpr int W = pfst::Atom<D>::kCols;
+  constexpr int RG = pfst::Atom<D>::kRegions;
+  constexpr int kTile = pfst::tile_bytes<D, QT>();
+  extern __shared__ __align__(16) float smem[];
+  char* base = pfst::smem_align(smem);
+  T* ks = reinterpret_cast<T*>(base);
+  T* vs = reinterpret_cast<T*>(base + L::kV);
+  T* qs = reinterpret_cast<T*>(base + L::kQ);
+  T* dos = reinterpret_cast<T*>(base + L::kO);
+  float* ls = reinterpret_cast<float*>(base + L::kL);  // LSE log2 e
+  float* ds = reinterpret_cast<float*>(base + L::kDi);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * L::kRows;
+  const int tiles = (N + QT - 1) / QT;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    pfst::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      pfst::mbar_init(full + s, 32);  // the producer warp's lanes
+      pfst::mbar_init(empty + s, 128 * C);
+    }
+    pfst::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    pfst::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const long long stat0 = (static_cast<long long>(b) * H + h) * N;
+      if (lane == 0) {
+        pfst::mbar_expect_tx(kv_full, 2 * pfst::tile_bytes<D, L::kRows>());
+        pfst::tma_tile<D, L::kRows>(ks, &tk, kv_full, row0, h, b);
+        pfst::tma_tile<D, L::kRows>(vs, &tv, kv_full, row0, h, b);
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kStages;
+        pfst::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        for (int i = lane; i < QT; i += 32) {
+          const int row = it * QT + i;
+          ls[s * QT + i] = row < N ? lse[stat0 + row] * kLog2e : 0.f;
+          ds[s * QT + i] = row < N ? di[stat0 + row] : 0.f;
+        }
+        if (lane == 0) {  // its arrival, with the tiles' bytes
+          pfst::mbar_expect_tx(full + s, 2 * kTile);
+          pfst::tma_tile<D, QT>(qs + s * QT * D, &tq, full + s, it * QT, h,
+                                b);
+          pfst::tma_tile<D, QT>(dos + s * QT * D, &tdo, full + s, it * QT,
+                                h, b);
+        } else {
+          pfst::mbar_arrive(full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  pfst::setmaxnreg_inc<consumer_regs<C>()>();
+  const int lane = threadIdx.x & 31;
+  const int kr = (wg - 1) * 64;                   // the warpgroup's keys
+  const int wr = kr + ((threadIdx.x >> 5) & 3) * 16;  // the warp's keys
+  float dka[DB][4] = {}, dva[DB][4] = {};
+  const float sl2 = scale * kLog2e;
+
+  // S^T = K Q^T and dP^T = V dO^T, all K-major in shared memory, into sc
+  // and dp; issued one tile ahead, right behind the dV and dK products of
+  // the tile before
+  float sc[NB][4], dp[NB][4];
+  pfst::mbar_wait(kv_full, 0);
+  pfst::mbar_wait(full, 0);
+  pfst::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    pfst::wgmma_ss<QT, 0>(sc, pfst::desc_k<D, L::kRows>(ks, kr, kk),
+                          pfst::desc_k<D, QT>(qs, 0, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    pfst::wgmma_ss<QT, 0>(dp, pfst::desc_k<D, L::kRows>(vs, kr, kk),
+                          pfst::desc_k<D, QT>(dos, 0, kk), kk > 0);
+  pfst::wgmma_commit();
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kStages;
+    const T* qt = qs + s * QT * D;
+    const T* dot = dos + s * QT * D;
+    const float* lt = ls + s * QT;
+    const float* dt = ds + s * QT;
+    pfst::wgmma_wait<0>();  // S^T and dP^T of this tile
+    pfst::fence_regs(sc);
+    pfst::fence_regs(dp);
+
+    // P^T and dS^T s, as in flash_bwd_dkv_kernel, the scale folded into
+    // one FMA before 2^x; only the last tile holds queries past N (P = 0)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 2 * (lane & 3) + 8 * j + (e & 1);
+        const float p = pfst::ex2(fmaf(sc[j][e], sl2, -lt[c]));
+        dp[j][e] = p * (dp[j][e] - dt[c]) * scale;
+        sc[j][e] = p;
+      }
+    if ((it + 1) * QT > N) {
+      const int c0 = it * QT + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * j + (e & 1) >= N) sc[j][e] = dp[j][e] = 0.f;
+    }
+    uint32_t pa[PS][4], sa[PS][4];
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc) {
+      const M::A p = M::a_from_acc(sc, kc);
+      const M::A d = M::a_from_acc(dp, kc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[kc][i] = p.r[i];
+        sa[kc][i] = d.r[i];
+      }
+    }
+
+    // dV += P^T dO, dK += (dS^T s) Q: A from registers, dO and Q
+    // MN-major; then the next tile's S^T and dP^T behind them
+    pfst::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc)
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        pfst::wgmma_rs<W, 1>(slice<W>(dva, r), pa[kc],
+                             pfst::desc_mn<D, QT>(dot, kc, r), 1);
+        pfst::wgmma_rs<W, 1>(slice<W>(dka, r), sa[kc],
+                             pfst::desc_mn<D, QT>(qt, kc, r), 1);
+      }
+    pfst::wgmma_commit();
+    if (it + 1 < tiles) {
+      const int s1 = (it + 1) % kStages;
+      pfst::mbar_wait(full + s1, ((it + 1) / kStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        pfst::wgmma_ss<QT, 0>(sc, pfst::desc_k<D, L::kRows>(ks, kr, kk),
+                              pfst::desc_k<D, QT>(qs + s1 * QT * D, 0, kk),
+                              kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        pfst::wgmma_ss<QT, 0>(dp, pfst::desc_k<D, L::kRows>(vs, kr, kk),
+                              pfst::desc_k<D, QT>(dos + s1 * QT * D, 0, kk),
+                              kk > 0);
+      pfst::wgmma_commit();
+      pfst::wgmma_wait<1>();  // dV and dK of this tile
+    } else {
+      pfst::wgmma_wait<0>();
+    }
+    pfst::fence_regs(dka);
+    pfst::fence_regs(dva);
+    pfst::fence_regs(pa);
+    pfst::fence_regs(sa);
+    pfst::mbar_arrive(empty + s);  // the stage is read
+  }
+
+  T* dkb = dk + b * st.t[4][0] + h * st.t[4][1];
+  T* dvb = dv + b * st.t[5][0] + h * st.t[5][1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
+    if (row < N) {
+      T* dkr = dkb + row * st.t[4][2] + 2 * (lane & 3);
+      T* dvr = dvb + row * st.t[5][2] + 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < DB; ++e) {
+        pfst::store2(dkr + 8 * e, dka[e][2 * i], dka[e][2 * i + 1]);
+        pfst::store2(dvr + 8 * e, dva[e][2 * i], dva[e][2 * i + 1]);
+      }
+    }
+  }
+}
+
 // which of the three kernels a launch runs
 enum Kind { kForward = 0, kDkv = 1, kDq = 2 };
 
@@ -561,50 +1034,125 @@ struct Args {
   Strides st;
 };
 
+// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
+// kernel instantiation (`done`, a static of the caller's) and device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
+                       std::atomic<unsigned long long>& done) {
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (bit != 0 && (done.load(std::memory_order_relaxed) & bit)) {
+    return cudaSuccess;
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// The wgmma kernels (bf16 forward and dK/dV): tensor maps of q, k, v (and
+// dO), built on the host for each launch.
+template <int D>
+cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
+                         cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if (kind == kForward) {
+    using L = FwdSmem<D, kFwdWG>;
+    const dim3 threads(128 * (kFwdWG + 1));
+    static std::atomic<unsigned long long> done{0};
+    const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
+    err = pfst::bhnd_map<D, L::kRows>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+    if (err == cudaSuccess)
+      err = pfst::bhnd_map<D, L::kKeys>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+    if (err == cudaSuccess)
+      err = pfst::bhnd_map<D, L::kKeys>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+    if (err == cudaSuccess)
+      err = allow_smem(flash_fwd_wgmma_kernel<D, kFwdWG>, L::kBytes, device,
+                       done);
+    if (err != cudaSuccess) return err;
+    flash_fwd_wgmma_kernel<D, kFwdWG><<<grid, threads, L::kBytes, stream>>>(
+        tq, tk, tv, static_cast<T*>(a.out0), a.lse_out, a.H, a.N, a.scale,
+        a.st);
+  } else {
+    using L = DkvSmem<D, kDkvWG>;
+    const dim3 threads(128 * (kDkvWG + 1));
+    static std::atomic<unsigned long long> done{0};
+    const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
+    CUtensorMap tdo;
+    err = pfst::bhnd_map<D, L::kQueries>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+    if (err == cudaSuccess)
+      err = pfst::bhnd_map<D, L::kRows>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+    if (err == cudaSuccess)
+      err = pfst::bhnd_map<D, L::kRows>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+    if (err == cudaSuccess)
+      err = pfst::bhnd_map<D, L::kQueries>(&tdo, a.dout, a.B, a.H, a.N,
+                                           a.st.t[3]);
+    if (err == cudaSuccess)
+      err = allow_smem(flash_bwd_dkv_wgmma_kernel<D, kDkvWG>, L::kBytes,
+                       device, done);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_wgmma_kernel<D, kDkvWG>
+        <<<grid, threads, L::kBytes, stream>>>(
+        tq, tk, tv, tdo, a.lse_in, a.di, static_cast<T*>(a.out0),
+        static_cast<T*>(a.out1), a.H, a.N, a.scale, a.st);
+  }
+  return cudaGetLastError();
+}
+
+// One launch: the wgmma kernels for bf16 forward and dK/dV, else the
+// mma.sync kernels (fp32 forward and dK/dV, dQ in both types).
 template <typename T, int D>
-cudaError_t launch(Kind kind, const Args& a, cudaStream_t stream) {
+cudaError_t launch(Kind kind, const Args& a, int device,
+                   cudaStream_t stream) {
   const dim3 grid((a.N + kRows - 1) / kRows, a.H, a.B);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
-  if (kind == kForward) {
-    const size_t bytes = fwd_smem_bytes<T, D>();
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, static_cast<T*>(a.out0), a.lse_out, a.H, a.N, a.scale, a.st);
-  } else if (kind == kDkv) {
-    const size_t bytes = dkv_smem_bytes<T, D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, dout, a.lse_in, a.di, static_cast<T*>(a.out0),
-        static_cast<T*>(a.out1), a.H, a.N, a.scale, a.st);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (kind != kDq) return launch_wgmma<D>(kind, a, device, stream);
   } else {
-    const size_t bytes = dq_smem_bytes<T, D>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, dout, a.lse_in, a.di, static_cast<T*>(a.out0), a.H, a.N,
-        a.scale, a.st);
+    if (kind == kForward) {
+      static std::atomic<unsigned long long> done{0};
+      const size_t bytes = fwd_smem_bytes<T, D>();
+      err = allow_smem(flash_fwd_kernel<T, D>, bytes, device, done);
+      if (err != cudaSuccess) return err;
+      flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+          q, k, v, static_cast<T*>(a.out0), a.lse_out, a.H, a.N, a.scale,
+          a.st);
+      return cudaGetLastError();
+    }
+    if (kind == kDkv) {
+      static std::atomic<unsigned long long> done{0};
+      const size_t bytes = dkv_smem_bytes<T, D>();
+      err = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes, device, done);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+          q, k, v, dout, a.lse_in, a.di, static_cast<T*>(a.out0),
+          static_cast<T*>(a.out1), a.H, a.N, a.scale, a.st);
+      return cudaGetLastError();
+    }
   }
+  static std::atomic<unsigned long long> done{0};
+  const size_t bytes = dq_smem_bytes<T, D>();
+  err = allow_smem(flash_bwd_dq_kernel<T, D>, bytes, device, done);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dout, a.lse_in, a.di, static_cast<T*>(a.out0), a.H, a.N,
+      a.scale, a.st);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(Kind kind, int D, const Args& a, cudaStream_t s) {
+cudaError_t dispatch_d(Kind kind, int D, const Args& a, int device,
+                       cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(kind, a, s);
-    case 64: return launch<T, 64>(kind, a, s);
-    case 128: return launch<T, 128>(kind, a, s);
+    case 32: return launch<T, 32>(kind, a, device, s);
+    case 64: return launch<T, 64>(kind, a, device, s);
+    case 128: return launch<T, 128>(kind, a, device, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -620,12 +1168,13 @@ int run(Kind kind, Args a, int D, const long long* strides, int n_tensors,
     for (int j = 0; j < 3; ++j) a.st.t[i][j] = strides[i * 3 + j];
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? dispatch_d<__nv_bfloat16>(kind, D, a, s)
-                : dispatch_d<float>(kind, D, a, s);
-  const cudaError_t restored = cudaSetDevice(prev);
+  err = is_bf16 ? dispatch_d<__nv_bfloat16>(kind, D, a, device, s)
+                : dispatch_d<float>(kind, D, a, device, s);
+  const cudaError_t restored =
+      prev != device ? cudaSetDevice(prev) : cudaSuccess;
   return static_cast<int>(err != cudaSuccess ? err : restored);
 }
 

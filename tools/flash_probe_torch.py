@@ -1,15 +1,17 @@
 #!/usr/bin/env python
 """Short first check of the kernels on a card: build
 ``pfst_tpu_torch/ops/csrc/flash_attention.cu`` and ``neighborhood_sim.cu``
-with ``nvcc -Xptxas -v`` (registers and spills of every instantiation),
-count the tensor-core instructions (``HMMA``) of each flash kernel in the
-built library's SASS (``cuobjdump --dump-sass``), then run each flash
+with ``nvcc -Xptxas -v`` (registers and spills of every instantiation at
+launch), count in each flash instantiation's SASS (``cuobjdump
+--dump-sass``) the warpgroup products (``HGMMA``), the warp products
+(``HMMA``), the registers it names (after ``setmaxnreg``: the highest
+``R`` index + 1) and its ``SETMAXREG`` instructions, then run each flash
 kernel once per case of ``chip_smoke.py``'s phase 3c (and at head
 dimensions 32 and 128) and the similarity forward once per case of its
 phase 3 (and at d = 4 and an odd width, its general geometry), compare
 each with the plain versions and print its median time, per call as
-phases 3 and 3c time it (one launch between two CUDA events,
-the wrapper's host path included) and on the device (``graph``:
+phases 3 and 3c time it (one launch between two CUDA events, the
+wrapper's host path included) and on the device (``graph``:
 ``chip_smoke.graph_ms``, a CUDA graph of ten launches back to back, the
 host path out of the way), beside SDPA's (flash) or the bound
 (similarity).
@@ -19,10 +21,13 @@ For a first call after a kernel change, before ``chip_smoke.py``::
     python3 tools/flash_probe_torch.py
 
 The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c) and
-``chip_smoke.sim_errors``'s (phase 3). Exits 1 if a case fails, or if a
-flash instantiation (forward, dK/dV or dQ) has no HMMA.
+``chip_smoke.sim_errors``'s (phase 3). Exits 1 if a case fails, if a
+bf16 forward or dK/dV instantiation (``flash_*_wgmma_kernel``) has no
+HGMMA, or if another flash instantiation (the fp32 forward and dK/dV,
+dQ in both types) has no HMMA.
 """
 import collections
+import concurrent.futures
 import os.path as osp
 import re
 import statistics
@@ -50,10 +55,12 @@ CASES = FLASH_CASES + [((2, 3, 130, 32), torch.bfloat16, 'qkv'),
 
 def kernel_name(mangled):
     """'flash_fwd_kernel fp32 D=64' (or 'neighborhood_sim_kernel bf16
-    K=3 cosine') from a mangled instantiation name."""
+    K=3 cosine') from a mangled instantiation name; the wgmma kernels take
+    bf16 only."""
     kernel = re.search(r'(flash_\w+?|neighborhood_sim\w*?)_kernel', mangled)
     arg = re.search(r'Li(\d+)E', mangled)
-    dtype = 'bf16' if '__nv_bfloat16' in mangled else 'fp32'
+    dtype = 'bf16' if '__nv_bfloat16' in mangled or 'wgmma' in mangled \
+        else 'fp32'
     name = f'{kernel.group(0) if kernel else mangled} {dtype}'
     if kernel and kernel.group(0).startswith('flash'):
         return f'{name} D={arg.group(1) if arg else "?"}'
@@ -61,37 +68,70 @@ def kernel_name(mangled):
     return f'{name} K={arg.group(1) if arg else "?"} {cosine}'
 
 
-def ptxas_report(source):
-    with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run(
-            [build._nvcc(), *build.NVCC_FLAGS, '-Xptxas', '-v', '-o',
-             osp.join(tmp, 'lib.so'), osp.join(build.CSRC_DIR, source)],
-            capture_output=True, text=True)
+def ptxas_report(source, out_dir):
+    """Build ``source`` with ``-Xptxas -v`` into ``out_dir``; print each
+    instantiation's registers, spills and ptxas warnings; return the
+    library's path."""
+    out = osp.join(out_dir, f'{osp.splitext(source)[0]}.so')
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, '-Xptxas', '-v', '-o', out,
+         osp.join(build.CSRC_DIR, source)], capture_output=True, text=True)
     print(f'ptxas {source} rc', proc.returncode)
     name = None
     for line in (proc.stdout + proc.stderr).splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = kernel_name(entry.group(1))
-        elif 'registers' in line or 'spill' in line or 'error' in line:
-            print(f'{name}: {line.split(":", 1)[-1].strip()}')
+        elif ('registers' in line or 'spill' in line or 'error' in line
+              or 'arning' in line):
+            print(f'[{source}] {name}: {line.split(":", 1)[-1].strip()}')
+    return out if proc.returncode == 0 else None
 
 
-def hmma_counts(lib_path):
-    """HMMA instructions per kernel instantiation in the library's SASS."""
+def sass_counts(lib_path):
+    """Per kernel instantiation in the library's SASS: HGMMA and HMMA
+    instructions, local-memory (spill) stores and loads, registers named
+    (highest R index + 1) and the SETMAXREG instructions."""
     cuobjdump = osp.join(osp.dirname(build._nvcc()), 'cuobjdump')
     sass = subprocess.run([cuobjdump, '--dump-sass', lib_path],
                           capture_output=True, text=True, check=True).stdout
-    counts = collections.Counter()
+    counts = collections.defaultdict(lambda: dict(
+        hgmma=0, hmma=0, spill=0, regs=0, setmaxreg=set()))
     name = None
     for line in sass.splitlines():
         fn = re.search(r'Function : (\S+)', line)
         if fn:
             name = kernel_name(fn.group(1))
-            counts[name] += 0
-        elif name and 'HMMA' in line:
-            counts[name] += 1
+            counts[name]['hgmma'] += 0
+            continue
+        if name is None or '/*' not in line:
+            continue
+        c = counts[name]
+        c['hgmma'] += 'HGMMA' in line
+        c['hmma'] += 'HMMA' in line
+        c['spill'] += ' STL' in line or ' LDL' in line
+        regs = [int(r) for r in re.findall(r'\bR(\d+)\b', line)]
+        c['regs'] = max([c['regs'], *(r + 1 for r in regs)])
+        if 'SETMAXREG' in line:
+            c['setmaxreg'].add(line.split('*/', 1)[1].split(';')[0].strip())
     return counts
+
+
+def check_sass(counts):
+    """Print the counts; False unless every wgmma instantiation has HGMMA
+    and every other flash instantiation HMMA (18 in all)."""
+    ok = len(counts) == 18
+    for name, c in sorted(counts.items()):
+        need = 'hgmma' if 'wgmma' in name else 'hmma'
+        good = c[need] > 0
+        ok = ok and good
+        print(f'SASS {name}: HGMMA {c["hgmma"]} HMMA {c["hmma"]} '
+              f'STL/LDL {c["spill"]} registers {c["regs"]} '
+              f'{sorted(c["setmaxreg"])}'
+              f'{"" if good else " FAIL: no " + need.upper()}')
+    if len(counts) != 18:
+        print(f'FAIL: {len(counts)} flash instantiations, not 18')
+    return ok
 
 
 def cuda_ms(fn, reps=10):
@@ -163,36 +203,69 @@ def check_sim(shape, sim_type, dtype, gen, dilation=SIM_D):
     return err['ok']
 
 
+def first_launches():
+    """Each bf16 flash kernel once alone at every head dimension, with a
+    synchronize after it, so that a fault names its kernel; exits 1 at
+    the first fault (the context is lost with it)."""
+    gen = torch.Generator().manual_seed(5)
+    for d in (32, 64, 128):
+        shape = (1, 2, 130, d)
+        q, k, v, g = (torch.randn(shape, generator=gen).to('cuda',
+                                                            torch.bfloat16)
+                      for _ in range(4))
+        s = d**-0.5
+        name = 'forward'
+        try:
+            o, lse = cuda_flash_attention(q, k, v, s)
+            torch.cuda.synchronize()
+            di = (o.float() * g.float()).sum(-1).contiguous()
+            name = 'dK/dV'
+            cuda_flash_attention_bwd_dkv(q, k, v, g, lse, di, s)
+            torch.cuda.synchronize()
+            name = 'dQ'
+            cuda_flash_attention_bwd_dq(q, k, v, g, lse, di, s)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - name the kernel, stop
+            print(f'FAIL first launch of the bf16 {name} kernel at {shape}: '
+                  f'{e}', flush=True)
+            sys.exit(1)
+        print(f'first launches {shape} bf16: forward, dK/dV, dQ ran',
+              flush=True)
+
+
 def main():
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip())
     print(torch.__version__, torch.version.cuda)
-    for source in ('flash_attention.cu', 'neighborhood_sim.cu'):
-        ptxas_report(source)
     t0 = time.time()
-    build.load('flash_attention')
-    build.load('neighborhood_sim')
-    print(f'build {time.time() - t0:.1f}s')
-    counts = hmma_counts(build.library_path('flash_attention'))
-    for name, count in sorted(counts.items()):
-        print(f'HMMA {name}: {count}')
-    ok = all(count > 0 for count in counts.values()) and len(counts) == 18
-    if not ok:
-        print('FAIL: a flash instantiation has no HMMA '
-              f'(or not 18 kernels: {len(counts)})')
-    gen = torch.Generator().manual_seed(4)
-    for shape, sim_type in SIM_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            ok = check_sim(shape, sim_type, dtype, gen) and ok
-    # the general geometry: the pfst base config's dilation, and an odd
-    # width (4-byte copies, plain loads for bf16)
-    for shape, dilation in (((2, 512, 64, 64), 4), ((1, 256, 63, 99), 2)):
-        for dtype in (torch.float32, torch.bfloat16):
-            ok = check_sim(shape, 'cosine', dtype, gen, dilation) and ok
-    for case in CASES:
-        ok = check(*case, gen) and ok
-        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(ptxas_report, 'flash_attention.cu', tmp),
+                pool.submit(ptxas_report, 'neighborhood_sim.cu', tmp),
+                pool.submit(build.build, 'flash_attention'),
+                pool.submit(build.build, 'neighborhood_sim')]
+        paths = [j.result() for j in jobs]
+        print(f'four nvcc builds at once {time.time() - t0:.1f}s')
+        ok = None not in paths
+        if ok:
+            ok = check_sass(sass_counts(paths[2]))
+            build.load('flash_attention')
+        build.load('neighborhood_sim')
+        first_launches()
+        gen = torch.Generator().manual_seed(4)
+        for shape, sim_type in SIM_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                ok = check_sim(shape, sim_type, dtype, gen) and ok
+        # the general geometry: the pfst base config's dilation, and an
+        # odd width (4-byte copies, plain loads for bf16)
+        for shape, dilation in (((2, 512, 64, 64), 4),
+                                ((1, 256, 63, 99), 2)):
+            for dtype in (torch.float32, torch.bfloat16):
+                ok = check_sim(shape, 'cosine', dtype, gen, dilation) and ok
+        for case in CASES:
+            ok = check(*case, gen) and ok
+            torch.cuda.empty_cache()
     sys.exit(0 if ok else 1)
 
 
