@@ -37,7 +37,8 @@ Phases (any failure exits non-zero before the result lines):
    against its plain version at the ViT's shapes (1 and 2 x 12 x 1025 x
    64, fp32 and bf16, read through the strides of the block's qkv
    layout), the microbench's (8 x 12 x {1024, 4096} x 64 bf16) and an
-   edge case (1 x 2 x 17 x 64), with the median times of the kernel (per
+   edge case (1 x 2 x 17 x 64, fp32 and bf16: N inside one tile), with
+   the median times of the kernel (per
    call, and on the device in a CUDA graph of ten launches), the plain
    version and SDPA (per call, and on the device: its forward, and its
    backward alone), and the bound;
@@ -120,7 +121,8 @@ FLASH_CASES = [((1, 12, 1025, 64), torch.float32, 'qkv'),
                ((2, 12, 1025, 64), torch.bfloat16, 'qkv'),
                ((8, 12, 1024, 64), torch.bfloat16, 'contiguous'),
                ((8, 12, 4096, 64), torch.bfloat16, 'contiguous'),
-               ((1, 2, 17, 64), torch.float32, 'qkv')]
+               ((1, 2, 17, 64), torch.float32, 'qkv'),
+               ((1, 2, 17, 64), torch.bfloat16, 'qkv')]
 FLASH_FWD_TOL, FLASH_LSE_TOL, FLASH_BWD_TOL = 2e-5, 1e-5, 1e-4
 # the ViT configs' input normalization (ImageNet mean/std, RGB)
 VIT_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],

@@ -28,9 +28,11 @@ The three kernels run on the tensor cores: bf16 input as bf16 products
 with fp32 sums, rounding P (forward), P^T and dS^T s (dK/dV) and dS s (dQ)
 to bf16 where the TPU kernels round them (``p.astype(v.dtype)``,
 ``p.T.astype``, ``ds.T.astype``, ``ds.astype``); fp32 input as 3xTF32,
-accurate to fp32. The bf16 forward and dK/dV are warpgroup (``wgmma``)
-kernels fed by TMA; the rest are warp (``mma.sync``) kernels fed by
-``cp.async``. Both copy data in 16-byte units, so each q, k, v, dO they
+accurate to fp32. dQ in both types and the bf16 forward and dK/dV are
+warpgroup (``wgmma``) kernels fed by TMA (fp32 dQ as TF32 ``wgmma`` on
+hi and lo parts that the kernel splits in shared memory); the fp32
+forward and dK/dV are warp (``mma.sync``) kernels fed by ``cp.async``.
+Both copy data in 16-byte units, so each q, k, v, dO they
 read has a 16-byte-aligned base and batch, head and row strides that are
 multiples of 16 bytes; ``_aligned`` copies a tensor that breaks this (the
 ViT's qkv views never do).
@@ -240,8 +242,9 @@ cuda_flash_attention_bwd_dkv.launches = 0
 
 
 def cuda_flash_attention_bwd_dq(q, k, v, grad, lse, di, scale):
-    """The dQ kernel: ``dq`` from the same inputs as the dK/dV kernel.
-    ``launches`` counts launches."""
+    """The dQ kernel (``wgmma`` + TMA, bf16 or fp32 as 3xTF32): ``dq``
+    from the same inputs as the dK/dV kernel. ``launches`` counts
+    launches."""
     _check_backward_input(q, k, v, grad, lse, di)
     out = _launch_bwd_dq(_library(), _aligned(q), _aligned(k), _aligned(v),
                          _aligned(grad), lse, di, scale)

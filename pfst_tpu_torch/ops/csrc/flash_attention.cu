@@ -28,19 +28,19 @@
 //
 // Two designs, chosen by input type and kernel:
 //
-// * bf16 forward and dK/dV (flash_fwd_wgmma_kernel,
+// * dQ in both types, and the bf16 forward and dK/dV
+//   (flash_bwd_dq_wgmma_kernel, flash_fwd_wgmma_kernel,
 //   flash_bwd_dkv_wgmma_kernel, sm_90a): warpgroup products (wgmma) from
 //   tiles that TMA copies into swizzled shared memory, a producer
 //   warpgroup feeding consumer warpgroups through an mbarrier ring (the
-//   section below says more). Only wgmma reaches the card's full bf16
-//   rate; TMA takes the copies off the consumers' issue slots.
-// * fp32 forward and dK/dV, and dQ in both types (flash_fwd_kernel,
-//   flash_bwd_dkv_kernel, flash_bwd_dq_kernel): warp products (mma.sync,
-//   mma.cuh). A block of 4 warps owns 64 rows of one (b, h): query rows in
-//   the forward and dQ, key rows in dK/dV, 16 per warp. The other side's
-//   rows stream through a two-stage cp.async ring in shared memory, in the
-//   input type: the copy of tile t + 1 is issued before the arithmetic on
-//   tile t.
+//   sections below say more). Only wgmma reaches the card's full bf16
+//   and TF32 rates; TMA takes the copies off the consumers' issue slots.
+// * fp32 forward and dK/dV (flash_fwd_kernel, flash_bwd_dkv_kernel):
+//   warp products (mma.sync, mma.cuh). A block of 4 warps owns 64 rows of
+//   one (b, h): query rows in the forward, key rows in dK/dV, 16 per warp.
+//   The other side's rows stream through a two-stage cp.async ring in
+//   shared memory, in the input type: the copy of tile t + 1 is issued
+//   before the arithmetic on tile t.
 //
 // Both: rows at or past N are zero-filled by the copies and their scores
 // masked (-inf in the forward, P = 0 in the backward), so N need not be a
@@ -60,13 +60,13 @@
 //   ds * sm_scale) and reused in registers as the A operands of
 //   dV += P^T dO and dK += (dS^T s) Q.
 // * dQ: the forward's layout with two products per tile: S = Q K^T and
-//   dP = dO V^T land in accumulators indexed by query row (Q and dO
-//   fragments stay in registers where they are small); dS s = P (dP - Di) s
-//   is rounded to the input type (the TPU kernel's ds * sm_scale, then
-//   ds.astype(k.dtype)) and fed from the accumulators into dQ += (dS s) K
-//   as the A operand, K read as the B operand the way the forward reads V.
-// fp32 input runs as 3xTF32 (mma.cuh), where P, P^T, dS s and dS^T s are
-// split into hi and lo parts instead of rounded: accurate to fp32.
+//   dP = dO V^T land in accumulators indexed by query row; dS s = P (dP -
+//   Di) s is rounded to the input type (the TPU kernel's ds * sm_scale,
+//   then ds.astype(k.dtype)) and fed from the accumulators into
+//   dQ += (dS s) K as the A operand.
+// fp32 input runs as 3xTF32 (mma.cuh; in dQ tf32 wgmma), where every
+// operand, and P, P^T, dS s and dS^T s, is split into hi and lo parts
+// instead of rounded: accurate to fp32.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,12 +90,12 @@ struct Strides {
   long long t[6][3];
 };
 
-// Tile shapes of the tensor-core kernels. A streamed tile holds 64 rows
-// where a row is at most 128 bytes (bf16 up to D = 64, fp32 D = 32) and
-// 32 rows otherwise, which keeps the forward's shared memory at 25-52 KB
-// (bf16 D = 64: Q 9 KB + 2 x (K + V) 36 KB) except fp32 D = 128 (101 KB),
-// and dK/dV's and dQ's at 31-70 KB except fp32 D = 128 (135-136 KB); it
-// also bounds the accumulators (S and dP) that live in registers.
+// Tile shapes of the mma.sync kernels (fp32 forward and dK/dV). A
+// streamed tile holds 64 rows where a row is at most 128 bytes (fp32
+// D = 32) and 32 rows otherwise, which keeps the forward's shared memory
+// at 25-52 KB except D = 128 (101 KB), and dK/dV's at 31-70 KB except
+// D = 128 (136 KB); it also bounds the accumulators (S and dP) that live
+// in registers.
 template <typename T, int D>
 struct Tile {
   static constexpr int kLd = pfst::pitch<T, D>();
@@ -408,157 +408,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-constexpr size_t dq_smem_bytes() {
-  return (2 * kRows + 4 * Tile<T, D>::kCols) * Tile<T, D>::kLd * sizeof(T);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ di, T* __restrict__ dq,
-                        int H, int N, float scale, Strides st) {
-  using M = pfst::Mma<T>;
-  constexpr int LD = Tile<T, D>::kLd;
-  constexpr int KT = Tile<T, D>::kCols;  // keys per tile
-  constexpr int NB = KT / 8;             // 8-key blocks of S, dP
-  constexpr int KS = D / M::kK;          // k-steps of Q K^T, dO V^T
-  constexpr int PS = KT / M::kK;         // k-steps of dS K
-  constexpr int DB = D / 8;              // 8-column blocks of dQ
-  // Q and dO fragments stay in registers where they are small, as K and
-  // V do in dK/dV
-  constexpr bool kHold = D * sizeof(T) <= 128;
-  extern __shared__ __align__(16) float smem[];
-  T* qs = reinterpret_cast<T*>(smem);  // [kRows][LD]  query rows
-  T* dos = qs + kRows * LD;            // [kRows][LD]  dO rows
-  T* ks = dos + kRows * LD;            // [2][KT][LD]  key ring
-  T* vs = ks + 2 * KT * LD;            // [2][KT][LD]  value ring
-
-  const int lane = threadIdx.x & 31;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kRows;
-  const T* kb = k + b * st.t[1][0] + h * st.t[1][1];
-  const T* vb = v + b * st.t[2][0] + h * st.t[2][1];
-  const int tiles = (N + KT - 1) / KT;
-  pfst::load_rows<T, D, kRows, kThreads>(
-      qs, q + b * st.t[0][0] + h * st.t[0][1], st.t[0][2], row0, N);
-  pfst::load_rows<T, D, kRows, kThreads>(
-      dos, dout + b * st.t[3][0] + h * st.t[3][1], st.t[3][2], row0, N);
-  pfst::load_rows<T, D, KT, kThreads>(ks, kb, st.t[1][2], 0, N);
-  pfst::load_rows<T, D, KT, kThreads>(vs, vb, st.t[2][2], 0, N);
-  pfst::cp_async_commit();
-
-  // LSE (times log2 e) and Di of the lane's rows g and g + 8
-  const long long stat0 = (static_cast<long long>(b) * H + h) * N;
-  float lr[2], dr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + wr + (lane >> 2) + 8 * i;
-    lr[i] = row < N ? lse[stat0 + row] * kLog2e : 0.f;
-    dr[i] = row < N ? di[stat0 + row] : 0.f;
-  }
-
-  uint32_t qf[kHold ? KS : 1][4], of[kHold ? KS : 1][4];
-  float acc[DB][4] = {};
-  const float sl2 = scale * kLog2e;
-  for (int it = 0; it < tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < tiles) {
-      const int next = (stage ^ 1) * KT * LD;
-      pfst::load_rows<T, D, KT, kThreads>(ks + next, kb, st.t[1][2],
-                                          (it + 1) * KT, N);
-      pfst::load_rows<T, D, KT, kThreads>(vs + next, vb, st.t[2][2],
-                                          (it + 1) * KT, N);
-    }
-    pfst::cp_async_commit();
-    pfst::cp_async_wait<1>();  // tile it (and on it = 0 the query rows)
-    __syncthreads();
-    if constexpr (kHold) {
-      if (it == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          pfst::load_a<T, LD>(qf[kk], qs, wr, kk * M::kK, lane);
-          pfst::load_a<T, LD>(of[kk], dos, wr, kk * M::kK, lane);
-        }
-      }
-    }
-    const T* kt = ks + stage * KT * LD;
-    const T* vt = vs + stage * KT * LD;
-
-    float s[NB][4] = {}, dp[NB][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qr[4], gr[4];
-      if constexpr (kHold) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          qr[i] = qf[kk][i];
-          gr[i] = of[kk][i];
-        }
-      } else {
-        pfst::load_a<T, LD>(qr, qs, wr, kk * M::kK, lane);
-        pfst::load_a<T, LD>(gr, dos, wr, kk * M::kK, lane);
-      }
-      const typename M::A qa = M::a(qr);
-      const typename M::A oa = M::a(gr);
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        uint32_t bf[4];
-        pfst::load_b<T, LD>(bf, kt, j * 8, kk * M::kK, lane);
-        M::mma(s[j], qa, bf[0], bf[1]);
-        M::mma(s[j + 1], qa, bf[2], bf[3]);
-        pfst::load_b<T, LD>(bf, vt, j * 8, kk * M::kK, lane);
-        M::mma(dp[j], oa, bf[0], bf[1]);
-        M::mma(dp[j + 1], oa, bf[2], bf[3]);
-      }
-    }
-
-    // dS s on the fragments: query rows g, g + 8, keys it KT + 8 j + 2 t
-    // + e % 2; keys past N give P = 0. Scaled before a_from_acc rounds it,
-    // as the TPU kernel scales ds before ds.astype(k.dtype)
-    const int c0 = it * KT + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = c0 + 8 * j + (e & 1) < N
-                            ? exp2f(s[j][e] * sl2 - lr[e >> 1])
-                            : 0.f;
-        dp[j][e] = p * (dp[j][e] - dr[e >> 1]) * scale;
-      }
-
-    // dQ += dS K, K read as the B operand as V is in the forward's P V
-#pragma unroll
-    for (int kc = 0; kc < PS; ++kc) {
-      const typename M::A sa = M::a_from_acc(dp, kc);
-#pragma unroll
-      for (int e = 0; e < DB; e += 2) {
-        uint32_t bf[4];
-        M::template load_b_trans<LD>(bf, kt, kc * M::kK, e * 8, lane);
-        M::mma(acc[e], sa, bf[0], bf[1]);
-        M::mma(acc[e + 1], sa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // the stage is read; the next copy may overwrite it
-  }
-
-  T* dqb = dq + b * st.t[4][0] + h * st.t[4][1];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + wr + (lane >> 2) + 8 * i;
-    if (row < N) {
-      T* dqr = dqb + row * st.t[4][2] + 2 * (lane & 3);
-#pragma unroll
-      for (int e = 0; e < DB; ++e)
-        pfst::store2(dqr + 8 * e, acc[e][2 * i], acc[e][2 * i + 1]);
-    }
-  }
-}
-
 // ---- bf16 forward and dK/dV on wgmma + TMA (sm_90a) ----
 //
 // A block is one producer warpgroup and C consumer warpgroups. The
@@ -601,12 +450,13 @@ __host__ __device__ constexpr int consumer_regs() {
 // within 3 % (PERF.md, section 6) and would take 32 KB more a block.
 template <int D, int C>
 struct FwdSmem {
+  using T = __nv_bfloat16;
   static constexpr int kStages = 2;
   static constexpr int kRows = 64 * C;
   static constexpr int kKeys = C == 1 && D == 128 ? 64 : 128;  // a tile
-  static constexpr int kK = pfst::tile_bytes<D, kRows>();
-  static constexpr int kV = kK + kStages * pfst::tile_bytes<D, kKeys>();
-  static constexpr int kBar = kV + kStages * pfst::tile_bytes<D, kKeys>();
+  static constexpr int kK = pfst::tile_bytes<T, D, kRows>();
+  static constexpr int kV = kK + kStages * pfst::tile_bytes<T, D, kKeys>();
+  static constexpr int kBar = kV + kStages * pfst::tile_bytes<T, D, kKeys>();
   static constexpr int kBytes = kBar + (1 + 3 * kStages) * 8 + 1024;
 };
 
@@ -633,9 +483,9 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   constexpr int KS = D / 16;   // k-steps of Q K^T
   constexpr int PS = KT / 16;  // k-steps of P V
   constexpr int DB = D / 8;    // 8-column blocks of O
-  constexpr int W = pfst::Atom<D>::kCols;
-  constexpr int RG = pfst::Atom<D>::kRegions;
-  constexpr int kTile = pfst::tile_bytes<D, KT>();
+  constexpr int W = pfst::Atom<T, D>::kCols;
+  constexpr int RG = pfst::Atom<T, D>::kRegions;
+  constexpr int kTile = pfst::tile_bytes<T, D, KT>();
   extern __shared__ __align__(16) float smem[];
   char* base = pfst::smem_align(smem);
   T* qs = reinterpret_cast<T*>(base);
@@ -665,16 +515,16 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   if (wg == 0) {  // producer
     pfst::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      pfst::mbar_expect_tx(q_full, pfst::tile_bytes<D, L::kRows>());
-      pfst::tma_tile<D, L::kRows>(qs, &tq, q_full, row0, h, b);
+      pfst::mbar_expect_tx(q_full, pfst::tile_bytes<T, D, L::kRows>());
+      pfst::tma_tile<T, D, L::kRows>(qs, &tq, q_full, row0, h, b);
       for (int it = 0; it < tiles; ++it) {
         const int s = it % kStages;
         pfst::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
         pfst::mbar_expect_tx(k_full + s, kTile);
-        pfst::tma_tile<D, KT>(ks + s * KT * D, &tk, k_full + s, it * KT, h,
+        pfst::tma_tile<T, D, KT>(ks + s * KT * D, &tk, k_full + s, it * KT, h,
                               b);
         pfst::mbar_expect_tx(v_full + s, kTile);
-        pfst::tma_tile<D, KT>(vs + s * KT * D, &tv, v_full + s, it * KT, h,
+        pfst::tma_tile<T, D, KT>(vs + s * KT * D, &tv, v_full + s, it * KT, h,
                               b);
       }
     }
@@ -703,8 +553,8 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
     pfst::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      pfst::wgmma_ss<KT, 0>(sc, pfst::desc_k<D, L::kRows>(qs, qr, kk),
-                            pfst::desc_k<D, KT>(kt, 0, kk), kk > 0);
+      pfst::wgmma_ss<KT, 0>(sc, pfst::desc_k<T, D, L::kRows>(qs, qr, kk),
+                            pfst::desc_k<T, D, KT>(kt, 0, kk), kk > 0);
     pfst::wgmma_commit();
     pfst::wgmma_wait<0>();
     pfst::fence_regs(sc);
@@ -803,13 +653,14 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
 // PERF.md, section 6).
 template <int D, int C>
 struct DkvSmem {
+  using T = __nv_bfloat16;
   static constexpr int kStages = 3;
   static constexpr int kRows = 64 * C;
   static constexpr int kQueries = D == 128 ? 32 : 64;  // per tile
-  static constexpr int kV = pfst::tile_bytes<D, kRows>();
-  static constexpr int kQ = kV + pfst::tile_bytes<D, kRows>();
-  static constexpr int kO = kQ + kStages * pfst::tile_bytes<D, kQueries>();
-  static constexpr int kL = kO + kStages * pfst::tile_bytes<D, kQueries>();
+  static constexpr int kV = pfst::tile_bytes<T, D, kRows>();
+  static constexpr int kQ = kV + pfst::tile_bytes<T, D, kRows>();
+  static constexpr int kO = kQ + kStages * pfst::tile_bytes<T, D, kQueries>();
+  static constexpr int kL = kO + kStages * pfst::tile_bytes<T, D, kQueries>();
   static constexpr int kDi = kL + kStages * kQueries * 4;
   static constexpr int kBar = kDi + kStages * kQueries * 4;
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
@@ -835,9 +686,9 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   constexpr int KS = D / 16;   // k-steps of K Q^T, V dO^T
   constexpr int PS = QT / 16;  // k-steps of P^T dO, (dS^T s) Q
   constexpr int DB = D / 8;    // 8-column blocks of dK, dV
-  constexpr int W = pfst::Atom<D>::kCols;
-  constexpr int RG = pfst::Atom<D>::kRegions;
-  constexpr int kTile = pfst::tile_bytes<D, QT>();
+  constexpr int W = pfst::Atom<T, D>::kCols;
+  constexpr int RG = pfst::Atom<T, D>::kRegions;
+  constexpr int kTile = pfst::tile_bytes<T, D, QT>();
   extern __shared__ __align__(16) float smem[];
   char* base = pfst::smem_align(smem);
   T* ks = reinterpret_cast<T*>(base);
@@ -871,9 +722,9 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
       const int lane = threadIdx.x;
       const long long stat0 = (static_cast<long long>(b) * H + h) * N;
       if (lane == 0) {
-        pfst::mbar_expect_tx(kv_full, 2 * pfst::tile_bytes<D, L::kRows>());
-        pfst::tma_tile<D, L::kRows>(ks, &tk, kv_full, row0, h, b);
-        pfst::tma_tile<D, L::kRows>(vs, &tv, kv_full, row0, h, b);
+        pfst::mbar_expect_tx(kv_full, 2 * pfst::tile_bytes<T, D, L::kRows>());
+        pfst::tma_tile<T, D, L::kRows>(ks, &tk, kv_full, row0, h, b);
+        pfst::tma_tile<T, D, L::kRows>(vs, &tv, kv_full, row0, h, b);
       }
       for (int it = 0; it < tiles; ++it) {
         const int s = it % kStages;
@@ -885,9 +736,9 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
         }
         if (lane == 0) {  // its arrival, with the tiles' bytes
           pfst::mbar_expect_tx(full + s, 2 * kTile);
-          pfst::tma_tile<D, QT>(qs + s * QT * D, &tq, full + s, it * QT, h,
+          pfst::tma_tile<T, D, QT>(qs + s * QT * D, &tq, full + s, it * QT, h,
                                 b);
-          pfst::tma_tile<D, QT>(dos + s * QT * D, &tdo, full + s, it * QT,
+          pfst::tma_tile<T, D, QT>(dos + s * QT * D, &tdo, full + s, it * QT,
                                 h, b);
         } else {
           pfst::mbar_arrive(full + s);
@@ -913,12 +764,12 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   pfst::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    pfst::wgmma_ss<QT, 0>(sc, pfst::desc_k<D, L::kRows>(ks, kr, kk),
-                          pfst::desc_k<D, QT>(qs, 0, kk), kk > 0);
+    pfst::wgmma_ss<QT, 0>(sc, pfst::desc_k<T, D, L::kRows>(ks, kr, kk),
+                          pfst::desc_k<T, D, QT>(qs, 0, kk), kk > 0);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    pfst::wgmma_ss<QT, 0>(dp, pfst::desc_k<D, L::kRows>(vs, kr, kk),
-                          pfst::desc_k<D, QT>(dos, 0, kk), kk > 0);
+    pfst::wgmma_ss<QT, 0>(dp, pfst::desc_k<T, D, L::kRows>(vs, kr, kk),
+                          pfst::desc_k<T, D, QT>(dos, 0, kk), kk > 0);
   pfst::wgmma_commit();
   for (int it = 0; it < tiles; ++it) {
     const int s = it % kStages;
@@ -979,13 +830,13 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
       pfst::mbar_wait(full + s1, ((it + 1) / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        pfst::wgmma_ss<QT, 0>(sc, pfst::desc_k<D, L::kRows>(ks, kr, kk),
-                              pfst::desc_k<D, QT>(qs + s1 * QT * D, 0, kk),
+        pfst::wgmma_ss<QT, 0>(sc, pfst::desc_k<T, D, L::kRows>(ks, kr, kk),
+                              pfst::desc_k<T, D, QT>(qs + s1 * QT * D, 0, kk),
                               kk > 0);
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        pfst::wgmma_ss<QT, 0>(dp, pfst::desc_k<D, L::kRows>(vs, kr, kk),
-                              pfst::desc_k<D, QT>(dos + s1 * QT * D, 0, kk),
+        pfst::wgmma_ss<QT, 0>(dp, pfst::desc_k<T, D, L::kRows>(vs, kr, kk),
+                              pfst::desc_k<T, D, QT>(dos + s1 * QT * D, 0, kk),
                               kk > 0);
       pfst::wgmma_commit();
       pfst::wgmma_wait<1>();  // dV and dK of this tile
@@ -1012,6 +863,434 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
         pfst::store2(dkr + 8 * e, dka[e][2 * i], dka[e][2 * i + 1]);
         pfst::store2(dvr + 8 * e, dva[e][2 * i], dva[e][2 * i + 1]);
       }
+    }
+  }
+}
+
+// ---- dQ on wgmma + TMA, bf16 and fp32 (as 3xTF32) (sm_90a) ----
+//
+// The dK/dV kernel's block with the queries as the block's side: one
+// producer warpgroup and C consumer warpgroups of 64 query rows each. TMA
+// brings the block's Q and dO rows once and streams K and V tiles through
+// a ring of stages (full / empty mbarriers); each consumer loads the LSE
+// and Di of its own rows once into registers. Per tile a consumer runs
+// S = Q K^T and dP = dO V^T (shared x shared, all K-major), forms
+// dS s = P (dP - Di) s on the accumulators (P = 0 for keys past N, on the
+// last tile only), and runs dQ += (dS s) K with dS s as the register A
+// operand; the next tile's S and dP are issued right behind it.
+//
+// * bf16: dS s is rounded to bf16 after its scale (Mma<bf16>::a_from_acc;
+//   the TPU kernel's ds * sm_scale, then ds.astype(k.dtype)) and K is
+//   read MN-major (desc_mn), as dK/dV reads Q.
+// * fp32, 3xTF32: tf32 wgmma takes no transpose, so every shared operand
+//   is K-major and dQ's K must be held transposed (keys along a row). TMA
+//   cannot transpose, so the producer warpgroup's warps 1-3 (the split
+//   warps) rewrite each K and V tile once it lands: every fp32 x becomes
+//   hi = tf32(x) (to nearest, in place) and lo = tf32(x - hi) (a tile of
+//   its own), as Mma<float>::split takes them, and K's hi and lo are also
+//   written transposed (K^T hi, K^T lo). Each consumer warp splits its own
+//   rows of Q and dO once: hi in place, lo into registers, the A operand
+//   of the lo hi products (which saves 32 KB of shared memory per 64 rows
+//   and, at N = KT, two thirds of those products' shared-memory reads).
+//   Generic stores that wgmma reads next need fence.proxy.async before
+//   the mbarrier arrival that the readers wait on. Each product is then
+//   lo hi + hi lo + hi hi, accumulated in fp32, as Mma<float>::mma takes
+//   it. dS s is split into hi and lo register A fragments straight from
+//   the m16n8 accumulators: a tf32 A fragment wants k columns t and t + 4
+//   where the accumulators hold keys 2 t and 2 t + 1, so column t stands
+//   for key 2 t and t + 4 for 2 t + 1, and K^T's keys are written in the
+//   same order (position (e / 2) + 4 (e % 2) for key e of each group of
+//   8).
+//
+// Shared memory (bytes from a 1024-byte boundary): Q and dO (64 C rows
+// each), then per stage K, V (bf16: 64 keys a tile, 32 at D = 128) and
+// for fp32 also K lo, V lo, K^T hi, K^T lo, with 2048 / D keys a tile (a
+// K^T row of 64 or 128 bytes, or two regions at D = 32): 48 KB a stage.
+// As many stages as fit in 227 KB, at most three: bf16 three (C = 1: 64
+// KB at D = 64); fp32 three (D = 64, C = 2: 64 KB + 3 x 48 KB = 208 KB;
+// D = 128, C = 1: the same; D = 32, C = 2: 176 KB).
+
+// Consumer warpgroups a block of dQ, bf16 and fp32 (fp32 D = 128 always
+// runs one: its Q and dO lo parts take 128 registers a thread, which
+// only a block of 256 threads alone on an SM can give), the faster
+// counts on the H100 at the ViT shapes (PERF.md, section 6).
+constexpr int kDqWG = 1, kDqWG32 = 2;
+
+template <typename T, int D>
+__host__ __device__ constexpr int dq_wg() {
+  return sizeof(T) == 2 ? kDqWG : D == 128 ? 1 : kDqWG32;
+}
+
+template <typename T, int D, int C>
+struct DqSmem {
+  static constexpr bool kSplit = sizeof(T) == 4;  // 3xTF32 parts
+  static constexpr int kRows = 64 * C;
+  static constexpr int kKeys = kSplit ? 2048 / D : D == 128 ? 32 : 64;
+  static constexpr int kRowTile = pfst::tile_bytes<T, D, kRows>();
+  static constexpr int kKeyTile = pfst::tile_bytes<T, D, kKeys>();
+  static constexpr int kQ = 0;
+  static constexpr int kO = kRowTile;
+  static constexpr int kRing = 2 * kRowTile;
+  // a stage: K, V, then (fp32) K lo, V lo, K^T hi, K^T lo
+  static constexpr int kStage = (kSplit ? 6 : 2) * kKeyTile;
+  static constexpr int kMaxStages = 3;
+  // Q and dO full, each consumer's rows split (two), per stage full,
+  // split, empty
+  static constexpr int kBarBytes = 8 * (3 + 3 * kMaxStages);
+  static constexpr int kFit = (232448 - 1024 - kBarBytes - kRing) / kStage;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kBytes = kBar + kBarBytes + 1024;
+  static_assert(kStages >= 2, "DqSmem: two stages must fit");
+};
+
+__device__ __forceinline__ float4 as_float4(const uint32_t (&u)[4]) {
+  return make_float4(__uint_as_float(u[0]), __uint_as_float(u[1]),
+                     __uint_as_float(u[2]), __uint_as_float(u[3]));
+}
+
+// A consumer warp's split of its 16 rows r0 .. r0 + 15 of an fp32 R x D
+// tile that TMA wrote: each element x of the lane's A fragments (k-step
+// kk: rows g, g + 8, columns 8 kk + t, + 4) becomes hi = tf32(x) in place
+// and lo = tf32(x - hi) in lo[kk], the register A operand of the lo hi
+// product (Mma<float>::split).
+template <int D, int R>
+__device__ __forceinline__ void split_rows(float* tile,
+                                           uint32_t (&lo)[D / 8][4], int r0,
+                                           int lane) {
+  char* base = reinterpret_cast<char*>(tile);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + (lane >> 2) + 8 * (i & 1);
+      const int col = 8 * kk + (lane & 3) + 4 * (i >> 1);
+      float* x = reinterpret_cast<float*>(
+          base + pfst::tile_offset<float, D, R>(row, col));
+      uint32_t hi;
+      pfst::Mma<float>::split(*x, hi, lo[kk][i]);
+      *reinterpret_cast<uint32_t*>(x) = hi;
+    }
+}
+
+// Split warps: x = hi + lo (Mma<float>::split) for the 16-byte chunks
+// i0, i0 + 96, ... of an fp32 tile of `bytes`: hi in place, lo at the
+// same offset of `lo` (the same layout, so the swizzle does not matter).
+__device__ __forceinline__ void split_tile(float* x, float* lo, int bytes,
+                                           int i0) {
+  for (int c = i0; c < bytes / 16; c += 96) {
+    const float4 v = reinterpret_cast<float4*>(x)[c];
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pfst::Mma<float>::split(e[i], h[i], l[i]);
+    reinterpret_cast<float4*>(x)[c] = as_float4(h);
+    reinterpret_cast<float4*>(lo)[c] = as_float4(l);
+  }
+}
+
+// The same for a K tile (KT keys x D), whose hi and lo parts also go,
+// transposed, into the D x KT tiles kth and ktl: key e of each group of
+// 8 at position (e / 2) + 4 (e % 2) (the relabelled k of the A fragment).
+template <int D, int KT>
+__device__ __forceinline__ void split_keys(float* k, float* lo, float* kth,
+                                           float* ktl, int i0) {
+  using A = pfst::Atom<float, D>;
+  constexpr int kRegion = KT * A::kBytes;
+  char* th = reinterpret_cast<char*>(kth);
+  char* tl = reinterpret_cast<char*>(ktl);
+  for (int c = i0; c < KT * D / 4; c += 96) {
+    // the chunk's key and first column, from its swizzled offset
+    const int off = 16 * c;
+    const int key = (off % kRegion) / A::kBytes;
+    const int chunk = ((off % A::kBytes) >> 4) ^ (key & 7);
+    const int col0 = (off / kRegion) * A::kCols + 4 * chunk;
+    const int pos = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+    const float4 v = reinterpret_cast<float4*>(k)[c];
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pfst::Mma<float>::split(e[i], h[i], l[i]);
+      const int t = pfst::tile_offset<float, KT, D>(col0 + i, pos);
+      *reinterpret_cast<uint32_t*>(th + t) = h[i];
+      *reinterpret_cast<uint32_t*>(tl + t) = l[i];
+    }
+    reinterpret_cast<float4*>(k)[c] = as_float4(h);
+    reinterpret_cast<float4*>(lo)[c] = as_float4(l);
+  }
+}
+
+// The tiles of stage s of dQ's ring (the last four fp32 only).
+template <typename T, int D, int C>
+struct DqStage {
+  using L = DqSmem<T, D, C>;
+  T* k;
+  T* v;
+  T* k_lo;
+  T* v_lo;
+  T* kt_hi;
+  T* kt_lo;
+  __device__ __forceinline__ DqStage(char* base, int s) {
+    char* p = base + L::kRing + s * L::kStage;
+    k = reinterpret_cast<T*>(p);
+    v = reinterpret_cast<T*>(p + L::kKeyTile);
+    k_lo = reinterpret_cast<T*>(p + 2 * L::kKeyTile);
+    v_lo = reinterpret_cast<T*>(p + 3 * L::kKeyTile);
+    kt_hi = reinterpret_cast<T*>(p + 4 * L::kKeyTile);
+    kt_lo = reinterpret_cast<T*>(p + 5 * L::kKeyTile);
+  }
+};
+
+// S = Q K^T into sc and dP = dO V^T into dp for the consumer's rows qr ..
+// qr + 63 from stage t (asynchronous; the caller fences and commits):
+// bf16 one product per k-step, fp32 three (lo hi + hi lo + hi hi, the lo
+// parts of Q and dO from registers, ql and ol).
+template <typename T, int D, int C, int NB, int LS>
+__device__ __forceinline__ void dq_scores(float (&sc)[NB][4],
+                                          float (&dp)[NB][4], const T* qs,
+                                          const T* dos,
+                                          const uint32_t (&ql)[LS][4],
+                                          const uint32_t (&ol)[LS][4],
+                                          const DqStage<T, D, C>& t, int qr) {
+  using L = DqSmem<T, D, C>;
+  constexpr int KT = L::kKeys;
+  constexpr int KS = D / pfst::Atom<T, D>::kStep;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t q = pfst::desc_k<T, D, L::kRows>(qs, qr, kk);
+    const uint64_t k = pfst::desc_k<T, D, KT>(t.k, 0, kk);
+    if constexpr (L::kSplit) {
+      pfst::wgmma_rs_tf32<KT>(sc, ql[kk], k, kk > 0);
+      pfst::wgmma_ss_tf32<KT>(sc, q, pfst::desc_k<T, D, KT>(t.k_lo, 0, kk),
+                              1);
+      pfst::wgmma_ss_tf32<KT>(sc, q, k, 1);
+    } else {
+      pfst::wgmma_ss<KT, 0>(sc, q, k, kk > 0);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t o = pfst::desc_k<T, D, L::kRows>(dos, qr, kk);
+    const uint64_t v = pfst::desc_k<T, D, KT>(t.v, 0, kk);
+    if constexpr (L::kSplit) {
+      pfst::wgmma_rs_tf32<KT>(dp, ol[kk], v, kk > 0);
+      pfst::wgmma_ss_tf32<KT>(dp, o, pfst::desc_k<T, D, KT>(t.v_lo, 0, kk),
+                              1);
+      pfst::wgmma_ss_tf32<KT>(dp, o, v, 1);
+    } else {
+      pfst::wgmma_ss<KT, 0>(dp, o, v, kk > 0);
+    }
+  }
+}
+
+template <typename T, int D, int C>
+// (bf16 with one consumer warpgroup: two blocks an SM; fp32's shared
+// memory takes one SM)
+__global__ void __launch_bounds__(128 * (C + 1),
+                                  sizeof(T) == 2 && C == 1 ? 2 : 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              T* __restrict__ dq, int H, int N, float scale,
+                              Strides st) {
+  using L = DqSmem<T, D, C>;
+  using S = DqStage<T, D, C>;
+  constexpr bool kSplit = L::kSplit;
+  constexpr int kStages = L::kStages;
+  constexpr int KT = L::kKeys;
+  constexpr int NB = KT / 8;                        // 8-key blocks of S, dP
+  constexpr int PS = KT / pfst::Atom<T, D>::kStep;  // k-steps of (dS s) K
+  constexpr int DB = D / 8;                         // 8-column blocks of dQ
+  constexpr int W = pfst::Atom<T, D>::kCols;
+  constexpr int RG = pfst::Atom<T, D>::kRegions;
+  extern __shared__ __align__(16) float smem[];
+  char* base = pfst::smem_align(smem);
+  T* qs = reinterpret_cast<T*>(base + L::kQ);
+  T* dos = reinterpret_cast<T*>(base + L::kO);
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* rows_split = qd_full + 1;  // one per consumer warpgroup
+  uint64_t* full = rows_split + 2;
+  uint64_t* split = full + kStages;
+  uint64_t* empty = split + kStages;
+  // what a consumer waits on before it reads a K, V tile: the TMA's
+  // barrier, or for fp32 the split warps'
+  uint64_t* ready = kSplit ? split : full;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * L::kRows;
+  const int tiles = (N + KT - 1) / KT;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    pfst::mbar_init(qd_full, 1);
+    for (int c = 0; c < C; ++c) pfst::mbar_init(rows_split + c, 128);
+    for (int s = 0; s < kStages; ++s) {
+      pfst::mbar_init(full + s, 1);
+      pfst::mbar_init(split + s, 96);  // the split warps' threads
+      pfst::mbar_init(empty + s, 128 * C);
+    }
+    pfst::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    pfst::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      pfst::mbar_expect_tx(qd_full, 2 * L::kRowTile);
+      pfst::tma_tile<T, D, L::kRows>(qs, &tq, qd_full, row0, h, b);
+      pfst::tma_tile<T, D, L::kRows>(dos, &tdo, qd_full, row0, h, b);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kStages;
+        const S t(base, s);
+        pfst::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        pfst::mbar_expect_tx(full + s, 2 * L::kKeyTile);
+        pfst::tma_tile<T, D, KT>(t.k, &tk, full + s, it * KT, h, b);
+        pfst::tma_tile<T, D, KT>(t.v, &tv, full + s, it * KT, h, b);
+      }
+    } else if constexpr (kSplit) {
+      if (threadIdx.x >= 32) {  // the split warps
+        const int i0 = threadIdx.x - 32;
+        for (int it = 0; it < tiles; ++it) {
+          const int s = it % kStages;
+          const S t(base, s);
+          pfst::mbar_wait(full + s, (it / kStages) & 1);
+          split_keys<D, KT>(t.k, t.k_lo, t.kt_hi, t.kt_lo, i0);
+          split_tile(t.v, t.v_lo, L::kKeyTile, i0);
+          pfst::fence_proxy_async();
+          pfst::mbar_arrive(split + s);
+        }
+      }
+    }
+    return;
+  }
+
+  pfst::setmaxnreg_inc<consumer_regs<C>()>();
+  const int lane = threadIdx.x & 31;
+  const int qr = (wg - 1) * 64;                       // the warpgroup's rows
+  const int wr = qr + ((threadIdx.x >> 5) & 3) * 16;  // the warp's rows
+  // LSE (times log2 e) and Di of the lane's rows g and g + 8
+  const long long stat0 = (static_cast<long long>(b) * H + h) * N;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
+    lr[i] = row < N ? lse[stat0 + row] * kLog2e : 0.f;
+    dr[i] = row < N ? di[stat0 + row] : 0.f;
+  }
+  float dqa[DB][4] = {};
+  const float sl2 = scale * kLog2e;
+
+  // fp32: each warp splits its own rows of Q and dO, hi in place and lo
+  // into registers; the warpgroup's wgmma reads all its 64 rows, so its
+  // threads meet at their own mbarrier after the proxy fence
+  uint32_t ql[kSplit ? D / 8 : 1][4], ol[kSplit ? D / 8 : 1][4];
+  pfst::mbar_wait(qd_full, 0);
+  if constexpr (kSplit) {
+    split_rows<D, L::kRows>(qs, ql, wr, lane);
+    split_rows<D, L::kRows>(dos, ol, wr, lane);
+    pfst::fence_proxy_async();
+    pfst::mbar_arrive(rows_split + wg - 1);
+    pfst::mbar_wait(rows_split + wg - 1, 0);
+  }
+
+  // S and dP of tile 0; each later tile's are issued behind the dQ
+  // product of the tile before
+  float sc[NB][4], dp[NB][4];
+  pfst::mbar_wait(ready, 0);
+  pfst::wgmma_fence();
+  dq_scores(sc, dp, qs, dos, ql, ol, S(base, 0), qr);
+  pfst::wgmma_commit();
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kStages;
+    const S t(base, s);
+    pfst::wgmma_wait<0>();  // S and dP of this tile
+    pfst::fence_regs(sc);
+    pfst::fence_regs(dp);
+
+    // dS s on the fragments: query rows g, g + 8, keys it KT + 8 j + 2 t
+    // + e % 2, the scale folded into one FMA before 2^x; only the last
+    // tile holds keys past N (P = 0)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = pfst::ex2(fmaf(sc[j][e], sl2, -lr[e >> 1]));
+        dp[j][e] = p * (dp[j][e] - dr[e >> 1]) * scale;
+      }
+    if ((it + 1) * KT > N) {
+      const int c0 = it * KT + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * j + (e & 1) >= N) dp[j][e] = 0.f;
+    }
+
+    // dQ += (dS s) K, dS s from registers (fp32: hi in sa, lo in sl); then
+    // the next tile's S and dP behind it
+    uint32_t sa[PS][4], sl[kSplit ? PS : 1][4];
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc) {
+      if constexpr (kSplit) {
+        const float x[4] = {dp[kc][0], dp[kc][2], dp[kc][1], dp[kc][3]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pfst::Mma<float>::split(x[i], sa[kc][i], sl[kc][i]);
+      } else {
+        const typename pfst::Mma<T>::A a = pfst::Mma<T>::a_from_acc(dp, kc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sa[kc][i] = a.r[i];
+      }
+    }
+    pfst::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc) {
+      if constexpr (kSplit) {
+        const uint64_t hi = pfst::desc_k<T, KT, D>(t.kt_hi, 0, kc);
+        pfst::wgmma_rs_tf32<D>(dqa, sl[kc], hi, 1);
+        pfst::wgmma_rs_tf32<D>(dqa, sa[kc],
+                               pfst::desc_k<T, KT, D>(t.kt_lo, 0, kc), 1);
+        pfst::wgmma_rs_tf32<D>(dqa, sa[kc], hi, 1);
+      } else {
+#pragma unroll
+        for (int r = 0; r < RG; ++r)
+          pfst::wgmma_rs<W, 1>(slice<W>(dqa, r), sa[kc],
+                               pfst::desc_mn<D, KT>(t.k, kc, r), 1);
+      }
+    }
+    pfst::wgmma_commit();
+    if (it + 1 < tiles) {
+      const int s1 = (it + 1) % kStages;
+      pfst::mbar_wait(ready + s1, ((it + 1) / kStages) & 1);
+      dq_scores(sc, dp, qs, dos, ql, ol, S(base, s1), qr);
+      pfst::wgmma_commit();
+      pfst::wgmma_wait<1>();  // dQ of this tile
+    } else {
+      pfst::wgmma_wait<0>();
+    }
+    pfst::fence_regs(dqa);
+    pfst::fence_regs(sa);
+    if constexpr (kSplit) {
+      pfst::fence_regs(sl);
+      pfst::fence_regs(ql);
+      pfst::fence_regs(ol);
+    }
+    pfst::mbar_arrive(empty + s);  // the stage is read
+  }
+
+  T* dqb = dq + b * st.t[4][0] + h * st.t[4][1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wr + (lane >> 2) + 8 * i;
+    if (row < N) {
+      T* dqr = dqb + row * st.t[4][2] + 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < DB; ++e)
+        pfst::store2(dqr + 8 * e, dqa[e][2 * i], dqa[e][2 * i + 1]);
     }
   }
 }
@@ -1063,11 +1342,11 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
     const dim3 threads(128 * (kFwdWG + 1));
     static std::atomic<unsigned long long> done{0};
     const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
-    err = pfst::bhnd_map<D, L::kRows>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+    err = pfst::bhnd_map<T, D, L::kRows>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<D, L::kKeys>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+      err = pfst::bhnd_map<T, D, L::kKeys>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<D, L::kKeys>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+      err = pfst::bhnd_map<T, D, L::kKeys>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
     if (err == cudaSuccess)
       err = allow_smem(flash_fwd_wgmma_kernel<D, kFwdWG>, L::kBytes, device,
                        done);
@@ -1081,13 +1360,13 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
     static std::atomic<unsigned long long> done{0};
     const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
     CUtensorMap tdo;
-    err = pfst::bhnd_map<D, L::kQueries>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+    err = pfst::bhnd_map<T, D, L::kQueries>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<D, L::kRows>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+      err = pfst::bhnd_map<T, D, L::kRows>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<D, L::kRows>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+      err = pfst::bhnd_map<T, D, L::kRows>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<D, L::kQueries>(&tdo, a.dout, a.B, a.H, a.N,
+      err = pfst::bhnd_map<T, D, L::kQueries>(&tdo, a.dout, a.B, a.H, a.N,
                                            a.st.t[3]);
     if (err == cudaSuccess)
       err = allow_smem(flash_bwd_dkv_wgmma_kernel<D, kDkvWG>, L::kBytes,
@@ -1101,20 +1380,49 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
   return cudaGetLastError();
 }
 
-// One launch: the wgmma kernels for bf16 forward and dK/dV, else the
-// mma.sync kernels (fp32 forward and dK/dV, dQ in both types).
+// dQ, both types: tensor maps of q, k, v, dO, built on the host for each
+// launch.
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a, int device, cudaStream_t stream) {
+  constexpr int C = dq_wg<T, D>();
+  using L = DqSmem<T, D, C>;
+  static std::atomic<unsigned long long> done{0};
+  const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err =
+      pfst::bhnd_map<T, D, L::kRows>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+  if (err == cudaSuccess)
+    err = pfst::bhnd_map<T, D, L::kKeys>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+  if (err == cudaSuccess)
+    err = pfst::bhnd_map<T, D, L::kKeys>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+  if (err == cudaSuccess)
+    err = pfst::bhnd_map<T, D, L::kRows>(&tdo, a.dout, a.B, a.H, a.N,
+                                         a.st.t[3]);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_bwd_dq_wgmma_kernel<T, D, C>, L::kBytes, device,
+                     done);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<T, D, C><<<grid, 128 * (C + 1), L::kBytes,
+                                       stream>>>(
+      tq, tk, tv, tdo, a.lse_in, a.di, static_cast<T*>(a.out0), a.H, a.N,
+      a.scale, a.st);
+  return cudaGetLastError();
+}
+
+// One launch: dQ and the bf16 forward and dK/dV on the wgmma kernels, the
+// fp32 forward and dK/dV on the mma.sync kernels.
 template <typename T, int D>
 cudaError_t launch(Kind kind, const Args& a, int device,
                    cudaStream_t stream) {
-  const dim3 grid((a.N + kRows - 1) / kRows, a.H, a.B);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  cudaError_t err;
+  if (kind == kDq) return launch_dq<T, D>(a, device, stream);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (kind != kDq) return launch_wgmma<D>(kind, a, device, stream);
+    return launch_wgmma<D>(kind, a, device, stream);
   } else {
+    const dim3 grid((a.N + kRows - 1) / kRows, a.H, a.B);
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    cudaError_t err;
     if (kind == kForward) {
       static std::atomic<unsigned long long> done{0};
       const size_t bytes = fwd_smem_bytes<T, D>();
@@ -1125,25 +1433,16 @@ cudaError_t launch(Kind kind, const Args& a, int device,
           a.st);
       return cudaGetLastError();
     }
-    if (kind == kDkv) {
-      static std::atomic<unsigned long long> done{0};
-      const size_t bytes = dkv_smem_bytes<T, D>();
-      err = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes, device, done);
-      if (err != cudaSuccess) return err;
-      flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-          q, k, v, dout, a.lse_in, a.di, static_cast<T*>(a.out0),
-          static_cast<T*>(a.out1), a.H, a.N, a.scale, a.st);
-      return cudaGetLastError();
-    }
+    static std::atomic<unsigned long long> done{0};
+    const size_t bytes = dkv_smem_bytes<T, D>();
+    err = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes, device, done);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.di,
+        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H, a.N, a.scale,
+        a.st);
+    return cudaGetLastError();
   }
-  static std::atomic<unsigned long long> done{0};
-  const size_t bytes = dq_smem_bytes<T, D>();
-  err = allow_smem(flash_bwd_dq_kernel<T, D>, bytes, device, done);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, dout, a.lse_in, a.di, static_cast<T*>(a.out0), a.H, a.N,
-      a.scale, a.st);
-  return cudaGetLastError();
 }
 
 template <typename T>

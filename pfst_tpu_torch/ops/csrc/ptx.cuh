@@ -1,12 +1,12 @@
 // One inline-PTX wrapper per instruction that the tensor-core kernels use
 // (built for sm_90a): asynchronous copies into shared memory, ldmatrix,
 // and warp-level mma.sync in bf16 and TF32 (sm_80 and later); and
-// Hopper's tensor copies (TMA), mbarriers, warpgroup products (wgmma) and
-// register reallocation (sm_90a). Fragment layouts are the PTX ISA's
-// ("Matrix fragments for mma.m16n8k16 / mma.m16n8k8", "Register
-// fragments and shared memory matrix layouts" of wgmma); mma.cuh builds
-// the warp tiles from the first kind and wgmma.cuh the warpgroup tiles
-// from the second.
+// Hopper's tensor copies (TMA), mbarriers, proxy fences, warpgroup
+// products (wgmma, bf16 and TF32) and register reallocation (sm_90a).
+// Fragment layouts are the PTX ISA's ("Matrix fragments for
+// mma.m16n8k16 / mma.m16n8k8", "Register fragments and shared memory
+// matrix layouts" of wgmma); mma.cuh builds the warp tiles from the first
+// kind and wgmma.cuh the warpgroup tiles from the second.
 #pragma once
 #include <cuda.h>
 
@@ -181,6 +181,13 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// Orders this thread's earlier generic-proxy stores to shared memory
+// before later asynchronous-proxy accesses (wgmma, TMA) ordered after it,
+// e.g. through an mbarrier that the writer arrives on next.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Orders the warpgroup's register writes (accumulators, register A) before
 // the wgmma that follows.
 __device__ __forceinline__ void wgmma_fence() {
@@ -218,11 +225,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
 
 #define PFST_ACC4(d, j) \
   "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define PFST_ACC8(d, j) PFST_ACC4(d, j), PFST_ACC4(d, j + 1)
 #define PFST_ACC16(d, j) \
   PFST_ACC4(d, j), PFST_ACC4(d, j + 1), PFST_ACC4(d, j + 2), \
       PFST_ACC4(d, j + 3)
+#define PFST_REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define PFST_REGS16 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+  PFST_REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define PFST_REGS32                                                        \
   PFST_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
               "%27, %28, %29, %30, %31"
@@ -292,8 +301,99 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
   }
 }
 
+// d (64 x N, fp32; accumulate ? d + A B : A B) with A (64 x 8) and B
+// (8 x N) TF32 in shared memory, both K-major (tf32 wgmma has no
+// transpose): each 32-bit input is read as TF32 (its top 19 bits), so the
+// caller splits fp32 values into hi and lo parts (3xTF32). Asynchronous
+// and laid out as wgmma_ss.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 8][4],
+                                              uint64_t a, uint64_t b,
+                                              int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_ss_tf32: N");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{" PFST_REGS8 "}, %8, %9, p, 1, 1;\n}\n"
+        : PFST_ACC8(d, 0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{" PFST_REGS16 "}, %16, %17, p, 1, 1;\n}\n"
+        : PFST_ACC16(d, 0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{" PFST_REGS32 "}, %32, %33, p, 1, 1;\n}\n"
+        : PFST_ACC16(d, 0), PFST_ACC16(d, 4)
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{" PFST_REGS64 "}, %64, %65, p, 1, 1;\n}\n"
+        : PFST_ACC16(d, 0), PFST_ACC16(d, 4), PFST_ACC16(d, 8),
+          PFST_ACC16(d, 12)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+}
+
+// The same with A from registers: each warp gives its 16 rows of A as
+// mma.m16n8k8's TF32 A fragment (a[0]: row g, column t; a[1]: row g + 8,
+// column t; a[2], a[3]: the same rows, column t + 4; g = lane / 4,
+// t = lane % 4).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_rs_tf32: N");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{" PFST_REGS8 "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : PFST_ACC8(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{" PFST_REGS16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : PFST_ACC16(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{" PFST_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : PFST_ACC16(d, 0), PFST_ACC16(d, 4)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{" PFST_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : PFST_ACC16(d, 0), PFST_ACC16(d, 4), PFST_ACC16(d, 8),
+          PFST_ACC16(d, 12)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+}
+
 #undef PFST_ACC4
+#undef PFST_ACC8
 #undef PFST_ACC16
+#undef PFST_REGS8
 #undef PFST_REGS16
 #undef PFST_REGS32
 #undef PFST_REGS64

@@ -18,7 +18,9 @@ Phase 3c's own check, ``chip_smoke.flash_allowances`` and
 ``flash_excess``, is held here to the plain versions run in bf16, which
 round P, P^T, dS s and dS^T s where the bf16 kernels do; and the plain
 bf16 backward to a jnp transcription of the TPU kernels' own formulas,
-which scale dS before they round it.
+which scale dS before they round it. A model of the fp32 dQ kernel's
+3xTF32 products (hi and lo formed on the int32 view as the kernel forms
+them) is held to fp64 within phase 3c's bound, which 1xTF32 breaks.
 """
 import functools
 import os.path as osp
@@ -290,3 +292,55 @@ def test_kernels_get_a_copy_of_an_unaligned_view():
         assert got.data_ptr() % 16 == 0
         torch.testing.assert_close(got, t, rtol=0, atol=0)
     assert _aligned(single) is single
+
+
+def _tf32_round(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it (to nearest,
+    ties away from zero), on the int32 view: what ``Mma<float>::split``
+    and the fp32 dQ kernel's split warps take as hi, and as lo."""
+    u = x.view(torch.int32)
+    finite = (u & 0x7f800000) != 0x7f800000
+    return torch.where(finite, (u + 0x1000) & -0x2000, u).view(torch.float32)
+
+
+def _tf32_read(x):
+    """x as the tensor cores read a 32-bit TF32 input: its top 19 bits."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, three):
+    """a @ b as the fp32 dQ kernel takes each product: lo hi + hi lo +
+    hi hi over hi = tf32(x), lo = tf32(x - hi), fp32 sums (3xTF32); or
+    one TF32 product of the raw values (1xTF32, the planted control)."""
+    if not three:
+        return _tf32_read(a) @ _tf32_read(b)
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_round(a - ah), _tf32_round(b - bh)
+    return (_tf32_read(al) @ _tf32_read(bh) + _tf32_read(ah) @ _tf32_read(bl)
+            + ah @ bh)
+
+
+@pytest.mark.parametrize('three', [True, False],
+                         ids=['3xtf32', '1xtf32-control'])
+def test_fp32_dq_kernel_arithmetic_is_fp32_accurate(three):
+    """The fp32 dQ kernel's arithmetic at the ViT's (1, 2, 1025, 64): S =
+    Q K^T, dP = dO V^T and dQ = (dS s) K through its 3xTF32 products, dS s
+    from them in fp32, within phase 3c's ``FLASH_BWD_TOL * max(1,
+    max|ref|)`` of fp64; one TF32 product each (lo taken as zero) must
+    break that bound, for S and for dQ."""
+    q, k, v, g = _t(*_qkvg((1, 2, 1025, 64), seed=3))
+    s = 64**-0.5
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    s_ref = qd @ kd.transpose(-1, -2)
+    lse = torch.logsumexp(s_ref * s, -1, keepdim=True)
+    p_ref = torch.exp(s_ref * s - lse)
+    di = ((p_ref @ vd) * gd).sum(-1, keepdim=True)
+    dq_ref = p_ref * (gd @ vd.transpose(-1, -2) - di) * s @ kd
+    sc = _tf32_product(q, k.transpose(-1, -2), three)
+    dp = _tf32_product(g, v.transpose(-1, -2), three)
+    ds = torch.exp(sc * s - lse.float()) * (dp - di.float()) * s
+    dq = _tf32_product(ds, k, three)
+    for got, ref in ((sc, s_ref), (dq, dq_ref)):
+        err = float((got.double() - ref).abs().max())
+        limit = chip_smoke.FLASH_BWD_TOL * max(1.0, float(ref.abs().max()))
+        assert (err <= limit) == three, (err, limit)

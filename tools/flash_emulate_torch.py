@@ -27,12 +27,19 @@ mantissa bits, as the hardware reads them. Hopper's instructions: a
 ``cuTensorMapEncodeTiled`` checks); a TMA box copy (zero past the
 tensor, written through the 64/128-byte swizzle of the shared-memory
 address) lands only when a thread waits on its mbarrier, which counts
-arrivals and ``expect_tx`` bytes per phase; a ``wgmma`` reads its
-shared-memory operands through the descriptor (start, leading and
-stride offsets, swizzle; K- or MN-major B) and writes its accumulators
-at the ``wgmma.wait_group`` that retires its group, so an early read of
-either side shows up; ``setmaxnreg`` and the fences are no-ops. Shared
-memory starts 16 bytes past a 1024-byte boundary, as it may on the card.
+arrivals and ``expect_tx`` bytes per phase; a ``wgmma`` (bf16, or TF32
+read as its top 19 bits, with the ``m16n8k8`` register A fragment) reads
+its shared-memory operands through the descriptor (start, leading and
+stride offsets, swizzle; K- or MN-major B) at its issue and again at the
+``wgmma.wait_group`` that retires its group (the two reads must agree, so
+an operand not ready at issue or overwritten in flight faults) and
+writes its accumulators at that wait, so an early read of the
+accumulators shows up. ``wgmma`` reads shared memory as the asynchronous
+proxy sees it: TMA writes reach it at once, a thread's generic stores
+only at its ``fence.proxy.async``, so a tile rewritten in shared memory
+and read without the fence is stale. ``setmaxnreg`` and the other fences
+are no-ops. Shared memory starts 16 bytes past a 1024-byte boundary, as
+it may on the card.
 A launch's ``<<<...>>>`` becomes a loop over blocks. Each library is
 built by ``g++`` and driven through its module's own wrappers
 (``ops/attention.py``, ``ops/neighborhood_sim.py``) on CPU tensors.
@@ -60,8 +67,9 @@ from pfst_tpu_torch.ops import build  # noqa: E402
 # (shape (B, H, N, D), dtype, layout): every head dimension and type, N
 # past a tile's edge (past a 128-row tile at every bf16 head dimension,
 # and far enough that the forward's two-stage and dK/dV's three-stage
-# rings wrap), 'qkv' strides as the ViT block gives them, and 'offset'
-# views that the wrapper must copy
+# rings wrap; fp32 dQ past its 128-row block and its 2048 / D-key tiles,
+# its ring wrapping), 'qkv' strides as the ViT block gives them, and
+# 'offset' views that the wrapper must copy
 CASES = [((1, 2, 17, 64), torch.float32, 'qkv'),
          ((1, 2, 17, 64), torch.bfloat16, 'qkv'),
          ((1, 2, 130, 64), torch.bfloat16, 'qkv'),
@@ -72,7 +80,9 @@ CASES = [((1, 2, 17, 64), torch.float32, 'qkv'),
          ((2, 1, 70, 32), torch.bfloat16, 'contiguous'),
          ((1, 2, 70, 32), torch.float32, 'offset'),
          ((1, 1, 80, 128), torch.bfloat16, 'offset'),
-         ((1, 1, 80, 128), torch.float32, 'contiguous')]
+         ((1, 1, 80, 128), torch.float32, 'contiguous'),
+         ((1, 2, 150, 64), torch.float32, 'offset'),
+         ((1, 1, 37, 128), torch.float32, 'qkv')]
 # similarity forward: (shape (B, C, H, W), k, d), each for both similarity
 # types and input types: W past a 32-pixel segment, odd W (unaligned bf16
 # pairs), d = 2 with W a multiple of 8 (the compile-time geometry), C
@@ -179,16 +189,27 @@ struct Mbar {
 };
 // Shared memory is a window whose address 0 is 1024-byte aligned; the
 // kernel's dynamic shared memory starts 16 bytes into it, as it may on the
-// card, so a kernel that needs more alignment must make it.
+// card, so a kernel that needs more alignment must make it. The
+// asynchronous proxy (wgmma's reads) sees its own copy of the window:
+// TMA writes both, and a thread's generic stores reach it only at the
+// fence.proxy.async that follows them.
+inline char* align1024(std::vector<char>& v) {
+  return v.data() + (1024 - reinterpret_cast<uintptr_t>(v.data()) % 1024)
+                        % 1024;
+}
 struct Block {
-  explicit Block(int n, size_t bytes) : bar(n), raw(bytes + 2048) {
-    window = raw.data() + (1024 - reinterpret_cast<uintptr_t>(raw.data())
-                                      % 1024) % 1024;
+  explicit Block(int n, size_t bytes)
+      : bar(n), raw(bytes + 2048), async_raw(bytes + 2048),
+        size(bytes + 1024) {
+    window = align1024(raw);
+    async_window = align1024(async_raw);
   }
   std::barrier<> bar;
   Warp warps[kMaxThreads / 32];
-  std::vector<char> raw;
+  std::vector<char> raw, async_raw;
+  size_t size;  // bytes of either window
   char* window;
+  char* async_window;
   std::mutex mu;
   std::condition_variable cv;
   std::map<uint32_t, Mbar> bars;  // by shared-memory address
@@ -216,6 +237,7 @@ void launch(dim3 grid, dim3 block, size_t bytes, cudaStream_t, F&& fn) {
       for (unsigned x = 0; x < grid.x; ++x) {
         auto blk = std::make_unique<Block>(n, bytes);
         std::memset(blk->raw.data(), 0xff, blk->raw.size());  // NaN
+        std::memset(blk->async_raw.data(), 0xff, blk->async_raw.size());
         g_block = blk.get();
         std::vector<std::thread> threads;
         for (int t = 0; t < n; ++t)
@@ -532,10 +554,12 @@ inline long long tma_run(const emu::TmaCopy& t) {
       in = in && g >= 0 && g < (long long)mp.dims[d];
       off += g * (long long)mp.strides[d];
     }
-    const uint32_t logical = dst + uint32_t(bytes);
-    char* out = emu::g_block->window + swizzle(logical, mp.span);
-    if (in) std::memcpy(out, mp.base + off, mp.elem);
-    else std::memset(out, 0, mp.elem);
+    const uint32_t at = swizzle(dst + uint32_t(bytes), mp.span);
+    for (char* out : {emu::g_block->window + at,
+                      emu::g_block->async_window + at}) {
+      if (in) std::memcpy(out, mp.base + off, mp.elem);
+      else std::memset(out, 0, mp.elem);
+    }
     bytes += mp.elem;
   }
   return bytes;
@@ -564,7 +588,7 @@ inline void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
 
 // The copies queued on a barrier land when a thread waits on it; a read
 // of their destination before that wait sees what was there before.
-inline void mbar_wait(uint64_t* bar, int parity) {
+inline void mbar_wait_locked(uint64_t* bar, int parity) {
   std::unique_lock<std::mutex> lk(emu::g_block->mu);
   const auto deadline =
       std::chrono::steady_clock::now() + std::chrono::seconds(60);
@@ -584,6 +608,24 @@ inline void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// The first warpgroup (the wgmma kernels' producer: TMA and split warps)
+// then dawdles, so that a consumer that reads a stage before the barrier
+// that guards it finds it unready.
+inline void mbar_wait(uint64_t* bar, int parity) {
+  mbar_wait_locked(bar, parity);
+  if (threadIdx.x < 128)
+    std::this_thread::sleep_for(std::chrono::milliseconds(20));
+}
+
+// This thread's generic stores so far reach the asynchronous proxy (the
+// whole window is copied: stores of other threads not yet fenced go along,
+// which can hide their own missing fence but never a missing one here).
+inline void fence_proxy_async() {
+  std::lock_guard<std::mutex> lk(emu::g_block->mu);
+  std::memcpy(emu::g_block->async_window, emu::g_block->window,
+              emu::g_block->size);
+}
+
 inline float ex2(float x) { return std::exp2(x); }
 template <int R> inline void setmaxnreg_inc() {}
 template <int R> inline void setmaxnreg_dec() {}
@@ -591,22 +633,28 @@ template <int M> inline void fence_regs(float (&)[M][4]) {}
 template <int M> inline void fence_regs(uint32_t (&)[M][4]) {}
 inline void wgmma_fence() {}
 
-// a wgmma of this thread: its 2 rows of A (register A) or A's descriptor;
-// done at the wgmma_wait that retires its group
+// a wgmma of this thread: its 2 rows of A (register A) or A's descriptor,
+// the input's bytes (2: bf16, 4: tf32), and the shared-memory operands it
+// read at issue; done at the wgmma_wait that retires its group
 struct WgOp {
   float* d;
   int n, trans_b, accumulate;
   bool reg_a;
   uint64_t a, b;
   float arow[2][16];
+  int elem;
+  std::vector<float> snap;
 };
 inline thread_local std::vector<WgOp> t_wg_open;
 inline thread_local std::deque<std::vector<WgOp>> t_wg_groups;
 
 // element (row, k) of a K-major operand, or (k, n) as (n, k) of an
-// MN-major one (desc_mn), bf16 in shared memory: the PTX ISA's canonical
-// layouts (leading / stride byte offsets) under the descriptor's swizzle
-inline float desc_elem(uint64_t desc, int i, int k, bool mn_major) {
+// MN-major one (desc_mn, bf16 only), bf16 or tf32 (elem bytes) in shared
+// memory as the asynchronous proxy sees it: the PTX ISA's canonical
+// layouts (leading / stride byte offsets) under the descriptor's swizzle;
+// a tf32 input is read as its top 19 bits
+inline float desc_elem(uint64_t desc, int i, int k, bool mn_major,
+                       int elem) {
   const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
   const uint32_t lbo = uint32_t((desc >> 16) & 0x3FFF) << 4;
   const uint32_t sbo = uint32_t((desc >> 32) & 0x3FFF) << 4;
@@ -615,31 +663,65 @@ inline float desc_elem(uint64_t desc, int i, int k, bool mn_major) {
   const int span = layout == 1 ? 128 : layout == 2 ? 64 : 32;
   uint32_t addr;
   if (!mn_major) {  // i: row (M or N), k contiguous
-    addr = start + (i / 8) * sbo + (i % 8) * span + k * 2;
+    addr = start + (i / 8) * sbo + (i % 8) * span + k * elem;
   } else {  // i: n, contiguous within an atom; k: rows
+    if (elem != 2) emu::fault("MN-major tf32 wgmma operand");
     const int w = span / 2;
     addr = start + (i / w) * lbo + (i % w) * 2 + (k % 8) * span + (k / 8) * sbo;
   }
+  const char* at = emu::g_block->async_window + swizzle(addr, span);
+  if (elem == 4) {
+    uint32_t u;
+    std::memcpy(&u, at, 4);
+    return tf32_in(u);
+  }
   uint16_t h;
-  std::memcpy(&h, emu::g_block->window + swizzle(addr, span), 2);
+  std::memcpy(&h, at, 2);
   return __uint_as_float(uint32_t(h) << 16);
 }
 
+// The shared-memory operands that this thread's results read: its rows
+// r0, r0 + 8 of A (unless A is in registers), then its columns 8 j + 2 t
+// and 8 j + 2 t + 1 of B, a k-step each.
+inline std::vector<float> wgmma_operands(const WgOp& op) {
+  const int l = emu::lane(), t = l & 3;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (l >> 2);
+  const int kn = 32 / op.elem;  // a k-step: 32 bytes
+  std::vector<float> v;
+  if (!op.reg_a)
+    for (int i = 0; i < 2; ++i)
+      for (int k = 0; k < kn; ++k)
+        v.push_back(desc_elem(op.a, r0 + 8 * i, k, false, op.elem));
+  for (int j = 0; j < op.n / 8; ++j)
+    for (int c = 0; c < 2; ++c)
+      for (int k = 0; k < kn; ++k)
+        v.push_back(desc_elem(op.b, 8 * j + 2 * t + c, k, op.trans_b != 0,
+                              op.elem));
+  return v;
+}
+
+// A wgmma may read shared memory at any time from its issue to the
+// wait_group that retires it: it reads it at both, and they must agree
+// (an operand not ready at issue, or overwritten in flight, faults).
+inline void wgmma_issue(WgOp op) {
+  op.snap = wgmma_operands(op);
+  t_wg_open.push_back(std::move(op));
+}
+
 inline void wgmma_run(const WgOp& op) {
-  const int l = emu::lane(), g = l >> 2, t = l & 3;
-  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + g;  // rows r0, r0 + 8
-  float a[2][16];
-  for (int i = 0; i < 2; ++i)
-    for (int k = 0; k < 16; ++k)
-      a[i][k] = op.reg_a ? op.arow[i][k] : desc_elem(op.a, r0 + 8 * i, k, false);
+  const std::vector<float> now = wgmma_operands(op);
+  if (std::memcmp(now.data(), op.snap.data(), now.size() * 4) != 0)
+    emu::fault("a wgmma operand in shared memory changed between its issue "
+               "and its wait_group");
+  const int kn = 32 / op.elem;
+  const float* b = op.snap.data() + (op.reg_a ? 0 : 2 * kn);
   for (int j = 0; j < op.n / 8; ++j)
     for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * t + (e & 1);
+      const float* a = op.reg_a ? op.arow[e >> 1]
+                                : op.snap.data() + (e >> 1) * kn;
+      const float* bc = b + (2 * j + (e & 1)) * kn;
       double sum = op.accumulate ? op.d[4 * j + e] : 0.0;
-      for (int k = 0; k < 16; ++k)
-        sum += double(a[e >> 1][k]) *
-               (op.trans_b ? desc_elem(op.b, col, k, true)
-                           : desc_elem(op.b, col, k, false));
+      for (int k = 0; k < kn; ++k) sum += double(a[k]) * bc[k];
       op.d[4 * j + e] = float(sum);
     }
 }
@@ -647,7 +729,7 @@ inline void wgmma_run(const WgOp& op) {
 template <int N, int TransB>
 inline void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
                      int accumulate) {
-  t_wg_open.push_back({&d[0][0], N, TransB, accumulate, false, a, b, {}});
+  wgmma_issue({&d[0][0], N, TransB, accumulate, false, a, b, {}, 2, {}});
 }
 
 template <int N, int TransB>
@@ -657,7 +739,7 @@ inline void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b,
   const int l = emu::lane();
   for (int i = 0; i < 4; ++i) w.a[l][i] = a[i];
   w.bar.arrive_and_wait();
-  WgOp op{&d[0][0], N, TransB, accumulate, true, 0, b, {}};
+  WgOp op{&d[0][0], N, TransB, accumulate, true, 0, b, {}, 2, {}};
   for (int t = 0; t < 4; ++t) {  // the quad of rows g, g + 8
     const uint32_t* q = w.a[4 * (l >> 2) + t];
     for (int h = 0; h < 2; ++h) {
@@ -668,7 +750,34 @@ inline void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b,
     }
   }
   w.bar.arrive_and_wait();
-  t_wg_open.push_back(op);
+  wgmma_issue(op);
+}
+
+template <int N>
+inline void wgmma_ss_tf32(float (&d)[N / 8][4], uint64_t a, uint64_t b,
+                          int accumulate) {
+  wgmma_issue({&d[0][0], N, 0, accumulate, false, a, b, {}, 4, {}});
+}
+
+// register A as mma.m16n8k8's TF32 A fragment: a[0] (g, t), a[1]
+// (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4), read as TF32
+template <int N>
+inline void wgmma_rs_tf32(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                          uint64_t b, int accumulate) {
+  emu::Warp& w = emu::warp();
+  const int l = emu::lane();
+  for (int i = 0; i < 4; ++i) w.a[l][i] = a[i];
+  w.bar.arrive_and_wait();
+  WgOp op{&d[0][0], N, 0, accumulate, true, 0, b, {}, 4, {}};
+  for (int t = 0; t < 4; ++t) {  // the quad of rows g, g + 8
+    const uint32_t* q = w.a[4 * (l >> 2) + t];
+    op.arow[0][t] = tf32_in(q[0]);
+    op.arow[1][t] = tf32_in(q[1]);
+    op.arow[0][t + 4] = tf32_in(q[2]);
+    op.arow[1][t + 4] = tf32_in(q[3]);
+  }
+  w.bar.arrive_and_wait();
+  wgmma_issue(op);
 }
 
 inline void wgmma_commit() {

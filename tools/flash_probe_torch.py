@@ -22,12 +22,13 @@ For a first call after a kernel change, before ``chip_smoke.py``::
 
 The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c) and
 ``chip_smoke.sim_errors``'s (phase 3). Exits 1 if a case fails, if a
-bf16 forward or dK/dV instantiation (``flash_*_wgmma_kernel``) has no
-HGMMA, or if another flash instantiation (the fp32 forward and dK/dV,
-dQ in both types) has no HMMA.
+``flash_*_wgmma_kernel`` instantiation (the bf16 forward and dK/dV, dQ
+in both types) has no HGMMA, or if another flash instantiation (the fp32
+forward and dK/dV) has no HMMA.
 """
 import collections
 import concurrent.futures
+import itertools
 import os.path as osp
 import re
 import statistics
@@ -49,18 +50,19 @@ from pfst_tpu_torch.ops import (build, cuda_flash_attention,  # noqa: E402
                                 cuda_neighborhood_similarity)
 
 CASES = FLASH_CASES + [((2, 3, 130, 32), torch.bfloat16, 'qkv'),
+                       ((2, 3, 130, 32), torch.float32, 'qkv'),
                        ((1, 2, 300, 128), torch.float32, 'qkv'),
                        ((1, 2, 300, 128), torch.bfloat16, 'contiguous')]
 
 
 def kernel_name(mangled):
     """'flash_fwd_kernel fp32 D=64' (or 'neighborhood_sim_kernel bf16
-    K=3 cosine') from a mangled instantiation name; the wgmma kernels take
-    bf16 only."""
+    K=3 cosine') from a mangled instantiation name; the forward and dK/dV
+    wgmma kernels take bf16 only, and name no type."""
     kernel = re.search(r'(flash_\w+?|neighborhood_sim\w*?)_kernel', mangled)
     arg = re.search(r'Li(\d+)E', mangled)
-    dtype = 'bf16' if '__nv_bfloat16' in mangled or 'wgmma' in mangled \
-        else 'fp32'
+    bf16_only = re.search(r'flash_(fwd|bwd_dkv)_wgmma', mangled)
+    dtype = 'bf16' if '__nv_bfloat16' in mangled or bf16_only else 'fp32'
     name = f'{kernel.group(0) if kernel else mangled} {dtype}'
     if kernel and kernel.group(0).startswith('flash'):
         return f'{name} D={arg.group(1) if arg else "?"}'
@@ -118,8 +120,9 @@ def sass_counts(lib_path):
 
 
 def check_sass(counts):
-    """Print the counts; False unless every wgmma instantiation has HGMMA
-    and every other flash instantiation HMMA (18 in all)."""
+    """Print the counts; False unless every wgmma instantiation (bf16
+    forward and dK/dV, dQ in both types: 12) has HGMMA and every other
+    flash instantiation (fp32 forward and dK/dV: 6) HMMA."""
     ok = len(counts) == 18
     for name, c in sorted(counts.items()):
         need = 'hgmma' if 'wgmma' in name else 'hmma'
@@ -204,14 +207,15 @@ def check_sim(shape, sim_type, dtype, gen, dilation=SIM_D):
 
 
 def first_launches():
-    """Each bf16 flash kernel once alone at every head dimension, with a
-    synchronize after it, so that a fault names its kernel; exits 1 at
-    the first fault (the context is lost with it)."""
+    """Each wgmma flash kernel (and the fp32 forward and dK/dV) once alone
+    at every head dimension, with a synchronize after it, so that a fault
+    names its kernel; exits 1 at the first fault (the context is lost with
+    it)."""
     gen = torch.Generator().manual_seed(5)
-    for d in (32, 64, 128):
+    for dtype, d in itertools.product((torch.bfloat16, torch.float32),
+                                      (32, 64, 128)):
         shape = (1, 2, 130, d)
-        q, k, v, g = (torch.randn(shape, generator=gen).to('cuda',
-                                                            torch.bfloat16)
+        q, k, v, g = (torch.randn(shape, generator=gen).to('cuda', dtype)
                       for _ in range(4))
         s = d**-0.5
         name = 'forward'
@@ -226,10 +230,10 @@ def first_launches():
             cuda_flash_attention_bwd_dq(q, k, v, g, lse, di, s)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 - name the kernel, stop
-            print(f'FAIL first launch of the bf16 {name} kernel at {shape}: '
-                  f'{e}', flush=True)
+            print(f'FAIL first launch of the {dtype} {name} kernel at '
+                  f'{shape}: {e}', flush=True)
             sys.exit(1)
-        print(f'first launches {shape} bf16: forward, dK/dV, dQ ran',
+        print(f'first launches {shape} {dtype}: forward, dK/dV, dQ ran',
               flush=True)
 
 

@@ -86,15 +86,16 @@ def edits(name):
     return out
 
 
-def prepare(name):
-    """The variant's directory: a copy of the package with its edits."""
-    d = osp.join(OUT, name.replace('=', '_').replace('+', '__'))
+def prepare(name, out=OUT, source=SOURCE, edits=edits):
+    """The variant's directory under ``out``: a copy of the package with
+    the variant's ``edits`` made to its ``source``."""
+    d = osp.join(out, name.replace('=', '_').replace('+', '__'))
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(osp.join(ROOT, 'pfst_tpu_torch'),
                     osp.join(d, 'pfst_tpu_torch'),
                     ignore=shutil.ignore_patterns('__pycache__'))
     shutil.copy(osp.join(ROOT, 'chip_smoke.py'), d)
-    path = osp.join(d, *SOURCE)
+    path = osp.join(d, *source)
     with open(path) as f:
         src = f.read()
     for pattern, replacement, is_regex in edits(name):
@@ -108,10 +109,10 @@ def prepare(name):
     return d
 
 
-def build(d):
+def build(d, library='neighborhood_sim'):
     code = (f'import sys; sys.path.insert(0, {d!r}); '
             'from pfst_tpu_torch.ops import build; '
-            'build.build("neighborhood_sim")')
+            f'build.build({library!r})')
     subprocess.run([sys.executable, '-c', code], check=True)
 
 
