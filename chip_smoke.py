@@ -17,7 +17,9 @@ Phases (any failure exits non-zero before the result lines):
 3b. the similarity's backward kernel against autograd of the plain
    forward and against the plain gather backward, at the training shape
    (2, 512, 64, 64), both similarity types, fp32 and bf16 input, with
-   its time per call and on the device;
+   its time per call and on the device; then at small general geometries
+   (k 3, 5, 7; d 1, 2, 33; odd W), checked only; two launches on the
+   same inputs must be bitwise equal;
 4. the serving path at full width: the Pots->Vaih DeepLabV3+ R50-D8 leaf
    config with seeded random weights answers 1024x1024 requests
    (``make_inference_fn`` -> ``_finalize_views`` -> labels, then
@@ -30,7 +32,10 @@ Phases (any failure exits non-zero before the result lines):
    -> ``make_train_step``, AdamW from the config, steps on seeded
    synthetic batches of 2 x 512x512 crops, in fp32 (TF32 convolutions, the
    default) and in bf16 autocast, with the kernels' launches per step read
-   around each run, the EMA teacher checked, and s/iter;
+   around each run, the EMA teacher checked, s/iter, the host's time
+   until each step returns (its enqueue), and the caching allocator's
+   retries (``num_alloc_retries``) and the garbage collector's
+   collections in the run;
 8. one training step card against CPU, 2 x 128x128 crops, full width and
    depth, dropout off, TF32 off: log vars and student gradients;
 3c. (run after 3b) each flash-attention kernel (forward, dK/dV, dQ)
@@ -61,6 +66,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 import concurrent.futures
 import copy
+import gc
 import importlib.util
 import json
 import os.path as osp
@@ -112,6 +118,20 @@ SIM_K, SIM_D, SIGMA = 3, 2, 30.0
 # UPerNet's decoded features at a 512^2 request
 SIM_CASES = [((1, 512, 128, 128), 'gaussian'), ((2, 512, 64, 64), 'cosine'),
              ((1, 768, 128, 128), 'gaussian')]
+# the similarity kernels' general geometry, small: (shape (B, C, H, W), k,
+# d), each for both similarity types and input types: W past a 32-pixel
+# segment, odd W (unaligned bf16 pairs), d = 2 with W a multiple of 8
+# (the compile-time geometry), C leaving warps without channels or with a
+# ragged last stage, k = 7 (8 warps a block) and d > 32 (windows side by
+# side)
+SIM_GEOMETRY_CASES = [((2, 20, 9, 37), 3, 1),
+                      ((1, 70, 11, 64), 3, 2),
+                      ((1, 8, 12, 40), 5, 1),
+                      ((1, 20, 10, 33), 5, 2),
+                      ((2, 36, 7, 48), 5, 2),
+                      ((1, 12, 9, 20), 7, 1),
+                      ((1, 10, 9, 24), 7, 2),
+                      ((1, 3, 37, 70), 3, 33)]
 # flash attention: (shape (B, heads, N, d), dtype, layout). 'qkv': q, k, v
 # are the strided views of the ViT block's (B, N, 3, heads, d) projection;
 # 'contiguous': the microbench's separate (B, heads, N, d) tensors
@@ -312,13 +332,57 @@ def sim_bwd_bound(shape, dtype, sim_type):
         else 'operations'
 
 
+def sim_bwd_errors(x, g, kernel_size, dilation, sim_type, sigma=SIGMA):
+    """The backward kernel on ``x`` and dL/dsim ``g`` as the training path
+    launches it (grad_x in x's type; sim and, for cosine, the norms from
+    the forward kernel) against autograd of the plain forward and the
+    plain gather backward, both in fp32 on the same input values. Limit
+    per element: 1e-5 * max(1, max|ref|), plus for a bf16 grad_x its
+    rounding, 2^-8 |ref|; a NaN fails, and so does a second launch on the
+    same inputs that is not bitwise equal to the first. ``max_abs_err``
+    is the raw max |kernel - autograd|. Returns the errors and the
+    callables that phase 3b times: the kernel, autograd of the plain
+    forward and the plain gather backward."""
+    args = (kernel_size, dilation, sim_type, sigma)
+    if sim_type == 'cosine':
+        sim, norms = cuda_neighborhood_similarity(x, *args, with_norms=True)
+    else:
+        sim, norms = cuda_neighborhood_similarity(x, *args), None
+    xf = x.float().requires_grad_()
+    sim_ref = torch_neighborhood_similarity(xf, *args)
+    (auto,) = torch.autograd.grad(sim_ref, xf, g, retain_graph=True)
+    plain = torch_neighborhood_similarity_backward(
+        xf.detach(), sim_ref.detach(), g, *args)
+
+    def kernel():
+        return cuda_neighborhood_similarity_backward(x, sim, g, *args,
+                                                     norms=norms)
+    out, again = kernel(), kernel()
+    limit = 1e-5 * max(1.0, float(auto.abs().max()))
+    rounding = 2.0**-8 if x.dtype == torch.bfloat16 else 0.0
+    outf = out.float()
+    excess = max(float(((outf - ref).abs() - rounding * ref.abs()).max())
+                 for ref in (auto, plain))
+    repeat = bool(torch.equal(out, again))
+    err = dict(max_abs_err=float((outf - auto).abs().max()),
+               err_beyond_rounding=excess, limit=limit,
+               repeat_bitwise_equal=repeat,
+               ok=excess <= limit and repeat
+               and bool(torch.isfinite(outf).all()))
+    fns = dict(kernel=kernel,
+               plain=lambda: torch.autograd.grad(sim_ref, xf, g,
+                                                 retain_graph=True),
+               gather=lambda: torch_neighborhood_similarity_backward(
+                   xf.detach(), sim_ref.detach(), g, *args))
+    return err, fns
+
+
 def phase_backward_vs_plain():
-    """The backward kernel, as the training path launches it (grad_x in
-    x's type, the cosine norms from the forward kernel), against autograd
-    of the plain forward and the plain gather backward on the same random
-    dL/dsim, both in fp32 on the same input values. Limit per element:
-    1e-5 * max(1, max|ref|), plus for a bf16 grad_x its rounding,
-    2^-8 |ref|. ``max_abs_err`` is the raw max |kernel - autograd|."""
+    """The backward kernel against its plain versions (``sim_bwd_errors``)
+    at the training shape, both similarity types and input types, with its
+    time per call and on the device, the plain versions' times and the
+    bound; then at the small general geometries of
+    ``SIM_GEOMETRY_CASES``, checked only."""
     gen = torch.Generator().manual_seed(2)
     b, _, h, w = BWD_SHAPE
     cases = []
@@ -326,52 +390,46 @@ def phase_backward_vs_plain():
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(BWD_SHAPE, generator=gen).to('cuda', dtype)
             g = torch.randn((b, SIM_K**2, h, w), generator=gen).cuda()
-            if sim_type == 'cosine':
-                sim, norms = cuda_neighborhood_similarity(
-                    x, SIM_K, SIM_D, sim_type, SIGMA, with_norms=True)
-            else:
-                sim, norms = cuda_neighborhood_similarity(
-                    x, SIM_K, SIM_D, sim_type, SIGMA), None
-            xf = x.float().requires_grad_()
-            sim_ref = torch_neighborhood_similarity(xf, SIM_K, SIM_D,
-                                                    sim_type, SIGMA)
-            (auto,) = torch.autograd.grad(sim_ref, xf, g, retain_graph=True)
-            plain = torch_neighborhood_similarity_backward(
-                xf.detach(), sim_ref.detach(), g, SIM_K, SIM_D, sim_type,
-                SIGMA)
-
-            def kernel():
-                return cuda_neighborhood_similarity_backward(
-                    x, sim, g, SIM_K, SIM_D, sim_type, SIGMA, norms=norms)
-            out = kernel().float()
+            err, fns = sim_bwd_errors(x, g, SIM_K, SIM_D, sim_type)
             torch.cuda.synchronize()
-            limit = 1e-5 * max(1.0, float(auto.abs().max()))
-            rounding = 2.0**-8 if dtype == torch.bfloat16 else 0.0
-            err = float((out - auto).abs().max())
-            excess = max(float(((out - ref).abs() - rounding * ref.abs())
-                               .max()) for ref in (auto, plain))
-            ms = cuda_time_ms(kernel, 30)
-            device_ms = graph_ms(kernel)
-            plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
-                sim_ref, xf, g, retain_graph=True), 20)
-            gather_ms = cuda_time_ms(
-                lambda: torch_neighborhood_similarity_backward(
-                    xf.detach(), sim_ref.detach(), g, SIM_K, SIM_D,
-                    sim_type, SIGMA), 20)
+            ok = err.pop('ok')
+            ms = cuda_time_ms(fns['kernel'], 30)
+            device_ms = graph_ms(fns['kernel'])
+            plain_ms = cuda_time_ms(fns['plain'], 20)
+            gather_ms = cuda_time_ms(fns['gather'], 20)
             bound_ms, bound_by = sim_bwd_bound(BWD_SHAPE, dtype, sim_type)
             case = dict(shape=list(BWD_SHAPE), dtype=str(dtype).split('.')[-1],
-                        sim_type=sim_type, max_abs_err=err,
-                        err_beyond_rounding=excess, limit=limit, ms=ms,
+                        sim_type=sim_type, **err, ms=ms,
                         device_ms=device_ms, plain_ms=plain_ms,
                         plain_gather_ms=gather_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
             log(f'[kernel] neighborhood_sim backward {case}')
-            if not excess <= limit:
+            if not ok:
                 raise AssertionError(f'backward kernel disagrees with the '
                                      f'plain version: {case}')
             cases.append(case)
-            del xf, sim_ref, auto, plain
-    return cases
+            del fns
+    geometry = []
+    for shape, k, d in SIM_GEOMETRY_CASES:
+        for sim_type in ('cosine', 'gaussian'):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(shape, generator=gen).to('cuda', dtype)
+                g = torch.randn((shape[0], k * k, *shape[2:]),
+                                generator=gen).cuda()
+                err, _ = sim_bwd_errors(x, g, k, d, sim_type)
+                ok = err.pop('ok')
+                case = dict(shape=list(shape), k=k, d=d, sim_type=sim_type,
+                            dtype=str(dtype).split('.')[-1], **err)
+                if not ok:
+                    raise AssertionError(f'backward kernel disagrees with '
+                                         f'the plain version: {case}')
+                geometry.append(case)
+    log(f'[kernel] neighborhood_sim backward: {len(geometry)} general-'
+        f'geometry cases within their limits, repeat launches bitwise '
+        f'equal; max excess '
+        f'{max(c["err_beyond_rounding"] - c["limit"] for c in geometry):.2e}'
+        f' beyond the limit')
+    return cases, geometry
 
 
 def _flash_inputs(shape, dtype, layout, gen):
@@ -761,9 +819,11 @@ def _train_run(cfg, name, card):
     probe = 'decode_head.conv_seg.weight'
     start = state.student.get_parameter(probe).detach().clone()
     torch.cuda.synchronize()
+    retries = torch.cuda.memory_stats().get('num_alloc_retries', 0)
+    collections = sum(g['collections'] for g in gc.get_stats())
     cuda_neighborhood_similarity.launches = 0
     cuda_neighborhood_similarity_backward.launches = 0
-    times = []
+    times, enqueue = [], []
     for i in range(TRAIN_STEPS):
         batch = _train_batch(cfg, 1000 + i, TRAIN_HW)
         if i == 1:
@@ -773,6 +833,7 @@ def _train_run(cfg, name, card):
         torch.cuda.synchronize()
         t0 = time.time()
         state, log_vars = step(state, batch, gen)
+        enqueue.append(time.time() - t0)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
         vals = {k: float(v) for k, v in log_vars.items()}
@@ -788,13 +849,18 @@ def _train_run(cfg, name, card):
                                      f'{float((got - want).abs().max())}')
     launches = (cuda_neighborhood_similarity.launches,
                 cuda_neighborhood_similarity_backward.launches)
+    retries = torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries
+    collections = sum(g['collections'] for g in gc.get_stats()) - collections
     moved = float((state.student.get_parameter(probe).detach() - start)
                   .abs().max())
     s_iter = statistics.median(times[TRAIN_WARMUP:])
     log(f'[train {name}] {TRAIN_STEPS} steps, batch 2 of {TRAIN_HW}: s/iter '
-        f'{[round(t, 4) for t in times]}, median after {TRAIN_WARMUP} '
+        f'{[round(t, 5) for t in times]}, median after {TRAIN_WARMUP} '
         f'warm-ups {s_iter:.4f} s on {card}; kernel launches fwd '
-        f'{launches[0]} bwd {launches[1]}; student moved {moved:.3e}; '
+        f'{launches[0]} bwd {launches[1]}; host enqueue ms '
+        f'{[round(t * 1e3, 1) for t in enqueue]}; allocator retries '
+        f'{retries}; garbage collections {collections}; '
+        f'student moved {moved:.3e}; '
         f'last log vars {json.dumps({k: round(v, 6) for k, v in vals.items()})}')
     if launches != (2 * TRAIN_STEPS, TRAIN_STEPS):
         raise AssertionError(f'[train {name}] expected {2 * TRAIN_STEPS} '
@@ -1189,7 +1255,7 @@ def main():
     card = phase_card()
     phase_build()
     cases = phase_kernel_vs_plain()
-    bwd_cases = phase_backward_vs_plain()
+    bwd_cases, bwd_geometry = phase_backward_vs_plain()
     flash_cases = phase_flash_vs_plain()
     cfg = Config.fromfile(LEAF)
     model = init_segmentor(cfg)      # seeded random weights, on the card
@@ -1233,11 +1299,11 @@ def main():
         replaces='pfst_tpu/ops/pallas_sim.py:112',
         launches=train_bwd, launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
-        max_abs_err=max(c['max_abs_err'] for c in bwd_cases),
+        max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],
         bound_ms=bwd_case['bound_ms'], bound_by=bwd_case['bound_by'],
-        library_ms=None, cases=bwd_cases)]
+        library_ms=None, cases=bwd_cases, geometry_cases=bwd_geometry)]
     kernels += _flash_entries(flash_cases, vit_serve, vit_train)
     log(f'[train] s/iter batch 2 of {TRAIN_HW}: fp32 {train["fp32"][0]:.4f}, '
         f'bf16 {train["bf16"][0]:.4f} on {card}')

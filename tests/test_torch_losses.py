@@ -205,21 +205,26 @@ def test_pfgst_loss_rejects_what_it_does_not_have():
 
 
 # ------------------------- similarity backward ----------------------------
-def _sim_inputs(k):
+def _sim_inputs(k, shape=(2, 10, 12, 16)):
+    """x (B, H, W, C) and dL/dsim (B, H, W, k*k)."""
     rs = np.random.RandomState(k)
     # no exact zero vector: there the JAX VJP is NaN (ROADMAP C2)
-    x = (rs.randn(2, 10, 12, 16) * 0.7).astype(np.float32)
-    g = rs.randn(2, 10, 12, k * k).astype(np.float32)
+    x = (rs.randn(*shape) * 0.7).astype(np.float32)
+    g = rs.randn(*shape[:3], k * k).astype(np.float32)
     return x, g
 
 
 @pytest.mark.parametrize('sim_type', ['cosine', 'gaussian'])
-@pytest.mark.parametrize('k,d', [(3, 1), (3, 2), (5, 1), (5, 2)])
+@pytest.mark.parametrize('k,d', [(3, 1), (3, 2), (5, 1), (5, 2), (7, 2),
+                                 (3, 33)])
 def test_similarity_backward_matches_jax_vjp(k, d, sim_type):
-    """The plain gather backward and autograd of the plain forward, each
-    against ``jax.vjp`` of the XLA formula; the border pixels read zero
-    padding."""
-    x, g = _sim_inputs(k)
+    """The plain gather backward (the backward kernel's oracle on the
+    card) and autograd of the plain forward, each against ``jax.vjp`` of
+    the XLA formula, at the geometries where the kernel branches (k = 7
+    with one output row a block; d > 32 with its windows side by side, on
+    a 40 x 70 map so that they hold in-map neighbors); the border pixels
+    read zero padding."""
+    x, g = _sim_inputs(k, (2, 40, 70, 6) if d > 32 else (2, 10, 12, 16))
     ref = np.asarray(run_jit(lambda t, ct: jax.vjp(
         lambda u: xla_neighborhood_similarity(u, k, d, sim_type=sim_type,
                                               sigma=4.0), t)[1](ct)[0],

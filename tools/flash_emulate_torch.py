@@ -3,8 +3,11 @@
 warp collectives or the tensor cores on the CPU under an emulation of
 CUDA: the flash-attention kernels (``flash_attention.cu``), held to the
 plain versions with the limits of ``chip_smoke.py``'s phase 3c
-(``chip_smoke.flash_errors``), and the similarity forward
-(``neighborhood_sim.cu``), held with phase 3's (``chip_smoke.sim_errors``).
+(``chip_smoke.flash_errors``), and the similarity forward and backward
+(``neighborhood_sim.cu``), held with phase 3's and 3b's
+(``chip_smoke.sim_errors``, ``chip_smoke.sim_bwd_errors``: against
+autograd of the plain forward and the plain gather backward, and two
+launches bitwise equal).
 
 For a change to either source or its headers, before any run on a card
 (needs ``g++`` with C++20; no ``nvcc``)::
@@ -61,7 +64,8 @@ import torch
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import flash_errors, sim_errors  # noqa: E402
+from chip_smoke import (SIM_GEOMETRY_CASES, flash_errors,  # noqa: E402
+                        sim_bwd_errors, sim_errors)
 from pfst_tpu_torch.ops import build  # noqa: E402
 
 # (shape (B, H, N, D), dtype, layout): every head dimension and type, N
@@ -83,20 +87,6 @@ CASES = [((1, 2, 17, 64), torch.float32, 'qkv'),
          ((1, 1, 80, 128), torch.float32, 'contiguous'),
          ((1, 2, 150, 64), torch.float32, 'offset'),
          ((1, 1, 37, 128), torch.float32, 'qkv')]
-# similarity forward: (shape (B, C, H, W), k, d), each for both similarity
-# types and input types: W past a 32-pixel segment, odd W (unaligned bf16
-# pairs), d = 2 with W a multiple of 8 (the compile-time geometry), C
-# leaving warps without channels or with a ragged last stage, k = 7 (8
-# warps a block) and d > 32 (windows side by side)
-SIM_CASES = [((2, 20, 9, 37), 3, 1),
-             ((1, 70, 11, 64), 3, 2),
-             ((1, 8, 12, 40), 5, 1),
-             ((1, 20, 10, 33), 5, 2),
-             ((2, 36, 7, 48), 5, 2),
-             ((1, 12, 9, 20), 7, 1),
-             ((1, 10, 9, 24), 7, 2),
-             ((1, 3, 37, 70), 3, 33)]
-
 PRELUDE = r'''
 #pragma once
 #include <atomic>
@@ -798,7 +788,7 @@ inline void wgmma_wait() {
 
 
 # kernel launches per emulated source
-LAUNCHES = {'flash_attention': 5, 'neighborhood_sim': 3}
+LAUNCHES = {'flash_attention': 5, 'neighborhood_sim': 2}
 
 
 def emulated_source(src, launches):
@@ -896,19 +886,32 @@ def run_flash(gen):
 
 def run_sim(gen):
     ok = True
-    for shape, k, d in SIM_CASES:
+    # chip_smoke's general geometries (k 3, 5, 7; d 1, 2, 33; odd W;
+    # ragged channel splits), both similarity types and input types
+    for shape, k, d in SIM_GEOMETRY_CASES:
         for sim_type in ('cosine', 'gaussian'):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(shape, generator=gen).to(dtype)
+                g = torch.randn((shape[0], k * k, *shape[2:]), generator=gen)
                 t0 = time.time()
                 err = sim_errors(x, k, d, sim_type)
-                ok = err['ok'] and ok
+                try:
+                    bwd, _ = sim_bwd_errors(x, g, k, d, sim_type)
+                except RuntimeError as e:  # an emulated fault (on stderr)
+                    bwd = dict(ok=False, max_abs_err=float('nan'),
+                               err_beyond_rounding=float('nan'),
+                               limit=float('nan'), launch=str(e))
+                good = err['ok'] and bwd['ok']
+                ok = good and ok
                 print(f'similarity {shape} k{k} d{d} {sim_type} '
-                      f'{str(dtype)[6:]}: '
-                      f'{"OK" if err["ok"] else "FAIL"} '
-                      f'({time.time() - t0:.1f}s) max_abs_err '
+                      f'{str(dtype)[6:]}: {"OK" if good else "FAIL"} '
+                      f'({time.time() - t0:.1f}s) forward max_abs_err '
                       f'{err["max_abs_err"]:.2e} norm_rel_err '
-                      f'{err["norm_rel_err"]:.2e}', flush=True)
+                      f'{err["norm_rel_err"]:.2e}; backward max_abs_err '
+                      f'{bwd["max_abs_err"]:.2e} beyond rounding '
+                      f'{bwd["err_beyond_rounding"]:.2e} (limit '
+                      f'{bwd["limit"]:.1e}) repeat bitwise equal '
+                      f'{bwd.get("repeat_bitwise_equal")}', flush=True)
     return ok
 
 

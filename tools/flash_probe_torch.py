@@ -7,8 +7,9 @@ launch), count in each flash instantiation's SASS (``cuobjdump
 (``HMMA``), the registers it names (after ``setmaxnreg``: the highest
 ``R`` index + 1) and its ``SETMAXREG`` instructions, then run each flash
 kernel once per case of ``chip_smoke.py``'s phase 3c (and at head
-dimensions 32 and 128) and the similarity forward once per case of its
-phase 3 (and at d = 4 and an odd width, its general geometry), compare
+dimensions 32 and 128), the similarity forward once per case of its
+phase 3 and the similarity backward once per path case of its phase 3b
+(and both at d = 4 and an odd width, their general geometry), compare
 each with the plain versions and print its median time, per call as
 phases 3 and 3c time it (one launch between two CUDA events, the
 wrapper's host path included) and on the device (``graph``:
@@ -20,8 +21,9 @@ For a first call after a kernel change, before ``chip_smoke.py``::
 
     python3 tools/flash_probe_torch.py
 
-The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c) and
-``chip_smoke.sim_errors``'s (phase 3). Exits 1 if a case fails, if a
+The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c),
+``chip_smoke.sim_errors``'s (phase 3) and ``chip_smoke.sim_bwd_errors``'s
+(phase 3b). Exits 1 if a case fails, if a
 ``flash_*_wgmma_kernel`` instantiation (the bf16 forward and dK/dV, dQ
 in both types) has no HGMMA, or if another flash instantiation (the fp32
 forward and dK/dV) has no HMMA.
@@ -41,9 +43,10 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
-from chip_smoke import (FLASH_CASES, SIGMA, SIM_CASES, SIM_D,  # noqa: E402
-                        SIM_K, _flash_inputs, flash_errors, graph_ms,
-                        sim_bound, sim_errors)
+from chip_smoke import (BWD_SHAPE, FLASH_CASES, SIGMA,  # noqa: E402
+                        SIM_CASES, SIM_D, SIM_K, _flash_inputs,
+                        flash_errors, graph_ms, sim_bound, sim_bwd_bound,
+                        sim_bwd_errors, sim_errors)
 from pfst_tpu_torch.ops import (build, cuda_flash_attention,  # noqa: E402
                                 cuda_flash_attention_bwd_dkv,
                                 cuda_flash_attention_bwd_dq,
@@ -57,9 +60,11 @@ CASES = FLASH_CASES + [((2, 3, 130, 32), torch.bfloat16, 'qkv'),
 
 def kernel_name(mangled):
     """'flash_fwd_kernel fp32 D=64' (or 'neighborhood_sim_kernel bf16
-    K=3 cosine') from a mangled instantiation name; the forward and dK/dV
-    wgmma kernels take bf16 only, and name no type."""
+    K=3 cosine d=2', 'd=any' for the general geometry) from a mangled
+    instantiation name; the forward and dK/dV wgmma kernels take bf16
+    only, and name no type."""
     kernel = re.search(r'(flash_\w+?|neighborhood_sim\w*?)_kernel', mangled)
+    ints = re.findall(r'Li(\d+)E', mangled)
     arg = re.search(r'Li(\d+)E', mangled)
     bf16_only = re.search(r'flash_(fwd|bwd_dkv)_wgmma', mangled)
     dtype = 'bf16' if '__nv_bfloat16' in mangled or bf16_only else 'fp32'
@@ -67,7 +72,8 @@ def kernel_name(mangled):
     if kernel and kernel.group(0).startswith('flash'):
         return f'{name} D={arg.group(1) if arg else "?"}'
     cosine = 'cosine' if 'Lb1E' in mangled else 'gaussian'
-    return f'{name} K={arg.group(1) if arg else "?"} {cosine}'
+    ds = f'd={ints[1]}' if len(ints) > 1 and ints[1] != '0' else 'd=any'
+    return f'{name} K={arg.group(1) if arg else "?"} {cosine} {ds}'
 
 
 def ptxas_report(source, out_dir):
@@ -206,6 +212,27 @@ def check_sim(shape, sim_type, dtype, gen, dilation=SIM_D):
     return err['ok']
 
 
+def check_sim_bwd(shape, sim_type, dtype, gen, dilation=SIM_D):
+    """The similarity backward at the training shape (or at another
+    dilation or width, which take its general geometry): error against
+    autograd and the plain gather backward, repeat launches bitwise
+    equal, time per call and on the device, against its bound."""
+    x = torch.randn(shape, generator=gen).to('cuda', dtype)
+    g = torch.randn((shape[0], SIM_K**2, *shape[2:]), generator=gen).cuda()
+    err, fns = sim_bwd_errors(x, g, SIM_K, dilation, sim_type)
+    t_call = cuda_ms(fns['kernel'], 30)
+    t_graph = graph_ms(fns['kernel'])
+    bound, bound_by = sim_bwd_bound(shape, dtype, sim_type)
+    print(f'similarity backward {shape} d{dilation} {sim_type} {dtype}: '
+          f'max_abs_err {err["max_abs_err"]:.2e} beyond rounding '
+          f'{err["err_beyond_rounding"]:.2e} (limit {err["limit"]:.1e}) '
+          f'repeat bitwise equal {err["repeat_bitwise_equal"]} '
+          f'{"OK" if err["ok"] else "FAIL"}; ms {t_call:.4f}, graph ms '
+          f'{t_graph:.4f}, bound {bound:.4f} ({bound_by}), graph / bound '
+          f'{t_graph / bound:.2f}', flush=True)
+    return err['ok']
+
+
 def first_launches():
     """Each wgmma flash kernel (and the fp32 forward and dK/dV) once alone
     at every head dimension, with a synchronize after it, so that a fault
@@ -267,6 +294,13 @@ def main():
                                 ((1, 256, 63, 99), 2)):
             for dtype in (torch.float32, torch.bfloat16):
                 ok = check_sim(shape, 'cosine', dtype, gen, dilation) and ok
+        for sim_type, dtype in itertools.product(
+                ('cosine', 'gaussian'), (torch.float32, torch.bfloat16)):
+            ok = check_sim_bwd(BWD_SHAPE, sim_type, dtype, gen) and ok
+            for shape, dilation in (((2, 512, 64, 64), 4),
+                                    ((1, 256, 63, 99), 2)):
+                ok = check_sim_bwd(shape, sim_type, dtype, gen,
+                                   dilation) and ok
         for case in CASES:
             ok = check(*case, gen) and ok
             torch.cuda.empty_cache()

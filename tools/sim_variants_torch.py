@@ -1,26 +1,33 @@
 #!/usr/bin/env python
-"""Time variants of the similarity forward kernel on a card, for design
-work on ``pfst_tpu_torch/ops/csrc/neighborhood_sim.cu``.
+"""Time variants of the similarity kernels, forward and backward, on a
+card, for design work on ``pfst_tpu_torch/ops/csrc/neighborhood_sim.cu``.
 
 Each variant is a copy of the package (and of ``chip_smoke.py``) under
-``build/sim_variants/<name>/`` with the kernel's tuning constants changed
-(warps a block, stages of a warp's ring, channels a stage), or with a part
-of the kernel taken out to see what the rest costs: ``no-arith`` keeps the
-copies and drops the arithmetic, ``no-copies`` the reverse (its results
-are garbage), ``empty`` drops both. Every variant is built first, all
-``nvcc`` runs at once; each then runs in its own process (its own
+``build/sim_variants/<name>/`` with the kernels' tuning constants changed,
+or with a part of the kernels taken out to see what the rest costs (their
+results are then wrong): ``no-arith`` drops each channel's work on a
+staged stage (the forward's partial sums; the backward's weighted sums
+and its stores), so the copies are left; ``no-taps`` replaces every read
+of a staged tap by 0 (the backward keeps its stores of grad_x);
+``no-copies`` drops the compile-time geometry's ``cp.async`` copies;
+``empty`` is ``no-arith`` and ``no-copies``. Every variant is built first,
+all ``nvcc`` runs at once; each then runs in its own process (its own
 package and build directory) and prints, per phase-3 case of
-``chip_smoke.py``, its agreement with the plain version
-(``chip_smoke.sim_errors``), its device time (``chip_smoke.graph_ms``:
-ten launches a graph) and one-launch graph replay, and the ratio to
-``chip_smoke.sim_bound``. ``--rounds 2`` runs the list twice, in turn::
+``chip_smoke.py`` (forward) and per phase-3b path case (backward, the
+training shape), its agreement with the plain versions
+(``chip_smoke.sim_errors``, ``chip_smoke.sim_bwd_errors``), its device
+time (``chip_smoke.graph_ms``: ten launches a graph) and one-launch graph
+replay, and the ratio to the bound. ``--rounds 2`` runs the list twice,
+in turn; ``--kernels bwd`` times the backward only::
 
     python3 tools/sim_variants_torch.py --variants base,no-arith,no-copies
-    python3 tools/sim_variants_torch.py --variants base,stages=3,group=2
+    python3 tools/sim_variants_torch.py --kernels bwd \
+        --variants base,bwd_warps=8,bwd_stages=3
 
-A variant ``name=value`` sets one constant: ``warps`` (for k = 3),
-``stages`` or ``group`` (channels a stage at d = 2); join several with
-``+`` (``stages=3+group=2``).
+A variant ``name=value`` sets one constant: the forward's ``warps`` (for
+k = 3), ``stages`` or ``group`` (channels a stage at d = 2); the
+backward's ``bwd_warps`` (for k = 3), ``bwd_stages`` or ``bwd_group``;
+join several with ``+`` (``bwd_stages=3+bwd_group=2``).
 """
 import argparse
 import concurrent.futures
@@ -34,17 +41,22 @@ import sys
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 OUT = osp.join(ROOT, 'build', 'sim_variants')
 SOURCE = ('pfst_tpu_torch', 'ops', 'csrc', 'neighborhood_sim.cu')
+# name: the text before the constant's value
 CONSTANTS = {
-    'warps': (r'return K == 3 \? \d+ : 8;', 'return K == 3 ? {} : 8;'),
-    'stages': (r'constexpr int kStages = \d+;', 'constexpr int kStages = {};'),
-    'group': (r'constexpr int kFixedGroup = \d+;',
-              'constexpr int kFixedGroup = {};'),
+    'warps': r'(fwd_warps\(\) \{\s+return K == 3 \? )\w+',
+    'stages': r'(constexpr int kStages = )\w+',
+    'group': r'(constexpr int kFixedGroup = )\w+',
+    'bwd_warps': r'(bwd_warps\(\) \{\s+return K == 3 \? )\w+',
+    'bwd_stages': r'(constexpr int kBwdStages = )\w+',
+    'bwd_group': r'(constexpr int kBwdGroup = )\w+',
 }
-# the arithmetic loop and the compile-time path's copies
-ARITH = '    for (int g = 0; g < group; ++g) {'
+# each channel's work on a stage, a read of a staged tap, and the
+# compile-time geometry's copies
+ARITH = 'body(buf + g * st.slot, c0 + it * st.group + g);'
+TAP = r'widen\(rows\[[^\]]*\]\)'
 COPIES = 'pfst::cp_async16(dst + doff[m], ok ? xc + soff[m] : x, ok);'
-PARTS = {'no-arith': [(ARITH, ARITH.replace('g < group', 'g < 0'))],
-         'no-copies': [(COPIES, '')]}
+PARTS = {'no-arith': [(ARITH, ';', False)], 'no-taps': [(TAP, '0.f', True)],
+         'no-copies': [(COPIES, '', False)]}
 PARTS['empty'] = PARTS['no-arith'] + PARTS['no-copies']
 
 CHILD = r'''
@@ -54,7 +66,20 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 from pfst_tpu_torch.ops import cuda_neighborhood_similarity
 gen = torch.Generator().manual_seed(4)
-for shape, sim_type in cs.SIM_CASES:
+name, kernels, check = sys.argv[2], sys.argv[3].split(','), sys.argv[4]
+failed = 0
+
+
+def report(what, fn, ok, bound):
+    global failed
+    failed += not ok
+    ms = cs.graph_ms(fn)
+    one = cs.graph_ms(fn, reps=100, calls=1)
+    print(f'{name} {what} ok {ok} device ms {ms:.4f} one-launch replay '
+          f'{one:.4f} bound {bound:.4f} x{ms / bound:.2f}', flush=True)
+
+
+for shape, sim_type in cs.SIM_CASES if 'fwd' in kernels else ():
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(shape, generator=gen).to('cuda', dtype)
         cosine = sim_type == 'cosine'
@@ -63,12 +88,19 @@ for shape, sim_type in cs.SIM_CASES:
                                                 sim_type, cs.SIGMA,
                                                 with_norms=cosine)
         ok = cs.sim_errors(x, cs.SIM_K, cs.SIM_D, sim_type)['ok']
-        ms = cs.graph_ms(kernel)
-        one = cs.graph_ms(kernel, reps=100, calls=1)
-        bound, _ = cs.sim_bound(shape, dtype, sim_type)
-        print(f'{sys.argv[2]} {shape} {sim_type} {str(dtype)[6:]} ok {ok} '
-              f'device ms {ms:.4f} one-launch replay {one:.4f} bound '
-              f'{bound:.4f} x{ms / bound:.2f}', flush=True)
+        report(f'forward {shape} {sim_type} {str(dtype)[6:]}', kernel, ok,
+               cs.sim_bound(shape, dtype, sim_type)[0])
+b, _, h, w = cs.BWD_SHAPE
+for sim_type in ('cosine', 'gaussian') if 'bwd' in kernels else ():
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(cs.BWD_SHAPE, generator=gen).to('cuda', dtype)
+        g = torch.randn((b, cs.SIM_K**2, h, w), generator=gen).cuda()
+        err, fns = cs.sim_bwd_errors(x, g, cs.SIM_K, cs.SIM_D, sim_type)
+        report(f'backward {cs.BWD_SHAPE} {sim_type} {str(dtype)[6:]}',
+               fns['kernel'], err['ok'],
+               cs.sim_bwd_bound(cs.BWD_SHAPE, dtype, sim_type)[0])
+# a variant with a part taken out is wrong by design
+sys.exit(1 if failed and check == 'check' else 0)
 '''
 
 
@@ -77,12 +109,11 @@ def edits(name):
     if name == 'base':
         return []
     if name in PARTS:
-        return [(a, b, False) for a, b in PARTS[name]]
+        return PARTS[name]
     out = []
     for part in name.split('+'):
         key, value = part.split('=')
-        pattern, template = CONSTANTS[key]
-        out.append((pattern, template.format(int(value)), True))
+        out.append((CONSTANTS[key], rf'\g<1>{int(value)}', True))
     return out
 
 
@@ -120,16 +151,21 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--variants', default='base,no-arith,no-copies,empty')
     parser.add_argument('--rounds', type=int, default=1)
+    parser.add_argument('--kernels', default='fwd,bwd',
+                        help='fwd, bwd or both, comma-separated')
     args = parser.parse_args(argv)
     names = args.variants.split(',')
     dirs = [prepare(name) for name in names]
     with concurrent.futures.ThreadPoolExecutor(len(dirs)) as pool:
         list(pool.map(build, dirs))
+    ok = True
     for r in range(args.rounds):
         for name, d in zip(names, dirs):
-            subprocess.run([sys.executable, '-c', CHILD, d, f'{name}#{r}'],
-                           check=True)
-    return 0
+            check = 'no' if name in PARTS else 'check'
+            ok = subprocess.run([sys.executable, '-c', CHILD, d,
+                                 f'{name}#{r}', args.kernels,
+                                 check]).returncode == 0 and ok
+    return 0 if ok else 1
 
 
 if __name__ == '__main__':
