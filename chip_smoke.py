@@ -60,6 +60,21 @@ Phases (any failure exits non-zero before the result lines):
    128x128 (``img_size=128``), dropout off, TF32 off;
 12. the attention microbench (``tools/attn_microbench_torch.py``) at its
    default shapes;
+13. the leaf config's user path at full width on packed synthetic data
+   (``tools/make_synthetic_data_torch.py``, ``tools/pack_dataset_torch.py``:
+   8 Potsdam-like and 8 + 2 Vaihingen-like 1024x1024 tiles):
+   ``train_segmentor`` for 30 iterations (batch 2 of 512x512 crops from the
+   source and target pipelines, 4 loader threads, uint8 wire, AdamW
+   ``adamw_40k`` over 30 iterations with its warmup scaled to them and
+   20x the learning rate, so that 30 iterations from random weights learn,
+   checkpoints at 15 and 30, whole-image 1024x1024 eval to mIoU at 30);
+   a second run resumed from the checkpoint at 15, which must restore the
+   state bitwise and take run A's 16th batch first; ``tools/test_torch.py``
+   on the checkpoint at 30, whose mIoU must equal the in-loop one within
+   0.01 points; the source decode loss of iterations 26-30 below that of
+   1-5; 2 similarity forward and 1 backward launches an iteration; then
+   s/iter, the loader stall and the pipelines' host ms per sample beside
+   phase 7's bare step;
 then one ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -70,9 +85,11 @@ import gc
 import importlib.util
 import json
 import os.path as osp
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -82,8 +99,12 @@ import torch.nn.functional as F
 
 from pfst_tpu_torch.apis import (_finalize_views, build_algorithm,
                                  init_segmentor, make_inference_fn,
-                                 make_state_fn)
-from pfst_tpu_torch.core import build_optimizer
+                                 make_state_fn, train_segmentor)
+from pfst_tpu_torch.core import (build_optimizer, load_checkpoint,
+                                 restore_state)
+from pfst_tpu_torch.core.checkpoint import state_dict_of
+from pfst_tpu_torch.datasets import build_dataset
+from pfst_tpu_torch.native import hostaug
 from pfst_tpu_torch.models import build_train_model
 from pfst_tpu_torch.ops import (build, cuda_flash_attention,
                                 cuda_flash_attention_backward,
@@ -104,6 +125,7 @@ VIT = osp.join(ROOT, 'configs', '_base_', 'models',
 ADAMW_40K = osp.join(ROOT, 'configs', '_base_', 'schedules',
                      'adamw_40k.py')
 MICROBENCH = osp.join(ROOT, 'tools', 'attn_microbench_torch.py')
+TOOLS = osp.join(ROOT, 'tools')
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core), dense
 # bf16 and TF32 tensor-core peaks; fp32-accurate products on the tensor
 # cores take three TF32 products each (3xTF32)
@@ -161,6 +183,16 @@ TRAIN_HW, TRAIN_STEPS, TRAIN_WARMUP = (512, 512), 8, 3
 CHECK_HW = (128, 128)
 # the last BN scale of each residual block in the card-against-CPU step
 RESIDUAL_SCALE = 0.25
+# phase 13: iterations of run A, the checkpoint run B resumes from, the
+# iterations whose source decode losses are compared, the samples timed
+# per pipeline
+LOOP_ITERS, LOOP_RESUME, LOOP_WINDOW, LOOP_SAMPLES = 30, 15, 5, 8
+LOOP_MIOU_TOL = 1e-4    # 0.01 points of mIoU
+# the learning rate of phase 13 against the config's 6e-5: from random
+# weights, 30 iterations at 6e-5 do not lower the source loss beyond what
+# the crops' class mix moves it by (it fell in 4 runs of 7 on the H100),
+# at 6e-4 in 9 of 10, at 1.2e-3 in 4 of 4, by 0.42-0.54
+LOOP_LR_SCALE = 20
 
 
 def log(msg):
@@ -229,15 +261,19 @@ def phase_card():
 
 
 def phase_build():
-    """Both sources at once, one nvcc each."""
+    """Both CUDA sources and the data pipeline's host kernels at once, one
+    compiler each."""
     t0 = time.time()
     names = ('neighborhood_sim', 'flash_attention')
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(hostaug.lib)
         paths = list(pool.map(build.build, names))
+        host.result()
     for name, path in zip(names, paths):
         build.load(name)
         log(f'[build] {osp.relpath(path, ROOT)}')
-    log(f'[build] {len(names)} libraries in {time.time() - t0:.1f} s')
+    log(f'[build] {osp.relpath(hostaug.library_path(), ROOT)}')
+    log(f'[build] {len(names) + 1} libraries in {time.time() - t0:.1f} s')
 
 
 def sim_bound(shape, dtype, sim_type):
@@ -1202,6 +1238,205 @@ def phase_microbench():
     return bench.bench_rows()
 
 
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, osp.join(TOOLS, f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _loop_config(pots, vaih):
+    """The leaf config on the synthetic roots: log every iteration,
+    checkpoints every LOOP_RESUME, eval at LOOP_ITERS, ``adamw_40k``'s
+    AdamW and poly schedule with the learning rate LOOP_LR_SCALE times the
+    config's and the warmup (1500 of 40000) scaled to the run, and the
+    test set pointed at the validation set so the two evaluations
+    compare."""
+    cfg = Config.fromfile(LEAF)
+    warmup = round(cfg.lr_config['warmup_iters'] * LOOP_ITERS
+                   / cfg.runner['max_iters'])
+    cfg.merge_from_dict({
+        'data.train.source.data_root': pots,
+        'data.train.target.data_root': vaih,
+        'data.val.data_root': vaih, 'data.test.data_root': vaih,
+        'data.test.img_dir': cfg.data.val.img_dir,
+        'data.test.ann_dir': cfg.data.val.ann_dir,
+        'log_config.interval': 1,
+        'checkpoint_config.interval': LOOP_RESUME,
+        'evaluation.interval': LOOP_ITERS,
+        'lr_config.warmup_iters': warmup,
+        'optimizer.lr': cfg.optimizer['lr'] * LOOP_LR_SCALE})
+    return cfg
+
+
+def _pipeline_ms(cfg):
+    """Host ms per sample of the source and target pipelines, each run
+    alone in this thread on LOOP_SAMPLES samples."""
+    from pfst_tpu_torch.apis.train import apply_device_normalize
+    ds = build_dataset(apply_device_normalize(cfg.copy())
+                       .data['train'])
+    out = {}
+    for name, sub in (('source', ds.source), ('target', ds.target)):
+        times = []
+        for i in range(LOOP_SAMPLES):
+            t0 = time.perf_counter()
+            sub[i % len(sub)]
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
+def _sim_counts():
+    return (cuda_neighborhood_similarity.launches,
+            cuda_neighborhood_similarity_backward.launches)
+
+
+def _check_launches(name, counts, iters):
+    if counts != (2 * iters, iters):
+        raise AssertionError(f'[loop] {name}: expected {2 * iters} forward '
+                             f'and {iters} backward similarity launches, '
+                             f'got {counts}')
+
+
+def _check_restored(cfg, path):
+    """A state restored from ``path`` as ``train_segmentor`` restores it
+    equals what the file holds, bitwise: student, teacher, the
+    optimizer's moments and step, the LR schedule and the step."""
+    ckpt = load_checkpoint(path)
+    algo = build_algorithm(cfg)
+    opt_cfg = cfg.get('optimizer_config') or {}
+    tx = build_optimizer(cfg.optimizer, cfg.get('lr_config'), LOOP_ITERS,
+                         opt_cfg.get('grad_clip'))
+    state = restore_state(algo.init_state(torch.Generator().manual_seed(0),
+                                          tx), ckpt)
+    got, want = state_dict_of(state), ckpt['state_dict']
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+    if got.keys() != want.keys():
+        bad.append('key sets differ')
+    opt_state = state.optimizer.optimizer.state_dict()['state']
+    for i, saved in ckpt['optimizer']['state'].items():
+        for k, v in saved.items():
+            if not torch.equal(opt_state[i][k].cpu(), v):
+                bad.append(f'optimizer {i} {k}')
+    if state.optimizer.scheduler.state_dict()['last_epoch'] != \
+            ckpt['scheduler']['last_epoch'] or state.step != LOOP_RESUME:
+        bad.append(f'step {state.step}')
+    if bad:
+        raise AssertionError(f'[loop] restore of {path} differs: {bad[:8]}')
+    n_moments = sum(len(v) for v in opt_state.values())
+    del state, algo
+    torch.cuda.empty_cache()
+    return len(want), n_moments
+
+
+def phase_loop(card, bare_s_iter):
+    """Phase 13: the leaf config through its entry points on the card."""
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix='pfst_loop_')
+    try:
+        pots, vaih = osp.join(root, 'pots'), osp.join(root, 'vaih')
+        synth, pack = (_tool('make_synthetic_data_torch'),
+                       _tool('pack_dataset_torch'))
+        synth.main(['-o', pots, '--num-train', '8', '--num-val', '0'])
+        synth.main(['-o', vaih, '--num-train', '8', '--num-val', '2',
+                    '--seed', '1'])
+        pack.main([root, '--recursive'])
+        t_data = time.time() - t_phase
+        cfg = _loop_config(pots, vaih)
+        host_ms = _pipeline_ms(cfg)
+
+        runs = {}
+        for name, kwargs in (
+                ('A', {}),
+                ('B', dict(resume_from=osp.join(root, 'A',
+                                                f'iter_{LOOP_RESUME}.pth'),
+                           validate=False))):
+            hist = []
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.time()
+            train_segmentor(cfg.copy(), work_dir=osp.join(root, name),
+                            max_iters_override=LOOP_ITERS, seed=0,
+                            history=hist, **kwargs)
+            torch.cuda.synchronize()
+            runs[name] = dict(hist=hist, wall=time.time() - t0,
+                              counts=_sim_counts())
+            torch.cuda.empty_cache()
+        a, b = runs['A']['hist'], runs['B']['hist']
+        _check_launches('run A', runs['A']['counts'], LOOP_ITERS)
+        _check_launches('run B', runs['B']['counts'],
+                        LOOP_ITERS - LOOP_RESUME)
+        n_tensors, n_moments = _check_restored(
+            cfg, osp.join(root, 'A', f'iter_{LOOP_RESUME}.pth'))
+        batches_a = {h['iter']: h['indices'] for h in a if h['kind'] ==
+                     'batch'}
+        first_b = next(h for h in b if h['kind'] == 'batch')
+        if first_b['iter'] != LOOP_RESUME + 1 or \
+                first_b['indices'] != batches_a[LOOP_RESUME + 1]:
+            raise AssertionError(f'[loop] run B began with batch {first_b}, '
+                                 f'run A took {batches_a[LOOP_RESUME + 1]}')
+
+        loop_miou = next(h['metrics']['mIoU'] for h in a
+                         if h['kind'] == 'eval')
+        cfg_path = osp.join(root, 'loop_config.py')
+        cfg.dump(cfg_path)
+        t0 = time.time()
+        res = _tool('test_torch').main([
+            cfg_path, osp.join(root, 'A', f'iter_{LOOP_ITERS}.pth'),
+            '--eval', 'mIoU'])
+        t_test = time.time() - t0
+        if abs(res['mIoU'] - loop_miou) > LOOP_MIOU_TOL + 1e-12:
+            raise AssertionError(f'[loop] tools/test_torch.py mIoU '
+                                 f'{res["mIoU"]} != in-loop {loop_miou}')
+
+        logs = {h['iter']: h for h in a if h['kind'] == 'log'}
+        loss = [logs[i]['log_vars']['decode.loss_ce']
+                for i in range(1, LOOP_ITERS + 1)]
+        first = statistics.mean(loss[:LOOP_WINDOW])
+        last = statistics.mean(loss[-LOOP_WINDOW:])
+        if not (np.isfinite(loss).all() and last < first):
+            raise AssertionError(f'[loop] source decode loss did not fall: '
+                                 f'{first:.4f} -> {last:.4f} ({loss})')
+        times = [logs[i]['time'] for i in range(LOOP_WINDOW + 1,
+                                                LOOP_ITERS + 1)]
+        stall = [logs[i]['data'] for i in range(LOOP_WINDOW + 1,
+                                                LOOP_ITERS + 1)]
+        out = dict(
+            s_iter_min=min(times), s_iter_median=statistics.median(times),
+            s_iter_max=max(times), data_stall_median=statistics.median(stall),
+            data_stall_max=max(stall), bare_step_s_iter=bare_s_iter,
+            host_ms_per_sample=host_ms, loss_first=first, loss_last=last,
+            miou_loop=loop_miou, miou_test=res['mIoU'],
+            launches=runs['A']['counts'], launches_b=runs['B']['counts'],
+            wall_a=runs['A']['wall'], wall_b=runs['B']['wall'],
+            data_s=t_data, test_s=t_test)
+        log(f'[loop] data: 18 tiles written and packed in {t_data:.1f} s; '
+            f'restore of iter {LOOP_RESUME} bitwise ({n_tensors} tensors, '
+            f'{n_moments} optimizer state tensors); run B began with run '
+            f'A\'s batch {LOOP_RESUME + 1} {first_b["indices"]}')
+        log(f'[loop] mIoU in the loop {loop_miou} / tools/test_torch.py '
+            f'{res["mIoU"]} ({t_test:.1f} s); source decode loss '
+            f'iterations 1-{LOOP_WINDOW} {first:.4f} -> '
+            f'{LOOP_ITERS - LOOP_WINDOW + 1}-{LOOP_ITERS} {last:.4f}; '
+            f'similarity launches run A {runs["A"]["counts"]} run B '
+            f'{runs["B"]["counts"]}')
+        log(f'[loop] s/iter past iteration {LOOP_WINDOW}: min '
+            f'{out["s_iter_min"]:.4f} median {out["s_iter_median"]:.4f} max '
+            f'{out["s_iter_max"]:.4f} (per iteration '
+            f'{[round(t, 4) for t in times]}); bare step (phase 7, fp32) '
+            f'{bare_s_iter:.4f} on {card}')
+        log(f'[loop] data stall s/iter: median {out["data_stall_median"]:.4f}'
+            f' max {out["data_stall_max"]:.4f} '
+            f'({[round(t, 4) for t in stall]}); host ms per sample alone: '
+            f'source {host_ms["source"]:.1f}, target {host_ms["target"]:.1f}; '
+            f'run A {runs["A"]["wall"]:.1f} s, run B {runs["B"]["wall"]:.1f} '
+            f's, phase {time.time() - t_phase:.1f} s')
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _flash_entries(cases, serve, train):
     """The kernels-line entries of the three flash kernels: times of the
     serving shape (forward) and the training shape (backward), fp32."""
@@ -1275,6 +1510,7 @@ def main():
     vit_train = phase_vit_train(card)
     phase_vit_train_card_vs_cpu()
     phase_microbench()
+    loop = phase_loop(card, train['fp32'][0])
     main_case = next(c for c in cases if c['shape'] == list(SIM_CASES[0][0])
                      and c['dtype'] == 'float32')
     bwd_case = next(c for c in bwd_cases if c['sim_type'] == 'cosine'
@@ -1285,10 +1521,12 @@ def main():
         name='neighborhood_similarity', route='cuda',
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:35',
-        launches=launches + train_fwd + vit_serve['sim'],
+        launches=launches + train_fwd + vit_serve['sim']
+        + loop['launches'][0] + loop['launches_b'][0],
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
+        launches_per_loop_iter=loop['launches'][0] / LOOP_ITERS,
         max_abs_err=max(c['max_abs_err'] for c in cases),
         ms=main_case['ms'], device_ms=main_case['device_ms'],
         plain_ms=main_case['plain_ms'],
@@ -1297,8 +1535,10 @@ def main():
         name='neighborhood_similarity_backward', route='cuda',
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:112',
-        launches=train_bwd, launches_per_request=0,
+        launches=train_bwd + loop['launches'][1] + loop['launches_b'][1],
+        launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
+        launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],
@@ -1310,6 +1550,10 @@ def main():
     log(f'[vit] warm ms per {VIT_HW} request {vit_serve["warm_ms"]:.2f}; '
         f's/iter batch 2 of {VIT_HW}: fp32 {vit_train["fp32"][0]:.4f}, '
         f'bf16 {vit_train["bf16"][0]:.4f} on {card}')
+    log(f'[loop] s/iter batch 2 of {TRAIN_HW} through the loop: median '
+        f'{loop["s_iter_median"]:.4f} (bare step '
+        f'{loop["bare_step_s_iter"]:.4f}), data stall median '
+        f'{loop["data_stall_median"]:.4f} on {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

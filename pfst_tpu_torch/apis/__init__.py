@@ -1,6 +1,10 @@
-from .inference import init_segmentor
-from .test import _finalize_views, make_inference_fn, make_state_fn
-from .train import SupervisedTrainer, build_algorithm
+from .inference import inference_segmentor, init_segmentor
+from .test import (_finalize_views, make_inference_fn, make_state_fn,
+                   single_gpu_test)
+from .train import (SupervisedTrainer, build_algorithm, init_random_seed,
+                    set_random_seed, train_segmentor)
 
-__all__ = ['init_segmentor', 'make_inference_fn', 'make_state_fn',
-           '_finalize_views', 'SupervisedTrainer', 'build_algorithm']
+__all__ = ['init_segmentor', 'inference_segmentor', 'make_inference_fn',
+           'make_state_fn', '_finalize_views', 'single_gpu_test',
+           'SupervisedTrainer', 'build_algorithm', 'init_random_seed',
+           'set_random_seed', 'train_segmentor']

@@ -1,20 +1,25 @@
-"""Evaluation API, per-image half (port of ``pfst_tpu/apis/test.py``).
+"""Evaluation API (port of ``pfst_tpu/apis/test.py``; mirrors
+``rsiseg/apis/test.py:36-287``).
 
 ``make_inference_fn`` gives pre-softmax logits at input size,
-``_finalize_views`` turns a request's views into its label map, and
+``_finalize_views`` turns a request's views into its label map,
 ``make_state_fn`` extracts the feature state (neighborhood similarity of
-the decoded features, reference ``apis/test.py:160-191``). Images are
-NCHW tensors on the model's device. ``single_gpu_test`` and the
-multi-device test wait for the datasets.
+the decoded features, reference ``apis/test.py:160-191``) and
+``single_gpu_test`` runs a dataset through them, whole image by whole
+image, into ``pre_eval`` histograms or label maps. Images are NCHW tensors
+on the model's device. The multi-device test, int8 and spatially sharded
+inference wait for ROADMAP A14, writing predictions out for A12.
 """
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from ..ops import neighborhood_similarity, resize
+from ..utils.logger import get_root_logger, print_log
 
 
 def make_inference_fn(model):
@@ -77,3 +82,85 @@ def _finalize_views(model, view_logits, metas, ori_shape) -> np.ndarray:
     (``test.py:97-118``): the label map (H, W) as numpy."""
     acc = _view_probs(model, view_logits, metas, ori_shape)
     return acc.argmax(dim=1)[0].cpu().numpy()
+
+
+def normalize_views(imgs, metas, device) -> List[torch.Tensor]:
+    """A sample's CHW numpy views as (1, C, H, W) tensors on ``device``.
+    A view its pipeline left on the 0-255 scale (``DeferNormalize``: uint8
+    or float16) is normalized there with the mean and std its metas
+    record; float32 views were normalized on the host."""
+    out = []
+    for img, meta in zip(imgs, metas):
+        t = torch.from_numpy(np.ascontiguousarray(img))[None].to(device)
+        if t.dtype in (torch.uint8, torch.float16):
+            norm = meta['img_norm_cfg']
+            mean = torch.as_tensor(np.asarray(norm['mean']), device=device)
+            std = torch.as_tensor(np.asarray(norm['std']), device=device)
+            t = (t.float() - mean.float().view(1, -1, 1, 1)) / \
+                std.float().view(1, -1, 1, 1)
+        out.append(t)
+    return out
+
+
+def single_gpu_test(model,
+                    data_loader,
+                    pre_eval: bool = True,
+                    format_only: bool = False,
+                    out_dir: Optional[str] = None,
+                    progress: bool = True,
+                    return_states: bool = False,
+                    state_proc_cfg: Optional[dict] = None,
+                    quant_int8: bool = False,
+                    act_scales: Optional[dict] = None,
+                    spatial: int = 0):
+    """Every image of ``data_loader.dataset`` through ``model`` (in eval
+    mode, on its device), whole: ``pre_eval`` tuples, or label maps, and
+    with ``return_states`` also each image's feature state as numpy
+    (``test.py:121-236``). The next image's host pipeline runs while the
+    card computes the current one."""
+    if quant_int8 or spatial:
+        raise NotImplementedError('int8 and spatially sharded inference '
+                                  'are not ported (ROADMAP A14)')
+    if format_only or out_dir:
+        raise NotImplementedError('writing predictions out is not ported '
+                                  '(ROADMAP A12)')
+    dataset = data_loader.dataset
+    device = next(model.parameters()).device
+    infer = make_inference_fn(model)
+    state_fn = make_state_fn(model, state_proc_cfg) if return_states \
+        else None
+    state_list: List[Any] = []
+    results: List[Any] = []
+    logger = get_root_logger()
+    t0 = time.time()
+    n = len(dataset)
+
+    def fetch(idx):
+        sample = dataset[idx]
+        imgs, metas = sample['img'], sample['img_metas']
+        if not isinstance(imgs, list):
+            imgs, metas = [imgs], [metas]
+        return normalize_views(imgs, metas, device), metas
+
+    nxt = fetch(0) if n else None
+    for idx in range(n):
+        views, metas = nxt
+        view_logits = [infer(v) for v in views]
+        if idx + 1 < n:
+            nxt = fetch(idx + 1)
+        pred = _finalize_views(model, view_logits, metas,
+                               metas[0]['ori_shape'][:2])
+        if state_fn is not None:
+            st = state_fn(views[0])
+            state_list.append({k: v[0].float().cpu().numpy()
+                               for k, v in st.items()})
+        if pre_eval:
+            results.extend(dataset.pre_eval(pred, idx))
+        else:
+            results.append(pred)
+        if progress and (idx + 1) % 50 == 0:
+            rate = (idx + 1) / (time.time() - t0)
+            print_log(f'eval {idx + 1}/{n} ({rate:.1f} img/s)', logger)
+    if return_states:
+        return results, state_list
+    return results

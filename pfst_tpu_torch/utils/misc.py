@@ -1,9 +1,9 @@
 """Small shared helpers (copy of ``pfst_tpu/utils/misc.py``).
 
-``add_prefix`` mirrors ``rsiseg/core/utils/misc.py:2``.  The JAX
-package's ``find_latest_checkpoint`` looks for Orbax step directories,
-which the port does not read yet. ``resolve_device`` is the port's own:
-its entry points run on the card unless asked for the CPU.
+``add_prefix`` mirrors ``rsiseg/core/utils/misc.py:2``. The port's
+``find_latest_checkpoint`` is in ``core/checkpoint.py``, beside the file
+layout it reads. ``resolve_device`` is the port's own: its entry points
+run on the card unless asked for the CPU.
 """
 from __future__ import annotations
 

@@ -147,10 +147,12 @@ def test_init_segmentor_default_device_needs_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
-    """Every module of the port (the attention, ViT, neck, UPerHead and
-    trainer modules named, so that a missing one fails),
-    tools/attn_microbench_torch.py and chip_smoke.py, in a fresh process:
-    none of jax, flax, optax, orbax, cv2 or the JAX package."""
+    """Every module of the port (the attention, ViT, neck, UPerHead,
+    trainer, data, evaluation, checkpoint and host-kernel modules named, so
+    that a missing one fails), the port's tools but the JAX checkpoint
+    converter (which imports both packages by design) and chip_smoke.py, in
+    a fresh process: none of jax, flax, optax, orbax, cv2, PIL or the JAX
+    package."""
     code = '\n'.join([
         'import importlib, pkgutil, sys',
         'import pfst_tpu_torch',
@@ -158,14 +160,22 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "                               'pfst_tpu_torch.'):",
         '    importlib.import_module(m.name)',
         "for m in ('ops.attention', 'models.backbones.vit', 'models.necks',",
-        "          'models.decode_heads.uper_head', 'apis.train'):",
+        "          'models.decode_heads.uper_head', 'apis.train',",
+        "          'apis.test', 'apis.inference', 'core.checkpoint',",
+        "          'core.evaluation.metrics', 'datasets.builder',",
+        "          'datasets.custom', 'datasets.isprs',",
+        "          'datasets.uda_dataset', 'datasets.pipelines.loading',",
+        "          'datasets.pipelines.packing', 'datasets.pipelines.png',",
+        "          'datasets.pipelines.transforms', 'native.hostaug'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',
+        'import make_synthetic_data_torch, pack_dataset_torch',
+        'import train_torch, test_torch',
         'import chip_smoke',
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in",
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',",
-        "              'pfst_tpu'))",
+        "              'PIL', 'pfst_tpu'))",
         'print(len(sys.modules), bad)',
         'sys.exit(1 if bad else 0)',
     ])

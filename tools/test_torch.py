@@ -1,0 +1,87 @@
+#!/usr/bin/env python
+"""Evaluation CLI of the PyTorch port (the counterpart of
+``tools/test.py``; mirrors rsiseg's ``tools/test.py``)::
+
+    python tools/test_torch.py <config> <checkpoint> --eval mIoU
+
+Runs on the card unless ``--device cpu``. UDA checkpoints are detected by
+their keys and the student is evaluated (rsiseg ``tools/test.py:237-
+242``; ``--revise_checkpoint_key`` is accepted as a no-op). Writing
+predictions out (``--format-only``, ``--show-dir``) waits for ROADMAP
+A12; int8, spatial sharding and the launcher for A14.
+"""
+import argparse
+import json
+import os.path as osp
+import sys
+
+sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), '..'))
+
+from pfst_tpu_torch.utils import Config, DictAction, get_root_logger  # noqa
+
+
+def parse_args(args=None):
+    parser = argparse.ArgumentParser(description='Test a segmentor')
+    parser.add_argument('config')
+    parser.add_argument('checkpoint')
+    parser.add_argument('--eval', nargs='+',
+                        help='metrics: mIoU/mDice/mFscore')
+    parser.add_argument('--out', help='json file to dump results')
+    parser.add_argument('--format-only', action='store_true')
+    parser.add_argument('--imgfile-prefix', default='work_dirs/format',
+                        help='output dir for --format-only pngs')
+    parser.add_argument('--aug-test', action='store_true',
+                        help='multi-scale + flip TTA')
+    parser.add_argument('--show-dir', help='dir to save viz overlays')
+    parser.add_argument('--opacity', type=float, default=0.5)
+    parser.add_argument('--revise_checkpoint_key', type=bool,
+                        default=False, help='compat no-op')
+    parser.add_argument('--cfg-options', nargs='+', action=DictAction)
+    parser.add_argument('--eval-options', nargs='+', action=DictAction)
+    parser.add_argument('--device-normalize', nargs='?', const='uint8',
+                        default=None, choices=['uint8', 'float16'],
+                        help='send eval images to the card on the 0-255 '
+                             'scale and normalize them there')
+    parser.add_argument('--device', default='cuda',
+                        help='torch device (default: the card)')
+    return parser.parse_args(args)
+
+
+def main(args=None):
+    args = parse_args(args)
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(args.cfg_options)
+    logger = get_root_logger()
+    if args.aug_test:
+        tta = cfg.data['test']['pipeline'][1]
+        tta['img_ratios'] = [0.5, 0.75, 1.0, 1.25, 1.5, 1.75]
+        tta['flip'] = True
+    from pfst_tpu_torch.apis import init_segmentor, single_gpu_test
+    from pfst_tpu_torch.datasets import build_dataloader, build_dataset
+    from pfst_tpu_torch.datasets.pipelines import DeferNormalize
+    if args.device_normalize and DeferNormalize.swap_into(
+            cfg.data['test']['pipeline'], args.device_normalize) is None:
+        print('warning: --device-normalize: no Normalize in the test '
+              'pipeline; running unchanged', file=sys.stderr)
+
+    dataset = build_dataset({**cfg.data['test'], 'test_mode': True})
+    loader = build_dataloader(dataset, 1, cfg.data.get('workers_per_gpu', 2),
+                              shuffle=False)
+    model = init_segmentor(cfg, args.checkpoint, device=args.device)
+    results = single_gpu_test(
+        model, loader, pre_eval=bool(args.eval) and not args.format_only,
+        format_only=args.format_only, out_dir=args.show_dir)
+    if args.eval:
+        res = dataset.evaluate(results, metric=args.eval, logger=logger,
+                               **dict(args.eval_options or {}))
+        if args.out:
+            with open(args.out, 'w') as f:
+                json.dump({k: float(v) for k, v in res.items()}, f,
+                          indent=2)
+        return res
+    return results
+
+
+if __name__ == '__main__':
+    main()

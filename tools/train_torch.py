@@ -1,0 +1,82 @@
+#!/usr/bin/env python
+"""Training CLI of the PyTorch port (the counterpart of
+``tools/train.py``; mirrors rsiseg's ``tools/train.py``)::
+
+    python tools/train_torch.py <config> [--work-dir D] [--resume-from C]
+        [--auto-resume] [--seed N] [--max-iters N] [--cfg-options k=v ...]
+
+Runs on the card unless ``--device cpu``. Checkpoints are
+``<work-dir>/iter_<N>.pth``. Multi-device training (the JAX tool's
+launcher, ``--tp``, ``--sp``, ``--zero``) waits for ROADMAP A14.
+"""
+import argparse
+import os
+import os.path as osp
+import sys
+import time
+
+sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), '..'))
+
+from pfst_tpu_torch.utils import Config, DictAction, get_root_logger  # noqa
+
+
+def parse_args(args=None):
+    parser = argparse.ArgumentParser(description='Train a segmentor')
+    parser.add_argument('config', help='train config file path')
+    parser.add_argument('--work-dir', help='the dir to save logs/models')
+    parser.add_argument('--load-from', help='checkpoint to load weights')
+    parser.add_argument('--resume-from', help='checkpoint to resume')
+    parser.add_argument('--auto-resume', action='store_true',
+                        help='resume from the latest checkpoint')
+    parser.add_argument('--no-validate', action='store_true',
+                        help='skip evaluation during training')
+    parser.add_argument('--seed', type=int, default=None,
+                        help='random seed')
+    parser.add_argument('--deterministic', action='store_true')
+    parser.add_argument('--max-iters', type=int, default=None,
+                        help='override runner.max_iters')
+    parser.add_argument('--cfg-options', nargs='+', action=DictAction,
+                        help='override config entries key=value')
+    parser.add_argument('--device', default='cuda',
+                        help='torch device (default: the card)')
+    return parser.parse_args(args)
+
+
+def main(args=None):
+    args = parse_args(args)
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(args.cfg_options)
+    work_dir = args.work_dir or cfg.get('work_dir') or osp.join(
+        'work_dirs', osp.splitext(osp.basename(args.config))[0])
+    os.makedirs(work_dir, exist_ok=True)
+    timestamp = time.strftime('%Y%m%d_%H%M%S', time.localtime())
+    logger = get_root_logger(osp.join(work_dir, f'{timestamp}.log'))
+    cfg.dump(osp.join(work_dir, osp.basename(args.config)))
+
+    import torch
+
+    from pfst_tpu_torch.apis import set_random_seed, train_segmentor
+    seed = args.seed if args.seed is not None else cfg.get('seed', 0)
+    logger.info(f'torch {torch.__version__} cuda {torch.version.cuda} '
+                f'device {args.device} seed {seed}')
+    logger.info(f'Config:\n{cfg.dump()}')
+    if args.deterministic:
+        set_random_seed(seed, deterministic=True)
+    meta = dict(config=cfg.dump(), seed=seed,
+                exp_name=osp.basename(args.config), time=timestamp)
+    return train_segmentor(
+        cfg,
+        work_dir=work_dir,
+        resume_from=args.resume_from,
+        load_from=args.load_from,
+        auto_resume=args.auto_resume,
+        validate=not args.no_validate,
+        seed=seed,
+        meta=meta,
+        max_iters_override=args.max_iters,
+        device=args.device)
+
+
+if __name__ == '__main__':
+    main()
