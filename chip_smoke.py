@@ -11,13 +11,15 @@ Phases (any failure exits non-zero before the result lines):
 1. the card: CUDA present, compute capability 9.0, name and power limit;
 2. build the CUDA kernels from ``pfst_tpu_torch/ops/csrc`` (nvcc, sm_90a,
    cached under ``build/pfst_tpu_torch/``);
-3. each kernel against its plain PyTorch version at the path's shapes,
+3. each kernel against its plain PyTorch version at the path's shapes
+   (SeasonNet's (16, 512, 32, 32) cosine among them),
    with its median time (per call, and on the device in a CUDA graph of
    ten launches), the plain version's and the memory/compute bound;
 3b. the similarity's backward kernel against autograd of the plain
    forward and against the plain gather backward, at the training shape
    (2, 512, 64, 64), both similarity types, fp32 and bf16 input, with
-   its time per call and on the device; then at small general geometries
+   its time per call and on the device, and at SeasonNet's training shape
+   (16, 512, 32, 32); then at small general geometries
    (k 3, 5, 7; d 1, 2, 33; odd W), checked only; two launches on the
    same inputs must be bitwise equal;
 4. the serving path at full width: the Pots->Vaih DeepLabV3+ R50-D8 leaf
@@ -75,11 +77,28 @@ Phases (any failure exits non-zero before the result lines):
    1-5; 2 similarity forward and 1 backward launches an iteration; then
    s/iter, the loader stall and the pipelines' host ms per sample beside
    phase 7's bare step;
+14. the Inria and SeasonNet leaf configs' user path at full width, each on
+   a synthetic tree (``tools/make_synthetic_data_torch.py --layout inria``:
+   3 1024x1024 tiles of each of the five cities, packed; ``--layout
+   season_net``: 64 spring and 64 fall 120x120 uint16 TIFFs to train on,
+   16 fall to evaluate, decoded from disk): ``train_segmentor`` for 30
+   iterations at the config's batch and crop (2 x 512^2; 16 x 128^2), at
+   phase 13's learning rate and scaled warmup, an eval at 30 with the test
+   set pointed at the validation set, then ``tools/test_torch.py`` on the
+   checkpoint, whose mIoU must equal the in-loop one within 0.01 points;
+   every loss finite; 2 similarity forward and 1 backward launches an
+   iteration (their shapes recorded); for Inria the source decode loss of
+   iterations 26-30 below that of 1-5; for SeasonNet the loss printed and
+   the per-channel range of its images as stored, read, clip-normalized
+   and batched (ROADMAP C2); s/iter, the loader stall, the pipelines' host
+   ms per sample and the image read ms per tile;
 then one ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
+import collections
 import concurrent.futures
+import contextlib
 import copy
 import gc
 import importlib.util
@@ -104,8 +123,10 @@ from pfst_tpu_torch.core import (build_optimizer, load_checkpoint,
                                  restore_state)
 from pfst_tpu_torch.core.checkpoint import state_dict_of
 from pfst_tpu_torch.datasets import build_dataset
+from pfst_tpu_torch.datasets.pipelines import ClipNormalize, imread
 from pfst_tpu_torch.native import hostaug
 from pfst_tpu_torch.models import build_train_model
+from pfst_tpu_torch.ops import neighborhood_sim as sim_module
 from pfst_tpu_torch.ops import (build, cuda_flash_attention,
                                 cuda_flash_attention_backward,
                                 cuda_flash_attention_bwd_dkv,
@@ -135,11 +156,16 @@ BF16_FLOP_PER_S = 989e12
 TF32X3_FLOP_PER_S = 495e12 / 3
 SIM_TOL = 1e-5
 SIM_K, SIM_D, SIGMA = 3, 2, 30.0
+# the PFGST loss's similarity at the SeasonNet config: 16 x 128^2 crops
+# give decoded features (16, 512, 32, 32) (stride 4, downscale=1)
+SEASON_NET_SIM_SHAPE = (16, 512, 32, 32)
 # (shape, sim_type): serving (1024^2 request, make_state_fn), the PFGST
-# training loss (2 x 512^2 crops, pfgst_loss.py:95-109) and the ViT
-# UPerNet's decoded features at a 512^2 request
+# training loss (2 x 512^2 crops, pfgst_loss.py:95-109), the ViT
+# UPerNet's decoded features at a 512^2 request and the SeasonNet
+# config's training loss
 SIM_CASES = [((1, 512, 128, 128), 'gaussian'), ((2, 512, 64, 64), 'cosine'),
-             ((1, 768, 128, 128), 'gaussian')]
+             ((1, 768, 128, 128), 'gaussian'),
+             (SEASON_NET_SIM_SHAPE, 'cosine')]
 # the similarity kernels' general geometry, small: (shape (B, C, H, W), k,
 # d), each for both similarity types and input types: W past a 32-pixel
 # segment, odd W (unaligned bf16 pairs), d = 2 with W a multiple of 8
@@ -179,6 +205,7 @@ BATCH, PATCH, THRESHOLD = 24, 512, 0.98
 # the PFGST loss's similarity at the leaf config: 2 x 512^2 crops give
 # decoded features (2, 512, 64, 64), cosine, k3 d2 (pfgst_loss.py:183-184)
 BWD_SHAPE = (2, 512, 64, 64)
+BWD_SHAPES = (BWD_SHAPE, SEASON_NET_SIM_SHAPE)
 TRAIN_HW, TRAIN_STEPS, TRAIN_WARMUP = (512, 512), 8, 3
 CHECK_HW = (128, 128)
 # the last BN scale of each residual block in the card-against-CPU step
@@ -193,6 +220,17 @@ LOOP_MIOU_TOL = 1e-4    # 0.01 points of mIoU
 # the crops' class mix moves it by (it fell in 4 runs of 7 on the H100),
 # at 6e-4 in 9 of 10, at 1.2e-3 in 4 of 4, by 0.42-0.54
 LOOP_LR_SCALE = 20
+# phase 14: the Inria and SeasonNet leaf configs, each on a synthetic tree
+# written by tools/make_synthetic_data_torch.py with these arguments
+# (Inria: 3 1024^2 tiles of each of its 5 cities, packed; SeasonNet: 64
+# spring and 64 fall 120^2 uint16 TIFFs to train on, 16 fall to evaluate,
+# read from disk), LOOP_ITERS iterations at LOOP_LR_SCALE each
+EO_CONFIGS = {
+    'inria': ('pfst_inria_da_deeplabv3plus_r50-d8.py',
+              ['--layout', 'inria', '--num-train', '3', '--num-val', '1']),
+    'season_net': ('pfst_season_net_sp2fa_deeplabv3plus_r50-d8.py',
+                   ['--layout', 'season_net', '--size', '120',
+                    '--num-train', '64', '--num-val', '16'])}
 
 
 def log(msg):
@@ -415,36 +453,39 @@ def sim_bwd_errors(x, g, kernel_size, dilation, sim_type, sigma=SIGMA):
 
 def phase_backward_vs_plain():
     """The backward kernel against its plain versions (``sim_bwd_errors``)
-    at the training shape, both similarity types and input types, with its
+    at the training shapes (the ISPRS and Inria configs' and SeasonNet's),
+    both similarity types and input types, with its
     time per call and on the device, the plain versions' times and the
     bound; then at the small general geometries of
     ``SIM_GEOMETRY_CASES``, checked only."""
     gen = torch.Generator().manual_seed(2)
-    b, _, h, w = BWD_SHAPE
     cases = []
-    for sim_type in ('cosine', 'gaussian'):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(BWD_SHAPE, generator=gen).to('cuda', dtype)
-            g = torch.randn((b, SIM_K**2, h, w), generator=gen).cuda()
-            err, fns = sim_bwd_errors(x, g, SIM_K, SIM_D, sim_type)
-            torch.cuda.synchronize()
-            ok = err.pop('ok')
-            ms = cuda_time_ms(fns['kernel'], 30)
-            device_ms = graph_ms(fns['kernel'])
-            plain_ms = cuda_time_ms(fns['plain'], 20)
-            gather_ms = cuda_time_ms(fns['gather'], 20)
-            bound_ms, bound_by = sim_bwd_bound(BWD_SHAPE, dtype, sim_type)
-            case = dict(shape=list(BWD_SHAPE), dtype=str(dtype).split('.')[-1],
-                        sim_type=sim_type, **err, ms=ms,
-                        device_ms=device_ms, plain_ms=plain_ms,
-                        plain_gather_ms=gather_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
-            log(f'[kernel] neighborhood_sim backward {case}')
-            if not ok:
-                raise AssertionError(f'backward kernel disagrees with the '
-                                     f'plain version: {case}')
-            cases.append(case)
-            del fns
+    for shape in BWD_SHAPES:
+        b, _, h, w = shape
+        for sim_type in ('cosine', 'gaussian'):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(shape, generator=gen).to('cuda', dtype)
+                g = torch.randn((b, SIM_K**2, h, w), generator=gen).cuda()
+                err, fns = sim_bwd_errors(x, g, SIM_K, SIM_D, sim_type)
+                torch.cuda.synchronize()
+                ok = err.pop('ok')
+                ms = cuda_time_ms(fns['kernel'], 30)
+                device_ms = graph_ms(fns['kernel'])
+                plain_ms = cuda_time_ms(fns['plain'], 20)
+                gather_ms = cuda_time_ms(fns['gather'], 20)
+                bound_ms, bound_by = sim_bwd_bound(shape, dtype, sim_type)
+                case = dict(shape=list(shape),
+                            dtype=str(dtype).split('.')[-1],
+                            sim_type=sim_type, **err, ms=ms,
+                            device_ms=device_ms, plain_ms=plain_ms,
+                            plain_gather_ms=gather_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+                log(f'[kernel] neighborhood_sim backward {case}')
+                if not ok:
+                    raise AssertionError(f'backward kernel disagrees with '
+                                         f'the plain version: {case}')
+                cases.append(case)
+                del fns
     geometry = []
     for shape, k, d in SIM_GEOMETRY_CASES:
         for sim_type in ('cosine', 'gaussian'):
@@ -1437,6 +1478,202 @@ def phase_loop(card, bare_s_iter):
         shutil.rmtree(root, ignore_errors=True)
 
 
+class _ShapeRecorder:
+    """Stands in for a kernel wrapper in its module, counting the input
+    shapes and dtypes it is called with; its ``launches`` is the wrapper's
+    own, so the wrapper's count goes on as before."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.shapes = collections.Counter()
+
+    def __call__(self, x, *args, **kwargs):
+        self.shapes[(tuple(x.shape), str(x.dtype).split('.')[-1])] += 1
+        return self.fn(x, *args, **kwargs)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+@contextlib.contextmanager
+def _sim_shapes():
+    """The shapes each similarity kernel is called with inside the
+    block."""
+    names = ('cuda_neighborhood_similarity',
+             'cuda_neighborhood_similarity_backward')
+    recorders = {n: _ShapeRecorder(getattr(sim_module, n)) for n in names}
+    for n, r in recorders.items():
+        setattr(sim_module, n, r)
+    try:
+        yield {n.split('_', 1)[1]: r.shapes for n, r in recorders.items()}
+    finally:
+        for n, r in recorders.items():
+            setattr(sim_module, n, r.fn)
+
+
+def _eo_config(name, root):
+    """A leaf config of phase 14 on its synthetic tree: log every
+    iteration, a checkpoint and an eval at LOOP_ITERS, ``adamw_40k`` with
+    the learning rate LOOP_LR_SCALE times the config's and the warmup
+    scaled to the run, and the test set pointed at the validation set."""
+    cfg = Config.fromfile(osp.join(ROOT, 'configs', 'pfst',
+                                   EO_CONFIGS[name][0]))
+    warmup = round(cfg.lr_config['warmup_iters'] * LOOP_ITERS
+                   / cfg.runner['max_iters'])
+    cfg.merge_from_dict({
+        'data.train.source.data_root': root,
+        'data.train.target.data_root': root, 'data.val.data_root': root,
+        'log_config.interval': 1, 'checkpoint_config.interval': LOOP_ITERS,
+        'evaluation.interval': LOOP_ITERS, 'lr_config.warmup_iters': warmup,
+        'optimizer.lr': cfg.optimizer['lr'] * LOOP_LR_SCALE})
+    cfg.data['test'] = copy.deepcopy(cfg.data['val'])
+    return cfg
+
+
+def _read_ms(dataset):
+    """Median ms of ``imread`` (the pipeline's colour read: a pack, or the
+    file's decoder) per image of ``dataset``, over up to LOOP_SAMPLES."""
+    times = []
+    for info in dataset.img_infos[:LOOP_SAMPLES]:
+        t0 = time.perf_counter()
+        imread(info['filename'])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _channel_ranges(cfg, n):
+    """Per channel, the (min, max) of the source's first file as stored,
+    as read (8-bit) and after the config's ClipNormalize, and over ``n``
+    samples of the pipeline's output images, which the train step
+    takes."""
+    ds = build_dataset(cfg.data['train']).source
+    path = ds.img_infos[0]['filename']
+    raw, read = imread(path, unchanged=True), imread(path)
+    clipped = ClipNormalize(**cfg.img_norm_cfg)(dict(img=read))['img']
+    imgs = np.stack([ds[i % len(ds)]['img'] for i in range(n)])
+
+    def ranges(a, axis):
+        return [[float(v) for v in pair] for pair in
+                zip(a.min(axis=axis), a.max(axis=axis))]
+    return dict(stored=ranges(raw, (0, 1)), read=ranges(read, (0, 1)),
+                clip_normalized=ranges(clipped, (0, 1)),
+                batch=ranges(imgs, (0, 2, 3)))
+
+
+def _eo_run(name, card):
+    """One leaf config of phase 14 through ``train_segmentor`` and
+    ``tools/test_torch.py``; returns its numbers."""
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix=f'pfst_{name}_')
+    try:
+        _tool('make_synthetic_data_torch').main(['-o', root]
+                                                + EO_CONFIGS[name][1])
+        if name == 'inria':
+            _tool('pack_dataset_torch').main([root, '--recursive'])
+        t_data = time.time() - t0
+        cfg = _eo_config(name, root)
+        host_ms = _pipeline_ms(cfg)
+        ds = build_dataset(cfg.data['train'])
+        read_ms = _read_ms(ds.source)
+        batch = cfg.data['samples_per_gpu']
+        ranges = _channel_ranges(cfg, batch) if name == 'season_net' \
+            else None
+        hist = []
+        torch.cuda.synchronize()
+        _reset_counts()
+        t_run = time.time()
+        with _sim_shapes() as shapes:
+            train_segmentor(cfg.copy(), work_dir=osp.join(root, 'run'),
+                            max_iters_override=LOOP_ITERS, seed=0,
+                            history=hist)
+        torch.cuda.synchronize()
+        counts, wall = _sim_counts(), time.time() - t_run
+        _check_launches(name, counts, LOOP_ITERS)
+        logs = {h['iter']: h for h in hist if h['kind'] == 'log'}
+        bad = [(i, k) for i, h in logs.items()
+               for k, v in h['log_vars'].items() if not np.isfinite(v)]
+        if len(logs) != LOOP_ITERS or bad:
+            raise AssertionError(f'[eo] {name}: {len(logs)} log lines, '
+                                 f'non-finite losses {bad[:8]}')
+        loop_miou = next(h['metrics']['mIoU'] for h in hist
+                         if h['kind'] == 'eval')
+        cfg_path = osp.join(root, 'config.py')
+        cfg.dump(cfg_path)
+        t_test = time.time()
+        res = _tool('test_torch').main([
+            cfg_path, osp.join(root, 'run', f'iter_{LOOP_ITERS}.pth'),
+            '--eval', 'mIoU'])
+        t_test = time.time() - t_test
+        if abs(res['mIoU'] - loop_miou) > LOOP_MIOU_TOL + 1e-12:
+            raise AssertionError(f'[eo] {name}: tools/test_torch.py mIoU '
+                                 f'{res["mIoU"]} != in-loop {loop_miou}')
+        loss = [logs[i]['log_vars']['decode.loss_ce']
+                for i in range(1, LOOP_ITERS + 1)]
+        first = statistics.mean(loss[:LOOP_WINDOW])
+        last = statistics.mean(loss[-LOOP_WINDOW:])
+        if name == 'inria' and not last < first:
+            raise AssertionError(f'[eo] {name}: source decode loss did not '
+                                 f'fall: {first:.4f} -> {last:.4f} ({loss})')
+        window = range(LOOP_WINDOW + 1, LOOP_ITERS + 1)
+        times = [logs[i]['time'] for i in window]
+        stall = [logs[i]['data'] for i in window]
+        out = dict(
+            s_iter_min=min(times), s_iter_median=statistics.median(times),
+            s_iter_max=max(times), s_iter_mean=statistics.mean(times),
+            data_stall_median=statistics.median(stall),
+            data_stall_max=max(stall), host_ms_per_sample=host_ms,
+            read_ms_per_tile=read_ms, loss_first=first, loss_last=last,
+            miou_loop=loop_miou, miou_test=res['mIoU'], launches=counts,
+            shapes={k: {str(s): n for s, n in v.items()}
+                    for k, v in shapes.items()},
+            channel_ranges=ranges, batch=batch, wall=wall, data_s=t_data,
+            test_s=t_test)
+        log(f'[eo] {name}: data written in {t_data:.1f} s; mIoU in the loop '
+            f'{loop_miou} / tools/test_torch.py {res["mIoU"]} '
+            f'({t_test:.1f} s); similarity launches {counts} in '
+            f'{LOOP_ITERS} iterations, at {out["shapes"]}')
+        log(f'[eo] {name}: source decode loss iterations 1-{LOOP_WINDOW} '
+            f'{first:.4f} -> {LOOP_ITERS - LOOP_WINDOW + 1}-{LOOP_ITERS} '
+            f'{last:.4f} (per iteration {[round(v, 4) for v in loss]})')
+        if ranges is not None:
+            log(f'[eo] {name}: per-channel (min, max) of the first source '
+                f'file as stored {ranges["stored"]}, as read (8-bit) '
+                f'{ranges["read"]}, after ClipNormalize '
+                f'{ranges["clip_normalized"]}, and of a batch of {batch} '
+                f'pipeline outputs {ranges["batch"]} (ROADMAP C2: '
+                f'ClipNormalize takes the 8-bit read against the raw-scale '
+                f'mean/std)')
+        log(f'[eo] {name}: s/iter past iteration {LOOP_WINDOW}: min '
+            f'{out["s_iter_min"]:.4f} median {out["s_iter_median"]:.4f} max '
+            f'{out["s_iter_max"]:.4f} mean {out["s_iter_mean"]:.4f} (per '
+            f'iteration {[round(t, 4) for t in times]}) at batch {batch}; '
+            f'data stall s/iter '
+            f'median {out["data_stall_median"]:.4f} max '
+            f'{out["data_stall_max"]:.4f}; host ms per sample alone: source '
+            f'{host_ms["source"]:.2f}, target {host_ms["target"]:.2f}; image '
+            f'read ms per tile {read_ms:.3f} '
+            f'({"TIFF decode" if name == "season_net" else "pack"}); run '
+            f'{wall:.1f} s on {card}')
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_eo(card):
+    """Phase 14: the Inria and SeasonNet leaf configs through their entry
+    points on the card."""
+    out = {}
+    for name in EO_CONFIGS:
+        out[name] = _eo_run(name, card)
+        torch.cuda.empty_cache()
+    return out
+
+
 def _flash_entries(cases, serve, train):
     """The kernels-line entries of the three flash kernels: times of the
     serving shape (forward) and the training shape (backward), fp32."""
@@ -1511,10 +1748,14 @@ def main():
     phase_vit_train_card_vs_cpu()
     phase_microbench()
     loop = phase_loop(card, train['fp32'][0])
+    eo = phase_eo(card)
+    eo_fwd = sum(r['launches'][0] for r in eo.values())
+    eo_bwd = sum(r['launches'][1] for r in eo.values())
     main_case = next(c for c in cases if c['shape'] == list(SIM_CASES[0][0])
                      and c['dtype'] == 'float32')
     bwd_case = next(c for c in bwd_cases if c['sim_type'] == 'cosine'
-                    and c['dtype'] == 'float32')
+                    and c['dtype'] == 'float32'
+                    and c['shape'] == list(BWD_SHAPE))
     train_fwd = sum(t[1][0] for t in train.values())
     train_bwd = sum(t[1][1] for t in train.values())
     kernels = [dict(
@@ -1522,11 +1763,13 @@ def main():
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:35',
         launches=launches + train_fwd + vit_serve['sim']
-        + loop['launches'][0] + loop['launches_b'][0],
+        + loop['launches'][0] + loop['launches_b'][0] + eo_fwd,
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][0] / LOOP_ITERS,
+        launches_per_eo_iter={n: r['launches'][0] / LOOP_ITERS
+                              for n, r in eo.items()},
         max_abs_err=max(c['max_abs_err'] for c in cases),
         ms=main_case['ms'], device_ms=main_case['device_ms'],
         plain_ms=main_case['plain_ms'],
@@ -1535,10 +1778,13 @@ def main():
         name='neighborhood_similarity_backward', route='cuda',
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:112',
-        launches=train_bwd + loop['launches'][1] + loop['launches_b'][1],
+        launches=train_bwd + loop['launches'][1] + loop['launches_b'][1]
+        + eo_bwd,
         launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
+        launches_per_eo_iter={n: r['launches'][1] / LOOP_ITERS
+                              for n, r in eo.items()},
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],
@@ -1554,6 +1800,11 @@ def main():
         f'{loop["s_iter_median"]:.4f} (bare step '
         f'{loop["bare_step_s_iter"]:.4f}), data stall median '
         f'{loop["data_stall_median"]:.4f} on {card}')
+    for name, r in eo.items():
+        log(f'[eo] {name}: s/iter batch {r["batch"]} through the loop: '
+            f'median {r["s_iter_median"]:.4f}, mean {r["s_iter_mean"]:.4f}, '
+            f'data stall median '
+            f'{r["data_stall_median"]:.4f} on {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

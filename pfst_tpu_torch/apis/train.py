@@ -137,11 +137,13 @@ def step_generator(seed: int, it: int) -> torch.Generator:
 
 
 def _img_norm_from_pipeline(cfg) -> Dict[str, Any]:
-    """The mean/std of the train pipeline's Normalize."""
+    """The mean/std of the train pipeline's Normalize, DeferNormalize or
+    ClipNormalize (the source's first, as the JAX file looks)."""
     train = cfg.data['train']
     for node in (train.get('source'), train):
         for t in (node or {}).get('pipeline') or []:
-            if t.get('type') in ('Normalize', 'DeferNormalize'):
+            if t.get('type') in ('Normalize', 'DeferNormalize',
+                                 'ClipNormalize'):
                 return dict(mean=list(t['mean']), std=list(t['std']))
     return dict(mean=[0.0, 0.0, 0.0], std=[1.0, 1.0, 1.0])
 

@@ -1,8 +1,9 @@
 """Dataset class-name / palette lookup by alias (port of
 ``pfst_tpu/core/evaluation/class_names.py``; mirrors
 ``rsiseg/core/evaluation/class_names.py``). The tables come from the
-registered dataset classes; of those, the port has ISPRS so far, and the
-other aliases raise until their datasets are ported (ROADMAP A12).
+registered dataset classes: ISPRS, Inria and SeasonNet; the LoveDA alias
+raises until its dataset is ported (ROADMAP A12). SeasonNet's class has no
+PALETTE (its dataset takes the feeder's).
 """
 from __future__ import annotations
 
@@ -17,13 +18,14 @@ CITYSCAPES_PALETTE = [
     [107, 142, 35], [152, 251, 152], [70, 130, 180], [220, 20, 60],
     [255, 0, 0], [0, 0, 142], [0, 0, 70], [0, 60, 100], [0, 80, 100],
     [0, 0, 230], [119, 11, 32]]
-_WAITING = ('inria', 'loveda', 'season_net', 'seasonnet')
+_WAITING = ('loveda',)
 
 
 def _dataset_tables():
-    from ...datasets import ISPRSDataset
+    from ...datasets import InriaDataset, ISPRSDataset, SeasonNetDataset
     return {'isprs': ISPRSDataset, 'potsdam': ISPRSDataset,
-            'vaihingen': ISPRSDataset}
+            'vaihingen': ISPRSDataset, 'inria': InriaDataset,
+            'season_net': SeasonNetDataset, 'seasonnet': SeasonNetDataset}
 
 
 def _lookup(dataset: str):

@@ -27,25 +27,26 @@ from ..utils.registry import Registry
 
 DATASETS = Registry('datasets')
 PIPELINES = Registry('pipelines')
-_WAITING = ('UDADatasetV2', 'MultiDomainDataset', 'RepeatDataset',
-            'ConcatDataset')
+_WAITING = ('MultiDomainDataset', 'RepeatDataset', 'ConcatDataset')
 
 
 def build_dataset(cfg, default_args=None):
-    """Build a dataset; ``UDADataset`` pairs a source and a target
-    dataset (``datasets/builder.py:70-98``). The wrappers and list-valued
-    ``img_dir`` / ``split`` of the JAX file wait for ROADMAP A12."""
+    """Build a dataset; ``UDADataset`` and ``UDADatasetV2`` pair a source
+    and a target dataset (``datasets/builder.py:70-98``). The wrappers and
+    list-valued ``img_dir`` / ``split`` of the JAX file wait for ROADMAP
+    A12."""
     from .uda_dataset import UDADataset
+    from .uda_dataset_v2 import UDADatasetV2
     if isinstance(cfg, (list, tuple)):
         raise NotImplementedError('a list of datasets (ConcatDataset) is '
                                   'not ported (ROADMAP A12)')
     cfg = copy.deepcopy(dict(cfg))
     dtype = cfg.get('type')
-    if dtype == 'UDADataset':
-        return UDADataset(
-            source=build_dataset(cfg['source'], default_args),
-            target=build_dataset(cfg['target'], default_args),
-            cfg=cfg)
+    if dtype in ('UDADataset', 'UDADatasetV2'):
+        pair = UDADataset if dtype == 'UDADataset' else UDADatasetV2
+        return pair(source=build_dataset(cfg['source'], default_args),
+                    target=build_dataset(cfg['target'], default_args),
+                    cfg=cfg)
     if dtype in _WAITING or isinstance(cfg.get('img_dir'), (list, tuple)) \
             or isinstance(cfg.get('split'), (list, tuple)):
         raise NotImplementedError(f'{dtype} and list-valued img_dir/split '

@@ -2,8 +2,8 @@
 mirrors ``rsiseg/datasets/pipelines/loading.py``).
 
 ``imread`` reads a directory's pack first (``pipelines/packing.py``),
-else decodes the PNG with the port's own reader (``pipelines/png.py``),
-in cv2's conventions (BGR). The JAX file's decoded-tile LRU cache is not
+else decodes the file with the port's own PNG or TIFF reader, chosen by
+its magic bytes (``pipelines/imdecode.py``), in cv2's conventions (BGR). The JAX file's decoded-tile LRU cache is not
 ported (packs make decoding a one-time cost); the h5 pseudo-label corpora
 of ``LoadAnnotationsPseudoLabelsV2`` wait for ROADMAP A12.
 """
@@ -15,7 +15,7 @@ import numpy as np
 
 from ..builder import PIPELINES
 from . import packing
-from .png import read_png
+from .imdecode import read_image
 
 
 def imread(path: str, color: bool = True, unchanged: bool = False):
@@ -27,12 +27,13 @@ def imread(path: str, color: bool = True, unchanged: bool = False):
     if not osp.isfile(path):
         raise FileNotFoundError(f'failed to read image: {path}')
     mode = 'unchanged' if unchanged else ('color' if color else 'grayscale')
-    return read_png(path, mode)
+    return read_image(path, mode)
 
 
 @PIPELINES.register_module()
 class LoadImageFromFile:
-    """(``loading.py:15``) loads BGR uint8."""
+    """(``loading.py:15``) loads BGR uint8, or with
+    ``color_type='unchanged'`` the stored dtype and channels."""
 
     def __init__(self, to_float32=False, color_type='color',
                  imdecode_backend='cv2'):

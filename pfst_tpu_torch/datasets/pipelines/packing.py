@@ -5,9 +5,11 @@ The format is the JAX file's, under the same names (``.pfst_pack.bin*``
 and ``.pfst_pack.json``), so a pack written by either package is read by
 both: ``imread`` (``pipelines/loading.py``) serves a packed file from a
 memmap slice instead of decoding it. The reader is numpy alone. The
-writer decodes with the port's PNG reader (``pipelines/png.py``) where
-the JAX file calls ``cv2.imread(IMREAD_UNCHANGED)``; directories of other
-formats are packed by the JAX package's ``tools/pack_dataset.py``.
+writer decodes with the port's PNG and TIFF readers
+(``pipelines/imdecode.py``) where the JAX file calls
+``cv2.imread(IMREAD_UNCHANGED)``; directories of other formats are packed
+by the JAX package's ``tools/pack_dataset.py``. As in the JAX file, a
+16-bit image is packed but a colour read of it is decoded from disk.
 
     python tools/pack_dataset_torch.py data/Potsdam_IRRG_1024 --recursive
 """
@@ -21,7 +23,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .png import read_png
+from .imdecode import read_image
 
 PACK_BIN = '.pfst_pack.bin'
 PACK_IDX = '.pfst_pack.json'
@@ -44,7 +46,7 @@ def pack_directory(directory: str) -> int:
     try:
         with open(blob_path, 'wb') as f:
             for name in files:
-                arr = read_png(osp.join(directory, name), 'unchanged')
+                arr = read_image(osp.join(directory, name), 'unchanged')
                 index[name] = [f.tell(), list(arr.shape), str(arr.dtype)]
                 f.write(np.ascontiguousarray(arr).tobytes())
     except BaseException:

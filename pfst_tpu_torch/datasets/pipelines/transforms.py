@@ -4,10 +4,12 @@ pipelines (port of ``pfst_tpu/datasets/pipelines/transforms.py``; mirrors
 
 Numpy plus the port's C++ host kernels (``native/hostaug.cc``), no cv2:
 
-* ``imresize`` reproduces ``cv2.resize`` on uint8 images bit-exactly:
-  INTER_NEAREST takes OpenCV's source offsets, INTER_LINEAR OpenCV's
-  offsets and 11-bit fixed-point weights (computed here in OpenCV's
-  float32 steps) with its integer arithmetic in ``hostaug.cc``;
+* ``imresize`` reproduces ``cv2.resize`` bit-exactly: INTER_NEAREST takes
+  OpenCV's source offsets; INTER_LINEAR on uint8 OpenCV's offsets and
+  11-bit fixed-point weights (computed here in OpenCV's float32 steps)
+  with its integer arithmetic in ``hostaug.cc``, and on float32 images of
+  two or more rows and columns OpenCV 5's float weights and its
+  ``fma(S1 - S0, f, S0)`` passes (``hostaug.cc``);
 * the photometric steps are 256-entry LUTs (``lut[img]``) and the fused
   HSV round trip of ``hostaug.cc``, bit-exact to cv2 at widths that are
   multiples of 32.
@@ -48,10 +50,28 @@ def _linear_coeffs(dst: int, src: int, clamp: bool):
     return s, w
 
 
+def _linear_map(dst: int, src: int, clamp: bool):
+    """OpenCV 5's INTER_LINEAR map of float32 images along one axis: the
+    coordinate ``(d + 0.5) * scale - 0.5`` in float64, its source index
+    the floor of its float32 value, the weight of the next index the
+    float32 of the float64 remainder. Columns (``clamp``) outside the
+    image read the edge; rows read the clipped rows with their weights.
+    Returns (first index, second index, second weight)."""
+    scale = 1.0 / (dst / src)
+    f = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+    s = np.floor(f.astype(np.float32)).astype(np.int64)
+    frac = (f - s).astype(np.float32)
+    if clamp:
+        frac[(s < 0) | (s >= src - 1)] = 0
+        s = np.clip(s, 0, src - 1)
+        return s, np.minimum(s + 1, src - 1), frac
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), frac
+
+
 def imresize(img, size_wh, interpolation='bilinear'):
     """``cv2.resize(img, size_wh)`` with INTER_LINEAR ('bilinear') or
-    INTER_NEAREST ('nearest'), bit-exact on uint8 images (nearest on any
-    dtype)."""
+    INTER_NEAREST ('nearest'), bit-exact on uint8 images and on float32
+    images of two or more rows and columns (nearest on any dtype)."""
     w, h = int(size_wh[0]), int(size_wh[1])
     src_h, src_w = img.shape[:2]
     if (h, w) == (src_h, src_w):
@@ -66,9 +86,14 @@ def imresize(img, size_wh, interpolation='bilinear'):
         return img[yofs[:, None], xofs[None, :]]
     if interpolation != 'bilinear':
         raise NotImplementedError(f'{interpolation} resize is not ported')
+    if img.dtype == np.float32 and min(h, w, src_h, src_w) >= 2:
+        return hostaug.resize_linear_f32(img, _linear_map(w, src_w, True),
+                                         _linear_map(h, src_h, False))
     if img.dtype != np.uint8:
-        raise NotImplementedError('bilinear resize of non-uint8 images is '
-                                  'not ported')
+        raise NotImplementedError(
+            f'bilinear resize of {img.dtype} images of {img.shape[:2]} to '
+            f'{(h, w)} is not ported (uint8, or float32 of two or more rows '
+            f'and columns)')
     xofs, alpha = _linear_coeffs(w, src_w, clamp=True)
     ys, beta = _linear_coeffs(h, src_h, clamp=False)
     yofs = np.stack([np.clip(ys, 0, src_h - 1),
@@ -402,6 +427,56 @@ class DeferNormalize:
         return (f'{self.__class__.__name__}(mean={self.mean.tolist()},'
                 f' std={self.std.tolist()}, to_rgb={self.to_rgb}, '
                 f'wire_dtype={self.wire_dtype})')
+
+
+@PIPELINES.register_module()
+class ClipNormalize:
+    """(``transforms.py:429-452``; reference ``transforms.py:1166-1212``,
+    SeasonNet) clip each channel to mean +- 2 std and map it to [0, 1]
+    in float32, BGR -> RGB with ``to_rgb``, and to uint8 by truncation of
+    ``x * 255`` with ``to_uint8``. The mean and std are on the raw scale
+    of the file; the images reach this transform as read (the 8-bit view
+    of a 16-bit TIFF, as in the JAX pipeline, ROADMAP C2)."""
+
+    def __init__(self, mean, std, to_rgb=True, axis=None, to_uint8=False):
+        self.mean = np.array(mean, np.float32)
+        self.std = np.array(std, np.float32)
+        self.to_rgb = to_rgb
+        self.to_uint8 = to_uint8
+
+    def __call__(self, results):
+        lo = self.mean.reshape(1, 1, -1) - 2 * self.std.reshape(1, 1, -1)
+        hi = self.mean.reshape(1, 1, -1) + 2 * self.std.reshape(1, 1, -1)
+        for key in results.get('img_fields', ['img']):
+            img = results[key].astype(np.float32)
+            img = np.clip((img - lo) / (hi - lo), 0, 1)
+            if self.to_rgb and img.ndim == 3 and img.shape[2] == 3:
+                img = img[:, :, [2, 1, 0]]
+            if self.to_uint8:
+                img = (img * 255).astype(np.uint8)
+            results[key] = img
+        results['img_norm_cfg'] = dict(mean=self.mean, std=self.std,
+                                       to_rgb=self.to_rgb)
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(mean={self.mean.tolist()}, '
+                f'std={self.std.tolist()}, to_rgb={self.to_rgb}, '
+                f'to_uint8={self.to_uint8})')
+
+
+@PIPELINES.register_module()
+class Uint82Float:
+    """(``transforms.py:568-574``) every image field to float32, on its
+    0-255 scale."""
+
+    def __call__(self, results):
+        for key in results.get('img_fields', ['img']):
+            results[key] = results[key].astype(np.float32)
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}()'
 
 
 def _find_type(node, type_name):

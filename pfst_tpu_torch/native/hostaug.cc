@@ -24,6 +24,14 @@
 //   these loops do OpenCV's integer arithmetic: the horizontal pass
 //   S0*a0 + S1*a1, then the vertical pass
 //   ((((r0 >> 4) * b0) >> 16) + (((r1 >> 4) * b1) >> 16) + 2) >> 2.
+// * resize_linear_f32: cv2.resize INTER_LINEAR on float32 images of at
+//   least two rows and columns, as OpenCV 5 computes it: each pass is
+//   fmaf(S1 - S0, f, S0), with the fractions f from the caller.
+// * tiff_lzw_decode / tiff_lzw_encode / packbits_decode: the TIFF
+//   codecs of compression 5 (LZW, MSB-first codes of 9 to 12 bits with
+//   the width growing one code early, as libtiff reads and writes them)
+//   and 32773 (PackBits), for the port's own TIFF reader and writer
+//   (pipelines/tiff.py).
 //
 // Built with g++ at first use by pfst_tpu_torch/native/hostaug.py; a
 // failed build raises, nothing falls back.
@@ -31,6 +39,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 namespace {
 
@@ -266,6 +275,197 @@ void resize_nearest_u8(const uint8_t* src, int64_t w, int64_t cn,
     for (int64_t dx = 0; dx < dw; ++dx)
       std::memcpy(d + dx * cn, s + static_cast<int64_t>(xofs[dx]) * cn, cn);
   }
+}
+
+// cv2.resize(INTER_LINEAR) of an (h, w, cn) float32 image to (dh, dw, cn),
+// h, w >= 2. x0[dw], x1[dw]: the two source columns; fx[dw]: the weight
+// of x1; y0[dh], y1[dh], fy[dh] likewise for rows.
+void resize_linear_f32(const float* src, int64_t w, int64_t cn, float* dst,
+                       int64_t dh, int64_t dw, const int32_t* x0,
+                       const int32_t* x1, const float* fx,
+                       const int32_t* y0, const int32_t* y1,
+                       const float* fy) {
+  const int64_t row_len = dw * cn;
+  std::vector<float> rows(2 * row_len);
+  int64_t cached[2] = {-1, -1};
+  for (int64_t dy = 0; dy < dh; ++dy) {
+    const int64_t want[2] = {y0[dy], y1[dy]};
+    for (int k = 0; k < 2; ++k) {
+      float* buf = rows.data() + k * row_len;
+      if (cached[k] == want[k]) continue;
+      if (cached[1 - k] == want[k]) {
+        std::memcpy(buf, rows.data() + (1 - k) * row_len,
+                    row_len * sizeof(float));
+      } else {
+        const float* s = src + want[k] * w * cn;
+        for (int64_t dx = 0; dx < dw; ++dx) {
+          const float* a = s + static_cast<int64_t>(x0[dx]) * cn;
+          const float* b = s + static_cast<int64_t>(x1[dx]) * cn;
+          for (int64_t c = 0; c < cn; ++c)
+            buf[dx * cn + c] = std::fmaf(b[c] - a[c], fx[dx], a[c]);
+        }
+      }
+      cached[k] = want[k];
+    }
+    const float* r0 = rows.data();
+    const float* r1 = rows.data() + row_len;
+    float* d = dst + dy * row_len;
+    for (int64_t i = 0; i < row_len; ++i)
+      d[i] = std::fmaf(r1[i] - r0[i], fy[dy], r0[i]);
+  }
+}
+
+// TIFF LZW: decode the n bytes of src into dst (capacity cap). Returns the
+// number of bytes written (a strip may end without its EOI code, as
+// libtiff allows), or -1 on a code that is not in the table.
+int64_t tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst,
+                        int64_t cap) {
+  std::vector<int32_t> prefix(4096), length(4096);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  for (int i = 0; i < 256; ++i) {
+    prefix[i] = -1;
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+    length[i] = 1;
+  }
+  int next = 258, width = 9, old = -1;
+  uint64_t bits = 0;
+  int nbits = 0;
+  int64_t pos = 0, out = 0;
+  auto emit = [&](int code) {
+    int64_t len = length[code];
+    int64_t end = out + len;
+    for (int c = code; c >= 0; c = prefix[c]) {
+      --end;
+      if (end < cap) dst[end] = suffix[c];
+    }
+    out += len;
+  };
+  for (;;) {
+    while (nbits < width) {
+      if (pos >= n) return out < cap ? out : cap;
+      bits = (bits << 8) | src[pos++];
+      nbits += 8;
+    }
+    int code = static_cast<int>((bits >> (nbits - width)) &
+                                ((1u << width) - 1));
+    nbits -= width;
+    if (code == 257) break;
+    if (code == 256) {
+      next = 258;
+      width = 9;
+      old = -1;
+      continue;
+    }
+    if (old < 0) {
+      if (code > 255) return -1;
+      emit(code);
+      old = code;
+      continue;
+    }
+    uint8_t head;
+    if (code < next) {
+      emit(code);
+      head = first[code];
+    } else if (code == next) {
+      emit(old);
+      head = first[old];
+      if (out < cap) dst[out] = head;
+      ++out;
+    } else {
+      return -1;
+    }
+    if (next < 4096) {
+      prefix[next] = old;
+      suffix[next] = head;
+      first[next] = first[old];
+      length[next] = length[old] + 1;
+      ++next;
+      if (next >= (1 << width) - 1 && width < 12) ++width;
+    }
+    old = code;
+  }
+  return out < cap ? out : cap;
+}
+
+// TIFF LZW: encode the n bytes of src into dst (capacity cap, at least
+// n * 3 / 2 + 16). Returns the number of bytes written.
+int64_t tiff_lzw_encode(const uint8_t* src, int64_t n, uint8_t* dst,
+                        int64_t cap) {
+  std::vector<int16_t> child(4096 * 256, -1);
+  uint64_t bits = 0;
+  int nbits = 0, width = 9, next = 258;
+  int64_t out = 0;
+  auto put = [&](int code) {
+    bits = (bits << width) | static_cast<uint64_t>(code);
+    nbits += width;
+    while (nbits >= 8) {
+      if (out < cap) dst[out] = static_cast<uint8_t>(bits >> (nbits - 8));
+      ++out;
+      nbits -= 8;
+    }
+  };
+  // after a code goes out its entry is added: the width grows once the
+  // next free code no longer fits, and a full table is cleared
+  auto added = [&]() {
+    ++next;
+    if (next == 4094) {
+      put(256);
+      std::fill(child.begin(), child.end(), -1);
+      next = 258;
+      width = 9;
+    } else if (next > (1 << width) - 1) {
+      ++width;
+    }
+  };
+  put(256);
+  if (n > 0) {
+    int w = src[0];
+    for (int64_t i = 1; i < n; ++i) {
+      int c = src[i];
+      int16_t k = child[w * 256 + c];
+      if (k >= 0) {
+        w = k;
+        continue;
+      }
+      put(w);
+      child[w * 256 + c] = static_cast<int16_t>(next);
+      added();
+      w = c;
+    }
+    put(w);
+    added();
+  }
+  put(257);
+  if (nbits > 0) {
+    if (out < cap) dst[out] = static_cast<uint8_t>(bits << (8 - nbits));
+    ++out;
+  }
+  return out;
+}
+
+// PackBits (TIFF compression 32773): decode n bytes of src into dst
+// (capacity cap); returns the number of bytes written.
+int64_t packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst,
+                        int64_t cap) {
+  int64_t pos = 0, out = 0;
+  while (pos < n && out < cap) {
+    int h = static_cast<int8_t>(src[pos++]);
+    if (h >= 0) {
+      int64_t len = h + 1;
+      if (len > n - pos) len = n - pos;
+      if (len > cap - out) len = cap - out;
+      std::memcpy(dst + out, src + pos, len);
+      out += len;
+      pos += h + 1;
+    } else if (h != -128) {
+      if (pos >= n) break;
+      int64_t len = 1 - h;
+      if (len > cap - out) len = cap - out;
+      std::memset(dst + out, src[pos++], len);
+      out += len;
+    }
+  }
+  return out;
 }
 
 }  // extern "C"

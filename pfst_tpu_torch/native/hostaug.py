@@ -1,6 +1,7 @@
 """ctypes loader of the host-side data-pipeline kernels (port of
 ``pfst_tpu/native/hostaug.py``): the fused HSV round trip, PNG
-unfiltering and OpenCV-exact uint8 resizes of ``hostaug.cc``.
+unfiltering, OpenCV-exact resizes (uint8, and float32 bilinear) and the
+TIFF LZW and PackBits codecs of ``hostaug.cc``.
 
 ``hostaug.cc`` is compiled by ``g++`` at first use into
 ``<repo>/build/pfst_tpu_torch/`` under a name keyed by a hash of the
@@ -30,6 +31,7 @@ _lib = None
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I16P = ctypes.POINTER(ctypes.c_int16)
+_F32P = ctypes.POINTER(ctypes.c_float)
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     'hsv_modify_u8': ([_U8P, _U8P, _I64, _U8P, _U8P], None),
@@ -40,6 +42,11 @@ _SIGNATURES = {
                           _I16P, _I32P, _I16P], None),
     'resize_nearest_u8': ([_U8P, _I64, _I64, _U8P, _I64, _I64, _I32P,
                            _I32P], None),
+    'resize_linear_f32': ([_F32P, _I64, _I64, _F32P, _I64, _I64, _I32P,
+                           _I32P, _F32P, _I32P, _I32P, _F32P], None),
+    'tiff_lzw_decode': ([_U8P, _I64, _U8P, _I64], _I64),
+    'tiff_lzw_encode': ([_U8P, _I64, _U8P, _I64], _I64),
+    'packbits_decode': ([_U8P, _I64, _U8P, _I64], _I64),
 }
 
 
@@ -183,3 +190,60 @@ def resize_nearest(img: np.ndarray, xofs, yofs) -> np.ndarray:
     lib().resize_nearest_u8(_ptr(img), w, cn, _ptr(out), yofs.size,
                             xofs.size, _ptr(xofs, _I32P), _ptr(yofs, _I32P))
     return out
+
+
+def resize_linear_f32(img: np.ndarray, cols, rows) -> np.ndarray:
+    """cv2.resize(INTER_LINEAR) arithmetic on an (H, W[, C]) float32 image
+    of at least two rows and columns: ``cols`` and ``rows`` are each
+    (first source index (n,) int32, second (n,) int32, the second's
+    weight (n,) float32), from OpenCV's coordinate map."""
+    img = np.ascontiguousarray(img, np.float32)
+    h, w = img.shape[:2]
+    cn = 1 if img.ndim == 2 else img.shape[2]
+    x0, x1, fx = [np.ascontiguousarray(a, t) for a, t in
+                  zip(cols, (np.int32, np.int32, np.float32))]
+    y0, y1, fy = [np.ascontiguousarray(a, t) for a, t in
+                  zip(rows, (np.int32, np.int32, np.float32))]
+    if min(h, w) < 2:
+        raise ValueError('the float32 resize takes images of at least two '
+                         'rows and columns')
+    if not (0 <= min(x0.min(), x1.min()) and max(x0.max(), x1.max()) < w
+            and 0 <= min(y0.min(), y1.min())
+            and max(y0.max(), y1.max()) < h):
+        raise ValueError('resize offsets out of the image')
+    out = np.empty((y0.size, x0.size) + img.shape[2:], np.float32)
+    lib().resize_linear_f32(
+        _ptr(img, _F32P), w, cn, _ptr(out, _F32P), y0.size, x0.size,
+        _ptr(x0, _I32P), _ptr(x1, _I32P), _ptr(fx, _F32P), _ptr(y0, _I32P),
+        _ptr(y1, _I32P), _ptr(fy, _F32P))
+    return out
+
+
+def _codec(name: str, data: bytes, capacity: int) -> np.ndarray:
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty(capacity, np.uint8)
+    n = getattr(lib(), name)(_ptr(buf), buf.size, _ptr(out), capacity)
+    if n < 0:
+        raise ValueError(f'{name}: corrupt data')
+    if n > capacity:
+        raise ValueError(f'{name}: {n} bytes do not fit in {capacity}')
+    return out[:n]
+
+
+def lzw_decode(data: bytes, size: int) -> np.ndarray:
+    """The first ``size`` bytes (or fewer, where the data ends) that the
+    TIFF LZW stream ``data`` decodes to."""
+    return _codec('tiff_lzw_decode', data, size)
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """``data`` as one TIFF LZW stream (Clear code first, EOI last)."""
+    # at most one 12-bit code a byte, and a Clear code every 3836 codes
+    return _codec('tiff_lzw_encode', data,
+                  len(data) * 3 // 2 + len(data) // 1024 + 16).tobytes()
+
+
+def packbits_decode(data: bytes, size: int) -> np.ndarray:
+    """The first ``size`` bytes that the PackBits stream ``data`` decodes
+    to."""
+    return _codec('packbits_decode', data, size)

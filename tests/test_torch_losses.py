@@ -154,6 +154,11 @@ _PFGST_CASES = {
     'src_perc': dict(sim_type='gaussian', top_k=3, src_perc=0.3),
     'ema-mismatched': dict(sim_type='cosine', top_k=3, dilation=1,
                            cross_prob_type='ema', downscale=None),
+    # the Inria and SeasonNet configs' settings, at their class counts
+    'inria-2cls-ds0.5': dict(sim_type='cosine', top_k=3, downscale=0.5,
+                             classes=2),
+    'season_net-33cls-ds1': dict(sim_type='cosine', top_k=3, downscale=1,
+                                 classes=33),
 }
 
 
@@ -162,7 +167,7 @@ def test_pfgst_loss_and_gradients_match_jax(case):
     kw = dict(top_k=3, dilation=2, kernel_size=3, weights=WEIGHTS,
               sigma=30, feat_level=None, detach_unfold=True)
     kw.update(_PFGST_CASES[case])
-    t = make_tensors(np.random.RandomState(0))
+    t = make_tensors(np.random.RandomState(0), C=kw.pop('classes', 6))
     tt = {k: torch.from_numpy(v) for k, v in t.items()}
     x_src = tt['x_src'].requires_grad_()
     logits_trg = tt['logits_trg'].requires_grad_()

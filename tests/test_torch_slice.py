@@ -148,8 +148,9 @@ def test_init_segmentor_default_device_needs_cuda(monkeypatch):
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
     """Every module of the port (the attention, ViT, neck, UPerHead,
-    trainer, data, evaluation, checkpoint and host-kernel modules named, so
-    that a missing one fails), the port's tools but the JAX checkpoint
+    trainer, data (the EO datasets and the TIFF reader too), evaluation,
+    checkpoint and host-kernel modules named, so that a missing one
+    fails), the port's tools but the JAX checkpoint
     converter (which imports both packages by design) and chip_smoke.py, in
     a fresh process: none of jax, flax, optax, orbax, cv2, PIL or the JAX
     package."""
@@ -166,7 +167,11 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'datasets.custom', 'datasets.isprs',",
         "          'datasets.uda_dataset', 'datasets.pipelines.loading',",
         "          'datasets.pipelines.packing', 'datasets.pipelines.png',",
-        "          'datasets.pipelines.transforms', 'native.hostaug'):",
+        "          'datasets.pipelines.transforms', 'native.hostaug',",
+        "          'datasets.eo_dataset', 'datasets.inria',",
+        "          'datasets.season_net', 'datasets.uda_dataset_v2',",
+        "          'datasets.pipelines.tiff', 'datasets.pipelines.imdecode',",
+        "          'core.evaluation.class_names'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

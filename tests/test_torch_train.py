@@ -320,20 +320,23 @@ def test_optimizer_matches_optax(opt_cfg, grad_clip):
 
 
 # ------------------------------ the PFGST step -----------------------------
-def _uda_cfg(thre_type):
+def _uda_cfg(thre_type, denorm='mean_std'):
+    # with 'none' the jitter runs (probability 0), on the JAX draws
     return dict(
         type='PFGST', alpha=ALPHA, pseudo_threshold=TAU,
         pseudo_weight_ignore_top=0, pseudo_weight_ignore_bottom=0,
         imnet_feature_dist_lambda=0, mix='class', blur=False,
-        color_jitter_strength=0.2, color_jitter_probability=1.0,
+        color_jitter_strength=0.2,
+        color_jitter_probability=1.0 if denorm == 'mean_std' else 0.0,
         thre_type=thre_type, trg_loss_weight=1.0, use_decoded_feats=True,
+        strong_aug_denorm_type=denorm,
         aux_losses=[dict(type='PFGSTLoss', kernel_size=3, dilation=2,
                          top_k=3, weights=WEIGHTS, sim_type='cosine',
                          feat_level=None, detach_unfold=True)])
 
 
-def _train_cfg(thre_type):
-    return dict(uda=_uda_cfg(thre_type), model=_model_cfg(),
+def _train_cfg(thre_type, denorm='mean_std'):
+    return dict(uda=_uda_cfg(thre_type, denorm), model=_model_cfg(),
                 runner=dict(max_iters=100))
 
 
@@ -378,8 +381,8 @@ def jax_step(jax_state):
                 FAST_COMPILE)
 
 
-def _port_state(thre_type, jstate):
-    algo = build_train_model(_train_cfg(thre_type), device='cpu')
+def _port_state(thre_type, jstate, denorm='mean_std'):
+    algo = build_train_model(_train_cfg(thre_type, denorm), device='cpu')
     state = algo.init_state(torch.Generator().manual_seed(0),
                             build_optimizer(SGD))
     return algo, load_jax_train_state(jstate, state)
@@ -390,14 +393,22 @@ def _torch_batch(batch):
             for k, v in batch.items()}
 
 
-def _port_premix(thre_type, jstate, batch, rng):
+def _port_premix(thre_type, jstate, batch, rng, denorm='mean_std'):
     """The port's teacher_and_mix on its EMA-updated teacher, with the
     ClassMix scores the JAX step draws from ``rng`` (``pfgst.py:203,240``,
     ``dacs_transforms.py:59,78``); returns (algo, state, premix, gen)."""
-    algo, state = _port_state(thre_type, jstate)
+    algo, state = _port_state(thre_type, jstate, denorm)
     gen = torch.Generator().manual_seed(0)
     draws = algo.sample_draws(gen, BATCH)
-    k_mix = jax.random.split(rng, 6)[2]
+    _, _, k_mix, k_gate_j, _, k_strong = jax.random.split(rng, 6)
+    if denorm != 'mean_std':
+        draws['jitter_gate'] = float(jax.random.uniform(k_gate_j, ()))
+        s = algo.color_jitter_s
+        draws['jitter'] = torch.tensor([[float(jax.random.uniform(
+            k4, (), minval=lo, maxval=hi)) for k4, (lo, hi) in zip(
+                jax.random.split(jax.random.split(k)[0], 4),
+                [(1 - s, 1 + s)] * 3 + [(-s, s)])]
+            for k in jax.random.split(k_strong, BATCH)])
     draws['class_scores'] = torch.from_numpy(np.stack([
         np.asarray(jax.random.uniform(k, (7,)))
         for k in jax.random.split(k_mix, BATCH)]))
@@ -416,23 +427,26 @@ def _to_jax(premix):
             for k, v in premix.items()}
 
 
-@pytest.mark.parametrize('thre_type', ['all', 'part'])
-def test_teacher_and_mix_matches_jax(jax_state, thre_type):
+@pytest.mark.parametrize('thre_type,denorm', [
+    ('all', 'mean_std'), ('part', 'mean_std'), ('all', 'none')],
+    ids=['all', 'part', 'all-denorm_none'])
+def test_teacher_and_mix_matches_jax(jax_state, thre_type, denorm):
     """Teacher forward, pseudo-labels and their weight, ClassMix and the
     mixed batch, against the JAX ``teacher_and_mix`` on the same
-    EMA-updated teacher."""
+    EMA-updated teacher; ``strong_aug_denorm_type='none'`` (the SeasonNet
+    config) jitters the normalized images as they are."""
     algo_j, _, jstate, batch = jax_state
     rng = jax.random.PRNGKey(7)
     a = min(1.0 - 1.0 / (START_STEP + 1), ALPHA)
     ema = jax.tree.map(lambda e, p: a * np.asarray(e) + (1 - a) *
                        np.asarray(p), jstate.ema_params, jstate.params)
-    algo = jax_train_model(_train_cfg(thre_type))
+    algo = jax_train_model(_train_cfg(thre_type, denorm))
     mean, std = jnp.asarray(MEAN), jnp.asarray(STD)
     with two_pass_batch_variance():
         ref = run_jit(lambda e, eb, b, r: algo.teacher_and_mix(
             e, eb, b, r, mean, std), ema, jstate.ema_batch_stats, batch,
             rng)
-    premix = _port_premix(thre_type, jstate, batch, rng)[2]
+    premix = _port_premix(thre_type, jstate, batch, rng, denorm)[2]
     np.testing.assert_array_equal(premix['mix_masks'].numpy(),
                                   np.asarray(ref['mix_masks']))
     assert 0 < float(premix['mix_masks'].mean()) < 1
@@ -440,8 +454,9 @@ def test_teacher_and_mix_matches_jax(jax_state, thre_type):
                                ref['ema_logits'], **TOL)
     np.testing.assert_allclose(nhwc(premix['ema_feats']), ref['ema_feats'],
                                **TOL)
+    # the jitter's colour arithmetic, where it runs: atol 1e-5
     np.testing.assert_allclose(nhwc(premix['mixed_img']), ref['mixed_img'],
-                               atol=1e-6)
+                               atol=1e-6 if denorm == 'mean_std' else 1e-5)
     np.testing.assert_allclose(premix['pseudo_weight'].numpy(),
                                ref['pseudo_weight'], atol=1e-6)
     for k in ('pseudo_label', 'mixed_lbl'):

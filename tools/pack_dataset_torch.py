@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Pack image directories into mmap blobs for decode-free loading, with
-the PyTorch port's own PNG reader (the port's counterpart of
+the PyTorch port's own PNG and TIFF readers (the port's counterpart of
 ``tools/pack_dataset.py``; both write the same format, and the packs of
 either are read by both packages)::
 
