@@ -5,7 +5,9 @@ The JAX package writes Orbax step directories; the port writes one
 reference ``tools/train.py:228-235``, ``apis/train.py:184-191``)::
 
     {'meta': {..., 'iter': N},
-     'state_dict': {'model.<key>': student, 'ema_model.<key>': teacher},
+     'state_dict': {'model.<key>': student, 'ema_model.<key>': teacher,
+                    'imnet_model.<key>': frozen reference (DACS's feature
+                                         distance on)},
      'optimizer': <torch.optim state_dict>,
      'scheduler': <LR scheduler state_dict or None>}
 
@@ -32,16 +34,24 @@ def checkpoint_path(work_dir: str, step: int) -> str:
     return osp.join(work_dir, f'iter_{int(step)}.pth')
 
 
+def _prefixed(state):
+    """(module, key prefix) of each module of a UDA train state: the
+    student, the teacher, and the feature distance's frozen reference
+    where there is one (rsiseg's DACS ``imnet_model``)."""
+    out = [(state.student, 'model.'), (state.teacher, 'ema_model.')]
+    if getattr(state, 'imnet', None) is not None:
+        out.append((state.imnet, 'imnet_model.'))
+    return out
+
+
 def state_dict_of(state) -> Dict[str, torch.Tensor]:
     """The rsiseg-layout state dict of a train state: ``model.`` +
-    student and ``ema_model.`` + teacher for UDA, bare keys without a
-    teacher."""
+    student, ``ema_model.`` + teacher (and ``imnet_model.`` + the frozen
+    reference) for UDA, bare keys without a teacher."""
     if state.teacher is None:
         return dict(state.student.state_dict())
-    out = {f'model.{k}': v for k, v in state.student.state_dict().items()}
-    out.update({f'ema_model.{k}': v
-                for k, v in state.teacher.state_dict().items()})
-    return out
+    return {f'{prefix}{k}': v for module, prefix in _prefixed(state)
+            for k, v in module.state_dict().items()}
 
 
 def save_checkpoint(work_dir: str, step: int, state,
@@ -89,14 +99,14 @@ def extract_student(ckpt: Dict) -> Dict[str, torch.Tensor]:
 
 
 def restore_state(state, ckpt: Dict):
-    """Resume: load student, teacher, optimizer, LR schedule and step of
-    ``ckpt`` into ``state`` exactly (``resume_from``)."""
+    """Resume: load student, teacher (and frozen reference), optimizer, LR
+    schedule and step of ``ckpt`` into ``state`` exactly
+    (``resume_from``)."""
     sd = ckpt['state_dict']
     if state.teacher is None:
         state.student.load_state_dict(sd)
     else:
-        for module, prefix in ((state.student, 'model.'),
-                               (state.teacher, 'ema_model.')):
+        for module, prefix in _prefixed(state):
             module.load_state_dict({k[len(prefix):]: v
                                     for k, v in sd.items()
                                     if k.startswith(prefix)})
@@ -113,8 +123,10 @@ def restore_state(state, ckpt: Dict):
 def load_weights_into_state(state, ckpt: Dict, logger=None):
     """Warm start (``load_from``): the student's weights from ``ckpt``
     where names and shapes match (the rest keep their init, with a
-    warning, as mmcv's ``strict=False``), the teacher a copy of the loaded
-    student; optimizer and step stay fresh (``train.py:299-330``)."""
+    warning, as mmcv's ``strict=False``), the teacher and the feature
+    distance's frozen reference copies of the loaded student, as the JAX
+    loop refreshes them (``apis/train.py:285-316``); optimizer and step
+    stay fresh."""
     own = state.student.state_dict()
     loaded = extract_student(ckpt)
     for key, value in loaded.items():
@@ -128,8 +140,9 @@ def load_weights_into_state(state, ckpt: Dict, logger=None):
             own[key].copy_(value)
     for key in own.keys() - loaded.keys():
         print_log(f'load_from: missing key {key} (init kept)', logger)
-    if state.teacher is not None:
-        state.teacher.load_state_dict(state.student.state_dict())
+    for module in (state.teacher, getattr(state, 'imnet', None)):
+        if module is not None:
+            module.load_state_dict(state.student.state_dict())
     return state
 
 

@@ -222,16 +222,22 @@ def jax_variables_to_state_dict(
 
 def load_jax_train_state(jax_state, state):
     """Load a JAX ``UDATrainState`` (``params``, ``batch_stats``,
-    ``ema_params``, ``ema_batch_stats``, ``step``; leaves as arrays) into
-    the port's ``UDATrainState``: the student gets ``params`` and
-    ``batch_stats``, the teacher ``ema_params`` and ``ema_batch_stats``,
-    and ``step`` carries over, with the optimizer's LR schedule resumed
-    there. The optimizer's moments do not carry over. Raises ``KeyError``
-    for any key of either module without a source."""
-    for module, params, stats in (
-            (state.student, jax_state.params, jax_state.batch_stats),
-            (state.teacher, jax_state.ema_params,
-             jax_state.ema_batch_stats)):
+    ``ema_params``, ``ema_batch_stats``, ``step``, and ``imnet_params``
+    where the feature distance is on; leaves as arrays) into the port's
+    ``UDATrainState``: the student gets ``params`` and ``batch_stats``,
+    the teacher ``ema_params`` and ``ema_batch_stats``, the frozen
+    reference ``imnet_params`` (its BN statistics, which its train-mode
+    forward never reads, the student's), and ``step`` carries over, with
+    the optimizer's LR schedule resumed there. The optimizer's moments do
+    not carry over. Raises ``KeyError`` for any key of a module without a
+    source."""
+    modules = [(state.student, jax_state.params, jax_state.batch_stats),
+               (state.teacher, jax_state.ema_params,
+                jax_state.ema_batch_stats)]
+    if getattr(state, 'imnet', None) is not None:
+        modules.append((state.imnet, jax_state.imnet_params,
+                        jax_state.batch_stats))
+    for module, params, stats in modules:
         ref = module.state_dict()
         sd = jax_variables_to_state_dict(
             {'params': params, 'batch_stats': stats}, ref)

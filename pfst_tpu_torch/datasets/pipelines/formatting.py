@@ -32,7 +32,10 @@ def _deferred(results):
 
 @PIPELINES.register_module()
 class DefaultFormatBundle:
-    """Images -> CHW (float32 unless deferred); label maps -> int32."""
+    """Images -> CHW (float32 unless deferred); label maps -> int32. With
+    a clean snapshot (``KeepOriImage``) it formats ``ori_img`` too and
+    adds its replay metas as stackable int32 arrays: ``rotate_k``,
+    ``flip_horizontal`` and ``flip_vertical`` (``formatting.py:44-56``)."""
 
     def __call__(self, results):
         deferred = _deferred(results)
@@ -40,6 +43,16 @@ class DefaultFormatBundle:
             results[key] = _to_chw(results[key], deferred)
         for key in results.get('seg_fields', []):
             results[key] = np.ascontiguousarray(results[key], np.int32)
+        if 'ori_img' in results:
+            results['ori_img'] = _to_chw(results['ori_img'], deferred)
+            results['rotate_k'] = np.asarray(results.get('rotate_k', 0),
+                                             np.int32)
+            flip = bool(results.get('flip', False))
+            direction = results.get('flip_direction') or 'horizontal'
+            results['flip_horizontal'] = np.asarray(
+                int(flip and 'horizontal' in direction), np.int32)
+            results['flip_vertical'] = np.asarray(
+                int(flip and 'vertical' in direction), np.int32)
         return results
 
     def __repr__(self):

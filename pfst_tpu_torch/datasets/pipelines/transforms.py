@@ -335,6 +335,10 @@ class Pad:
             target = (-(-h // d) * d, -(-w // d) * d)
         for key in results.get('img_fields', ['img']):
             results[key] = self._pad(results[key], target, self.pad_val)
+        # the clean snapshot (``KeepOriImage``) stays shape-aligned with img
+        if 'ori_img' in results:
+            results['ori_img'] = self._pad(results['ori_img'], target,
+                                           self.pad_val)
         for key in results.get('seg_fields', []):
             results[key] = self._pad(results[key], target,
                                      self.seg_pad_val)
@@ -365,6 +369,8 @@ class Normalize:
     def __call__(self, results):
         for key in results.get('img_fields', ['img']):
             results[key] = self._norm(results[key])
+        if 'ori_img' in results:
+            results['ori_img'] = self._norm(results['ori_img'])
         results['img_norm_cfg'] = dict(mean=self.mean, std=self.std,
                                        to_rgb=self.to_rgb)
         return results
@@ -402,6 +408,8 @@ class DeferNormalize:
     def __call__(self, results):
         for key in results.get('img_fields', ['img']):
             results[key] = self._prep(results[key])
+        if 'ori_img' in results:
+            results['ori_img'] = self._prep(results['ori_img'])
         results['img_norm_cfg'] = dict(mean=self.mean, std=self.std,
                                        to_rgb=self.to_rgb, deferred=True)
         return results
@@ -579,6 +587,27 @@ class StrongAugmentation(_Photometric):
         results.setdefault('img_fields', ['img'])
         if 'img_strong_aug' not in results['img_fields']:
             results['img_fields'].append('img_strong_aug')
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}()'
+
+
+@PIPELINES.register_module()
+class KeepOriImage:
+    """The clean target view for PFSTV4's teacher (``transforms.py:692-
+    720``): a copy of ``img`` after the resize and crop, before rot90,
+    flips and the photometric steps, so that only the rot90 and flips
+    need replaying in the step. It stays outside ``img_fields``, so the
+    geometric transforms skip it; ``Normalize``, ``DeferNormalize`` and
+    ``Pad`` treat it as they treat ``img``, and ``DefaultFormatBundle``
+    adds the replay metas. ``UDADataset`` gives it to the batch as
+    ``target_img_ori``. Place it after ``RandomCrop`` and before
+    ``RandomRotate90`` / ``RandomFlip``; the replay is exact while
+    ``Pad`` pads nothing (the resized image covers the crop)."""
+
+    def __call__(self, results):
+        results['ori_img'] = results['img'].copy()
         return results
 
     def __repr__(self):

@@ -2,7 +2,8 @@
 ``pfst_tpu/datasets/uda_dataset.py``; mirrors
 ``rsiseg/datasets/uda_dataset.py:44-135``): ``__getitem__`` gives the
 source sample plus ``target_img`` / ``target_img_strong_aug`` /
-``target_img_metas``; the length is ``len(source) * len(target)``, index
+``target_img_metas``, and with a clean target snapshot
+``target_img_ori`` and the target's replay metas; the length is ``len(source) * len(target)``, index
 ``idx`` pairing source ``idx // len(target)`` with target
 ``idx % len(target)``. Rare-class sampling waits for ROADMAP A12.
 """
@@ -32,6 +33,14 @@ class UDADataset:
                    'target_img': s2['img']}
         if 'img_strong_aug' in s2:
             results['target_img_strong_aug'] = s2['img_strong_aug']
+        if 'ori_img' in s2:
+            # PFSTV4's clean view and the target's own replay metas, which
+            # a source sample's metas of the same names must not clobber
+            # (``uda_dataset.py:103-117``)
+            results['target_img_ori'] = s2['ori_img']
+            for k in ('rotate_k', 'flip_vertical', 'flip_horizontal'):
+                if k in s2:
+                    results[k] = s2[k]
         return results
 
     def __getitem__(self, idx):

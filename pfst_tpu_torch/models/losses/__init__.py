@@ -1,12 +1,20 @@
 from .accuracy import accuracy
 from .cross_entropy_loss import (CrossEntropyLoss, binary_cross_entropy,
                                  cross_entropy)
+from .feat_sim_loss import (AdaptiveFeatSimLoss, AdaptiveFeatSimLossV2,
+                            AdaptiveFeatSimLossV3, AdaptiveFeatSimLossV4,
+                            FeatSimLoss, FeatSimLossV2,
+                            MultiScaleAdaptiveFeatSimLoss)
 from .pfgst_loss import PFGSTLoss
+from .pfst_loss import PFSTLoss, PFSTLossV2, PFSTLossV4
 from .utils import (get_class_weight, masked_mean, masked_std, reduce_loss,
                     weight_reduce_loss)
 
 __all__ = [
     'accuracy', 'CrossEntropyLoss', 'cross_entropy', 'binary_cross_entropy',
-    'PFGSTLoss', 'get_class_weight', 'reduce_loss', 'weight_reduce_loss',
-    'masked_mean', 'masked_std'
+    'PFGSTLoss', 'PFSTLoss', 'PFSTLossV2', 'PFSTLossV4', 'FeatSimLoss',
+    'FeatSimLossV2', 'AdaptiveFeatSimLoss', 'AdaptiveFeatSimLossV2',
+    'AdaptiveFeatSimLossV3', 'AdaptiveFeatSimLossV4',
+    'MultiScaleAdaptiveFeatSimLoss', 'get_class_weight', 'reduce_loss',
+    'weight_reduce_loss', 'masked_mean', 'masked_std'
 ]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import copy
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -23,11 +24,14 @@ from ..builder import build_segmentor
 class UDATrainState:
     """The port of the JAX ``UDATrainState``: ``student`` holds ``params``
     and ``batch_stats``, ``teacher`` holds ``ema_params`` and
-    ``ema_batch_stats``, ``optimizer`` holds ``opt_state``."""
+    ``ema_batch_stats``, ``optimizer`` holds ``opt_state``, and ``imnet``,
+    the frozen reference of the feature distance, holds ``imnet_params``
+    (None when the distance is off)."""
     student: nn.Module
     teacher: nn.Module
     optimizer: object
     step: int = 0
+    imnet: Optional[nn.Module] = None
 
 
 def maybe_normalize_images(batch: dict, mean, std) -> dict:
@@ -84,19 +88,28 @@ class UDADecorator:
         self.num_classes = cfg['model']['decode_head']['num_classes']
         self.max_iters = cfg.get('max_iters', 40000)
 
+    # the feature distance's frozen reference (``imnet_feature_dist_
+    # lambda > 0``); set by the algorithms that have one
+    enable_fdist = False
+
     def init_state(self, generator: torch.Generator, tx) -> UDATrainState:
         """Student weights from the JAX package's initializers drawn from
         ``generator``, the teacher a copy of the student
-        (``uda_decorator.py:72-99``), both on ``self.device``; ``tx`` is a
-        ``build_optimizer`` factory, bound to the student's parameters."""
+        (``uda_decorator.py:72-99``), and with the feature distance on, the
+        frozen reference a copy of the *initial* student; all on
+        ``self.device``. ``tx`` is a ``build_optimizer`` factory, bound to
+        the student's parameters."""
         student = build_segmentor(self.model_cfg).init_weights(generator)
-        teacher = copy.deepcopy(student)
-        for p in teacher.parameters():
-            p.requires_grad_(False)
-        student.to(self.device).train()
-        teacher.to(self.device).train()
-        return UDATrainState(student=student, teacher=teacher,
-                             optimizer=tx(student.parameters()), step=0)
+        frozen = [copy.deepcopy(student)
+                  for _ in range(2 if self.enable_fdist else 1)]
+        for module in frozen:
+            for p in module.parameters():
+                p.requires_grad_(False)
+        for module in [student] + frozen:
+            module.to(self.device).train()
+        return UDATrainState(student=student, teacher=frozen[0],
+                             optimizer=tx(student.parameters()), step=0,
+                             imnet=frozen[1] if self.enable_fdist else None)
 
     @torch.no_grad()
     def ema_update(self, state: UDATrainState, alpha: float):

@@ -148,7 +148,8 @@ def test_init_segmentor_default_device_needs_cuda(monkeypatch):
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
     """Every module of the port (the attention, ViT, neck, UPerHead,
-    trainer, data (the EO datasets and the TIFF reader too), evaluation,
+    trainer, UDA family and its losses and replay, data (the EO datasets
+    and the TIFF reader too), evaluation,
     checkpoint and host-kernel modules named, so that a missing one
     fails), the port's tools but the JAX checkpoint
     converter (which imports both packages by design) and chip_smoke.py, in
@@ -171,7 +172,10 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'datasets.eo_dataset', 'datasets.inria',",
         "          'datasets.season_net', 'datasets.uda_dataset_v2',",
         "          'datasets.pipelines.tiff', 'datasets.pipelines.imdecode',",
-        "          'core.evaluation.class_names'):",
+        "          'core.evaluation.class_names', 'models.uda.dacs',",
+        "          'models.uda.pfst', 'models.uda.pgst', 'models.uda.fmda',",
+        "          'models.losses.pfst_loss', 'models.losses.feat_sim_loss',",
+        "          'models.utils.pfst_transforms'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

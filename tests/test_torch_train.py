@@ -574,16 +574,29 @@ class _SelfTraining(PFGST):
     'fdist', 'grad_magnitude', 'self_training', 'collect_vis',
     'paramwise_cfg', 'cumulative_iters', 'skip_nonfinite', 'ohem'])
 def test_waiting_options_raise(case):
+    """What the port does not have raises. The PFGST hooks ``fdist``,
+    ``grad_magnitude`` and ``self_training`` waited for the UDA family and
+    are ported now: they build instead (their steps are held to JAX in
+    ``tests/test_torch_uda_family.py``)."""
     cfg = _train_cfg('all')
     uda = dict(cfg['uda'], model=cfg['model'], device='cpu')
+    if case == 'fdist':
+        state = PFGST(**dict(uda, imnet_feature_dist_lambda=0.1)).init_state(
+            torch.Generator().manual_seed(0), build_optimizer(SGD))
+        assert not any(p.requires_grad for p in state.imnet.parameters())
+        want = state.student.state_dict()
+        for k, v in state.imnet.state_dict().items():
+            assert torch.equal(v, want[k]), k
+        return
+    if case == 'grad_magnitude':
+        assert PFGST(**dict(uda, print_grad_magnitude=True)
+                     ).print_grad_magnitude
+        return
+    if case == 'self_training':
+        assert _SelfTraining(**uda).target_self_training
+        return
     with pytest.raises(NotImplementedError):
-        if case == 'fdist':
-            PFGST(**dict(uda, imnet_feature_dist_lambda=0.1))
-        elif case == 'grad_magnitude':
-            PFGST(**dict(uda, print_grad_magnitude=True))
-        elif case == 'self_training':
-            _SelfTraining(**uda)
-        elif case == 'collect_vis':
+        if case == 'collect_vis':
             PFGST(**uda).make_train_step(MEAN, STD, collect_vis=True)
         elif case == 'paramwise_cfg':
             build_optimizer(dict(SGD, paramwise_cfg=dict(custom_keys={})))
