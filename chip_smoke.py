@@ -12,8 +12,9 @@ Phases (any failure exits non-zero before the result lines):
 2. build the CUDA kernels from ``pfst_tpu_torch/ops/csrc`` (nvcc, sm_90a,
    cached under ``build/pfst_tpu_torch/``);
 3. each kernel against its plain PyTorch version at the path's shapes
-   (SeasonNet's (16, 512, 32, 32) cosine and the UDA family's
-   (2, 1024, 128, 128), both types, among them),
+   (SeasonNet's (16, 512, 32, 32) cosine, the UDA family's
+   (2, 1024, 128, 128) and FMDAAdaptor's (2, 2048, 128, 128) gaussian,
+   both types, among them),
    with its median time (per call, and on the device in a CUDA graph of
    ten launches), the plain version's and the memory/compute bound;
 3b. the similarity's backward kernel against autograd of the plain
@@ -110,6 +111,27 @@ Phases (any failure exits non-zero before the result lines):
    teacher run on ``target_img_ori``, its replayed logits and level-2 map
    equal to ``torch.rot90`` / ``torch.flip`` of the unreplayed ones by the
    batch's metas;
+16. the domain-adaptor family at full width on the leaf model (its
+   DeepLabV3+ R50-D8 and FCN auxiliary head, 6 classes; ``adaptor_variants``):
+   DomainAdaptor, DomainAdaptorAdv (its discriminator, and the reference's
+   generator / discriminator optimizer dict), DomainAdaptorV2 with
+   EntropyLoss, FMDAAdaptor with FeatSimLoss on a synthetic level-3 map
+   (2, 2048, 64, 64) and FMDAAdaptorV2 on a synthetic similarity map, and
+   PFGST with LocalPseudoFeatLoss and PseudoLabelLoss as its aux losses,
+   each through ``build_algorithm`` -> ``init_state`` -> ``make_train_step``
+   for 2 warm-up and 3 timed steps on phase 7's batches: every log var
+   finite, the student (and the discriminator) moved, the similarity
+   launches by shape as the step's code implies, s/iter beside phase 7's
+   bare PFGST step; DomainAdaptorAdv card against CPU as phase 8, under
+   phase 15's limit; DomainAdaptor on a ``MultiDomainDataset`` of phase 13's
+   packs through ``tools/train_torch.py`` for 6 iterations with an eval,
+   a run resumed from its checkpoint at 3 (restored bitwise), and
+   ``tools/test_torch.py`` on the last checkpoint to the in-loop mIoU;
+(13b, run after 13) the source-only config (``BASELINE.json``'s config 2)
+   and the Vaih->Pots PFGST config through ``train_segmentor`` on phase
+   13's packs for 10 iterations each, an eval and ``tools/test_torch.py``
+   on the checkpoint with equal mIoU within 0.01 points, every loss finite,
+   their similarity launches;
 then one ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -137,8 +159,8 @@ import torch.nn.functional as F
 from pfst_tpu_torch.apis import (_finalize_views, build_algorithm,
                                  init_segmentor, make_inference_fn,
                                  make_state_fn, train_segmentor)
-from pfst_tpu_torch.core import (build_optimizer, load_checkpoint,
-                                 restore_state)
+from pfst_tpu_torch.core import (build_optimizer, build_optimizers,
+                                 load_checkpoint, restore_state)
 from pfst_tpu_torch.core.checkpoint import state_dict_of
 from pfst_tpu_torch.datasets import build_dataset
 from pfst_tpu_torch.datasets.pipelines import ClipNormalize, imread
@@ -161,6 +183,10 @@ LEAF = osp.join(ROOT, 'configs', 'pfst',
                 'pfst_pots_irrg2vaih_irrg_deeplabv3plus_r50-d8.py')
 VIT = osp.join(ROOT, 'configs', '_base_', 'models',
                'upernet_vit-b16_ln_mln.py')
+SOURCE_ONLY = osp.join(ROOT, 'configs', 'pfst',
+                       'source_only_pots_irrg_deeplabv3plus_r50-d8.py')
+VAIH2POTS = osp.join(ROOT, 'configs', 'pfst',
+                     'pfst_vaih_irrg2pots_irrg_deeplabv3plus_r50-d8.py')
 ADAMW_40K = osp.join(ROOT, 'configs', '_base_', 'schedules',
                      'adamw_40k.py')
 MICROBENCH = osp.join(ROOT, 'tools', 'attn_microbench_torch.py')
@@ -185,11 +211,13 @@ UDA_SIM_SHAPE = (2, 1024, 128, 128)
 # training loss (2 x 512^2 crops, pfgst_loss.py:95-109), the ViT
 # UPerNet's decoded features at a 512^2 request, the SeasonNet config's
 # training loss and the UDA family's (PFGST's and PFST's losses cosine, the
-# adaptive one gaussian)
+# adaptive one gaussian), and FMDAAdaptor's FeatSimLoss on a level-3 map
+# (gaussian, phase 16)
+FMDA_SIM_SHAPE = (2, 2048, 128, 128)
 SIM_CASES = [((1, 512, 128, 128), 'gaussian'), ((2, 512, 64, 64), 'cosine'),
              ((1, 768, 128, 128), 'gaussian'),
              (SEASON_NET_SIM_SHAPE, 'cosine'), (UDA_SIM_SHAPE, 'cosine'),
-             (UDA_SIM_SHAPE, 'gaussian')]
+             (UDA_SIM_SHAPE, 'gaussian'), (FMDA_SIM_SHAPE, 'gaussian')]
 # the similarity kernels' general geometry, small: (shape (B, C, H, W), k,
 # d), each for both similarity types and input types: W past a 32-pixel
 # segment, odd W (unaligned bf16 pairs), d = 2 with W a multiple of 8
@@ -234,6 +262,13 @@ TRAIN_HW, TRAIN_STEPS, TRAIN_WARMUP = (512, 512), 8, 3
 # phase 15: steps per algorithm (the first UDA_WARMUP untimed) and
 # PFSTV4's iterations through the loop
 UDA_STEPS, UDA_WARMUP, UDA_LOOP_ITERS = 5, 2, 12
+# phase 16: FMDA's feature map in the batch (level 3 of R50-D8, 2048
+# channels at stride 8 of a 512^2 crop, tools/gen_pseudo_labels.py:43) and
+# its similarity at the logits' size; the DomainAdaptor loop's iterations
+# and its resume point; phase 13b's iterations of each shipped config
+ADAPTOR_FEAT_SHAPE = (2, 2048, 64, 64)
+ADAPTOR_LOOP_ITERS, ADAPTOR_LOOP_RESUME = 6, 3
+CONFIG_LOOP_ITERS = 10
 # phase 15's card-vs-CPU norm limit as a multiple of the CPU's own
 # 1-vs-N-thread gap, where that gap exceeds 1e-3: on the H100 the card's
 # gap ran 1.26-1.37x the CPU's own for PFGST, PGST and FMDA
@@ -920,8 +955,8 @@ def _train_batch(cfg, seed, hw):
 def _train_setup(cfg, device='cuda'):
     algo = build_train_model(cfg, device=device)
     opt_cfg = cfg.get('optimizer_config') or {}
-    tx = build_optimizer(cfg.optimizer, cfg.get('lr_config'),
-                         cfg.runner['max_iters'], opt_cfg.get('grad_clip'))
+    tx = build_optimizers(cfg.optimizer, cfg.get('lr_config'),
+                          cfg.runner['max_iters'], opt_cfg.get('grad_clip'))
     state = algo.init_state(torch.Generator().manual_seed(0), tx)
     norm = cfg.img_norm_cfg
     return algo, state, algo.make_train_step(norm['mean'], norm['std'])
@@ -1013,7 +1048,8 @@ def _scale_residual(state, scale):
                 [m.norm2_name] if hasattr(m, 'norm2_name') else [])
             if names:
                 getattr(m, names[-1]).weight.fill_(scale)
-        state.teacher.load_state_dict(state.student.state_dict())
+        if state.teacher is not None:
+            state.teacher.load_state_dict(state.student.state_dict())
 
 
 def _grad_groups(state):
@@ -1387,32 +1423,43 @@ def _check_launches(name, counts, iters):
                              f'got {counts}')
 
 
-def _check_restored(cfg, path):
+def _check_restored(cfg, path, resume=LOOP_RESUME, iters=LOOP_ITERS):
     """A state restored from ``path`` as ``train_segmentor`` restores it
-    equals what the file holds, bitwise: student, teacher, the
-    optimizer's moments and step, the LR schedule and the step."""
+    equals what the file holds, bitwise: the modules (student, teacher or
+    discriminator), each optimizer's moments, step, LR schedule,
+    accumulator and counters, and the step."""
     ckpt = load_checkpoint(path)
     algo = build_algorithm(cfg)
     opt_cfg = cfg.get('optimizer_config') or {}
-    tx = build_optimizer(cfg.optimizer, cfg.get('lr_config'), LOOP_ITERS,
-                         opt_cfg.get('grad_clip'))
+    tx = build_optimizers(cfg.optimizer, cfg.get('lr_config'), iters,
+                          opt_cfg.get('grad_clip'))
     state = restore_state(algo.init_state(torch.Generator().manual_seed(0),
                                           tx), ckpt)
     got, want = state_dict_of(state), ckpt['state_dict']
     bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
     if got.keys() != want.keys():
         bad.append('key sets differ')
-    opt_state = state.optimizer.optimizer.state_dict()['state']
-    for i, saved in ckpt['optimizer']['state'].items():
-        for k, v in saved.items():
-            if not torch.equal(opt_state[i][k].cpu(), v):
-                bad.append(f'optimizer {i} {k}')
-    if state.optimizer.scheduler.state_dict()['last_epoch'] != \
-            ckpt['scheduler']['last_epoch'] or state.step != LOOP_RESUME:
+    n_moments = 0
+    for opt, saved in ((state.optimizer, ckpt),
+                       (getattr(state, 'disc_optimizer', None),
+                        ckpt.get('disc_optimizer'))):
+        if opt is None:
+            continue
+        opt_state = opt.optimizer.state_dict()['state']
+        n_moments += sum(len(v) for v in opt_state.values())
+        for i, entry in saved['optimizer']['state'].items():
+            for k, v in entry.items():
+                if not torch.equal(opt_state[i][k].cpu(), v):
+                    bad.append(f'optimizer {i} {k}')
+        if opt.scheduler.state_dict()['last_epoch'] != \
+                saved['scheduler']['last_epoch'] or \
+                opt.extra_state()['mini_step'] != \
+                saved['optimizer_extra']['mini_step']:
+            bad.append('schedule or accumulator')
+    if state.step != resume:
         bad.append(f'step {state.step}')
     if bad:
         raise AssertionError(f'[loop] restore of {path} differs: {bad[:8]}')
-    n_moments = sum(len(v) for v in opt_state.values())
     del state, algo
     torch.cuda.empty_cache()
     return len(want), n_moments
@@ -2017,6 +2064,383 @@ def phase_uda(card, cfg, bare_s_iter, data):
     return dict(algorithms=out, loop=loop, launches=(fwd, bwd))
 
 
+def adaptor_variants(cfg):
+    """Phase 16's algorithms on the leaf model (its DeepLabV3+ R50-D8 and
+    FCN auxiliary head, 6 classes): the five domain adaptors with the
+    losses of ``tests/test_torch_domain_adaptor.py::ADAPTORS`` (the
+    discriminator at its default width, ndf 64; FMDA's ``FeatSimLoss``
+    gaussian on one level-3 map, ``tools/gen_pseudo_labels.py:43``), the
+    adversarial one with the reference's optimizer dict (the config's
+    AdamW for the generator, Adam 1e-4 for the discriminator); and PFGST
+    with ``LocalPseudoFeatLoss`` on level 2 of the backbone's maps and
+    ``PseudoLabelLoss`` as its aux losses. Each value is the config's
+    ``(model, uda, optimizer)``."""
+    seg = {k: v for k, v in cfg.to_dict()['model'].items() if k != 'type'}
+    adv = dict(
+        discriminator=dict(type='FCDiscriminator', num_in_channels=6),
+        gen_losses=[dict(type='AdvLoss', net_type='gen',
+                         weights={'loss_gen': 0.02})],
+        disc_losses=[dict(type='AdvLoss', net_type='disc',
+                          weights={'loss_disc_src': 0.5,
+                                   'loss_disc_trg': 0.5})])
+    opt = cfg.to_dict()['optimizer']
+    leaf = cfg.to_dict()['model']
+    pseudo = [dict(type='LocalPseudoFeatLoss', top_k=3, dilation=SIM_D,
+                   kernel_size=SIM_K, sim_type='cosine', feat_level=2,
+                   weights={'src_pos': 0.1, 'src_neg': 0.1, 'sim_pos': 0.1}),
+              dict(type='PseudoLabelLoss', weights={'loss_pseudo': 0.5})]
+    return {
+        'DomainAdaptor': (dict(seg, type='DomainAdaptor', weight_trg=0.5),
+                          None, opt),
+        'DomainAdaptorAdv': (dict(seg, type='DomainAdaptorAdv', **adv), None,
+                             dict(generator=opt, discriminator=dict(
+                                 type='Adam', lr=1e-4, betas=(0.9, 0.99)))),
+        'DomainAdaptorV2': (dict(seg, type='DomainAdaptorV2', aux_losses=[
+            dict(type='EntropyLoss', weights={'loss_ent': 0.05})]), None,
+            opt),
+        'FMDAAdaptor': (dict(seg, type='FMDAAdaptor', loss_sim_feat=dict(
+            type='FeatSimLoss', top_k=2, dilation=1, kernel_size=SIM_K,
+            sigmas=[5.0], weights=[[0.5, 0.3]], sim_type='gaussian')),
+            None, opt),
+        'FMDAAdaptorV2': (dict(seg, type='FMDAAdaptorV2', loss_sim_feat=dict(
+            type='FeatSimLossV2', top_k=2, dilation=1, kernel_size=SIM_K,
+            weights=[[0.5, 0.3]])), None, opt),
+        'PFGST-pseudo': (leaf, dict(cfg.to_dict()['uda'],
+                                    use_decoded_feats=False,
+                                    aux_losses=pseudo), opt)}
+
+
+def adaptor_expected_shapes(name):
+    """Similarity launches by (shape, dtype) per step that the step's code
+    implies: FMDA's ``FeatSimLoss`` takes the level-3 map of the batch,
+    resized to the logits, without a gradient; ``LocalPseudoFeatLoss``
+    the teacher's and the student's level-2 maps, the latter with its
+    gradient; the other adaptors' losses take no similarity."""
+    if name == 'FMDAAdaptor':
+        return {(FMDA_SIM_SHAPE, 'float32'): 1}, {}
+    if name == 'PFGST-pseudo':
+        return ({(UDA_SIM_SHAPE, 'float32'): 2},
+                {(UDA_SIM_SHAPE, 'float32'): 1})
+    return {}, {}
+
+
+def _variant_cfg(cfg, variant):
+    model, uda, opt = variant
+    vcfg = cfg.copy()
+    vcfg['model'] = copy.deepcopy(model)
+    vcfg['uda'] = copy.deepcopy(uda)
+    vcfg['optimizer'] = copy.deepcopy(opt)
+    return vcfg
+
+
+def _adaptor_batch(cfg, name, seed):
+    """Phase 7's batch with target labels, and for FMDA the maps it reads
+    (seeded normal draws) with the replay metas of ``_replay_batch``:
+    V1 a level-3 feature map (2, 2048, 64, 64), V2 a 9-tap similarity map
+    at the logits' size."""
+    batch = _train_batch(cfg, seed, TRAIN_HW)
+    batch['target_gt_semantic_seg'] = _train_batch(
+        cfg, seed + 500, TRAIN_HW)['gt_semantic_seg']
+    if name.startswith('FMDA'):
+        gen = torch.Generator().manual_seed(seed)
+        shape = ADAPTOR_FEAT_SHAPE if name == 'FMDAAdaptor' else \
+            (2, SIM_K * SIM_K, *FMDA_SIM_SHAPE[2:])
+        key = 'target_feat' if name == 'FMDAAdaptor' else 'target_sim_feat'
+        batch[key] = torch.randn(shape, generator=gen).cuda()
+        batch.update({k: torch.tensor(v, dtype=torch.int32).cuda()
+                      for k, v in (('rotate_k', [1, 3]),
+                                   ('flip_vertical', [1, 0]),
+                                   ('flip_horizontal', [0, 1]))})
+    return batch
+
+
+def _params_of(module):
+    return torch.cat([p.detach().flatten() for p in module.parameters()])
+
+
+def _adaptor_step_run(vcfg, name, steps):
+    """``build_algorithm`` -> ``init_state`` -> ``make_train_step`` for
+    ``steps`` steps (the first UDA_WARMUP untimed); returns s/iter, the
+    similarity kernels' input shapes over the run, the last log vars and
+    how far the student (and the discriminator) moved."""
+    algo = build_algorithm(vcfg)
+    opt_cfg = vcfg.get('optimizer_config') or {}
+    tx = build_optimizers(vcfg.optimizer, vcfg.get('lr_config'),
+                          vcfg.runner['max_iters'], opt_cfg.get('grad_clip'))
+    state = algo.init_state(torch.Generator().manual_seed(0), tx)
+    disc = getattr(state, 'discriminator', None)
+    start = [_params_of(m) for m in (state.student, disc) if m is not None]
+    norm = vcfg.img_norm_cfg
+    step = algo.make_train_step(norm['mean'], norm['std'])
+    gen = torch.Generator().manual_seed(3)
+    times = []
+    with _sim_shapes() as shapes:
+        for i in range(steps):
+            batch = _adaptor_batch(vcfg, name, 1000 + i)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, log_vars = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            vals = {k: float(v) for k, v in log_vars.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f'[adaptor {name}] step {i}: non-finite '
+                                     f'log vars {vals}')
+        shapes = {k: dict(v) for k, v in shapes.items()}
+    moved = [float((_params_of(m) - s).abs().max()) for m, s in zip(
+        (state.student, disc), start)]
+    del state, algo
+    torch.cuda.empty_cache()
+    return statistics.median(times[UDA_WARMUP:]), shapes, vals, moved
+
+
+def _adaptor_loop_config(pots, vaih):
+    """The source-only config as a ``DomainAdaptor`` (``weight_trg`` 0.5)
+    on a ``MultiDomainDataset`` of phase 13's Potsdam and Vaihingen packs
+    (both through the source pipeline, with their labels), at phase 13's
+    learning rate and scaled warmup: checkpoints every
+    ADAPTOR_LOOP_RESUME, an eval on the Vaihingen validation tiles at
+    ADAPTOR_LOOP_ITERS, which the test set points at too."""
+    cfg = _config_loop_config(SOURCE_ONLY, ADAPTOR_LOOP_ITERS, pots, vaih)
+    model = cfg.to_dict()['model']
+    model.update(type='DomainAdaptor', weight_trg=0.5)
+    cfg['model'] = model
+    train = cfg.to_dict()['data']['train']
+    cfg.data['train'] = dict(type='MultiDomainDataset', datasets=[
+        train, dict(train, data_root=vaih)])
+    cfg.merge_from_dict({
+        'checkpoint_config.interval': ADAPTOR_LOOP_RESUME})
+    return cfg
+
+
+def _adaptor_loop(data, card):
+    """``DomainAdaptor`` through ``tools/train_torch.py`` ->
+    ``train_segmentor``: run A for ADAPTOR_LOOP_ITERS iterations with an
+    eval, run B resumed from A's checkpoint at ADAPTOR_LOOP_RESUME; the
+    restored state equal to the file bitwise; ``tools/test_torch.py`` on
+    A's last checkpoint to the in-loop mIoU; every loss finite; no
+    similarity launch (its losses take none)."""
+    from pfst_tpu_torch.apis import train as train_api
+    from pfst_tpu_torch.models.segmentors import DomainAdaptor
+    pots, vaih, _ = data
+    cfg = _adaptor_loop_config(pots, vaih)
+    root = tempfile.mkdtemp(prefix='pfst_adaptor_loop_')
+    steps, evals = [], []
+    make_step, evaluate = DomainAdaptor.make_train_step, \
+        train_api.evaluate_during_train
+    own = 'make_train_step' in vars(DomainAdaptor)
+
+    def recording_step(algo, *args, **kwargs):
+        step = make_step(algo, *args, **kwargs)
+
+        def run(state, batch, generator):
+            if not steps:
+                steps.append(sorted(batch))
+            state, log_vars = step(state, batch, generator)
+            steps.append(log_vars)
+            return state, log_vars
+        return run
+
+    def recording_eval(*args, **kwargs):
+        evals.append(evaluate(*args, **kwargs))
+        return evals[-1]
+
+    try:
+        path = osp.join(root, 'adaptor.py')
+        cfg.dump(path)
+        torch.cuda.synchronize()
+        _reset_counts()
+        DomainAdaptor.make_train_step = recording_step
+        train_api.evaluate_during_train = recording_eval
+        t0 = time.time()
+        train = _tool('train_torch')
+        train.main([path, '--work-dir', osp.join(root, 'A'),
+                    '--max-iters', str(ADAPTOR_LOOP_ITERS)])
+        ckpt = osp.join(root, 'A', f'iter_{ADAPTOR_LOOP_RESUME}.pth')
+        train.main([path, '--work-dir', osp.join(root, 'B'), '--no-validate',
+                    '--resume-from', ckpt,
+                    '--max-iters', str(ADAPTOR_LOOP_ITERS)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _sim_counts()
+        n_tensors, _ = _check_restored(cfg, ckpt, ADAPTOR_LOOP_RESUME,
+                                       ADAPTOR_LOOP_ITERS)
+        t_test = time.time()
+        res = _tool('test_torch').main([
+            path, osp.join(root, 'A', f'iter_{ADAPTOR_LOOP_ITERS}.pth'),
+            '--eval', 'mIoU'])
+        t_test = time.time() - t_test
+    finally:
+        if own:
+            DomainAdaptor.make_train_step = make_step
+        else:
+            del DomainAdaptor.make_train_step
+        train_api.evaluate_during_train = evaluate
+        shutil.rmtree(root, ignore_errors=True)
+    keys, losses = steps[0], [{k: float(v) for k, v in lv.items()}
+                              for lv in steps[1:]]
+    want = ADAPTOR_LOOP_ITERS * 2 - ADAPTOR_LOOP_RESUME
+    bad = [(i, k) for i, lv in enumerate(losses) for k, v in lv.items()
+           if not np.isfinite(v)]
+    if len(losses) != want or bad or 'trg.decode.loss_ce' not in losses[0] \
+            or 'dom2_img' not in keys:
+        raise AssertionError(f'[adaptor loop] {len(losses)} iterations of '
+                             f'{want}, batch keys {keys}, non-finite {bad}')
+    if counts != (0, 0):
+        raise AssertionError(f'[adaptor loop] similarity launches {counts}')
+    loop_miou = evals[0]['mIoU']
+    if len(evals) != 1 or abs(res['mIoU'] - loop_miou) > LOOP_MIOU_TOL + 1e-12:
+        raise AssertionError(f'[adaptor loop] tools/test_torch.py mIoU '
+                             f'{res["mIoU"]} != in-loop {evals}')
+    last = {k: round(v, 5) for k, v in losses[ADAPTOR_LOOP_ITERS - 1].items()}
+    log(f'[adaptor loop] DomainAdaptor on a MultiDomainDataset through '
+        f'tools/train_torch.py: run A {ADAPTOR_LOOP_ITERS} iterations, run B '
+        f'resumed at {ADAPTOR_LOOP_RESUME} (restore bitwise, {n_tensors} '
+        f'tensors), {wall:.1f} s on {card}; batch keys {keys}; every loss '
+        f'finite (A\'s last {json.dumps(last)}); mIoU in the loop '
+        f'{loop_miou} / tools/test_torch.py {res["mIoU"]} ({t_test:.1f} s); '
+        f'similarity launches {counts}')
+    return dict(wall=wall, miou_loop=loop_miou, miou_test=res['mIoU'])
+
+
+def phase_adaptors(card, cfg, bare_s_iter, data):
+    """Phase 16: the domain-adaptor family at full width."""
+    t_phase = time.time()
+    out, fwd, bwd = {}, 0, 0
+    variants = adaptor_variants(cfg)
+    for name, variant in variants.items():
+        vcfg = _variant_cfg(cfg, variant)
+        s_iter, shapes, vals, moved = _adaptor_step_run(vcfg, name, UDA_STEPS)
+        want_f, want_b = adaptor_expected_shapes(name)
+        want = {'neighborhood_similarity': {k: n * UDA_STEPS
+                                            for k, n in want_f.items()},
+                'neighborhood_similarity_backward': {
+                    k: n * UDA_STEPS for k, n in want_b.items()}}
+        if shapes != want:
+            raise AssertionError(f'[adaptor {name}] similarity launches by '
+                                 f'shape {shapes}, the step implies {want}')
+        if not all(m > 0 for m in moved):
+            raise AssertionError(f'[adaptor {name}] max |change| of the '
+                                 f'student (and discriminator) {moved}')
+        fwd += sum(shapes['neighborhood_similarity'].values())
+        bwd += sum(shapes['neighborhood_similarity_backward'].values())
+        per_step = {kernel: {f'{list(shape)} {dtype}': n / UDA_STEPS
+                             for (shape, dtype), n in by_shape.items()}
+                    for kernel, by_shape in shapes.items()}
+        out[name] = dict(s_iter=s_iter, launches=per_step, moved=moved)
+        log(f'[adaptor {name}] {UDA_STEPS} steps, batch 2 of {TRAIN_HW}: '
+            f's/iter {s_iter:.4f} (median after {UDA_WARMUP} warm-ups); bare '
+            f'PFGST step (phase 7, fp32) {bare_s_iter:.4f} on {card}; '
+            f'similarity launches per step {json.dumps(per_step)}; max '
+            f'|change| student' + (' / discriminator' if len(moved) > 1
+                                   else '') +
+            f' {[f"{m:.3e}" for m in moved]}; last log vars '
+            f'{json.dumps({k: round(v, 6) for k, v in vals.items()})}')
+    phase_train_card_vs_cpu(_variant_cfg(cfg, variants['DomainAdaptorAdv']),
+                            '[adaptor DomainAdaptorAdv card-vs-cpu]',
+                            self_gap_scale=UDA_SELF_GAP_SCALE)
+    loop = _adaptor_loop(data, card)
+    log(f'[adaptor] phase 16 in {time.time() - t_phase:.1f} s')
+    return dict(algorithms=out, loop=loop, launches=(fwd, bwd))
+
+
+def _config_loop_config(path, iters, train_root, eval_root, target_root=None,
+                        eval_split='val'):
+    """A shipped config on phase 13's packs: the train data at
+    ``train_root`` (with ``target_root`` the UDA pair's target), the
+    validation and test sets at ``eval_root``'s ``eval_split``, log every
+    iteration, a checkpoint and an eval at ``iters``, phase 13's learning
+    rate and scaled warmup."""
+    cfg = Config.fromfile(path)
+    warmup = round(cfg.lr_config['warmup_iters'] * iters
+                   / cfg.runner['max_iters'])
+    train = 'data.train.source' if target_root else 'data.train'
+    updates = {
+        f'{train}.data_root': train_root,
+        'log_config.interval': 1, 'checkpoint_config.interval': iters,
+        'evaluation.interval': iters, 'lr_config.warmup_iters': warmup,
+        'optimizer.lr': cfg.optimizer['lr'] * LOOP_LR_SCALE}
+    if target_root:
+        updates['data.train.target.data_root'] = target_root
+    for key in ('val', 'test'):
+        updates.update({f'data.{key}.data_root': eval_root,
+                        f'data.{key}.img_dir': f'img_dir/{eval_split}',
+                        f'data.{key}.ann_dir': f'ann_dir/{eval_split}'})
+    cfg.merge_from_dict(updates)
+    return cfg
+
+
+def _config_run(card, name, cfg, uda):
+    """One config through ``train_segmentor`` for CONFIG_LOOP_ITERS
+    iterations with an eval, then ``tools/test_torch.py`` on its
+    checkpoint: every loss finite, equal mIoU within 0.01 points, the
+    similarity launches of its step (2 forward and 1 backward an
+    iteration with the PFGST loss, none without)."""
+    root = tempfile.mkdtemp(prefix=f'pfst_{name}_')
+    try:
+        hist = []
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        train_segmentor(cfg.copy(), work_dir=osp.join(root, 'run'),
+                        max_iters_override=CONFIG_LOOP_ITERS, seed=0,
+                        history=hist)
+        torch.cuda.synchronize()
+        wall, counts = time.time() - t0, _sim_counts()
+        want = (2 * CONFIG_LOOP_ITERS, CONFIG_LOOP_ITERS) if uda else (0, 0)
+        if counts != want:
+            raise AssertionError(f'[configs] {name}: similarity launches '
+                                 f'{counts}, the step implies {want}')
+        logs = {h['iter']: h for h in hist if h['kind'] == 'log'}
+        bad = [(i, k) for i, h in logs.items()
+               for k, v in h['log_vars'].items() if not np.isfinite(v)]
+        if len(logs) != CONFIG_LOOP_ITERS or bad:
+            raise AssertionError(f'[configs] {name}: {len(logs)} log lines, '
+                                 f'non-finite losses {bad[:8]}')
+        loop_miou = next(h['metrics']['mIoU'] for h in hist
+                         if h['kind'] == 'eval')
+        cfg_path = osp.join(root, 'config.py')
+        cfg.dump(cfg_path)
+        res = _tool('test_torch').main([
+            cfg_path, osp.join(root, 'run', f'iter_{CONFIG_LOOP_ITERS}.pth'),
+            '--eval', 'mIoU'])
+        if abs(res['mIoU'] - loop_miou) > LOOP_MIOU_TOL + 1e-12:
+            raise AssertionError(f'[configs] {name}: tools/test_torch.py '
+                                 f'mIoU {res["mIoU"]} != in-loop {loop_miou}')
+        times = [logs[i]['time'] for i in range(LOOP_WINDOW + 1,
+                                                CONFIG_LOOP_ITERS + 1)]
+        loss = [round(logs[i]['log_vars']['decode.loss_ce'], 4)
+                for i in range(1, CONFIG_LOOP_ITERS + 1)]
+        log(f'[configs] {name}: {CONFIG_LOOP_ITERS} iterations through '
+            f'train_segmentor in {wall:.1f} s on {card}, every loss finite '
+            f'(decode loss {loss}); mIoU in the loop {loop_miou} / '
+            f'tools/test_torch.py {res["mIoU"]}; similarity launches '
+            f'{counts}; s/iter past iteration {LOOP_WINDOW}: median '
+            f'{statistics.median(times):.4f}')
+        return dict(wall=wall, launches=counts, miou_loop=loop_miou,
+                    miou_test=res['mIoU'],
+                    s_iter_median=statistics.median(times))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_loop_configs(card, data):
+    """Phase 13b: the source-only config (``BASELINE.json``'s config 2) and
+    the Vaih->Pots PFGST config through ``train_segmentor`` on phase 13's
+    packs: the former trains on the Potsdam tiles and is scored on the
+    Vaihingen validation tiles, the latter adapts Vaihingen to Potsdam
+    and is scored on the Potsdam tiles."""
+    pots, vaih, _ = data
+    out = {
+        'source_only': _config_run(card, 'source_only', _config_loop_config(
+            SOURCE_ONLY, CONFIG_LOOP_ITERS, pots, vaih), False),
+        'vaih2pots': _config_run(card, 'vaih2pots', _config_loop_config(
+            VAIH2POTS, CONFIG_LOOP_ITERS, vaih, pots, target_root=pots,
+            eval_split='train'), True)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def _flash_entries(cases, serve, train):
     """The kernels-line entries of the three flash kernels: times of the
     serving shape (forward) and the training shape (backward), fp32."""
@@ -2094,12 +2518,16 @@ def main():
     try:
         data = isprs_data(data_root)
         loop = phase_loop(card, train['fp32'][0], data)
+        configs = phase_loop_configs(card, data)
         eo = phase_eo(card)
         uda = phase_uda(card, cfg, train['fp32'][0], data)
+        adaptors = phase_adaptors(card, cfg, train['fp32'][0], data)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
     eo_bwd = sum(r['launches'][1] for r in eo.values())
+    cfg_fwd = sum(r['launches'][0] for r in configs.values())
+    cfg_bwd = sum(r['launches'][1] for r in configs.values())
     main_case = next(c for c in cases if c['shape'] == list(SIM_CASES[0][0])
                      and c['dtype'] == 'float32')
     bwd_case = next(c for c in bwd_cases if c['sim_type'] == 'cosine'
@@ -2113,7 +2541,7 @@ def main():
         replaces='pfst_tpu/ops/pallas_sim.py:35',
         launches=launches + train_fwd + vit_serve['sim']
         + loop['launches'][0] + loop['launches_b'][0] + eo_fwd
-        + uda['launches'][0],
+        + uda['launches'][0] + cfg_fwd + adaptors['launches'][0],
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
@@ -2122,6 +2550,9 @@ def main():
                               for n, r in eo.items()},
         launches_per_uda_step={n: r['launches']['neighborhood_similarity']
                                for n, r in uda['algorithms'].items()},
+        launches_per_adaptor_step={
+            n: r['launches']['neighborhood_similarity']
+            for n, r in adaptors['algorithms'].items()},
         max_abs_err=max(c['max_abs_err'] for c in cases),
         ms=main_case['ms'], device_ms=main_case['device_ms'],
         plain_ms=main_case['plain_ms'],
@@ -2131,7 +2562,7 @@ def main():
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:112',
         launches=train_bwd + loop['launches'][1] + loop['launches_b'][1]
-        + eo_bwd + uda['launches'][1],
+        + eo_bwd + uda['launches'][1] + cfg_bwd + adaptors['launches'][1],
         launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
@@ -2140,6 +2571,9 @@ def main():
         launches_per_uda_step={
             n: r['launches']['neighborhood_similarity_backward']
             for n, r in uda['algorithms'].items()},
+        launches_per_adaptor_step={
+            n: r['launches']['neighborhood_similarity_backward']
+            for n, r in adaptors['algorithms'].items()},
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],
@@ -2163,6 +2597,12 @@ def main():
     log(f'[uda] s/iter batch 2 of {TRAIN_HW}: ' + ', '.join(
         f'{n} {r["s_iter"]:.4f}' for n, r in uda['algorithms'].items())
         + f' (bare PFGST step {train["fp32"][0]:.4f}) on {card}')
+    log(f'[adaptor] s/iter batch 2 of {TRAIN_HW}: ' + ', '.join(
+        f'{n} {r["s_iter"]:.4f}' for n, r in adaptors['algorithms'].items())
+        + f' (bare PFGST step {train["fp32"][0]:.4f}) on {card}')
+    log('[configs] s/iter through the loop: ' + ', '.join(
+        f'{n} {r["s_iter_median"]:.4f}' for n, r in configs.items())
+        + f' on {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

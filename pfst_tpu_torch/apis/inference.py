@@ -15,6 +15,7 @@ import torch
 from ..core.checkpoint import extract_student, load_checkpoint
 from ..datasets.pipelines import Compose
 from ..models import build_segmentor
+from ..models.segmentors.domain_adaptor import student_cfg
 from ..utils.config import Config
 from ..utils.misc import resolve_device
 from .test import _finalize_views, make_inference_fn, normalize_views
@@ -28,12 +29,13 @@ def init_segmentor(config: Union[str, Config],
     Weights come from ``checkpoint`` when it is given, else from the JAX
     package's initializers drawn from a generator seeded with 0
     (``model.init_weights`` takes another). Weights are made on the CPU
-    and then moved, so the same model comes out on every device.
+    and then moved, so the same model comes out on every device. A
+    domain adaptor's config gives its student.
     """
     device = resolve_device(device)
     if isinstance(config, str):
         config = Config.fromfile(config)
-    model_cfg = dict(config.model)
+    model_cfg = student_cfg(dict(config.model))
     model_cfg['pretrained'] = None
     model_cfg.pop('train_cfg', None)
     test_cfg = model_cfg.pop('test_cfg', None)

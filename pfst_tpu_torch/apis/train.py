@@ -21,6 +21,7 @@ import os
 import os.path as osp
 import queue
 import random
+import re
 import signal
 import threading
 import time
@@ -32,7 +33,7 @@ import torch
 from ..core.checkpoint import (find_latest_checkpoint, load_checkpoint,
                                load_weights_into_state, restore_state,
                                save_checkpoint)
-from ..core.optimizers import build_optimizer
+from ..core.optimizers import build_optimizers
 from ..datasets import build_dataloader, build_dataset
 from ..datasets.pipelines import DeferNormalize
 from ..models import build_train_model
@@ -64,7 +65,7 @@ class SupervisedTrainer:
         student = self.model.cpu().init_weights(generator)
         student.to(self.device).train()
         return UDATrainState(student=student, teacher=None,
-                             optimizer=tx(student.parameters()), step=0)
+                             optimizer=tx(student), step=0)
 
     def make_train_step(self, mean, std, collect_vis: bool = False):
         """The train step ``(state, batch, generator) -> (state,
@@ -138,9 +139,11 @@ def step_generator(seed: int, it: int) -> torch.Generator:
 
 def _img_norm_from_pipeline(cfg) -> Dict[str, Any]:
     """The mean/std of the train pipeline's Normalize, DeferNormalize or
-    ClipNormalize (the source's first, as the JAX file looks)."""
+    ClipNormalize (the source's first, or ``MultiDomainDataset``'s first
+    domain's, as the JAX file looks)."""
     train = cfg.data['train']
-    for node in (train.get('source'), train):
+    first_domain = (train.get('datasets') or [None])[0]
+    for node in (train.get('source'), first_domain, train):
         for t in (node or {}).get('pipeline') or []:
             if t.get('type') in ('Normalize', 'DeferNormalize',
                                  'ClipNormalize'):
@@ -255,6 +258,14 @@ def make_to_device(device: torch.device, compress_gt: bool):
     return to_device
 
 
+def _metas_key(key: str) -> str:
+    """The metas of an image key: ``target_img_metas`` for ``target_*``,
+    ``dom{i}_img_metas`` for ``dom{i}_*`` (``MultiDomainDataset``),
+    ``img_metas`` else (``train.py:258-276``)."""
+    m = re.match(r'(target_|dom\d+_)', key)
+    return f'{m.group(1)}img_metas' if m else 'img_metas'
+
+
 def _normalize_on_device(tensors, metas, mean, std):
     """Normalize images that crossed on the 0-255 scale
     (``maybe_normalize_images``) and put their padded borders at 0 in
@@ -265,8 +276,7 @@ def _normalize_on_device(tensors, metas, mean, std):
     for key, t in out.items():
         if 'img' not in key or tensors[key].dtype == torch.float32:
             continue
-        key_metas = metas.get('target_img_metas' if key.startswith(
-            'target_') else 'img_metas') or []
+        key_metas = metas.get(_metas_key(key)) or []
         for i, meta in enumerate(key_metas):
             h, w = meta['img_shape'][:2]
             if h < t.shape[2]:
@@ -376,10 +386,13 @@ def train_segmentor(cfg,
     max_iters = max_iters_override or cfg.runner['max_iters']
     algo = build_algorithm(cfg, device=device)
     opt_cfg = dict(cfg.get('optimizer_config') or {})
-    tx = build_optimizer(dict(cfg.optimizer), cfg.get('lr_config'),
-                         max_iters, opt_cfg.get('grad_clip'),
-                         opt_cfg.get('cumulative_iters', 1),
-                         opt_cfg.get('skip_nonfinite', 0))
+    # a dict of optimizer configs (no 'type': DomainAdaptorAdv's generator
+    # and discriminator) gives a dict of factories, which the algorithm's
+    # init_state reads (``train.py:456-470``)
+    tx = build_optimizers(dict(cfg.optimizer), cfg.get('lr_config'),
+                          max_iters, opt_cfg.get('grad_clip'),
+                          opt_cfg.get('cumulative_iters', 1),
+                          opt_cfg.get('skip_nonfinite', 0))
     norm = _img_norm_from_pipeline(cfg)
     print_log('initializing model state...', logger)
     state = algo.init_state(torch.Generator().manual_seed(seed), tx)

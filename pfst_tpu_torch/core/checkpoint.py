@@ -7,11 +7,17 @@ reference ``tools/train.py:228-235``, ``apis/train.py:184-191``)::
     {'meta': {..., 'iter': N},
      'state_dict': {'model.<key>': student, 'ema_model.<key>': teacher,
                     'imnet_model.<key>': frozen reference (DACS's feature
-                                         distance on)},
+                                         distance on),
+                    'discriminator.<key>': DomainAdaptorAdv's},
      'optimizer': <torch.optim state_dict>,
-     'scheduler': <LR scheduler state_dict or None>}
+     'scheduler': <LR scheduler state_dict or None>,
+     'optimizer_extra': <cumulative_iters' accumulator, skip_nonfinite's
+                         counters>,
+     'disc_optimizer': {'optimizer', 'scheduler', 'optimizer_extra'}
+                       (DomainAdaptorAdv's)}
 
-A supervised run has no teacher and its student keys carry no prefix.
+A supervised run, and a domain adaptor without a discriminator, has no
+teacher, and its student keys carry no prefix.
 ``tools/convert_torch_checkpoint.py`` reads the student of either into the
 JAX package; ``tools/convert_jax_checkpoint_torch.py`` carries an Orbax
 checkpoint the other way (Orbax needs JAX, which the port does not
@@ -35,20 +41,28 @@ def checkpoint_path(work_dir: str, step: int) -> str:
 
 
 def _prefixed(state):
-    """(module, key prefix) of each module of a UDA train state: the
-    student, the teacher, and the feature distance's frozen reference
-    where there is one (rsiseg's DACS ``imnet_model``)."""
-    out = [(state.student, 'model.'), (state.teacher, 'ema_model.')]
-    if getattr(state, 'imnet', None) is not None:
-        out.append((state.imnet, 'imnet_model.'))
+    """(module, key prefix) of each module of a train state with more than
+    the student: the student, the teacher, the feature distance's frozen
+    reference (rsiseg's DACS ``imnet_model``) and the adversarial adaptor's
+    discriminator, where there are."""
+    out = [(state.student, 'model.')]
+    for attr, prefix in (('teacher', 'ema_model.'), ('imnet', 'imnet_model.'),
+                         ('discriminator', 'discriminator.')):
+        if getattr(state, attr, None) is not None:
+            out.append((getattr(state, attr), prefix))
     return out
+
+
+def _student_only(state) -> bool:
+    return len(_prefixed(state)) == 1
 
 
 def state_dict_of(state) -> Dict[str, torch.Tensor]:
     """The rsiseg-layout state dict of a train state: ``model.`` +
     student, ``ema_model.`` + teacher (and ``imnet_model.`` + the frozen
-    reference) for UDA, bare keys without a teacher."""
-    if state.teacher is None:
+    reference, ``discriminator.`` + the discriminator), bare keys for a
+    student alone."""
+    if _student_only(state):
         return dict(state.student.state_dict())
     return {f'{prefix}{k}': v for module, prefix in _prefixed(state)
             for k, v in module.state_dict().items()}
@@ -60,14 +74,11 @@ def save_checkpoint(work_dir: str, step: int, state,
     LR schedule position and step) to ``{work_dir}/iter_<step>.pth``; the
     file appears whole or not at all."""
     os.makedirs(work_dir, exist_ok=True)
-    opt = state.optimizer
-    obj = {
-        'meta': {**(meta or {}), 'iter': int(step)},
-        'state_dict': state_dict_of(state),
-        'optimizer': opt.optimizer.state_dict(),
-        'scheduler': opt.scheduler.state_dict()
-        if opt.scheduler is not None else None,
-    }
+    obj = {'meta': {**(meta or {}), 'iter': int(step)},
+           'state_dict': state_dict_of(state), **_optimizer_entry(
+               state.optimizer)}
+    if getattr(state, 'disc_optimizer', None) is not None:
+        obj['disc_optimizer'] = _optimizer_entry(state.disc_optimizer)
     path = checkpoint_path(work_dir, step)
     tmp = f'{path}.tmp{os.getpid()}'
     try:
@@ -77,6 +88,22 @@ def save_checkpoint(work_dir: str, step: int, state,
         if osp.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def _optimizer_entry(opt) -> Dict:
+    return {'optimizer': opt.optimizer.state_dict(),
+            'scheduler': opt.scheduler.state_dict()
+            if opt.scheduler is not None else None,
+            'optimizer_extra': opt.extra_state()}
+
+
+def _restore_optimizer(opt, entry: Dict):
+    opt.optimizer.load_state_dict(entry['optimizer'])
+    if opt.scheduler is not None:
+        if entry.get('scheduler') is None:
+            raise ValueError('the checkpoint has no LR schedule state')
+        opt.scheduler.load_state_dict(entry['scheduler'])
+    opt.load_extra_state(entry.get('optimizer_extra'))
 
 
 def load_checkpoint(path: str) -> Dict:
@@ -99,22 +126,20 @@ def extract_student(ckpt: Dict) -> Dict[str, torch.Tensor]:
 
 
 def restore_state(state, ckpt: Dict):
-    """Resume: load student, teacher (and frozen reference), optimizer, LR
-    schedule and step of ``ckpt`` into ``state`` exactly
-    (``resume_from``)."""
+    """Resume: load student, teacher (frozen reference, discriminator),
+    the optimizers with their LR schedules, accumulators and counters, and
+    the step of ``ckpt`` into ``state`` exactly (``resume_from``)."""
     sd = ckpt['state_dict']
-    if state.teacher is None:
+    if _student_only(state):
         state.student.load_state_dict(sd)
     else:
         for module, prefix in _prefixed(state):
             module.load_state_dict({k[len(prefix):]: v
                                     for k, v in sd.items()
                                     if k.startswith(prefix)})
-    state.optimizer.optimizer.load_state_dict(ckpt['optimizer'])
-    if state.optimizer.scheduler is not None:
-        if ckpt.get('scheduler') is None:
-            raise ValueError('the checkpoint has no LR schedule state')
-        state.optimizer.scheduler.load_state_dict(ckpt['scheduler'])
+    _restore_optimizer(state.optimizer, ckpt)
+    if getattr(state, 'disc_optimizer', None) is not None:
+        _restore_optimizer(state.disc_optimizer, ckpt['disc_optimizer'])
     state.step = int(ckpt['meta']['iter'])
     return state
 
@@ -125,8 +150,8 @@ def load_weights_into_state(state, ckpt: Dict, logger=None):
     where names and shapes match (the rest keep their init, with a
     warning, as mmcv's ``strict=False``), the teacher and the feature
     distance's frozen reference copies of the loaded student, as the JAX
-    loop refreshes them (``apis/train.py:285-316``); optimizer and step
-    stay fresh."""
+    loop refreshes them (``apis/train.py:285-316``); a discriminator, the
+    optimizers and the step stay fresh."""
     own = state.student.state_dict()
     loaded = extract_student(ckpt)
     for key, value in loaded.items():

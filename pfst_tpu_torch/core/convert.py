@@ -9,8 +9,10 @@ map (``convert_torch_checkpoint.py:47-151`` and, for the ViT,
 ``:350-395``), extended to mmseg's ``avg_down`` downsample
 (``downsample.{1,2}`` after the pooling layer), the ``MultiLevelNeck`` and
 the ``UPerHead``.
-``load_jax_train_state`` carries a JAX ``UDATrainState`` into the port's
-train state.
+``discriminator_key_to_flax`` maps ``FCDiscriminator``'s ``conv{i}``
+weights (``tests/test_uda_golden_trace.py:1021-1026``).
+``load_jax_train_state`` carries a JAX ``UDATrainState`` (or the
+adversarial adaptor's ``AdvTrainState``) into the port's train state.
 """
 from __future__ import annotations
 
@@ -171,6 +173,16 @@ def torch_key_to_flax(key: str, ndim: int,
     return None
 
 
+def discriminator_key_to_flax(key: str) -> Optional[Tuple[str, list]]:
+    """``FCDiscriminator``'s ``conv{i}.weight`` / ``.bias`` (OIHW) to the
+    JAX module's ``conv{i}/kernel`` (HWIO) / ``bias``, or None."""
+    m = re.fullmatch(r'conv(\d+)\.(weight|bias)', key)
+    if not m:
+        return None
+    return 'params', [f'conv{m.group(1)}',
+                      'kernel' if m.group(2) == 'weight' else 'bias']
+
+
 def _leaf(tree, path):
     node = tree
     for k in path:
@@ -199,7 +211,8 @@ def jax_variables_to_state_dict(
             out[key] = torch.zeros_like(ref)
             continue
         mapped = torch_key_to_flax(key, ref.ndim,
-                                   uper=key.split('.')[0] in uper)
+                                   uper=key.split('.')[0] in uper) \
+            or discriminator_key_to_flax(key)
         leaf = None if mapped is None else _leaf(
             variables.get(mapped[0], {}), mapped[1])
         if leaf is None:
@@ -227,16 +240,20 @@ def load_jax_train_state(jax_state, state):
     ``UDATrainState``: the student gets ``params`` and ``batch_stats``,
     the teacher ``ema_params`` and ``ema_batch_stats``, the frozen
     reference ``imnet_params`` (its BN statistics, which its train-mode
-    forward never reads, the student's), and ``step`` carries over, with
-    the optimizer's LR schedule resumed there. The optimizer's moments do
+    forward never reads, the student's), the adversarial adaptor's
+    discriminator ``disc_params``, and ``step`` carries over, with the
+    optimizers' LR schedules resumed there. The optimizers' moments do
     not carry over. Raises ``KeyError`` for any key of a module without a
     source."""
-    modules = [(state.student, jax_state.params, jax_state.batch_stats),
-               (state.teacher, jax_state.ema_params,
-                jax_state.ema_batch_stats)]
+    modules = [(state.student, jax_state.params, jax_state.batch_stats)]
+    if state.teacher is not None:
+        modules.append((state.teacher, jax_state.ema_params,
+                        jax_state.ema_batch_stats))
     if getattr(state, 'imnet', None) is not None:
         modules.append((state.imnet, jax_state.imnet_params,
                         jax_state.batch_stats))
+    if getattr(state, 'discriminator', None) is not None:
+        modules.append((state.discriminator, jax_state.disc_params, {}))
     for module, params, stats in modules:
         ref = module.state_dict()
         sd = jax_variables_to_state_dict(
@@ -244,6 +261,7 @@ def load_jax_train_state(jax_state, state):
         module.load_state_dict({k: v.to(ref[k].device)
                                 for k, v in sd.items()})
     state.step = int(np.asarray(jax_state.step))
-    if state.optimizer is not None:
-        state.optimizer.set_step(state.step)
+    for opt in (state.optimizer, getattr(state, 'disc_optimizer', None)):
+        if opt is not None:
+            opt.set_step(state.step)
     return state

@@ -27,19 +27,20 @@ from ..utils.registry import Registry
 
 DATASETS = Registry('datasets')
 PIPELINES = Registry('pipelines')
-_WAITING = ('MultiDomainDataset', 'RepeatDataset', 'ConcatDataset')
 
 
 def build_dataset(cfg, default_args=None):
-    """Build a dataset; ``UDADataset`` and ``UDADatasetV2`` pair a source
-    and a target dataset (``datasets/builder.py:70-98``). The wrappers and
-    list-valued ``img_dir`` / ``split`` of the JAX file wait for ROADMAP
-    A12."""
+    """Build a dataset (``datasets/builder.py:47-75``): ``UDADataset`` and
+    ``UDADatasetV2`` pair a source and a target dataset, the wrappers
+    (``ConcatDataset``, also for a list of configs and for list-valued
+    ``img_dir`` / ``split``, ``RepeatDataset``, ``MultiDomainDataset``)
+    wrap theirs. ``MultiImageMixDataset`` waits for ROADMAP A12."""
+    from .dataset_wrappers import (ConcatDataset, MultiDomainDataset,
+                                   RepeatDataset)
     from .uda_dataset import UDADataset
     from .uda_dataset_v2 import UDADatasetV2
     if isinstance(cfg, (list, tuple)):
-        raise NotImplementedError('a list of datasets (ConcatDataset) is '
-                                  'not ported (ROADMAP A12)')
+        return ConcatDataset([build_dataset(c, default_args) for c in cfg])
     cfg = copy.deepcopy(dict(cfg))
     dtype = cfg.get('type')
     if dtype in ('UDADataset', 'UDADatasetV2'):
@@ -47,14 +48,44 @@ def build_dataset(cfg, default_args=None):
         return pair(source=build_dataset(cfg['source'], default_args),
                     target=build_dataset(cfg['target'], default_args),
                     cfg=cfg)
-    if dtype in _WAITING or isinstance(cfg.get('img_dir'), (list, tuple)) \
-            or isinstance(cfg.get('split'), (list, tuple)):
-        raise NotImplementedError(f'{dtype} and list-valued img_dir/split '
-                                  f'are not ported (ROADMAP A12)')
+    if dtype == 'MultiDomainDataset':
+        return MultiDomainDataset([build_dataset(c, default_args)
+                                   for c in cfg['datasets']], cfg)
+    if dtype == 'RepeatDataset':
+        return RepeatDataset(build_dataset(cfg['dataset'], default_args),
+                             cfg['times'])
+    if dtype == 'ConcatDataset':
+        return ConcatDataset([build_dataset(c, default_args)
+                              for c in cfg['datasets']],
+                             cfg.get('separate_eval', True))
+    if dtype == 'MultiImageMixDataset':
+        raise NotImplementedError(f'{dtype} is not ported (ROADMAP A12)')
+    if isinstance(cfg.get('img_dir'), (list, tuple)) or \
+            isinstance(cfg.get('split'), (list, tuple)):
+        return ConcatDataset(_split_multi_image_dir(cfg, default_args))
     if default_args:
         for k, v in default_args.items():
             cfg.setdefault(k, v)
     return DATASETS.build(cfg)
+
+
+def _split_multi_image_dir(cfg, default_args):
+    """One dataset for each entry of a list-valued ``img_dir`` / ``ann_dir``
+    / ``split`` (``datasets/builder.py:78-95``)."""
+    img_dirs = cfg['img_dir'] if isinstance(cfg['img_dir'], (list, tuple)) \
+        else [cfg['img_dir']]
+    ann_dirs = cfg.get('ann_dir')
+    ann_dirs = ann_dirs if isinstance(ann_dirs, (list, tuple)) \
+        else [ann_dirs] * len(img_dirs)
+    splits = cfg.get('split')
+    splits = splits if isinstance(splits, (list, tuple)) \
+        else [splits] * len(img_dirs)
+    datasets = []
+    for img_dir, ann_dir, split in zip(img_dirs, ann_dirs, splits):
+        c = copy.deepcopy(cfg)
+        c['img_dir'], c['ann_dir'], c['split'] = img_dir, ann_dir, split
+        datasets.append(build_dataset(c, default_args))
+    return datasets
 
 
 # the dataset of a worker process, set by its initializer

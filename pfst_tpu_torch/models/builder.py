@@ -1,7 +1,7 @@
 """Model registries and builders (port of ``pfst_tpu/models/builder.py``).
 
 One ``MODELS`` registry aliased as BACKBONES/NECKS/HEADS/LOSSES/
-SEGMENTORS/UDA, as in ``rsiseg/models/builder.py:8-17``;
+SEGMENTORS/DISCRIMINATORS/UDA, as in ``rsiseg/models/builder.py:8-17``;
 ``build_train_model`` dispatches ``cfg.uda`` against ``cfg.model``.
 """
 from __future__ import annotations
@@ -20,6 +20,7 @@ NECKS = MODELS
 HEADS = MODELS
 LOSSES = MODELS
 SEGMENTORS = MODELS
+DISCRIMINATORS = MODELS
 UDA = MODELS
 
 
@@ -37,6 +38,10 @@ def build_head(cfg):
 
 def build_loss(cfg):
     return LOSSES.build(cfg)
+
+
+def build_discriminator(cfg):
+    return DISCRIMINATORS.build(cfg)
 
 
 def build_segmentor(cfg, train_cfg=None, test_cfg=None):
@@ -68,8 +73,9 @@ def build_train_model(cfg, train_cfg=None, test_cfg=None, device='cuda'):
 
     With ``cfg.uda`` set, the UDA algorithm, given the segmentor config,
     the runner's ``max_iters`` and ``device`` (where ``init_state`` puts
-    the student and the teacher); else the segmentor on ``device``.
-    ``device`` defaults to the card and must exist."""
+    the student and the teacher); with a ``cfg.model`` of a domain-adaptor
+    type, that orchestrator, given ``device``; else the segmentor on
+    ``device``. ``device`` defaults to the card and must exist."""
     device = resolve_device(device)
     cfg = copy.deepcopy(cfg if isinstance(cfg, dict) else cfg.to_dict())
     if cfg.get('uda') is not None:
@@ -78,5 +84,9 @@ def build_train_model(cfg, train_cfg=None, test_cfg=None, device='cuda'):
         if 'max_iters' not in uda_cfg:
             uda_cfg['max_iters'] = cfg['runner']['max_iters']
         return UDA.build(uda_cfg, device=device)
+    from .segmentors.domain_adaptor import _DomainAdaptorBase
+    cls = SEGMENTORS.get(cfg['model'].get('type'))
+    if isinstance(cls, type) and issubclass(cls, _DomainAdaptorBase):
+        return SEGMENTORS.build(cfg['model'], device=device)
     return build_segmentor(cfg['model'], train_cfg=train_cfg,
                            test_cfg=test_cfg).to(device)

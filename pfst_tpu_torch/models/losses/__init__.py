@@ -1,17 +1,22 @@
 from .accuracy import accuracy
+from .adv_loss import AdvLoss
 from .cross_entropy_loss import (CrossEntropyLoss, binary_cross_entropy,
                                  cross_entropy)
+from .entropy_loss import EntropyLoss, prob2ent
 from .feat_sim_loss import (AdaptiveFeatSimLoss, AdaptiveFeatSimLossV2,
                             AdaptiveFeatSimLossV3, AdaptiveFeatSimLossV4,
                             FeatSimLoss, FeatSimLossV2,
                             MultiScaleAdaptiveFeatSimLoss)
 from .pfgst_loss import PFGSTLoss
 from .pfst_loss import PFSTLoss, PFSTLossV2, PFSTLossV4
+from .pseudo_label_loss import LocalPseudoFeatLoss, PseudoLabelLoss
 from .utils import (get_class_weight, masked_mean, masked_std, reduce_loss,
                     weight_reduce_loss)
 
 __all__ = [
-    'accuracy', 'CrossEntropyLoss', 'cross_entropy', 'binary_cross_entropy',
+    'accuracy', 'AdvLoss', 'EntropyLoss', 'prob2ent', 'PseudoLabelLoss',
+    'LocalPseudoFeatLoss', 'CrossEntropyLoss', 'cross_entropy',
+    'binary_cross_entropy',
     'PFGSTLoss', 'PFSTLoss', 'PFSTLossV2', 'PFSTLossV4', 'FeatSimLoss',
     'FeatSimLossV2', 'AdaptiveFeatSimLoss', 'AdaptiveFeatSimLossV2',
     'AdaptiveFeatSimLossV3', 'AdaptiveFeatSimLossV4',

@@ -1,3 +1,7 @@
+from .domain_adaptor import (AdvTrainState, DomainAdaptor, DomainAdaptorAdv,
+                             DomainAdaptorV2, FMDAAdaptor, FMDAAdaptorV2)
 from .encoder_decoder import EncoderDecoder
 
-__all__ = ['EncoderDecoder']
+__all__ = ['EncoderDecoder', 'AdvTrainState', 'DomainAdaptor',
+           'DomainAdaptorAdv', 'DomainAdaptorV2', 'FMDAAdaptor',
+           'FMDAAdaptorV2']

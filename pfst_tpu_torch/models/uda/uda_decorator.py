@@ -108,7 +108,7 @@ class UDADecorator:
         for module in [student] + frozen:
             module.to(self.device).train()
         return UDATrainState(student=student, teacher=frozen[0],
-                             optimizer=tx(student.parameters()), step=0,
+                             optimizer=tx(student), step=0,
                              imnet=frozen[1] if self.enable_fdist else None)
 
     @torch.no_grad()

@@ -148,8 +148,9 @@ def test_init_segmentor_default_device_needs_cuda(monkeypatch):
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
     """Every module of the port (the attention, ViT, neck, UPerHead,
-    trainer, UDA family and its losses and replay, data (the EO datasets
-    and the TIFF reader too), evaluation,
+    trainer, UDA family and its losses and replay, the domain adaptors with
+    their discriminator, losses and optimizer options, data (the EO
+    datasets, the TIFF reader and the wrappers too), evaluation,
     checkpoint and host-kernel modules named, so that a missing one
     fails), the port's tools but the JAX checkpoint
     converter (which imports both packages by design) and chip_smoke.py, in
@@ -175,7 +176,12 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'core.evaluation.class_names', 'models.uda.dacs',",
         "          'models.uda.pfst', 'models.uda.pgst', 'models.uda.fmda',",
         "          'models.losses.pfst_loss', 'models.losses.feat_sim_loss',",
-        "          'models.utils.pfst_transforms'):",
+        "          'models.utils.pfst_transforms',",
+        "          'models.segmentors.domain_adaptor',",
+        "          'models.discriminators.fc_discriminator',",
+        "          'models.losses.adv_loss', 'models.losses.entropy_loss',",
+        "          'models.losses.pseudo_label_loss', 'core.optimizers',",
+        "          'datasets.dataset_wrappers'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

@@ -577,7 +577,10 @@ def test_waiting_options_raise(case):
     """What the port does not have raises. The PFGST hooks ``fdist``,
     ``grad_magnitude`` and ``self_training`` waited for the UDA family and
     are ported now: they build instead (their steps are held to JAX in
-    ``tests/test_torch_uda_family.py``)."""
+    ``tests/test_torch_uda_family.py``); so do the optimizer options
+    ``paramwise_cfg``, ``cumulative_iters`` and ``skip_nonfinite``, which
+    waited for the domain adaptors (held to optax in
+    ``tests/test_torch_optim.py``)."""
     cfg = _train_cfg('all')
     uda = dict(cfg['uda'], model=cfg['model'], device='cpu')
     if case == 'fdist':
@@ -595,15 +598,36 @@ def test_waiting_options_raise(case):
     if case == 'self_training':
         assert _SelfTraining(**uda).target_self_training
         return
+    if case == 'paramwise_cfg':
+        state = PFGST(**uda).init_state(
+            torch.Generator().manual_seed(0), build_optimizer(dict(
+                SGD, paramwise_cfg=dict(custom_keys={
+                    'backbone': dict(lr_mult=0.1)}))))
+        groups = state.optimizer.optimizer.param_groups
+        assert sorted(g['lr'] for g in groups) == pytest.approx(
+            [0.1 * SGD['lr'], SGD['lr']])
+        backbone = {id(p) for p in state.student.backbone.parameters()}
+        slow = min(groups, key=lambda g: g['lr'])
+        assert {id(p) for p in slow['params']} == backbone
+        return
+    if case in ('cumulative_iters', 'skip_nonfinite'):
+        p = torch.ones(3, requires_grad=True)
+        opt = build_optimizer(SGD, **{case: 2})([p])
+        grads = [torch.full((3,), 2.0), torch.full((3,), 4.0)]
+        if case == 'skip_nonfinite':
+            grads[0] = torch.tensor([1.0, float('nan'), 1.0])
+        applied = []
+        for g in grads:
+            p.grad = g
+            applied.append(opt.step())
+        assert applied == [False, True]
+        # the mean (3) applied once; or the finite step alone (4)
+        want = 1.0 - SGD['lr'] * (3.0 if case == 'cumulative_iters' else 4.0)
+        assert torch.allclose(p.detach(), torch.full((3,), want))
+        return
     with pytest.raises(NotImplementedError):
         if case == 'collect_vis':
             PFGST(**uda).make_train_step(MEAN, STD, collect_vis=True)
-        elif case == 'paramwise_cfg':
-            build_optimizer(dict(SGD, paramwise_cfg=dict(custom_keys={})))
-        elif case == 'cumulative_iters':
-            build_optimizer(SGD, cumulative_iters=2)
-        elif case == 'skip_nonfinite':
-            build_optimizer(SGD, skip_nonfinite=3)
         else:
             model_cfg = _model_cfg()
             model_cfg['decode_head']['sampler'] = dict(type='OHEMPixelSampler')
