@@ -132,6 +132,27 @@ Phases (any failure exits non-zero before the result lines):
    13's packs for 10 iterations each, an eval and ``tools/test_torch.py``
    on the checkpoint with equal mIoU within 0.01 points, every loss finite,
    their similarity launches;
+17. the two-phase pseudo-label workflow at full width on phase 13's packs:
+   the source-only config through ``train_segmentor`` with
+   ``PseudoLabelingHookV4`` in ``custom_hooks``, which labels the 2
+   Vaihingen validation tiles (level-3 features saved) from the latest
+   checkpoint and halts the loop at its ``trigger_iter``; then
+   ``tools/gen_pseudo_labels_torch.py`` on the halted checkpoint over the
+   8 Vaihingen train tiles (no features) and the 2 validation tiles
+   (``--save-feats --feat-levels 3 --mean-sim 0.6``); every file read back
+   with the port's HDF5 reader (keys, shapes, dtypes, thresholds rising
+   within [0, log C], finite sigmas), each ``gaussian_sim_feat_3`` against
+   the plain version on the stored float16 features, the similarity
+   forward launched once a tile with features at (1, 2048, 128, 128), the
+   generator's seconds a tile by part; ``DomainAdaptor`` through
+   ``train_segmentor`` with its Vaihingen branch labelled by
+   ``LoadAnnotationsPseudoLabelsV2`` on the train corpus (the first
+   batch's target labels the loader's, every loss finite);
+   ``tools/compute_class_stats_torch.py`` on the Potsdam packs and the
+   leaf config with ``rare_class_sampling`` through ``train_segmentor``
+   (the classes drawn, the PFGST step's launches); ``similarity_histogram``
+   on one batch of decoded features, cosine and gaussian, against the
+   plain version (a value may change bins only within 1e-6 of an edge);
 then one ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -143,6 +164,7 @@ import copy
 import gc
 import importlib.util
 import json
+import os
 import os.path as osp
 import shutil
 import statistics
@@ -214,10 +236,14 @@ UDA_SIM_SHAPE = (2, 1024, 128, 128)
 # adaptive one gaussian), and FMDAAdaptor's FeatSimLoss on a level-3 map
 # (gaussian, phase 16)
 FMDA_SIM_SHAPE = (2, 2048, 128, 128)
+# and the pseudo-label generator's second pass (phase 17): one 1024^2
+# tile's level-3 map, gaussian
+PL_SIM_SHAPE = (1, 2048, 128, 128)
 SIM_CASES = [((1, 512, 128, 128), 'gaussian'), ((2, 512, 64, 64), 'cosine'),
              ((1, 768, 128, 128), 'gaussian'),
              (SEASON_NET_SIM_SHAPE, 'cosine'), (UDA_SIM_SHAPE, 'cosine'),
-             (UDA_SIM_SHAPE, 'gaussian'), (FMDA_SIM_SHAPE, 'gaussian')]
+             (UDA_SIM_SHAPE, 'gaussian'), (FMDA_SIM_SHAPE, 'gaussian'),
+             (PL_SIM_SHAPE, 'gaussian')]
 # the similarity kernels' general geometry, small: (shape (B, C, H, W), k,
 # d), each for both similarity types and input types: W past a 32-pixel
 # segment, odd W (unaligned bf16 pairs), d = 2 with W a multiple of 8
@@ -269,6 +295,18 @@ UDA_STEPS, UDA_WARMUP, UDA_LOOP_ITERS = 5, 2, 12
 ADAPTOR_FEAT_SHAPE = (2, 2048, 64, 64)
 ADAPTOR_LOOP_ITERS, ADAPTOR_LOOP_RESUME = 6, 3
 CONFIG_LOOP_ITERS = 10
+# phase 17: the source-only run the pseudo-labelling hook halts (at
+# PL_TRIGGER of PL_TRAIN_ITERS), the DomainAdaptor iterations on the corpus
+# and the rare-class-sampling loop's iterations; the ratio the adaptor's
+# loader keeps, the sigma search's target, the entropy thresholds' ratios,
+# the RCS settings (DAFormer's) and the histogram's edge allowance
+PL_TRAIN_ITERS, PL_TRIGGER, PL_ADAPT_ITERS, PL_RCS_ITERS = 12, 10, 4, 4
+PL_RATIO, PL_MEAN_SIM, PL_NUM_CLASSES = 0.5, 0.6, 6
+PL_RATIOS = (0.01, 0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.45, 0.5)
+PL_RCS = dict(class_temp=0.01, min_crop_ratio=0.5, min_pixels=3000)
+PL_HIST_EDGE = 1e-6
+# isprs_data's Vaihingen tiles: train, validation
+PL_TRAIN_TILES, PL_VAL_TILES = 8, 2
 # phase 15's card-vs-CPU norm limit as a multiple of the CPU's own
 # 1-vs-N-thread gap, where that gap exceeds 1e-3: on the H100 the card's
 # gap ran 1.26-1.37x the CPU's own for PFGST, PGST and FMDA
@@ -2440,6 +2478,395 @@ def phase_loop_configs(card, data):
     torch.cuda.empty_cache()
     return out
 
+def _pl_history(hist, kind):
+    return [h['iter'] for h in hist if h['kind'] == kind]
+
+
+def _pl_hook_run(data, root):
+    """The source-only config through ``train_segmentor`` with
+    ``PseudoLabelingHookV4`` in ``custom_hooks`` (the validation tiles,
+    level-3 features, ``trigger_iter`` PL_TRIGGER of PL_TRAIN_ITERS) and a
+    checkpoint at the iteration before it: the loop must halt at
+    PL_TRIGGER with the halted state checkpointed, the hook having
+    labelled from the checkpoint before it. Returns the config, the halted
+    checkpoint, the hook's corpus, the similarity launches by shape and
+    the seconds."""
+    pots, vaih, _ = data
+    cfg = _config_loop_config(SOURCE_ONLY, PL_TRAIN_ITERS, pots, vaih)
+    corpus = osp.join(root, 'hook_corpus')
+    cfg.merge_from_dict({'checkpoint_config.interval': PL_TRIGGER - 1})
+    cfg['custom_hooks'] = [dict(
+        type='PseudoLabelingHookV4', out_dir=corpus, split='val',
+        save_feats=True, feat_levels=(3,), target_mean_sim=PL_MEAN_SIM,
+        trigger_iter=PL_TRIGGER)]
+    hist = []
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    with _sim_shapes() as shapes:
+        train_segmentor(cfg.copy(), work_dir=osp.join(root, 'source_only'),
+                        max_iters_override=PL_TRAIN_ITERS, validate=False,
+                        seed=0, history=hist)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    want = list(range(1, PL_TRIGGER + 1))
+    got = {k: _pl_history(hist, k) for k in ('batch', 'halt', 'checkpoint')}
+    if got != {'batch': want, 'halt': [PL_TRIGGER],
+               'checkpoint': [PL_TRIGGER - 1, PL_TRIGGER]}:
+        raise AssertionError(f'[pseudo] the hook did not halt the loop at '
+                             f'{PL_TRIGGER}: {got}')
+    bad = [(h['iter'], k) for h in hist if h['kind'] == 'log'
+           for k, v in h['log_vars'].items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f'[pseudo] source-only losses non-finite {bad}')
+    return cfg, osp.join(root, 'source_only', f'iter_{PL_TRIGGER}.pth'), \
+        corpus, {k: dict(v) for k, v in shapes.items()}, wall
+
+
+def _pl_sweep(cfg_path, ckpt, out, extra):
+    """``tools/gen_pseudo_labels_torch.py`` on the card; its summary, the
+    similarity launches by shape and the seconds."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    with _sim_shapes() as shapes:
+        summary = _tool('gen_pseudo_labels_torch').main(
+            [cfg_path, ckpt, '--out-dir', out, *extra])
+        torch.cuda.synchronize()
+    return summary, {k: dict(v) for k, v in shapes.items()}, \
+        time.time() - t0
+
+
+def _pl_check_shapes(name, shapes, n_feat_tiles):
+    want = {'neighborhood_similarity':
+            {(PL_SIM_SHAPE, 'float32'): n_feat_tiles} if n_feat_tiles
+            else {}, 'neighborhood_similarity_backward': {}}
+    if shapes != want:
+        raise AssertionError(f'[pseudo] {name}: similarity launches by shape '
+                             f'{shapes}, one a tile with features implies '
+                             f'{want}')
+
+
+def _pl_check_corpus(name, out, n_tiles, feats):
+    """Every file of a corpus read back with the port's reader: keys,
+    shapes and dtypes as the JAX tool writes them, thresholds rising with
+    the ratio within [0, log C], finite sigmas, and each similarity map
+    against the plain version on the same stored float16 features, to the
+    float16 rounding of the stored map (plus SIM_TOL). Returns the sigma
+    and the largest excess over that allowance."""
+    from pfst_tpu_torch.datasets.pipelines import read_h5
+    files = sorted(f for f in os.listdir(out) if f.endswith('.h5'))
+    with open(osp.join(out, 'sigmas.json')) as f:
+        sigmas = json.load(f)
+    sigma = sigmas[str(PL_MEAN_SIM)]
+    if len(files) != n_tiles or not all(np.isfinite(v)
+                                        for v in sigmas.values()):
+        raise AssertionError(f'[pseudo] {name}: {len(files)} files of '
+                             f'{n_tiles}, sigmas {sigmas}')
+    c, log_c = PL_NUM_CLASSES, float(np.log(PL_NUM_CLASSES))
+    want = {'seg_logits': ((c,) + REQUEST_HW, 'float16'),
+            **{f'thre@{r}': ((c,), 'float32') for r in PL_RATIOS}}
+    if feats:
+        h, w = PL_SIM_SHAPE[2:]
+        want.update(feats_3=((h, w, PL_SIM_SHAPE[1]), 'float16'),
+                    gaussian_sim_feat_3=((h, w, SIM_K * SIM_K), 'float16'))
+    excess = -1.0
+    for f in files:
+        arrays = read_h5(osp.join(out, f))
+        got = {k: (v.shape, str(v.dtype)) for k, v in arrays.items()}
+        if got != want:
+            raise AssertionError(f'[pseudo] {name}/{f}: {got} != {want}')
+        thre = np.stack([arrays[f'thre@{r}'] for r in PL_RATIOS])
+        fin = np.isfinite(thre)
+        if not (fin == fin[:1]).all() or not fin[0].any() or \
+                (np.diff(np.where(fin, thre, 0), axis=0) < 0).any() or \
+                thre[fin].min() < 0 or thre[fin].max() > log_c + 1e-5:
+            raise AssertionError(f'[pseudo] {name}/{f}: thresholds {thre}')
+        if feats:
+            x = torch.from_numpy(arrays['feats_3'].astype(np.float32)).cuda()
+            plain = torch_neighborhood_similarity(
+                x.permute(2, 0, 1)[None].contiguous(), SIM_K, SIM_D,
+                'gaussian', sigma)[0].permute(1, 2, 0).cpu().numpy()
+            stored = arrays['gaussian_sim_feat_3']
+            allowed = np.spacing(np.abs(stored)).astype(np.float32) / 2 \
+                + SIM_TOL
+            err = np.abs(stored.astype(np.float32) - plain)
+            excess = max(excess, float((err - allowed).max()))
+            if excess > 0:
+                raise AssertionError(f'[pseudo] {name}/{f}: the stored '
+                                     f'similarity map is {err.max():.3e} '
+                                     f'off the plain version')
+    return sigma, excess
+
+
+def _pl_adaptor_run(data, corpus, root):
+    """``DomainAdaptor`` (phase 16's loop config) through
+    ``train_segmentor`` for PL_ADAPT_ITERS iterations, its Vaihingen branch
+    labelled by ``LoadAnnotationsPseudoLabelsV2`` on the corpus of the
+    Vaihingen train tiles: the loader ran for the Vaihingen samples, the
+    first batch's target labels are values the loader gave (not all 255),
+    every loss finite, no similarity launch."""
+    from pfst_tpu_torch.datasets.pipelines import \
+        LoadAnnotationsPseudoLabelsV2 as Loader
+    from pfst_tpu_torch.models.segmentors import DomainAdaptor
+    pots, vaih, _ = data
+    cfg = _adaptor_loop_config(pots, vaih)
+    train = cfg.to_dict()['data']['train']
+    target = copy.deepcopy(train['datasets'][1])
+    pipe = target['pipeline']
+    i = next(i for i, t in enumerate(pipe) if t['type'] == 'LoadAnnotations')
+    pipe[i] = dict(type='LoadAnnotationsPseudoLabelsV2',
+                   pseudo_labels_dir=corpus, pseudo_ratio=PL_RATIO)
+    train['datasets'][1] = target
+    cfg.data['train'] = train
+    first, make_step = [], DomainAdaptor.make_train_step
+    own = 'make_train_step' in vars(DomainAdaptor)
+
+    def recording_step(algo, *args, **kwargs):
+        step = make_step(algo, *args, **kwargs)
+
+        def run(state, batch, generator):
+            if not first:
+                first.append(batch['dom2_gt_semantic_seg'].cpu().numpy())
+            return step(state, batch, generator)
+        return run
+
+    loaded, load = [], Loader.__call__
+
+    def recording_load(loader, results):
+        results = load(loader, results)
+        loaded.append(results['gt_semantic_seg'])
+        return results
+
+    hist = []
+    try:
+        DomainAdaptor.make_train_step = recording_step
+        Loader.__call__ = recording_load
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        train_segmentor(cfg, work_dir=osp.join(root, 'adaptor'),
+                        max_iters_override=PL_ADAPT_ITERS, validate=False,
+                        seed=0, history=hist)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        Loader.__call__ = load
+        if own:
+            DomainAdaptor.make_train_step = make_step
+        else:
+            del DomainAdaptor.make_train_step
+    counts = _sim_counts()
+    logs = [h['log_vars'] for h in hist if h['kind'] == 'log']
+    labels = first[0]
+    values = sorted(int(v) for v in np.unique(labels))
+    kept = float((labels != 255).mean())
+    given = set(int(v) for lab in loaded for v in np.unique(lab))
+    loader_kept = float(np.mean([(lab != 255).mean() for lab in loaded]))
+    if len(loaded) < 2 * PL_ADAPT_ITERS or not set(values) <= given:
+        raise AssertionError(f'[pseudo] the loader ran {len(loaded)} times '
+                             f'giving {sorted(given)}; the first batch\'s '
+                             f'target labels {values}')
+    if len(logs) != PL_ADAPT_ITERS or not all(
+            np.isfinite(v) for lv in logs for v in lv.values()) or \
+            'trg.decode.loss_ce' not in logs[0]:
+        raise AssertionError(f'[pseudo] adaptor losses {logs}')
+    if not set(values) <= set(range(PL_NUM_CLASSES)) | {255} or kept == 0:
+        raise AssertionError(f'[pseudo] the first batch\'s target labels '
+                             f'{values} (kept {kept:.3f}) are not the '
+                             f'corpus loader\'s')
+    if counts != (0, 0):
+        raise AssertionError(f'[pseudo] adaptor similarity launches {counts}')
+    return dict(wall=wall, values=values, kept=kept, loads=len(loaded),
+                loader_values=sorted(given), loader_kept=loader_kept,
+                last={k: round(v, 5) for k, v in logs[-1].items()})
+
+
+def _pl_rcs_run(data, root):
+    """``tools/compute_class_stats_torch.py`` on the Potsdam packs, then
+    the leaf config with ``rare_class_sampling`` (PL_RCS) through
+    ``train_segmentor`` for PL_RCS_ITERS iterations: the classes drawn,
+    every loss finite, the PFGST step's similarity launches."""
+    from pfst_tpu_torch.datasets.uda_dataset import UDADataset
+    pots, vaih, _ = data
+    cfg = _loop_config(pots, vaih)
+    path = osp.join(root, 'leaf.py')
+    cfg.dump(path)
+    t0 = time.time()
+    stats, per_class = _tool('compute_class_stats_torch').main(
+        [path, '--split', 'train', '--branch', 'source'])
+    t_stats = time.time() - t0
+    cfg.merge_from_dict({'data.train.rare_class_sampling': PL_RCS})
+    drawn, draw = collections.Counter(), UDADataset.draw_rcs_class
+
+    def recording_draw(ds):
+        c = draw(ds)
+        drawn[int(c)] += 1
+        return c
+
+    hist = []
+    try:
+        UDADataset.draw_rcs_class = recording_draw
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        train_segmentor(cfg, work_dir=osp.join(root, 'rcs'),
+                        max_iters_override=PL_RCS_ITERS, validate=False,
+                        seed=0, history=hist)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        UDADataset.draw_rcs_class = draw
+    counts = _sim_counts()
+    logs = [h['log_vars'] for h in hist if h['kind'] == 'log']
+    if len(logs) != PL_RCS_ITERS or not all(
+            np.isfinite(v) for lv in logs for v in lv.values()):
+        raise AssertionError(f'[pseudo] RCS loop losses {logs}')
+    if sum(drawn.values()) < 2 * PL_RCS_ITERS:
+        raise AssertionError(f'[pseudo] RCS drew {dict(drawn)}')
+    _check_launches('rcs', counts, PL_RCS_ITERS)
+    return dict(stats_s=t_stats, wall=wall, drawn=dict(sorted(drawn.items())),
+                images=len(stats), classes=sorted(per_class), launches=counts)
+
+
+def _hist_bins(v, edges):
+    """Each value's bin as ``np.histogram`` counts it, -1 outside."""
+    idx = np.searchsorted(edges, v, side='right') - 1
+    idx[v == edges[-1]] = len(edges) - 2
+    idx[(v < edges[0]) | (v > edges[-1])] = -1
+    return idx
+
+
+def _pl_histogram(cfg, ckpt, sigma):
+    """``similarity_histogram`` on the decoded features of one batch (the
+    two Vaihingen validation tiles) on the card, cosine and gaussian at
+    the corpus's sigma: its counts equal the kernel's values binned, and
+    every value the plain version bins otherwise lies within
+    PL_HIST_EDGE of a bin edge. Returns the launches and the results."""
+    from pfst_tpu_torch.apis.test import normalize_views
+    from pfst_tpu_torch.core.hooks import similarity_histogram
+    model = init_segmentor(cfg, ckpt)
+    device = next(model.parameters()).device
+    ds = build_dataset({**cfg.data['val'], 'test_mode': True})
+    views = []
+    for i in range(len(ds)):
+        s = ds[i]
+        views += normalize_views(s['img'][:1], s['img_metas'][:1], device)
+    with torch.inference_mode():
+        _, st = model.encode_decode(torch.cat(views))
+    feats = st['decoded_features'].contiguous()
+    del model
+    out, launches = {}, 0
+    for name, sg in (('cosine', None), ('gaussian', sigma)):
+        before = cuda_neighborhood_similarity.launches
+        hist, edges = similarity_histogram(feats, SIM_K, SIM_D, sg)
+        launches += cuda_neighborhood_similarity.launches - before
+        kern = cuda_neighborhood_similarity(
+            feats, SIM_K, SIM_D, name, sg or SIGMA).cpu().numpy().ravel()
+        plain = torch_neighborhood_similarity(
+            feats, SIM_K, SIM_D, name, sg or SIGMA).cpu().numpy().ravel()
+        if not np.array_equal(np.histogram(kern, bins=len(hist),
+                                           range=(-1.0, 1.0))[0], hist):
+            raise AssertionError(f'[pseudo] histogram {name}: counts are not '
+                                 f'the kernel\'s values binned')
+        moved = _hist_bins(kern, edges) != _hist_bins(plain, edges)
+        dist = np.abs(plain[:, None] - edges[None, [0, -1]]).min(1)
+        grid = (plain.astype(np.float64) + 1.0) * (len(hist) / 2.0)
+        dist = np.minimum(dist, np.abs(grid - np.round(grid))
+                          * (2.0 / len(hist)))
+        near = dist <= PL_HIST_EDGE
+        if (moved & ~near).any():
+            raise AssertionError(f'[pseudo] histogram {name}: '
+                                 f'{int((moved & ~near).sum())} values binned '
+                                 f'otherwise than the plain version, away '
+                                 f'from an edge')
+        plain_hist = np.histogram(plain, bins=len(hist), range=(-1.0, 1.0))[0]
+        out[name] = dict(shape=list(feats.shape), values=int(kern.size),
+                         counted=int(hist.sum()), moved=int(moved.sum()),
+                         near_edge=int(near.sum()), l1_vs_plain=int(
+                             np.abs(hist - plain_hist).sum()))
+    return launches, out
+
+
+def phase_pseudo_labels(card, data, cases):
+    """Phase 17: the two-phase pseudo-label workflow at full width."""
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix='pfst_pseudo_')
+    try:
+        cfg, ckpt, hook_corpus, hook_shapes, t_hook = _pl_hook_run(data, root)
+        _pl_check_shapes('hook sweep', hook_shapes, PL_VAL_TILES)
+        _pl_check_corpus('hook sweep', hook_corpus, PL_VAL_TILES, True)
+        cfg_path = osp.join(root, 'source_only.py')
+        cfg.dump(cfg_path)
+        train_corpus = osp.join(root, 'train_corpus')
+        s_train, shapes, t_train = _pl_sweep(
+            cfg_path, ckpt, train_corpus, [
+                '--split', 'test', '--cfg-options',
+                'data.test.img_dir=img_dir/train',
+                'data.test.ann_dir=ann_dir/train'])
+        _pl_check_shapes('train sweep', shapes, 0)
+        _pl_check_corpus('train sweep', train_corpus, PL_TRAIN_TILES, False)
+        val_corpus = osp.join(root, 'val_corpus')
+        s_val, shapes, t_val = _pl_sweep(
+            cfg_path, ckpt, val_corpus, [
+                '--split', 'val', '--save-feats', '--feat-levels', '3',
+                '--mean-sim', str(PL_MEAN_SIM)])
+        _pl_check_shapes('val sweep', shapes, PL_VAL_TILES)
+        sigma, excess = _pl_check_corpus('val sweep', val_corpus,
+                                         PL_VAL_TILES, True)
+        adaptor = _pl_adaptor_run(data, train_corpus, root)
+        rcs = _pl_rcs_run(data, root)
+        hist_launches, hists = _pl_histogram(cfg, ckpt, sigma)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    case = next(c for c in cases if c['shape'] == list(PL_SIM_SHAPE)
+                and c['dtype'] == 'float32')
+
+    def per_tile(summary):
+        return {k: round(statistics.median(v), 4)
+                for k, v in summary['times'].items() if v}
+
+    fwd = 2 * PL_VAL_TILES + hist_launches + rcs['launches'][0]
+    bwd = rcs['launches'][1]
+    log(f'[pseudo] PseudoLabelingHookV4 halted the source-only loop at '
+        f'iteration {PL_TRIGGER} of {PL_TRAIN_ITERS} ({t_hook:.1f} s, its '
+        f'sweep of {PL_VAL_TILES} validation tiles included) and left '
+        f'{PL_VAL_TILES} files; similarity launches by shape {hook_shapes}')
+    log(f'[pseudo] tools/gen_pseudo_labels_torch.py on {card}: '
+        f'{PL_TRAIN_TILES} Vaihingen train tiles {REQUEST_HW} without '
+        f'features in {t_train:.1f} s, s a tile {per_tile(s_train)}; '
+        f'{PL_VAL_TILES} validation tiles with level-3 features in '
+        f'{t_val:.1f} s, s a tile {per_tile(s_val)} (infer: the model; '
+        f'entropy: the histograms; write: the first file; sim: read back '
+        f'and the similarity map; rewrite: the final file)')
+    log(f'[pseudo] corpus read back with the port\'s reader: keys, shapes, '
+        f'dtypes, thresholds and sigmas as the JAX tool writes them; sigma '
+        f'@ {PL_MEAN_SIM} = {sigma:.6f}; gaussian_sim_feat_3 against the '
+        f'plain version on the stored features: largest excess over '
+        f'float16 rounding + {SIM_TOL} {excess:.3e}; kernel at '
+        f'{list(PL_SIM_SHAPE)} gaussian fp32: call {case["ms"]:.4f} ms, '
+        f'device {case["device_ms"]:.4f} ms, bound {case["bound_ms"]:.4f} ms '
+        f'({case["bound_by"]}), plain {case["plain_ms"]:.3f} ms, '
+        f'max_abs_err {case["max_abs_err"]:.2e} on {card}')
+    log(f'[pseudo] DomainAdaptor on the corpus (pseudo_ratio {PL_RATIO}) '
+        f'through train_segmentor: {PL_ADAPT_ITERS} iterations in '
+        f'{adaptor["wall"]:.1f} s; the loader ran {adaptor["loads"]} times '
+        f'(labels {adaptor["loader_values"]}, {adaptor["loader_kept"]:.3f} '
+        f'kept on average); first batch target labels '
+        f'{adaptor["values"]} ({adaptor["kept"]:.3f} kept), every loss '
+        f'finite (last {json.dumps(adaptor["last"])})')
+    log(f'[pseudo] rare-class sampling: class stats of {rcs["images"]} '
+        f'Potsdam tiles in {rcs["stats_s"]:.1f} s (classes '
+        f'{rcs["classes"]}); {PL_RCS_ITERS} PFGST iterations with {PL_RCS} '
+        f'in {rcs["wall"]:.1f} s, classes drawn {rcs["drawn"]}, similarity '
+        f'launches {rcs["launches"]}')
+    log(f'[pseudo] similarity_histogram on the card: {json.dumps(hists)}')
+    log(f'[pseudo] phase 17 in {time.time() - t_phase:.1f} s; similarity '
+        f'launches forward {fwd}, backward {bwd}')
+    return dict(launches=(fwd, bwd), hook_shapes=hook_shapes,
+                times_train=per_tile(s_train), times_val=per_tile(s_val),
+                sigma=sigma, adaptor=adaptor, rcs=rcs, hists=hists)
+
 
 def _flash_entries(cases, serve, train):
     """The kernels-line entries of the three flash kernels: times of the
@@ -2522,6 +2949,7 @@ def main():
         eo = phase_eo(card)
         uda = phase_uda(card, cfg, train['fp32'][0], data)
         adaptors = phase_adaptors(card, cfg, train['fp32'][0], data)
+        pseudo = phase_pseudo_labels(card, data, cases)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
@@ -2541,7 +2969,8 @@ def main():
         replaces='pfst_tpu/ops/pallas_sim.py:35',
         launches=launches + train_fwd + vit_serve['sim']
         + loop['launches'][0] + loop['launches_b'][0] + eo_fwd
-        + uda['launches'][0] + cfg_fwd + adaptors['launches'][0],
+        + uda['launches'][0] + cfg_fwd + adaptors['launches'][0]
+        + pseudo['launches'][0],
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
@@ -2553,6 +2982,7 @@ def main():
         launches_per_adaptor_step={
             n: r['launches']['neighborhood_similarity']
             for n, r in adaptors['algorithms'].items()},
+        launches_pseudo_label_phase=pseudo['launches'][0],
         max_abs_err=max(c['max_abs_err'] for c in cases),
         ms=main_case['ms'], device_ms=main_case['device_ms'],
         plain_ms=main_case['plain_ms'],
@@ -2562,7 +2992,8 @@ def main():
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:112',
         launches=train_bwd + loop['launches'][1] + loop['launches_b'][1]
-        + eo_bwd + uda['launches'][1] + cfg_bwd + adaptors['launches'][1],
+        + eo_bwd + uda['launches'][1] + cfg_bwd + adaptors['launches'][1]
+        + pseudo['launches'][1],
         launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
@@ -2574,6 +3005,7 @@ def main():
         launches_per_adaptor_step={
             n: r['launches']['neighborhood_similarity_backward']
             for n, r in adaptors['algorithms'].items()},
+        launches_pseudo_label_phase=pseudo['launches'][1],
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],

@@ -123,7 +123,7 @@ def single_gpu_test(model,
                                   'are not ported (ROADMAP A14)')
     if format_only or out_dir:
         raise NotImplementedError('writing predictions out is not ported '
-                                  '(ROADMAP A12)')
+                                  '(ROADMAP A12, the next slice)')
     dataset = data_loader.dataset
     device = next(model.parameters()).device
     infer = make_inference_fn(model)

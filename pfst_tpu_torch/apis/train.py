@@ -7,11 +7,18 @@ orchestrator API ``init_state`` / ``make_train_step``. ``train_segmentor``
 is the explicit iteration loop in place of mmcv's ``IterBasedRunner``:
 data, algorithm, optimizer, resume or warm start, then ``max_iters``
 steps on one device with log, eval and checkpoint intervals. A prefetch
-thread keeps two batches ahead, copied to the card on a side stream.
+thread keeps two batches ahead, copied to the card on a side stream. The
+hooks of ``log_config.hooks`` and ``custom_hooks`` (``core/hooks``) are
+called as the JAX loop calls them (``train.py:529-552``): ``before_run``,
+``after_train_iter`` every iteration before its checkpoint,
+``after_eval`` after each evaluation and ``after_run`` at the end; a
+hook's ``_StopTraining`` (the pseudo-labelling hooks') ends training, and
+any other exception propagates. A hook type neither package registers is
+skipped with a log line.
 
 Waiting, and raising ``NotImplementedError`` when a config asks for them:
-``parallel.*`` (tensor, spatial, ZeRO) and ``qat`` (ROADMAP A14); hooks
-other than ``TextLoggerHook``, whose log line is the loop's own (A12);
+``parallel.*`` (tensor, spatial, ZeRO) and ``qat`` (ROADMAP A14); the
+hooks of ``core.hooks.WAITING_HOOKS`` (the next A12 slice);
 ``data.decode_cache_mb`` (packs make decoding a one-time cost).
 """
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from ..core.checkpoint import (find_latest_checkpoint, load_checkpoint,
                                load_weights_into_state, restore_state,
                                save_checkpoint)
+from ..core.hooks import HOOKS, WAITING_HOOKS, _StopTraining, build_hook
 from ..core.optimizers import build_optimizers
 from ..datasets import build_dataloader, build_dataset
 from ..datasets.pipelines import DeferNormalize
@@ -195,17 +203,34 @@ def _refuse_waiting(cfg):
     if cfg.get('qat') or (cfg.get('evaluation') or {}).get('quant_int8'):
         raise NotImplementedError('quantization (qat, quant_int8) is not '
                                   'ported (ROADMAP A14)')
-    hooks = [dict(h).get('type') for h in
-             (cfg.get('log_config') or {}).get('hooks') or []]
-    hooks += [dict(h).get('type') for h in cfg.get('custom_hooks') or []]
-    others = [h for h in hooks if h != 'TextLoggerHook']
-    if others:
-        raise NotImplementedError(f'hooks {others} are not ported '
-                                  f'(ROADMAP A12)')
+    waiting = [h['type'] for h in _hook_cfgs(cfg)
+               if h.get('type') in WAITING_HOOKS]
+    if waiting:
+        raise NotImplementedError(f'hooks {waiting} are not ported (ROADMAP '
+                                  f'A12, the next slice)')
     if cfg.data.get('decode_cache_mb'):
         raise NotImplementedError('data.decode_cache_mb is not ported: '
                                   'pack the dataset instead '
                                   '(tools/pack_dataset_torch.py)')
+
+
+def _hook_cfgs(cfg) -> List[dict]:
+    return [dict(h) for h in
+            list((cfg.get('log_config') or {}).get('hooks') or [])
+            + list(cfg.get('custom_hooks') or [])]
+
+
+def build_hooks(cfg, logger=None) -> list:
+    """The hooks of ``log_config.hooks`` and ``custom_hooks``, in that
+    order (reference ``apis/train.py:138-182``); a type that is not
+    registered is skipped with a log line, as the JAX loop does."""
+    hooks = []
+    for hc in _hook_cfgs(cfg):
+        if hc.get('type') not in HOOKS:
+            print_log(f'skipping unknown hook {hc}', logger)
+            continue
+        hooks.append(build_hook(hc))
+    return hooks
 
 
 class DeviceBatch:
@@ -366,8 +391,9 @@ def train_segmentor(cfg,
     given, the loop appends a record of each event to it: ``{'kind':
     'batch', 'iter', 'indices'}`` for each batch taken, ``'log'`` (``iter``,
     ``time`` and ``data`` in s/iter over the interval, ``log_vars``),
-    ``'eval'`` (``iter``, ``metrics``) and ``'checkpoint'`` (``iter``,
-    ``path``). Returns the train state."""
+    ``'eval'`` (``iter``, ``metrics``), ``'checkpoint'`` (``iter``,
+    ``path``) and ``'halt'`` (``iter``: a hook ended training after it).
+    Returns the train state."""
     device = resolve_device(device)
     if work_dir:
         os.makedirs(work_dir, exist_ok=True)
@@ -426,6 +452,13 @@ def train_segmentor(cfg,
     eval_cfg = cfg.get('evaluation') or {}
     eval_interval = eval_cfg.get('interval', 4000)
     step_fn = algo.make_train_step(norm['mean'], norm['std'])
+    hooks = build_hooks(cfg, logger)
+    ctx = {'work_dir': work_dir, 'iter': start_iter, 'algo': algo,
+           'palette': getattr(train_ds, 'PALETTE', None),
+           'source_dataset': getattr(train_ds, 'source', train_ds),
+           'cfg': cfg, 'state': state}
+    for h in hooks:
+        h.before_run(ctx)
     compress_gt = bool(cfg.data.get('device_normalize'))
     prefetcher = BatchPrefetcher(iter(loader),
                                  make_to_device(device, compress_gt))
@@ -453,6 +486,7 @@ def train_segmentor(cfg,
 
     print_log('entering train loop', logger)
     val = None
+    halted = False
     t_data = 0.0
     t_last = time.time()
     try:
@@ -484,6 +518,17 @@ def train_segmentor(cfg,
                 if bad:
                     print_log(f'NON-FINITE loss values at iter {it + 1}: '
                               f'{bad}', logger, level=logging.WARNING)
+            # every iteration, before its checkpoint (hooks gate on their
+            # own intervals)
+            ctx['iter'], ctx['state'] = it + 1, state
+            try:
+                for h in hooks:
+                    h.after_train_iter(ctx, log_vars)
+            except _StopTraining as e:
+                print_log(f'training halted by hook: {e}', logger)
+                record('halt', iter=it + 1)
+                halted = True
+                break
             if work_dir and preempt['sig'] is not None:
                 checkpoint(it + 1)
                 print_log(f'preemption signal {preempt["sig"]}: exiting '
@@ -497,6 +542,8 @@ def train_segmentor(cfg,
                 metrics = evaluate_during_train(val, state, eval_cfg,
                                                 logger)
                 record('eval', iter=it + 1, metrics=metrics)
+                for h in hooks:
+                    h.after_eval(ctx, metrics or {})
                 save_best = eval_cfg.get('save_best')
                 if work_dir and save_best and save_best in metrics and \
                         metrics[save_best] > val['best']:
@@ -512,8 +559,11 @@ def train_segmentor(cfg,
         for s, h in old_handlers.items():
             signal.signal(s, h)
     if work_dir and preempt['sig'] is None and \
-            state.step % ckpt_interval != 0:
+            (state.step % ckpt_interval != 0 or halted):
+        # a halted iteration's own checkpoint did not run
         checkpoint(state.step)
+    for h in hooks:
+        h.after_run(ctx)
     return state
 
 

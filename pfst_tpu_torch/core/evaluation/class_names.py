@@ -2,7 +2,7 @@
 ``pfst_tpu/core/evaluation/class_names.py``; mirrors
 ``rsiseg/core/evaluation/class_names.py``). The tables come from the
 registered dataset classes: ISPRS, Inria and SeasonNet; the LoveDA alias
-raises until its dataset is ported (ROADMAP A12). SeasonNet's class has no
+raises until its dataset is ported (the next A12 slice). SeasonNet's class has no
 PALETTE (its dataset takes the feeder's).
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ def _lookup(dataset: str):
     alias = dataset.lower()
     if alias in _WAITING:
         raise NotImplementedError(f'the {dataset} dataset is not ported '
-                                  f'(ROADMAP A12)')
+                                  f'(ROADMAP A12, the next slice)')
     tables = _dataset_tables()
     if alias not in tables:
         raise ValueError(f'Unrecognized dataset: {dataset} '

@@ -34,7 +34,7 @@ def build_dataset(cfg, default_args=None):
     ``UDADatasetV2`` pair a source and a target dataset, the wrappers
     (``ConcatDataset``, also for a list of configs and for list-valued
     ``img_dir`` / ``split``, ``RepeatDataset``, ``MultiDomainDataset``)
-    wrap theirs. ``MultiImageMixDataset`` waits for ROADMAP A12."""
+    wrap theirs. ``MultiImageMixDataset`` waits for the next A12 slice."""
     from .dataset_wrappers import (ConcatDataset, MultiDomainDataset,
                                    RepeatDataset)
     from .uda_dataset import UDADataset
@@ -59,7 +59,8 @@ def build_dataset(cfg, default_args=None):
                               for c in cfg['datasets']],
                              cfg.get('separate_eval', True))
     if dtype == 'MultiImageMixDataset':
-        raise NotImplementedError(f'{dtype} is not ported (ROADMAP A12)')
+        raise NotImplementedError(f'{dtype} is not ported (ROADMAP A12, the '
+                                  f'next slice)')
     if isinstance(cfg.get('img_dir'), (list, tuple)) or \
             isinstance(cfg.get('split'), (list, tuple)):
         return ConcatDataset(_split_multi_image_dir(cfg, default_args))

@@ -3,7 +3,7 @@
 856``): img_dir/ann_dir scanning (or a split file), the pipeline, per-image
 ``pre_eval`` histograms and ``evaluate``'s mIoU/mDice/mFscore tables, with
 label_map and reduce_zero_label. Writing predictions as images
-(``format_results``) waits for ROADMAP A12.
+(``format_results``) waits for the next A12 slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -256,4 +256,4 @@ class CustomDataset:
 
     def format_results(self, results, imgfile_prefix, **kwargs):
         raise NotImplementedError('writing predictions as images is not '
-                                  'ported (ROADMAP A12)')
+                                  'ported (ROADMAP A12, the next slice)')

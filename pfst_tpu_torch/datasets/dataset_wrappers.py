@@ -1,7 +1,7 @@
 """Dataset wrappers (port of ``pfst_tpu/datasets/dataset_wrappers.py``;
 mirrors ``rsiseg/datasets/dataset_wrappers.py``).
 
-``MultiImageMixDataset`` is not ported (ROADMAP A12): ``build_dataset``
+``MultiImageMixDataset`` is not ported (ROADMAP A12, the next slice): ``build_dataset``
 raises for it.
 """
 from __future__ import annotations

@@ -1,7 +1,9 @@
 from .compose import Compose
 from .formatting import Collect, DefaultFormatBundle, ImageToTensor
-from .loading import (LoadAnnotations, LoadAnnotationsPseudoLabelsV2,
-                      LoadImageFromFile, imread)
+from .h5 import UnsupportedH5, read_h5, write_h5
+from .loading import (LoadAnnotations, LoadAnnotationsPseudoLabels,
+                      LoadAnnotationsPseudoLabelsV2, LoadImageFromFile,
+                      imread)
 from .test_time_aug import MultiScaleFlipAug
 from .transforms import (ClipNormalize, DeferNormalize, KeepOriImage,
                          Normalize, Pad, PhotoMetricDistortion, RandomCrop,
@@ -10,7 +12,8 @@ from .transforms import (ClipNormalize, DeferNormalize, KeepOriImage,
 
 __all__ = [
     'Compose', 'Collect', 'DefaultFormatBundle', 'ImageToTensor',
-    'LoadImageFromFile', 'LoadAnnotations', 'LoadAnnotationsPseudoLabelsV2',
+    'LoadImageFromFile', 'LoadAnnotations', 'LoadAnnotationsPseudoLabels',
+    'LoadAnnotationsPseudoLabelsV2', 'read_h5', 'write_h5', 'UnsupportedH5',
     'imread', 'MultiScaleFlipAug', 'Resize', 'RandomCrop', 'RandomFlip',
     'RandomRotate90', 'Pad', 'Normalize', 'DeferNormalize',
     'PhotoMetricDistortion', 'StrongAugmentation', 'ClipNormalize',

@@ -3,9 +3,13 @@ mirrors ``rsiseg/datasets/pipelines/loading.py``).
 
 ``imread`` reads a directory's pack first (``pipelines/packing.py``),
 else decodes the file with the port's own PNG or TIFF reader, chosen by
-its magic bytes (``pipelines/imdecode.py``), in cv2's conventions (BGR). The JAX file's decoded-tile LRU cache is not
-ported (packs make decoding a one-time cost); the h5 pseudo-label corpora
-of ``LoadAnnotationsPseudoLabelsV2`` wait for ROADMAP A12.
+its magic bytes (``pipelines/imdecode.py``), in cv2's conventions (BGR).
+``LoadAnnotationsPseudoLabelsV2`` reads the HDF5 pseudo-label corpora of
+``apis/pseudo_labels.py`` (and of the JAX tool) with the port's own HDF5
+reader (``pipelines/h5.py``). The JAX file's decoded-tile LRU cache is not
+ported (packs make decoding a one-time cost); its loaders that no shipped
+config uses (``LoadAnnotationsGTA``, ``LoadAnnotationsDepth``,
+``AnnotationMapperInria``) wait for the next A12 slice.
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ import numpy as np
 
 from ..builder import PIPELINES
 from . import packing
+from .h5 import read_h5
 from .imdecode import read_image
+from .transforms import imresize
 
 
 def imread(path: str, color: bool = True, unchanged: bool = False):
@@ -107,23 +113,63 @@ class LoadAnnotations:
 
 @PIPELINES.register_module()
 class LoadAnnotationsPseudoLabelsV2(LoadAnnotations):
-    """Target-domain pseudo-label loader (``loading.py:393-525``). With
-    ``pseudo_labels_dir=None`` (every shipped config) it emits an all-255
-    label, so the target branch has the source branch's keys. Reading the
-    offline generator's h5 corpora waits for ROADMAP A12 and raises."""
+    """Target-domain pseudo-label loader (``loading.py:185-239``; reference
+    ``loading.py:393-525``). With ``pseudo_labels_dir=None`` (every shipped
+    config) it emits an all-255 label, so the target branch has the source
+    branch's keys. With a directory, it reads ``<image name>.h5`` there
+    (the corpus of ``apis/pseudo_labels.py``): the stored logits'
+    softmax, its argmax where its entropy is at most the argmax class's
+    ``thre@{pseudo_ratio}`` and 255 elsewhere; a file without that key
+    (say ``pseudo_ratio=0.0``) keeps every pixel, as the JAX loader does.
+    A label of another size than the image is resized by nearest
+    neighbour (cv2's INTER_NEAREST). With ``load_feats`` the maps named in
+    ``sim_feat_names`` that the file holds go into ``results`` as (h, w,
+    k*k) float32."""
 
     def __init__(self, pseudo_labels_dir=None, pseudo_ratio=0.0,
                  load_feats=False, reduce_zero_label=False,
                  sim_feat_names=('gaussian_sim_feat_2',), **kwargs):
         super().__init__(reduce_zero_label=reduce_zero_label)
-        if pseudo_labels_dir is not None or load_feats:
-            raise NotImplementedError(
-                'pseudo-label h5 corpora (pseudo_labels_dir, load_feats) '
-                'are not ported (ROADMAP A12)')
+        self.pseudo_labels_dir = pseudo_labels_dir
         self.pseudo_ratio = pseudo_ratio
+        self.load_feats = load_feats
+        self.sim_feat_names = list(sim_feat_names)
 
     def __call__(self, results):
         h, w = results['img'].shape[:2]
-        results['gt_semantic_seg'] = np.full((h, w), 255, np.uint8)
+        if self.pseudo_labels_dir is None:
+            results['gt_semantic_seg'] = np.full((h, w), 255, np.uint8)
+            results['seg_fields'].append('gt_semantic_seg')
+            return results
+        name = osp.splitext(osp.basename(results['filename']))[0]
+        thre_key = f'thre@{self.pseudo_ratio}'
+        keys = ['seg_logits', thre_key]
+        if self.load_feats:
+            keys += self.sim_feat_names
+        stored = read_h5(osp.join(self.pseudo_labels_dir, f'{name}.h5'),
+                         keys)
+        logits = stored['seg_logits'].astype(np.float32)     # (C, H, W)
+        if self.load_feats:
+            # precomputed maps for FMDAAdaptor's loss_sim_feat (reference
+            # ``loading.py:497-503``), stored (h, w, k*k)
+            for key in self.sim_feat_names:
+                if key in stored:
+                    results[key] = stored[key].astype(np.float32)
+        e = np.exp(logits - logits.max(0, keepdims=True))
+        prob = e / e.sum(0, keepdims=True)
+        label = prob.argmax(0).astype(np.uint8)
+        if thre_key in stored:
+            thresholds = stored[thre_key].astype(np.float32)
+            entropy = -(prob * np.log(prob + 1e-12)).sum(0)
+            keep = entropy <= thresholds[label]
+            label = np.where(keep, label, 255).astype(np.uint8)
+        if label.shape != (h, w):
+            label = imresize(label, (w, h), 'nearest')
+        results['gt_semantic_seg'] = label
         results['seg_fields'].append('gt_semantic_seg')
         return results
+
+
+@PIPELINES.register_module()
+class LoadAnnotationsPseudoLabels(LoadAnnotationsPseudoLabelsV2):
+    """V1 loader (``loading.py:310``): the same public behaviour."""

@@ -3,6 +3,8 @@
 fall config: the length is the source's, and each item pairs source
 ``idx`` with a target drawn uniformly from the process-wide ``np.random``
 after the source sample's own draws (``uda_dataset_v2.py:120-140``).
+With ``rare_class_sampling`` every item is ``UDADataset``'s rare-class
+draw (``uda_dataset_v2.py:19-20``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from .uda_dataset import UDADataset
 class UDADatasetV2(UDADataset):
 
     def __getitem__(self, idx):
+        if self.rcs_enabled:
+            return self.get_rare_class_sample()
         s1 = self.source[idx]
         s2 = self.target[int(np.random.randint(len(self.target)))]
         return self._merge(s1, s2)

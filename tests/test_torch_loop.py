@@ -265,7 +265,7 @@ def test_jax_train_state_converts_into_a_port_checkpoint(runs, tmp_path):
     {'parallel.tp': 2}, {'qat': {'bits': 8}},
     {'log_config.hooks': [{'type': 'TensorboardLoggerHook'}]},
     {'data.decode_cache_mb': 64},
-    {'data.train.rare_class_sampling': {'class_temp': 0.01}},
+    {'custom_hooks': [{'type': 'WandbHookSeg'}]},
 ])
 def test_waiting_config_branches_raise(runs, option):
     cfg = runs['cfg'].copy()

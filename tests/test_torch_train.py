@@ -39,7 +39,8 @@ import optax  # noqa: E402
 from conftest import tiny_model_cfg  # noqa: E402
 from test_pfgst_loss import WEIGHTS  # noqa: E402
 from torch_parity import (FAST_COMPILE, jax_variables, load_port,  # noqa: E402
-                          nchw, nhwc, run_jit, two_pass_batch_variance)
+                          nchw, nhwc, run_jit, shared_by_workers,
+                          two_pass_batch_variance)
 
 from pfst_tpu.core import optimizers as jax_opt  # noqa: E402
 from pfst_tpu.models import build_segmentor as jax_segmentor  # noqa: E402
@@ -369,16 +370,26 @@ def jax_state():
 
 
 @pytest.fixture(scope='module')
-def jax_step(jax_state):
-    """The JAX step with its premix as an argument (its gradient-free half
-    given), compiled once; it does not depend on ``thre_type``."""
-    algo, tx, state, batch = jax_state
-    step_fn = algo.make_train_step(tx, MEAN, STD, jit=False)
-    premix = _port_premix('all', state, batch, jax.random.PRNGKey(7))[2]
-    with two_pass_batch_variance():
-        return jax.jit(lambda s, b, r, p: step_fn(s, b, r, premix=p)).lower(
-            state, batch, jax.random.PRNGKey(7), _to_jax(premix)).compile(
-                FAST_COMPILE)
+def jax_step(jax_state, tmp_path_factory):
+    """The JAX step's new state and log vars for each ``thre_type`` of
+    ``test_pfgst_step_matches_jax``, given the port's premix of that
+    ``thre_type`` (the gradient-free half): the step with its premix as an
+    argument does not depend on ``thre_type``, so it compiles once, and
+    runs once a test run."""
+    def compute():
+        algo, tx, state, batch = jax_state
+        step_fn = algo.make_train_step(tx, MEAN, STD, jit=False)
+        rng = jax.random.PRNGKey(7)
+        premix = {t: _to_jax(_port_premix(t, state, batch, rng)[2])
+                  for t in ('all', 'part')}
+        with two_pass_batch_variance():
+            step = jax.jit(lambda s, b, r, p: step_fn(
+                s, b, r, premix=p)).lower(
+                    state, batch, rng, premix['all']).compile(FAST_COMPILE)
+        return {t: jax.device_get(step(state, batch, rng, p)[:2])
+                for t, p in premix.items()}
+
+    return shared_by_workers(tmp_path_factory, 'train_jax_step', compute)
 
 
 def _port_state(thre_type, jstate, denorm='mean_std'):
@@ -471,7 +482,7 @@ def test_pfgst_step_matches_jax(jax_state, jax_step, thre_type):
     _, _, jstate, batch = jax_state
     rng = jax.random.PRNGKey(7)
     algo, state, premix, gen = _port_premix(thre_type, jstate, batch, rng)
-    new_state, log_vars, _ = jax_step(jstate, batch, rng, _to_jax(premix))
+    new_state, log_vars = jax_step[thre_type]
     assert state.step == START_STEP
     # the number of values each BN normalizes over, for the n/(n-1) gap
     counts = {}

@@ -69,7 +69,8 @@ from test_uda_golden_trace import _uda_cfg as pfgst_uda_cfg  # noqa: E402
 from test_uda_trajectory import (BETAS, N_STEPS, WD,  # noqa: E402
                                  mmcv_poly_warmup_lr)
 from torch_parity import (FAST_COMPILE, jax_variables,  # noqa: E402
-                          nchw, nhwc, run_jit, two_pass_batch_variance)
+                          nchw, nhwc, run_jit, shared_by_workers,
+                          two_pass_batch_variance)
 
 from pfst_tpu.core import optimizers as jax_opt  # noqa: E402
 from pfst_tpu.datasets import build_dataset as jax_build_dataset  # noqa: E402
@@ -446,30 +447,37 @@ def _ema_teacher(jstate):
 
 
 @pytest.fixture(scope='module')
-def jax_premix(weights):
+def jax_premix(weights, tmp_path_factory):
     """JAX's ``teacher_and_mix`` of each name of ``MIX_NAMES`` on the same
     EMA-updated teacher and batch 11 (PFSTV4's with the clean view and its
-    metas), all in one compiled program. The teacher forward on the plain
-    target view is shared (the four take it as ``teacher_out``; DACS's
-    ``teacher_forward`` is theirs, the same model and features)."""
-    algos = {n: jax_train_model(_train_cfg(UDA_CFGS[n])) for n in MIX_NAMES}
-    batches = {n: _batch(11, replay=n == 'PFSTV4') for n in MIX_NAMES}
-    _, jstate = _jax_state(weights)
-    mean, std = jnp.asarray(MEAN), jnp.asarray(STD)
+    metas), all in one compiled program, run once a test run. The teacher
+    forward on the plain target view is shared (the four take it as
+    ``teacher_out``; DACS's ``teacher_forward`` is theirs, the same model
+    and features)."""
+    def compute():
+        algos = {n: jax_train_model(_train_cfg(UDA_CFGS[n]))
+                 for n in MIX_NAMES}
+        batches = {n: _batch(11, replay=n == 'PFSTV4') for n in MIX_NAMES}
+        _, jstate = _jax_state(weights)
+        mean, std = jnp.asarray(MEAN), jnp.asarray(STD)
 
-    def all_premix(e, eb, batches, rng):
-        # one teacher forward on the plain view for the first four; PFSTV4
-        # runs its own on the clean view
-        plain = algos['DACS'].teacher_forward(e, eb,
-                                              batches['DACS']['target_img'])
-        return {n: algos[n].teacher_and_mix(
-            e, eb, batches[n], rng, mean, std,
-            teacher_out=None if n == 'PFSTV4' else plain)
-            for n in MIX_NAMES}
+        def all_premix(e, eb, batches, rng):
+            # one teacher forward on the plain view for the first four;
+            # PFSTV4 runs its own on the clean view
+            plain = algos['DACS'].teacher_forward(
+                e, eb, batches['DACS']['target_img'])
+            return {n: algos[n].teacher_and_mix(
+                e, eb, batches[n], rng, mean, std,
+                teacher_out=None if n == 'PFSTV4' else plain)
+                for n in MIX_NAMES}
 
-    with two_pass_batch_variance():
-        return run_jit(all_premix, _ema_teacher(jstate),
-                       jstate.ema_batch_stats, batches, jax.random.PRNGKey(7))
+        with two_pass_batch_variance():
+            return jax.device_get(run_jit(
+                all_premix, _ema_teacher(jstate), jstate.ema_batch_stats,
+                batches, jax.random.PRNGKey(7)))
+
+    return shared_by_workers(tmp_path_factory, 'uda_family_jax_premix',
+                             compute)
 
 
 @pytest.mark.parametrize('name', MIX_NAMES)

@@ -2,6 +2,9 @@
 JAX package's layout, made from a numpy seed, and carried into the port
 through ``jax_variables_to_state_dict``."""
 import contextlib
+import fcntl
+import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,31 @@ from pfst_tpu_torch.core import jax_variables_to_state_dict
 # the parity tolerances
 FAST_COMPILE = {'xla_backend_optimization_level': 0,
                 'xla_llvm_disable_expensive_passes': True}
+
+
+def shared_by_workers(tmp_path_factory, key, compute):
+    """``compute()`` once a pytest run, also across pytest-xdist's
+    workers (which each run a module fixture their tests need): the first
+    worker to ask computes it under a file lock beside the workers'
+    temporary directories and pickles it there; the others, and later
+    asks, load that. The value must pickle: numpy arrays, not device
+    arrays; paths to files written under ``shared_dir``."""
+    root = shared_dir(tmp_path_factory)
+    path = root / f'{key}.pkl'
+    with open(root / f'{key}.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            with open(f'{path}.tmp', 'wb') as f:
+                pickle.dump(compute(), f)
+            os.replace(f'{path}.tmp', path)
+    with open(path, 'rb') as f:
+        return pickle.load(f)
+
+
+def shared_dir(tmp_path_factory):
+    """The run's temporary root, the same for every xdist worker."""
+    root = tmp_path_factory.getbasetemp()
+    return root.parent if os.environ.get('PYTEST_XDIST_WORKER') else root
 
 
 def run_jit(fn, *args):
