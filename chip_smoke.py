@@ -153,6 +153,28 @@ Phases (any failure exits non-zero before the result lines):
    (the classes drawn, the PFGST step's launches); ``similarity_histogram``
    on one batch of decoded features, cosine and gaussian, against the
    plain version (a value may change bins only within 1e-6 of an edge);
+18. the hooks and writing predictions out, at full width on phase 13's
+   packs: the Pots->Vaih leaf config through ``train_segmentor`` for 12
+   iterations with ``TensorboardLoggerHook(interval=4)``,
+   ``WandbHookSeg(interval=4)`` (through a stand-in ``wandb`` module that
+   records what the hook gives it, so nothing reaches W&B's service; the
+   step collects its visualisation states) and
+   ``ProfilerHook(start_iter=4, num_steps=3)``: the event file decodes
+   with every record's CRCs, and its scalars at iterations 4, 8 and 12
+   equal the loop's log vars; the W&B payloads at 4, 8 and 12 hold the
+   log vars and two 64x64 density maps copied from the card (the seg-mask
+   triplets, full-resolution images beside head-resolution predictions,
+   left out as the JAX hook leaves them); the trace holds CUDA kernel
+   events, among
+   them ``neighborhood_sim_kernel`` twice and ``neighborhood_sim_bwd_kernel``
+   once for each profiled iteration, and its ten costliest device ops for
+   one iteration are printed; the ``vis|`` states have the JAX step's
+   shapes (in NCHW) and dtypes and lie on the card; the same 12
+   iterations without the hooks (no ``collect_vis``), for s/iter with and
+   without; ``tools/test_torch.py --format-only`` on the checkpoint writes
+   one PNG for each tile of the test set (phase 13's: 8 Vaihingen tiles
+   of 1024^2), each decoding to the label map ``single_gpu_test`` returns
+   for it;
 then one ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -162,6 +184,7 @@ import concurrent.futures
 import contextlib
 import copy
 import gc
+import glob
 import importlib.util
 import json
 import os
@@ -173,6 +196,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -307,6 +331,18 @@ PL_RCS = dict(class_temp=0.01, min_crop_ratio=0.5, min_pixels=3000)
 PL_HIST_EDGE = 1e-6
 # isprs_data's Vaihingen tiles: train, validation
 PL_TRAIN_TILES, PL_VAL_TILES = 8, 2
+# phase 18: iterations of each run, the TensorBoard / W&B / log interval,
+# the profiler's window (the iterations after HOOK_PROF_START), and the
+# JAX step's visualisation states at the leaf config's batch 2 of 512^2
+# crops (head logits at 1/4, the PFGST loss's downscale 0.5): name ->
+# ((shape in the JAX step's NHWC, dtype kind), ...)
+HOOK_ITERS, HOOK_INTERVAL, HOOK_PROF_START, HOOK_PROF_STEPS = 12, 4, 4, 3
+_SEG_MASK = (((2, 512, 512, 3), 'f'), ((2, 512, 512), 'i'),
+             ((2, 128, 128), 'i'))
+HOOK_VIS = {'vis|seg_mask_src': _SEG_MASK, 'vis|seg_mask_mix': _SEG_MASK,
+            'vis|density_sim_feat': (((2, 512, 512, 3), 'f'),
+                                     ((2, 64, 64, 1), 'f'),
+                                     ((2, 64, 64, 1), 'b'))}
 # phase 15's card-vs-CPU norm limit as a multiple of the CPU's own
 # 1-vs-N-thread gap, where that gap exceeds 1e-3: on the H100 the card's
 # gap ran 1.26-1.37x the CPU's own for PFGST, PGST and FMDA
@@ -2868,6 +2904,274 @@ def phase_pseudo_labels(card, data, cases):
                 sigma=sigma, adaptor=adaptor, rcs=rcs, hists=hists)
 
 
+class _WandbStandIn(types.ModuleType):
+    """A ``wandb`` module that records what it is given."""
+
+    def __init__(self):
+        super().__init__('wandb')
+        self.logged = []
+
+    def init(self, **kwargs):
+        pass
+
+    def log(self, payload, step=None):
+        self.logged.append((step, payload))
+
+    def finish(self):
+        pass
+
+    @staticmethod
+    def Image(array):
+        return ('image', np.asarray(array))
+
+    @staticmethod
+    def Histogram(array):
+        return ('histogram', np.asarray(array))
+
+
+def _check_wandb(wandb, hist):
+    """The payloads at each log iteration: the log vars, and two density
+    maps at the PFGST loss's resolution (64x64), finite."""
+    logs = {h['iter']: h['log_vars'] for h in hist if h['kind'] == 'log'}
+    density_hw = HOOK_VIS['vis|density_sim_feat'][1][0][1:3]
+    steps = [step for step, _ in wandb.logged]
+    if steps != list(range(HOOK_INTERVAL, HOOK_ITERS + 1, HOOK_INTERVAL)):
+        raise AssertionError(f'[hooks] W&B logged at {steps}')
+    for step, payload in wandb.logged:
+        bad = [k for k, v in logs[step].items()
+               if np.float32(payload.get(k)) != np.float32(v)]
+        images = sorted(k for k in payload if k.startswith('vis|'))
+        shapes = {payload[k][1].shape for k in images}
+        if bad or images != ['vis|density_sim_feat/0',
+                             'vis|density_sim_feat/1'] or \
+                shapes != {density_hw} or not all(
+                    np.isfinite(payload[k][1]).all() for k in images):
+            raise AssertionError(f'[hooks] W&B payload at {step}: log vars '
+                                 f'{bad} differ, images {images} {shapes}')
+    return len(logs[steps[-1]]), images
+
+
+class _VisProbe:
+    """A hook that records, at its one iteration, the shape (in the JAX
+    step's NHWC), dtype kind and device of every part of the step's
+    visualisation states."""
+
+    def __init__(self, at_iter):
+        self.at_iter = at_iter
+        self.seen = None
+        self.calls = 0
+
+    def before_run(self, ctx):
+        pass
+
+    def after_train_iter(self, ctx, log_vars, vis_states=None):
+        self.calls += vis_states is not None
+        if ctx['iter'] != self.at_iter or vis_states is None:
+            return
+        self.seen = {
+            name: [(tuple(t.permute(0, 2, 3, 1).shape if t.dim() == 4
+                          else t.shape),
+                    'b' if t.dtype == torch.bool else
+                    'f' if t.is_floating_point() else 'i', t.device.type)
+                   for t in value] for name, value in vis_states.items()}
+
+    def after_eval(self, ctx, metrics):
+        pass
+
+    def after_run(self, ctx):
+        pass
+
+
+def _trace_breakdown(path, steps):
+    """From a Chrome trace: the kernel events' names, and the device ops
+    (kernels, copies, sets) by total ms over the window, per step."""
+    from pfst_tpu_torch.core.hooks.loggers import trace_kernels
+    kernels = trace_kernels(path)
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    ms = collections.Counter()
+    for e in events:
+        if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            ms[e['name']] += e['dur'] / 1e3 / steps
+    spans = [(e['ts'], e['ts'] + e['dur']) for e in events
+             if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+    window_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    return [e['name'] for e in kernels], ms, window_ms
+
+
+def _hook_run(cfg, root, name, probe=None):
+    """``train_segmentor`` for HOOK_ITERS iterations with ``cfg``'s hooks;
+    returns (history, wall s, similarity launches)."""
+    from pfst_tpu_torch.core.hooks import HOOKS
+    if probe is not None:
+        HOOKS.register_module(name='_VisProbe', force=True)(
+            lambda: probe)
+    hist = []
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    train_segmentor(cfg.copy(), work_dir=osp.join(root, name),
+                    max_iters_override=HOOK_ITERS, seed=0, validate=False,
+                    history=hist)
+    torch.cuda.synchronize()
+    wall, counts = time.time() - t0, _sim_counts()
+    torch.cuda.empty_cache()
+    _check_launches(f'hooks run {name}', counts, HOOK_ITERS)
+    return hist, wall, counts
+
+
+def _check_events(root, hist):
+    """The run's one event file: every CRC holds, and the scalars at each
+    log iteration equal the loop's log vars as float32."""
+    from pfst_tpu_torch.core.hooks.tb_events import read_events
+    paths = glob.glob(osp.join(root, 'tb', 'events.out.tfevents.*'))
+    if len(paths) != 1:
+        raise AssertionError(f'[hooks] expected one event file, got {paths}')
+    events = read_events(paths[0])
+    logs = {h['iter']: h['log_vars'] for h in hist if h['kind'] == 'log'}
+    steps = [e['step'] for e in events[1:]]
+    want = list(range(HOOK_INTERVAL, HOOK_ITERS + 1, HOOK_INTERVAL))
+    if events[0]['file_version'] != 'brain.Event:2' or steps != want:
+        raise AssertionError(f'[hooks] event file: version '
+                             f'{events[0]["file_version"]}, steps {steps}')
+    for e in events[1:]:
+        got = dict(e['scalars'])
+        ref = logs[e['step']]
+        bad = [k for k in ref if got.get(k) != np.float32(ref[k])]
+        if bad or got.keys() != ref.keys():
+            raise AssertionError(f'[hooks] scalars at {e["step"]} differ '
+                                 f'from the log vars: {bad}')
+    return paths[0], len(events), {i: round(logs[i]['loss'], 6)
+                                   for i in want}
+
+
+def _check_vis(probe):
+    if probe.seen is None or probe.calls != HOOK_ITERS:
+        raise AssertionError(f'[hooks] the step gave visualisation states '
+                             f'in {probe.calls} of {HOOK_ITERS} iterations')
+    for name, parts in HOOK_VIS.items():
+        got = probe.seen.get(name)
+        if got is None or [g[:2] for g in got] != list(parts) or \
+                any(g[2] != 'cuda' for g in got):
+            raise AssertionError(f'[hooks] {name}: {got}, expected {parts} '
+                                 f'on the card')
+    if sorted(probe.seen) != sorted(HOOK_VIS):
+        raise AssertionError(f'[hooks] vis states {sorted(probe.seen)}')
+
+
+def _check_format_only(cfg, root, ckpt):
+    """``tools/test_torch.py --format-only``: one PNG a tile of the test
+    set (``_loop_config`` points it at the validation set), each the
+    label map ``single_gpu_test`` returned for it."""
+    from pfst_tpu_torch.datasets.pipelines.png import read_png
+    cfg_path = osp.join(root, 'hooks_config.py')
+    cfg.dump(cfg_path)
+    out = osp.join(root, 'format')
+    t0 = time.time()
+    results = _tool('test_torch').main([cfg_path, ckpt, '--format-only',
+                                        '--imgfile-prefix', out])
+    t_test = time.time() - t0
+    dataset = build_dataset({**cfg.data['test'], 'test_mode': True})
+    files = sorted(os.listdir(out))
+    names = sorted(osp.splitext(osp.basename(i['filename']))[0] + '.png'
+                   for i in dataset.img_infos)
+    if files != names or len(results) != len(dataset):
+        raise AssertionError(f'[hooks] --format-only wrote {files} for '
+                             f'{names}, {len(results)} results')
+    for info, pred in zip(dataset.img_infos, results):
+        name = osp.splitext(osp.basename(info['filename']))[0] + '.png'
+        png = read_png(osp.join(out, name), 'unchanged')
+        if png.dtype != np.uint8 or not np.array_equal(png, pred):
+            raise AssertionError(f'[hooks] {name} differs from its label '
+                                 f'map')
+    return files, t_test
+
+
+def phase_hooks(card, data):
+    """Phase 18: the logging and profiling hooks, the visualisation states
+    and ``--format-only`` at full width."""
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix='pfst_hooks_')
+    try:
+        pots, vaih, _ = data
+        base = _loop_config(pots, vaih)
+        base.merge_from_dict({
+            'log_config.interval': HOOK_INTERVAL,
+            'checkpoint_config.interval': HOOK_ITERS})
+        cfg = base.copy()
+        cfg.merge_from_dict({
+            'log_config.hooks': [
+                dict(type='TextLoggerHook', by_epoch=False),
+                dict(type='TensorboardLoggerHook', interval=HOOK_INTERVAL)],
+            'custom_hooks': [
+                dict(type='WandbHookSeg', interval=HOOK_INTERVAL),
+                dict(type='ProfilerHook', start_iter=HOOK_PROF_START,
+                     num_steps=HOOK_PROF_STEPS),
+                dict(type='_VisProbe')]})
+        probe, wandb = _VisProbe(HOOK_PROF_START), _WandbStandIn()
+        saved = sys.modules.get('wandb')
+        sys.modules['wandb'] = wandb
+        try:
+            hist_a, wall_a, counts_a = _hook_run(cfg, root, 'A', probe)
+        finally:
+            if saved is None:
+                del sys.modules['wandb']
+            else:
+                sys.modules['wandb'] = saved
+        wandb_keys = _check_wandb(wandb, hist_a)
+        hist_b, wall_b, counts_b = _hook_run(base, root, 'B')
+        event_path, n_events, losses = _check_events(osp.join(root, 'A'),
+                                                     hist_a)
+        _check_vis(probe)
+        traces = glob.glob(osp.join(root, 'A', 'profile', '*.json'))
+        if len(traces) != 1:
+            raise AssertionError(f'[hooks] expected one trace, got {traces}')
+        names, device_ms, window_ms = _trace_breakdown(traces[0],
+                                                       HOOK_PROF_STEPS)
+        fwd = sum('neighborhood_sim_kernel' in n for n in names)
+        bwd = sum('neighborhood_sim_bwd_kernel' in n for n in names)
+        if (fwd, bwd) != (2 * HOOK_PROF_STEPS, HOOK_PROF_STEPS):
+            raise AssertionError(f'[hooks] the trace names the similarity '
+                                 f'kernels {fwd} and {bwd} times, expected '
+                                 f'{2 * HOOK_PROF_STEPS} and '
+                                 f'{HOOK_PROF_STEPS}')
+        files, t_test = _check_format_only(
+            base, root, osp.join(root, 'A', f'iter_{HOOK_ITERS}.pth'))
+        trace_mb = osp.getsize(traces[0]) / 2**20
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def windows(hist):
+        return {h['iter']: round(h['time'], 4) for h in hist
+                if h['kind'] == 'log'}
+
+    busy = sum(device_ms.values())
+    top = device_ms.most_common(10)
+    log(f'[hooks] {HOOK_ITERS} iterations with TensorboardLoggerHook, '
+        f'WandbHookSeg (a stand-in wandb: {wandb_keys[0]} scalars and '
+        f'{wandb_keys[1]} a payload) and ProfilerHook in {wall_a:.1f} s; '
+        f'event file: {n_events} records, CRCs hold, loss by iteration '
+        f'{losses} = the log vars; vis states {json.dumps(probe.seen)}')
+    log(f'[hooks] trace of iterations {HOOK_PROF_START + 1}-'
+        f'{HOOK_PROF_START + HOOK_PROF_STEPS} ({trace_mb:.1f} MiB): '
+        f'{len(names)} kernel events, neighborhood_sim_kernel {fwd}, '
+        f'neighborhood_sim_bwd_kernel {bwd}; device busy {busy:.3f} ms an '
+        f'iteration of a window of {window_ms / HOOK_PROF_STEPS:.3f} ms '
+        f'(first to last device op), on {card}')
+    log('[hooks] costliest device ops an iteration (ms): ' + json.dumps(
+        [[n[:90], round(t, 4)] for n, t in top]))
+    log(f'[hooks] s/iter by log window, collect_vis and hooks on '
+        f'{windows(hist_a)}, off {windows(hist_b)} (run B '
+        f'{wall_b:.1f} s); similarity launches A {counts_a} B {counts_b}')
+    log(f'[hooks] tools/test_torch.py --format-only: {files} decode to '
+        f'single_gpu_test\'s label maps ({t_test:.1f} s); phase 18 in '
+        f'{time.time() - t_phase:.1f} s')
+    return dict(launches=(counts_a[0] + counts_b[0],
+                          counts_a[1] + counts_b[1]),
+                s_iter_vis=windows(hist_a), s_iter_plain=windows(hist_b),
+                top=top, busy_ms=busy, window_ms=window_ms / HOOK_PROF_STEPS)
+
+
 def _flash_entries(cases, serve, train):
     """The kernels-line entries of the three flash kernels: times of the
     serving shape (forward) and the training shape (backward), fp32."""
@@ -2950,6 +3254,7 @@ def main():
         uda = phase_uda(card, cfg, train['fp32'][0], data)
         adaptors = phase_adaptors(card, cfg, train['fp32'][0], data)
         pseudo = phase_pseudo_labels(card, data, cases)
+        hooks = phase_hooks(card, data)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
@@ -2970,7 +3275,7 @@ def main():
         launches=launches + train_fwd + vit_serve['sim']
         + loop['launches'][0] + loop['launches_b'][0] + eo_fwd
         + uda['launches'][0] + cfg_fwd + adaptors['launches'][0]
-        + pseudo['launches'][0],
+        + pseudo['launches'][0] + hooks['launches'][0],
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
@@ -2983,6 +3288,7 @@ def main():
             n: r['launches']['neighborhood_similarity']
             for n, r in adaptors['algorithms'].items()},
         launches_pseudo_label_phase=pseudo['launches'][0],
+        launches_hooks_phase=hooks['launches'][0],
         max_abs_err=max(c['max_abs_err'] for c in cases),
         ms=main_case['ms'], device_ms=main_case['device_ms'],
         plain_ms=main_case['plain_ms'],
@@ -2993,7 +3299,7 @@ def main():
         replaces='pfst_tpu/ops/pallas_sim.py:112',
         launches=train_bwd + loop['launches'][1] + loop['launches_b'][1]
         + eo_bwd + uda['launches'][1] + cfg_bwd + adaptors['launches'][1]
-        + pseudo['launches'][1],
+        + pseudo['launches'][1] + hooks['launches'][1],
         launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
@@ -3006,6 +3312,7 @@ def main():
             n: r['launches']['neighborhood_similarity_backward']
             for n, r in adaptors['algorithms'].items()},
         launches_pseudo_label_phase=pseudo['launches'][1],
+        launches_hooks_phase=hooks['launches'][1],
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],

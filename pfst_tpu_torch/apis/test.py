@@ -117,13 +117,13 @@ def single_gpu_test(model,
     mode, on its device), whole: ``pre_eval`` tuples, or label maps, and
     with ``return_states`` also each image's feature state as numpy
     (``test.py:121-236``). The next image's host pipeline runs while the
-    card computes the current one."""
+    card computes the current one. ``format_only`` and ``out_dir`` are
+    accepted and unused, as in the JAX function: the caller writes label
+    maps out with the dataset's ``format_results``, and nothing draws
+    overlays."""
     if quant_int8 or spatial:
         raise NotImplementedError('int8 and spatially sharded inference '
                                   'are not ported (ROADMAP A14)')
-    if format_only or out_dir:
-        raise NotImplementedError('writing predictions out is not ported '
-                                  '(ROADMAP A12, the next slice)')
     dataset = data_loader.dataset
     device = next(model.parameters()).device
     infer = make_inference_fn(model)

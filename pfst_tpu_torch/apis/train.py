@@ -14,11 +14,14 @@ called as the JAX loop calls them (``train.py:529-552``): ``before_run``,
 ``after_eval`` after each evaluation and ``after_run`` at the end; a
 hook's ``_StopTraining`` (the pseudo-labelling hooks') ends training, and
 any other exception propagates. A hook type neither package registers is
-skipped with a log line.
+skipped with a log line. With a ``WandbHookSeg``,
+``PlotStatisticsHook`` or ``PlotMultiClassStatisticsHook`` among the
+hooks, the step collects its visualisation states and every hook's
+``after_train_iter`` gets them (``train.py:547-550``); else it gets
+None.
 
 Waiting, and raising ``NotImplementedError`` when a config asks for them:
-``parallel.*`` (tensor, spatial, ZeRO) and ``qat`` (ROADMAP A14); the
-hooks of ``core.hooks.WAITING_HOOKS`` (the next A12 slice);
+``parallel.*`` (tensor, spatial, ZeRO) and ``qat`` (ROADMAP A14);
 ``data.decode_cache_mb`` (packs make decoding a one-time cost).
 """
 from __future__ import annotations
@@ -40,7 +43,7 @@ import torch
 from ..core.checkpoint import (find_latest_checkpoint, load_checkpoint,
                                load_weights_into_state, restore_state,
                                save_checkpoint)
-from ..core.hooks import HOOKS, WAITING_HOOKS, _StopTraining, build_hook
+from ..core.hooks import HOOKS, _StopTraining, build_hook
 from ..core.optimizers import build_optimizers
 from ..datasets import build_dataloader, build_dataset
 from ..datasets.pipelines import DeferNormalize
@@ -82,9 +85,9 @@ class SupervisedTrainer:
         ``batch`` holds ``img`` (NCHW, normalized, or uint8 / float16 on
         the 0-255 scale) and ``gt_semantic_seg`` on the state's device.
         The dropout of the step is seeded from ``generator``, drawn on the
-        CPU. ``log_vars`` are 0-dim tensors on the device."""
-        if collect_vis:
-            raise NotImplementedError('collect_vis is not ported')
+        CPU. ``log_vars`` are 0-dim tensors on the device. With
+        ``collect_vis`` the step returns ``(state, log_vars, {})``, as the
+        JAX step does (``train.py:254``)."""
 
         def step_fn(state: UDATrainState, batch: dict,
                     generator: torch.Generator):
@@ -104,7 +107,7 @@ class SupervisedTrainer:
             state.step += 1
             log_vars = {k: v.detach() for k, v in log_vars.items()}
             log_vars['loss'] = total.detach()
-            return state, log_vars
+            return (state, log_vars, {}) if collect_vis else (state, log_vars)
 
         return step_fn
 
@@ -203,11 +206,6 @@ def _refuse_waiting(cfg):
     if cfg.get('qat') or (cfg.get('evaluation') or {}).get('quant_int8'):
         raise NotImplementedError('quantization (qat, quant_int8) is not '
                                   'ported (ROADMAP A14)')
-    waiting = [h['type'] for h in _hook_cfgs(cfg)
-               if h.get('type') in WAITING_HOOKS]
-    if waiting:
-        raise NotImplementedError(f'hooks {waiting} are not ported (ROADMAP '
-                                  f'A12, the next slice)')
     if cfg.data.get('decode_cache_mb'):
         raise NotImplementedError('data.decode_cache_mb is not ported: '
                                   'pack the dataset instead '
@@ -231,6 +229,12 @@ def build_hooks(cfg, logger=None) -> list:
             continue
         hooks.append(build_hook(hc))
     return hooks
+
+
+# the hooks that read the step's visualisation states, by class name
+# (``train.py:547-550``)
+VIS_HOOKS = ('WandbHookSeg', 'PlotStatisticsHook',
+             'PlotMultiClassStatisticsHook')
 
 
 class DeviceBatch:
@@ -451,8 +455,10 @@ def train_segmentor(cfg,
                                                              4000)
     eval_cfg = cfg.get('evaluation') or {}
     eval_interval = eval_cfg.get('interval', 4000)
-    step_fn = algo.make_train_step(norm['mean'], norm['std'])
     hooks = build_hooks(cfg, logger)
+    collect_vis = any(type(h).__name__ in VIS_HOOKS for h in hooks)
+    step_fn = algo.make_train_step(norm['mean'], norm['std'],
+                                   collect_vis=collect_vis)
     ctx = {'work_dir': work_dir, 'iter': start_iter, 'algo': algo,
            'palette': getattr(train_ds, 'PALETTE', None),
            'source_dataset': getattr(train_ds, 'source', train_ds),
@@ -497,8 +503,9 @@ def train_segmentor(cfg,
             record('batch', iter=it + 1, indices=batch.indices.tolist())
             tensors = _normalize_on_device(batch.wait(), batch.metas,
                                            norm['mean'], norm['std'])
-            state, log_vars = step_fn(state, tensors,
-                                      step_generator(seed, it))
+            out = step_fn(state, tensors, step_generator(seed, it))
+            state, log_vars = out[:2]
+            vis_states = out[2] if collect_vis else None
             if (it + 1) % log_interval == 0:
                 # read the log vars (which waits for the card) before the
                 # clock, so the wait belongs to this window
@@ -523,7 +530,7 @@ def train_segmentor(cfg,
             ctx['iter'], ctx['state'] = it + 1, state
             try:
                 for h in hooks:
-                    h.after_train_iter(ctx, log_vars)
+                    h.after_train_iter(ctx, log_vars, vis_states)
             except _StopTraining as e:
                 print_log(f'training halted by hook: {e}', logger)
                 record('halt', iter=it + 1)

@@ -1,9 +1,8 @@
 """Dataset class-name / palette lookup by alias (port of
 ``pfst_tpu/core/evaluation/class_names.py``; mirrors
 ``rsiseg/core/evaluation/class_names.py``). The tables come from the
-registered dataset classes: ISPRS, Inria and SeasonNet; the LoveDA alias
-raises until its dataset is ported (the next A12 slice). SeasonNet's class has no
-PALETTE (its dataset takes the feeder's).
+registered dataset classes: ISPRS, Inria, LoveDA and SeasonNet.
+SeasonNet's class has no PALETTE (its dataset takes the feeder's).
 """
 from __future__ import annotations
 
@@ -18,21 +17,19 @@ CITYSCAPES_PALETTE = [
     [107, 142, 35], [152, 251, 152], [70, 130, 180], [220, 20, 60],
     [255, 0, 0], [0, 0, 142], [0, 0, 70], [0, 60, 100], [0, 80, 100],
     [0, 0, 230], [119, 11, 32]]
-_WAITING = ('loveda',)
 
 
 def _dataset_tables():
-    from ...datasets import InriaDataset, ISPRSDataset, SeasonNetDataset
+    from ...datasets import (InriaDataset, ISPRSDataset, LoveDADataset,
+                             SeasonNetDataset)
     return {'isprs': ISPRSDataset, 'potsdam': ISPRSDataset,
             'vaihingen': ISPRSDataset, 'inria': InriaDataset,
-            'season_net': SeasonNetDataset, 'seasonnet': SeasonNetDataset}
+            'loveda': LoveDADataset, 'season_net': SeasonNetDataset,
+            'seasonnet': SeasonNetDataset}
 
 
 def _lookup(dataset: str):
     alias = dataset.lower()
-    if alias in _WAITING:
-        raise NotImplementedError(f'the {dataset} dataset is not ported '
-                                  f'(ROADMAP A12, the next slice)')
     tables = _dataset_tables()
     if alias not in tables:
         raise ValueError(f'Unrecognized dataset: {dataset} '

@@ -33,10 +33,10 @@ def build_dataset(cfg, default_args=None):
     """Build a dataset (``datasets/builder.py:47-75``): ``UDADataset`` and
     ``UDADatasetV2`` pair a source and a target dataset, the wrappers
     (``ConcatDataset``, also for a list of configs and for list-valued
-    ``img_dir`` / ``split``, ``RepeatDataset``, ``MultiDomainDataset``)
-    wrap theirs. ``MultiImageMixDataset`` waits for the next A12 slice."""
+    ``img_dir`` / ``split``, ``RepeatDataset``, ``MultiDomainDataset``,
+    ``MultiImageMixDataset``) wrap theirs."""
     from .dataset_wrappers import (ConcatDataset, MultiDomainDataset,
-                                   RepeatDataset)
+                                   MultiImageMixDataset, RepeatDataset)
     from .uda_dataset import UDADataset
     from .uda_dataset_v2 import UDADatasetV2
     if isinstance(cfg, (list, tuple)):
@@ -59,8 +59,10 @@ def build_dataset(cfg, default_args=None):
                               for c in cfg['datasets']],
                              cfg.get('separate_eval', True))
     if dtype == 'MultiImageMixDataset':
-        raise NotImplementedError(f'{dtype} is not ported (ROADMAP A12, the '
-                                  f'next slice)')
+        # the inner dataset first, as rsiseg's builder does
+        return MultiImageMixDataset(
+            build_dataset(cfg['dataset'], default_args), cfg['pipeline'],
+            cfg.get('skip_type_keys'))
     if isinstance(cfg.get('img_dir'), (list, tuple)) or \
             isinstance(cfg.get('split'), (list, tuple)):
         return ConcatDataset(_split_multi_image_dir(cfg, default_args))

@@ -2,8 +2,8 @@
 ``pfst_tpu/datasets/custom.py``; mirrors ``rsiseg/datasets/custom.py:377-
 856``): img_dir/ann_dir scanning (or a split file), the pipeline, per-image
 ``pre_eval`` histograms and ``evaluate``'s mIoU/mDice/mFscore tables, with
-label_map and reduce_zero_label. Writing predictions as images
-(``format_results``) waits for the next A12 slice (ROADMAP).
+label_map and reduce_zero_label; ``format_results`` writes predictions
+as 8-bit PNG label maps with the port's PNG writer.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from ..utils.logger import get_root_logger, print_log
 from .builder import DATASETS
 from .pipelines import Compose
 from .pipelines.loading import imread
+from .pipelines.png import write_png
 
 
 def scandir(dir_path, suffix=None, recursive=False):
@@ -254,6 +255,31 @@ class CustomDataset:
             })
         return eval_results
 
-    def format_results(self, results, imgfile_prefix, **kwargs):
-        raise NotImplementedError('writing predictions as images is not '
-                                  'ported (ROADMAP A12, the next slice)')
+    def results2img(self, results, imgfile_prefix, to_label_id=None,
+                    indices=None):
+        """Write each label map of ``results`` as an 8-bit grayscale PNG
+        named after its image, under ``imgfile_prefix``
+        (``custom.py:274-298``); ``to_label_id`` maps train ids to label
+        ids. Returns the paths."""
+        os.makedirs(imgfile_prefix, exist_ok=True)
+        indices = indices if indices is not None else range(len(results))
+        files = []
+        for res, idx in zip(results, indices):
+            name = osp.splitext(osp.basename(
+                self.img_infos[idx]['filename']))[0]
+            out = np.asarray(res).astype(np.uint8)
+            if to_label_id:
+                mapped = out.copy()
+                for train_id, label_id in to_label_id.items():
+                    mapped[out == train_id] = label_id
+                out = mapped
+            path = osp.join(imgfile_prefix, f'{name}.png')
+            write_png(path, out)
+            files.append(path)
+        return files
+
+    def format_results(self, results, imgfile_prefix, to_label_id=None,
+                       indices=None):
+        """``results2img`` (``custom.py:301-305``)."""
+        return self.results2img(results, imgfile_prefix, to_label_id,
+                                indices)

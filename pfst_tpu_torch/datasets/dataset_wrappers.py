@@ -1,8 +1,5 @@
 """Dataset wrappers (port of ``pfst_tpu/datasets/dataset_wrappers.py``;
 mirrors ``rsiseg/datasets/dataset_wrappers.py``).
-
-``MultiImageMixDataset`` is not ported (ROADMAP A12, the next slice): ``build_dataset``
-raises for it.
 """
 from __future__ import annotations
 
@@ -108,3 +105,28 @@ class MultiDomainDataset:
             for key, value in ds[cur].items():
                 results[f'dom{i + 1}_{key}'] = value
         return results
+
+
+@DATASETS.register_module()
+class MultiImageMixDataset:
+    """A pipeline over each item of ``dataset`` with ``mix_results``, one
+    more item drawn uniformly from ``np.random``, for mixing transforms
+    (``dataset_wrappers.py:109-127``; rsiseg ``dataset_wrappers.py:183``).
+    ``skip_type_keys`` is accepted and unused, as in the JAX file."""
+
+    def __init__(self, dataset, pipeline, skip_type_keys=None):
+        from .pipelines import Compose
+        self.dataset = dataset
+        self.pipeline = Compose(pipeline)
+        self.CLASSES = dataset.CLASSES
+        self.PALETTE = getattr(dataset, 'PALETTE', None)
+        self.ignore_index = getattr(dataset, 'ignore_index', 255)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        results = dict(self.dataset[idx])
+        results['mix_results'] = [
+            self.dataset[int(np.random.randint(len(self.dataset)))]]
+        return self.pipeline(results)

@@ -6,10 +6,11 @@ else decodes the file with the port's own PNG or TIFF reader, chosen by
 its magic bytes (``pipelines/imdecode.py``), in cv2's conventions (BGR).
 ``LoadAnnotationsPseudoLabelsV2`` reads the HDF5 pseudo-label corpora of
 ``apis/pseudo_labels.py`` (and of the JAX tool) with the port's own HDF5
-reader (``pipelines/h5.py``). The JAX file's decoded-tile LRU cache is not
-ported (packs make decoding a one-time cost); its loaders that no shipped
-config uses (``LoadAnnotationsGTA``, ``LoadAnnotationsDepth``,
-``AnnotationMapperInria``) wait for the next A12 slice.
+reader (``pipelines/h5.py``). ``LoadAnnotationsGTA`` and
+``LoadAnnotationsDepth`` read their float maps unchanged: 16-bit
+grayscale PNGs and float32 single-channel TIFFs. The JAX file's
+decoded-tile LRU cache is not ported (packs make decoding a one-time
+cost).
 """
 from __future__ import annotations
 
@@ -173,3 +174,71 @@ class LoadAnnotationsPseudoLabelsV2(LoadAnnotations):
 @PIPELINES.register_module()
 class LoadAnnotationsPseudoLabels(LoadAnnotationsPseudoLabelsV2):
     """V1 loader (``loading.py:310``): the same public behaviour."""
+
+
+@PIPELINES.register_module()
+class AnnotationMapperInria:
+    """(``loading.py:247-256``) Inria's building labels 255 -> 1: every
+    value above 127 is 1, the rest 0."""
+
+    def __call__(self, results):
+        gt = results['gt_semantic_seg']
+        results['gt_semantic_seg'] = (gt > 127).astype(np.uint8)
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}()'
+
+
+def _seg_map_path(results):
+    if results.get('seg_prefix', None) is not None:
+        return osp.join(results['seg_prefix'],
+                        results['ann_info']['seg_map'])
+    return results['ann_info']['seg_map']
+
+
+@PIPELINES.register_module()
+class LoadAnnotationsGTA:
+    """(``loading.py:259-285``) a height map read unchanged, divided by
+    100, clipped to [0, 500], NaN to 0, as the float32 label map."""
+
+    def __init__(self, reduce_zero_label=False, file_client_args=None,
+                 imdecode_backend=None):
+        self.reduce_zero_label = reduce_zero_label
+
+    def __call__(self, results):
+        gt = imread(_seg_map_path(results),
+                    unchanged=True).astype(np.float32) / 100.
+        gt = np.clip(gt, 0, 500)
+        gt = np.nan_to_num(gt, nan=0.0)
+        results['gt_semantic_seg'] = gt
+        results['seg_fields'].append('gt_semantic_seg')
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}'
+                f'(reduce_zero_label={self.reduce_zero_label})')
+
+
+@PIPELINES.register_module()
+class LoadAnnotationsDepth:
+    """(``loading.py:288-313``) the above-ground-level map of the tile
+    (``RGB`` -> ``AGL`` in the path) read unchanged, values above 400 to
+    0, clipped to [0, 400], as the float32 label map."""
+
+    def __init__(self, reduce_zero_label=False, file_client_args=None,
+                 imdecode_backend=None):
+        self.reduce_zero_label = reduce_zero_label
+
+    def __call__(self, results):
+        filename = _seg_map_path(results).replace('RGB', 'AGL')
+        gt = imread(filename, unchanged=True).astype(np.float32)
+        gt[gt > 400] = 0
+        gt = np.clip(gt, 0, 400)
+        results['gt_semantic_seg'] = gt
+        results['seg_fields'].append('gt_semantic_seg')
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}'
+                f'(reduce_zero_label={self.reduce_zero_label})')

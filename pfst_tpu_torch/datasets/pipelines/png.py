@@ -4,9 +4,11 @@ The port reads its datasets with its own decoder instead of
 ``cv2.imread``, in cv2's conventions (colour images in BGR order): the
 chunks are parsed here, ``zlib`` inflates the image data and the row
 filters are undone by ``native/hostaug.cc``. Supported: 8-bit grayscale,
-RGB and RGBA images, not interlaced, with any of the five row filters --
-what ``cv2.imwrite`` and the repository's dataset converters write. Any
-other PNG, and any other format, raises ``UnsupportedImage``: such a
+RGB and RGBA images, and 16-bit grayscale ones read unchanged (a height
+map as ``cv2.imwrite`` stores a uint16 array), not interlaced, with any
+of the five row filters -- what ``cv2.imwrite`` and the repository's
+dataset converters write. Any other PNG, and any other format, raises
+``UnsupportedImage``: such a
 directory is read through a pack (``pipelines/packing.py``) written by
 ``tools/pack_dataset.py`` where cv2 is installed.
 
@@ -34,7 +36,8 @@ class UnsupportedImage(ValueError):
 def _unsupported(path, why):
     return UnsupportedImage(
         f'{path}: {why}. The port decodes 8-bit grayscale, RGB and RGBA '
-        f'PNGs that are not interlaced; pack other images with '
+        f'PNGs, and 16-bit grayscale ones read unchanged, that are not '
+        f'interlaced; pack other images with '
         f'tools/pack_dataset.py where cv2 is installed (the packs of '
         f'tools/pack_dataset.py and tools/pack_dataset_torch.py are read by '
         f'both packages)')
@@ -65,10 +68,17 @@ def read_png(path: str, mode: str = 'color') -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f'{path}: PNG without IHDR or IDAT')
     width, height, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS:
-        raise _unsupported(path, f'bit depth {depth}, colour type {ctype}')
+    gray16 = depth == 16 and ctype == 0 and mode == 'unchanged'
+    if not gray16 and (depth != 8 or ctype not in _CHANNELS):
+        raise _unsupported(path, f'bit depth {depth}, colour type {ctype}, '
+                                 f'{mode} read')
     if interlace:
         raise _unsupported(path, 'interlaced')
+    if gray16:
+        # big-endian samples; the filters work on bytes, two a pixel
+        rows = hostaug.png_unfilter(zlib.decompress(b''.join(idat)),
+                                    height, width * 2, 2)
+        return rows.view('>u2').astype(np.uint16).reshape(height, width)
     channels = _CHANNELS[ctype]
     rows = hostaug.png_unfilter(zlib.decompress(b''.join(idat)), height,
                                 width * channels, channels)

@@ -8,7 +8,9 @@ either byte order, one image, 8- or 16-bit unsigned samples, grayscale
 (1 sample), RGB (3) or RGB with an unspecified extra sample (4), chunky
 samples in strips or tiles, compression none (1), LZW (5), deflate (8,
 32946) or PackBits (32773), with or without the horizontal predictor
-(317 = 2, undone modulo 2^bits per channel). Anything else raises
+(317 = 2, undone modulo 2^bits per channel); and, read unchanged only,
+single-channel 32-bit float samples (sample format 3) without a
+predictor, as ``cv2.imwrite`` stores a float32 map. Anything else raises
 ``UnsupportedImage``.
 
 What cv2 5.0 returns, and so ``read_tiff``:
@@ -46,7 +48,7 @@ def _unsupported(path, why):
     return UnsupportedImage(
         f'{path}: {why}. The port decodes baseline 8- and 16-bit grayscale, '
         f'RGB and RGBA TIFFs, chunky, in strips or tiles, uncompressed, LZW, '
-        f'deflate or PackBits')
+        f'deflate or PackBits, and float32 grayscale read unchanged')
 
 
 def _directory(raw: bytes, path: str):
@@ -95,11 +97,16 @@ def _stored(path: str):
     compression = tags.get(259, (1,))[0]
     photometric = tags.get(262, (None,))[0]
     predictor = tags.get(317, (1,))[0]
-    if len(bits) != 1 or not bits <= {8, 16}:
-        raise _unsupported(path, f'bits per sample {tags.get(258)}')
+    formats = set(tags.get(339, (1,)))
+    if formats == {3} and bits == {32} and spp == 1 and predictor == 1:
+        kind = 'f'      # a float32 map
+    elif formats == {1} and len(bits) == 1 and bits <= {8, 16}:
+        kind = 'u'
+    else:
+        raise _unsupported(path, f'bits per sample {tags.get(258)}, sample '
+                                 f'format {tags.get(339)}, predictor '
+                                 f'{predictor}')
     depth = bits.pop()
-    if set(tags.get(339, (1,))) != {1}:
-        raise _unsupported(path, f'sample format {tags.get(339)}')
     if (spp, photometric) not in ((1, 1), (3, 2), (4, 2)):
         raise _unsupported(path, f'{spp} samples, photometric '
                                  f'{photometric}')
@@ -111,7 +118,7 @@ def _stored(path: str):
         raise _unsupported(path, f'compression {compression}')
     if predictor not in (1, 2):
         raise _unsupported(path, f'predictor {predictor}')
-    stored = np.dtype(f'{e}u{depth // 8}')
+    stored = np.dtype(f'{e}{kind}{depth // 8}')
     if 322 in tags:
         cw, ch = tags[322][0], tags[323][0]
         offsets, counts = tags[324], tags[325]
@@ -155,6 +162,9 @@ def read_tiff(path: str, mode: str = 'color') -> np.ndarray:
     in the stored dtype)."""
     img = _stored(path)
     spp = img.shape[2]
+    if img.dtype == np.float32 and mode != 'unchanged':
+        raise _unsupported(path, f'a {mode} read of float samples (the port '
+                                 f'reads them unchanged)')
     if mode == 'unchanged':
         if spp == 1:
             return img[..., 0].copy()

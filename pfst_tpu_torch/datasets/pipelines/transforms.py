@@ -12,7 +12,15 @@ Numpy plus the port's C++ host kernels (``native/hostaug.cc``), no cv2:
   ``fma(S1 - S0, f, S0)`` passes (``hostaug.cc``);
 * the photometric steps are 256-entry LUTs (``lut[img]``) and the fused
   HSV round trip of ``hostaug.cc``, bit-exact to cv2 at widths that are
-  multiples of 32.
+  multiples of 32;
+* ``RandomRotate`` takes ``cv2.getRotationMatrix2D``'s matrix (float64,
+  here) and OpenCV's float64 inversion, and warps with ``hostaug.cc``'s
+  ``cv2.warpAffine`` (bilinear on the image, nearest on the label maps,
+  constant border; uint8, uint16 and float32); ``CLAHE`` is
+  ``hostaug.cc``'s ``cv::CLAHE`` and ``AdjustGamma`` its ``cv2.LUT`` on
+  uint8; all bit-exact to cv2 5.0 (``tests/test_torch_a12_rest.py``);
+* the float transforms (``PercentileNormalize``, ``Rerange``,
+  ``RGB2Gray``, ``MultiDomainClipNormalize``) are the JAX file's numpy.
 
 Every class draws from ``np.random`` in the JAX file's order. One
 difference, after rsiseg: ``Resize`` draws its ratio-range scale whenever
@@ -22,6 +30,8 @@ never draws it in a training pipeline (ROADMAP C2); here the ratio mode of
 ``MultiScaleFlipAug`` sets ``scale`` itself.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -306,6 +316,86 @@ class RandomRotate90:
         return f'{self.__class__.__name__}(prob={self.prob})'
 
 
+def rotation_matrix(center, angle: float, scale: float = 1.0):
+    """``cv2.getRotationMatrix2D``: the (2, 3) float64 map rotating by
+    ``angle`` degrees (counter-clockwise) about ``center``, a float32
+    point as OpenCV takes it."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    angle = angle * (math.pi / 180)
+    alpha = math.cos(angle) * scale
+    beta = math.sin(angle) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def invert_affine(m) -> np.ndarray:
+    """The inverse of a (2, 3) affine map as ``cv2.warpAffine`` computes
+    it, in float64."""
+    m = np.asarray(m, np.float64).reshape(6).tolist()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return np.array(m).reshape(2, 3)
+
+
+def warp_affine(img, m, size_wh, nearest=False, border_value=0):
+    """``cv2.warpAffine(img, m, size_wh, flags, borderValue=border_value)``
+    of a uint8, uint16 or float32 image, INTER_LINEAR or (``nearest``)
+    INTER_NEAREST, with a constant border: a number is OpenCV's
+    ``Scalar(v)``, the value of the first channel with 0 in the others,
+    saturated to the image's dtype."""
+    cn = 1 if img.ndim == 2 else img.shape[2]
+    border = list(border_value) if isinstance(border_value, (list, tuple)) \
+        else [border_value]
+    border = np.array((border + [0] * cn)[:cn], np.float64)
+    if img.dtype != np.float32:
+        info = np.iinfo(img.dtype)
+        border = np.clip(np.rint(border), info.min, info.max)
+    return hostaug.warp_affine(img, invert_affine(m), size_wh, nearest,
+                               border.astype(img.dtype))
+
+
+@PIPELINES.register_module()
+class RandomRotate:
+    """(``transforms.py:251-278``) rotation by an angle drawn from
+    ``degree`` with probability ``prob``, about ``center`` (the image's
+    centre by default): the image bilinear with ``pad_val`` outside, the
+    label maps nearest with ``seg_pad_val``. ``auto_bound`` is accepted
+    and unused, as in the JAX file."""
+
+    def __init__(self, prob, degree, pad_val=0, seg_pad_val=255,
+                 center=None, auto_bound=False):
+        self.prob = prob
+        self.degree = (-degree, degree) if isinstance(
+            degree, (int, float)) else tuple(degree)
+        self.pad_val = pad_val
+        self.seg_pad_val = seg_pad_val
+        self.center = center
+        self.auto_bound = auto_bound
+
+    def __call__(self, results):
+        if np.random.rand() < self.prob:
+            angle = np.random.uniform(*self.degree)
+            h, w = results['img'].shape[:2]
+            center = self.center or ((w - 1) * 0.5, (h - 1) * 0.5)
+            m = rotation_matrix(center, -angle, 1.0)
+            results['img'] = warp_affine(results['img'], m, (w, h),
+                                         border_value=self.pad_val)
+            for key in results.get('seg_fields', []):
+                results[key] = warp_affine(results[key], m, (w, h),
+                                           nearest=True,
+                                           border_value=self.seg_pad_val)
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(prob={self.prob}, '
+                f'degree={self.degree})')
+
+
 @PIPELINES.register_module()
 class Pad:
     """(``transforms.py:332``) bottom/right pad to a fixed size or a size
@@ -471,6 +561,159 @@ class ClipNormalize:
         return (f'{self.__class__.__name__}(mean={self.mean.tolist()}, '
                 f'std={self.std.tolist()}, to_rgb={self.to_rgb}, '
                 f'to_uint8={self.to_uint8})')
+
+
+@PIPELINES.register_module()
+class PercentileNormalize:
+    """(``transforms.py:456-470``) each channel stretched between its
+    ``lo`` and ``hi`` percentiles to [-1, 1], float32."""
+
+    def __init__(self, lo=2, hi=98, to_rgb=False):
+        self.lo, self.hi, self.to_rgb = lo, hi, to_rgb
+
+    def __call__(self, results):
+        for key in results.get('img_fields', ['img']):
+            img = results[key].astype(np.float32)
+            plo = np.percentile(img, self.lo, axis=(0, 1))
+            phi = np.percentile(img, self.hi, axis=(0, 1))
+            img = np.clip((img - plo) / np.maximum(phi - plo, 1e-6), 0, 1)
+            results[key] = img * 2.0 - 1.0
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(lo={self.lo}, hi={self.hi})'
+
+
+@PIPELINES.register_module()
+class MultiDomainClipNormalize:
+    """(``transforms.py:473-484``) the ``ClipNormalize`` of the sample's
+    ``domain`` (else of ``default``)."""
+
+    def __init__(self, norm_cfg_dict, default=None):
+        self.norm_cfg_dict = {
+            k: ClipNormalize(**v) for k, v in norm_cfg_dict.items()}
+        self.default = default
+
+    def __call__(self, results):
+        domain = results.get('domain', self.default)
+        return self.norm_cfg_dict[domain](results)
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}('
+                f'domains={sorted(self.norm_cfg_dict)})')
+
+
+@PIPELINES.register_module()
+class Rerange:
+    """(``transforms.py:487-499``) the image linearly onto [min_value,
+    max_value], float32."""
+
+    def __init__(self, min_value=0, max_value=255):
+        self.min_value, self.max_value = min_value, max_value
+
+    def __call__(self, results):
+        img = results['img'].astype(np.float32)
+        lo, hi = img.min(), img.max()
+        img = (img - lo) / max(hi - lo, 1e-6)
+        results['img'] = img * (self.max_value - self.min_value) + \
+            self.min_value
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(min_value={self.min_value}, '
+                f'max_value={self.max_value})')
+
+
+@PIPELINES.register_module()
+class CLAHE:
+    """(``transforms.py:502-516``) contrast-limited adaptive histogram
+    equalisation of each channel, in place, as a uint8 plane:
+    ``cv2.createCLAHE(clip_limit, tile_grid_size).apply`` by
+    ``hostaug.cc``."""
+
+    def __init__(self, clip_limit=40.0, tile_grid_size=(8, 8)):
+        self.clip_limit = clip_limit
+        self.tile_grid_size = tuple(tile_grid_size)
+
+    def __call__(self, results):
+        img = results['img']
+        for c in range(img.shape[2]):
+            img[:, :, c] = hostaug.clahe(np.array(img[:, :, c], np.uint8),
+                                         self.clip_limit,
+                                         self.tile_grid_size)
+        results['img'] = img
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(clip_limit={self.clip_limit}, '
+                f'tile_grid_size={self.tile_grid_size})')
+
+
+@PIPELINES.register_module()
+class RGB2Gray:
+    """(``transforms.py:519-533``) the weighted sum of the first three
+    channels, tiled ``out_channels`` (else the input's count) times,
+    float32."""
+
+    def __init__(self, out_channels=None, weights=(0.299, 0.587, 0.114)):
+        self.out_channels = out_channels
+        self.weights = np.array(weights, np.float32)
+
+    def __call__(self, results):
+        img = results['img']
+        gray = (img[..., :3].astype(np.float32) *
+                self.weights).sum(-1, keepdims=True)
+        reps = self.out_channels or img.shape[2]
+        results['img'] = np.tile(gray, (1, 1, reps))
+        results['img_shape'] = results['img'].shape
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(out_channels='
+                f'{self.out_channels}, weights={self.weights.tolist()})')
+
+
+@PIPELINES.register_module()
+class AdjustGamma:
+    """(``transforms.py:536-548``) the image through the LUT ``(i / 255)
+    ** (1 / gamma) * 255``, truncated to uint8 (``cv2.LUT`` by
+    ``hostaug.cc``)."""
+
+    def __init__(self, gamma=1.0):
+        self.gamma = gamma
+        inv = 1.0 / gamma
+        self.table = np.array([(i / 255.0)**inv * 255
+                               for i in range(256)]).astype(np.uint8)
+
+    def __call__(self, results):
+        results['img'] = hostaug.apply_lut(
+            np.array(results['img'], np.uint8), self.table)
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(gamma={self.gamma})'
+
+
+@PIPELINES.register_module()
+class SegRescale:
+    """(``transforms.py:551-565``) every label map resized by
+    ``scale_factor``, nearest."""
+
+    def __init__(self, scale_factor=1):
+        self.scale_factor = scale_factor
+
+    def __call__(self, results):
+        for key in results.get('seg_fields', []):
+            if self.scale_factor != 1:
+                seg = results[key]
+                h, w = seg.shape[:2]
+                results[key] = imresize(
+                    seg, (int(w * self.scale_factor),
+                          int(h * self.scale_factor)), 'nearest')
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(scale_factor={self.scale_factor})'
 
 
 @PIPELINES.register_module()

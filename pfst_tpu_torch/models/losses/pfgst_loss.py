@@ -16,9 +16,12 @@ The semantics are the JAX file's:
 * the similarity losses are 0 unless more than one pixel is valid.
 
 ``get_sim_feat`` calls ``ops.neighborhood_similarity``: on the card the
-forward and backward kernels, on the CPU the plain version. The JAX
-loss's ``vis|density_sim_feat`` entry (a visualisation, never part of
-the total) is not produced.
+forward and backward kernels, on the CPU the plain version. With
+``img_trg`` in the tensors the loss also gives the JAX file's
+``vis|density_sim_feat`` entry (a visualisation, never part of the
+total): ``(img_trg, 1 - mean_k(ema_sim), ignore_trg)``, the density
+(B, 1, H, W) and the target mask (B, 1, H, W) bool, from the similarity
+the forward kernel already gave, detached.
 """
 from __future__ import annotations
 
@@ -206,4 +209,10 @@ class PFGSTLoss:
             loc_pos, vc.expand_as(loc_pos)) * gate * w.get('sim_pos', 0.0)
         losses['loss_sim_neg'] = masked_mean(
             loc_neg, vc.expand_as(loc_neg)) * gate * w.get('sim_neg', 0.0)
+        img_trg = tensors.get('img_trg')
+        if img_trg is not None:
+            # ``pfgst_loss.py:250-254``
+            losses['vis|density_sim_feat'] = (
+                img_trg, 1.0 - ema_sim.detach().mean(dim=1, keepdim=True),
+                ignore_trg[:, None])
         return losses

@@ -134,9 +134,9 @@ class _DomainAdaptorBase:
         step and ``step + 1``, in place on ``state``. ``batch`` holds NCHW
         tensors on the state's device (images normalized, or uint8 /
         float16 on the 0-255 scale); ``log_vars`` are 0-dim tensors on the
-        device."""
-        if collect_vis:
-            raise NotImplementedError('collect_vis is not ported')
+        device. With ``collect_vis`` the step returns ``(state, log_vars,
+        {})``: the JAX adaptors give no visualisation states
+        (``domain_adaptor.py:212``)."""
 
         def step_fn(state, batch: dict, generator: torch.Generator):
             batch = maybe_normalize_images(batch, mean, std)
@@ -153,7 +153,7 @@ class _DomainAdaptorBase:
             state.step += 1
             log_vars = {k: v.detach() for k, v in log_vars.items()}
             log_vars['loss'] = total.detach()
-            return state, log_vars
+            return (state, log_vars, {}) if collect_vis else (state, log_vars)
 
         return step_fn
 
@@ -235,9 +235,9 @@ class DomainAdaptorAdv(_DomainAdaptorBase):
 
     def make_train_step(self, mean, std, collect_vis: bool = False):
         """The train step (``domain_adaptor.py:280-396``), in place on
-        ``state``: both optimizers step, the discriminator's first."""
-        if collect_vis:
-            raise NotImplementedError('collect_vis is not ported')
+        ``state``: both optimizers step, the discriminator's first. With
+        ``collect_vis`` it returns ``(state, log_vars, {})``
+        (``domain_adaptor.py:393``)."""
 
         def step_fn(state: AdvTrainState, batch: dict,
                     generator: torch.Generator):
@@ -293,7 +293,7 @@ class DomainAdaptorAdv(_DomainAdaptorBase):
             log_vars['loss'] = total.detach() + (
                 d_total.detach() if isinstance(d_total, torch.Tensor)
                 else d_total)
-            return state, log_vars
+            return (state, log_vars, {}) if collect_vis else (state, log_vars)
 
         return step_fn
 

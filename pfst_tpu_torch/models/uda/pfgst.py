@@ -25,7 +25,12 @@ DACS's feature distance to a frozen copy of the initial student
 log vars (``print_grad_magnitude``).
 
 Loss accounting is ``parse_losses``: every key holding ``loss`` sums into
-the total; every scalar is logged.
+the total; every scalar is logged. With ``collect_vis`` the step also
+returns the visualisation states of the JAX step (``pfgst.py:496-516``):
+the ``vis|`` entries of the aux losses, and ``vis|seg_mask_src`` /
+``vis|seg_mask_mix``, each ``(image, labels, head-resolution argmax)``.
+They stay tensors on the step's device, in the port's NCHW layout, and
+the step waits for nothing to make them.
 """
 from __future__ import annotations
 
@@ -255,11 +260,12 @@ class PFGST(UDADecorator):
         return tuple(mixed if i == lvl else None for i in range(lvl + 1))
 
     def forward_train(self, state: UDATrainState, batch: dict, draws: dict,
-                      mean, std, premix=None):
+                      mean, std, premix=None, collect_vis: bool = False):
         """One iteration's total loss, with the autograd graph to the
         student (``pfgst.py:326-520``). Returns ``(total, aux)``, ``aux =
-        {'log_vars': ...}``. With ``premix`` given, the gradient-free half
-        was computed by ``teacher_and_mix``."""
+        {'log_vars': ..., 'vis_states': ...}``, the latter empty unless
+        ``collect_vis``. With ``premix`` given, the gradient-free half was
+        computed by ``teacher_and_mix``."""
         student = state.student
         img = batch['img']
         gt = batch['gt_semantic_seg'].long()
@@ -278,6 +284,7 @@ class PFGST(UDADecorator):
                 mixed_img, premix['mixed_lbl'], premix['pseudo_weight'])
 
         log_vars: Dict[str, torch.Tensor] = {}
+        vis_states: Dict[str, tuple] = {}
         total, clean_log = parse_losses(clean_losses)
         log_vars.update(clean_log)
         if self.enable_fdist:
@@ -320,10 +327,23 @@ class PFGST(UDADecorator):
             aux_losses = {}
             for loss_mod in self.aux_losses:
                 aux_losses.update(loss_mod(tensors) or {})
+            if collect_vis:
+                vis_states.update({k: v for k, v in aux_losses.items()
+                                   if k.startswith('vis|')})
             aux_total, aux_log = parse_losses(aux_losses)
             log_vars.update(aux_log)
             total = total + aux_total
-        return total, dict(log_vars=log_vars)
+        if collect_vis:
+            # ``pfgst.py:510-516``: the mixed labels where the pseudo-label
+            # weight is positive, else the ignore index
+            vis_lbl = torch.where(premix['pseudo_weight'] > 0.0,
+                                  premix['mixed_lbl'], 255)
+            vis_states['vis|seg_mask_src'] = (
+                img, gt, clean_states['seg_logits'].detach().argmax(dim=1))
+            vis_states['vis|seg_mask_mix'] = (
+                mixed_img, vis_lbl,
+                mix_states['seg_logits'].detach().argmax(dim=1))
+        return total, dict(log_vars=log_vars, vis_states=vis_states)
 
     # ------------------------------------------------------------------
     def make_train_step(self, mean, std, collect_vis: bool = False):
@@ -334,9 +354,8 @@ class PFGST(UDADecorator):
         normalized, or uint8 / float16 on the 0-255 scale); ``log_vars``
         are 0-dim tensors on that device, so the step does not wait for
         the card. The gradients stay on the student's parameters until
-        the next step."""
-        if collect_vis:
-            raise NotImplementedError('collect_vis is not ported')
+        the next step. With ``collect_vis`` the step returns ``(state,
+        log_vars, vis_states)``, the JAX step's triple."""
 
         def step_fn(state: UDATrainState, batch: dict,
                     generator: torch.Generator, premix=None):
@@ -344,7 +363,8 @@ class PFGST(UDADecorator):
             draws = self.sample_draws(generator, batch['img'].shape[0])
             self.ema_update(state, self.alpha)
             total, aux = self.forward_train(state, batch, draws, mean, std,
-                                            premix=premix)
+                                            premix=premix,
+                                            collect_vis=collect_vis)
             state.optimizer.zero_grad()
             total.backward()
             log_vars = {k: v.detach() for k, v in aux['log_vars'].items()}
@@ -358,6 +378,8 @@ class PFGST(UDADecorator):
                     torch.stack(torch._foreach_norm(grads)))
             state.optimizer.step()
             state.step += 1
+            if collect_vis:
+                return state, log_vars, aux['vis_states']
             return state, log_vars
 
         return step_fn

@@ -27,6 +27,28 @@
 // * resize_linear_f32: cv2.resize INTER_LINEAR on float32 images of at
 //   least two rows and columns, as OpenCV 5 computes it: each pass is
 //   fmaf(S1 - S0, f, S0), with the fractions f from the caller.
+// * warp_affine_linear_{u8,u16,f32} / warp_affine_nearest: cv2.warpAffine
+//   INTER_LINEAR and INTER_NEAREST with a constant border on uint8,
+//   uint16 and float32 images (nearest on any pixel size), as OpenCV 5
+//   computes them in float32 (its AVX2 kernels, 16
+//   columns a vector step): the caller gives the inverse map (float32,
+//   from OpenCV's float64 inversion). In the columns of the vector steps
+//   (x + 16 <= dw from x = 0) the source point is
+//   sx = fmaf(x, M0, y * M1 + M2), in the remaining columns OpenCV's
+//   scalar tail fmaf(x, M0, y * M1) + M2 (likewise sy). Nearest takes
+//   the pixel at (lrintf(sx), lrintf(sy)); linear blends the four taps
+//   at floor(sx), floor(sy) by fmaf(a, p1 - p0, p0) along x, then y,
+//   with lrintf and saturation at the end; a tap outside the image
+//   reads the border value of its channel.
+// * clahe_u8: cv::CLAHE::apply on one uint8 plane: tiles of the image
+//   padded bottom and right with BORDER_REFLECT_101 where the grid does
+//   not divide it (by a whole tile count where it does divide one side,
+//   as OpenCV pads), histograms clipped at max(1, int(clip * area /
+//   256)) with the excess spread as a batch over all bins and then one
+//   count every max(256 / residual, 1) bins, the LUT
+//   saturate(lrintf(cumsum * (255.f / area))), and the float32 bilinear
+//   blend of the four tiles' LUTs around each pixel.
+// * apply_lut_u8: dst[i] = lut[src[i]] (cv2.LUT on uint8).
 // * tiff_lzw_decode / tiff_lzw_encode / packbits_decode: the TIFF
 //   codecs of compression 5 (LZW, MSB-first codes of 9 to 12 bits with
 //   the width growing one code early, as libtiff reads and writes them)
@@ -312,6 +334,212 @@ void resize_linear_f32(const float* src, int64_t w, int64_t cn, float* dst,
     float* d = dst + dy * row_len;
     for (int64_t i = 0; i < row_len; ++i)
       d[i] = std::fmaf(r1[i] - r0[i], fy[dy], r0[i]);
+  }
+}
+
+}  // extern "C"
+
+namespace {
+
+inline uint8_t saturate_u8(float v) {
+  long r = std::lrintf(v);
+  return static_cast<uint8_t>(r < 0 ? 0 : (r > 255 ? 255 : r));
+}
+
+constexpr int64_t kWarpStep = 16;  // OpenCV's AVX2 warp: 2 x 8 lanes
+
+// The source point of output pixel (x, y) under the inverse map m, as
+// OpenCV's vector steps (x < vec_end) or its scalar tail compute it.
+inline void warp_point(const float* m, int64_t x, int64_t y, int64_t vec_end,
+                       float* sx, float* sy) {
+  const float fx = static_cast<float>(x), fy = static_cast<float>(y);
+  if (x < vec_end) {
+    *sx = std::fmaf(fx, m[0], fy * m[1] + m[2]);
+    *sy = std::fmaf(fx, m[3], fy * m[4] + m[5]);
+  } else {
+    *sx = std::fmaf(fx, m[0], fy * m[1]) + m[2];
+    *sy = std::fmaf(fx, m[3], fy * m[4]) + m[5];
+  }
+}
+
+inline int64_t warp_vec_end(int64_t dw) {
+  return dw >= kWarpStep ? (dw / kWarpStep) * kWarpStep : 0;
+}
+
+inline uint8_t store_px(float v, uint8_t*) { return saturate_u8(v); }
+inline uint16_t store_px(float v, uint16_t*) {
+  long r = std::lrintf(v);
+  return static_cast<uint16_t>(r < 0 ? 0 : (r > 65535 ? 65535 : r));
+}
+inline float store_px(float v, float*) { return v; }
+
+// cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT) of an (h, w, cn) image of
+// T (uint8, uint16 or float32) into (dh, dw, cn); m: the inverse map
+// (dst -> src), 6 floats; border: cn values of T. Integer types round
+// and saturate at the end, float32 stores the blend as it is.
+template <typename T>
+void warp_linear(const T* src, int64_t h, int64_t w, int64_t cn, T* dst,
+                 int64_t dh, int64_t dw, const float* m, const T* border) {
+  std::vector<float> p(4 * cn);
+  const int64_t vec_end = warp_vec_end(dw);
+  for (int64_t y = 0; y < dh; ++y) {
+    for (int64_t x = 0; x < dw; ++x) {
+      float sx, sy;
+      warp_point(m, x, y, vec_end, &sx, &sy);
+      const float x0 = std::floor(sx), y0 = std::floor(sy);
+      const float a = sx - x0, b = sy - y0;
+      const int64_t ix = static_cast<int64_t>(x0);
+      const int64_t iy = static_cast<int64_t>(y0);
+      for (int k = 0; k < 4; ++k) {
+        const int64_t ty = iy + (k >> 1), tx = ix + (k & 1);
+        const bool inside = ty >= 0 && ty < h && tx >= 0 && tx < w;
+        const T* s = src + (ty * w + tx) * cn;
+        for (int64_t c = 0; c < cn; ++c)
+          p[k * cn + c] = static_cast<float>(inside ? s[c] : border[c]);
+      }
+      T* d = dst + (y * dw + x) * cn;
+      for (int64_t c = 0; c < cn; ++c) {
+        const float p00 = p[c], p01 = p[cn + c];
+        const float p10 = p[2 * cn + c], p11 = p[3 * cn + c];
+        const float v0 = std::fmaf(a, p01 - p00, p00);
+        const float v1 = std::fmaf(a, p11 - p10, p10);
+        d[c] = store_px(std::fmaf(b, v1 - v0, v0), d);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+void warp_affine_linear_u8(const uint8_t* src, int64_t h, int64_t w,
+                           int64_t cn, uint8_t* dst, int64_t dh, int64_t dw,
+                           const float* m, const uint8_t* border) {
+  warp_linear(src, h, w, cn, dst, dh, dw, m, border);
+}
+
+void warp_affine_linear_u16(const uint16_t* src, int64_t h, int64_t w,
+                            int64_t cn, uint16_t* dst, int64_t dh,
+                            int64_t dw, const float* m,
+                            const uint16_t* border) {
+  warp_linear(src, h, w, cn, dst, dh, dw, m, border);
+}
+
+void warp_affine_linear_f32(const float* src, int64_t h, int64_t w,
+                            int64_t cn, float* dst, int64_t dh, int64_t dw,
+                            const float* m, const float* border) {
+  warp_linear(src, h, w, cn, dst, dh, dw, m, border);
+}
+
+// cv2.warpAffine(INTER_NEAREST, BORDER_CONSTANT) of an (h, w) image of
+// pixels of px bytes (any type and channel count) into (dh, dw); border:
+// one pixel's px bytes.
+void warp_affine_nearest(const uint8_t* src, int64_t h, int64_t w,
+                         int64_t px, uint8_t* dst, int64_t dh, int64_t dw,
+                         const float* m, const uint8_t* border) {
+  const int64_t vec_end = warp_vec_end(dw);
+  for (int64_t y = 0; y < dh; ++y) {
+    for (int64_t x = 0; x < dw; ++x) {
+      float fx, fy;
+      warp_point(m, x, y, vec_end, &fx, &fy);
+      const int64_t sx = std::lrintf(fx), sy = std::lrintf(fy);
+      const bool inside = sy >= 0 && sy < h && sx >= 0 && sx < w;
+      std::memcpy(dst + (y * dw + x) * px,
+                  inside ? src + (sy * w + sx) * px : border, px);
+    }
+  }
+}
+
+// OpenCV's borderInterpolate for BORDER_REFLECT_101.
+static int64_t reflect101(int64_t p, int64_t len) {
+  if (len == 1) return 0;
+  while (p < 0 || p >= len) p = p < 0 ? -p : 2 * (len - 1) - p;
+  return p;
+}
+
+// cv::createCLAHE(clip, (gx, gy))->apply of an (h, w) uint8 plane.
+void clahe_u8(const uint8_t* src, int64_t h, int64_t w, uint8_t* dst,
+              double clip, int64_t gx, int64_t gy) {
+  const bool divides = w % gx == 0 && h % gy == 0;
+  const int64_t eh = divides ? h : h + gy - h % gy;
+  const int64_t ew = divides ? w : w + gx - w % gx;
+  const int64_t th = eh / gy, tw = ew / gx, area = th * tw;
+  const float lut_scale = 255.0f / static_cast<float>(area);
+  int clip_limit = 0;
+  if (clip > 0.0) {
+    clip_limit = static_cast<int>(clip * area / 256);
+    if (clip_limit < 1) clip_limit = 1;
+  }
+  std::vector<int64_t> rows(eh), cols(ew);
+  for (int64_t i = 0; i < eh; ++i) rows[i] = reflect101(i, h);
+  for (int64_t i = 0; i < ew; ++i) cols[i] = reflect101(i, w);
+  std::vector<uint8_t> lut(gx * gy * 256);
+  for (int64_t t = 0; t < gx * gy; ++t) {
+    const int64_t ty = t / gx, tx = t % gx;
+    int hist[256] = {0};
+    for (int64_t y = ty * th; y < (ty + 1) * th; ++y) {
+      const uint8_t* s = src + rows[y] * w;
+      for (int64_t x = tx * tw; x < (tx + 1) * tw; ++x) ++hist[s[cols[x]]];
+    }
+    if (clip_limit > 0) {
+      int clipped = 0;
+      for (int i = 0; i < 256; ++i) {
+        if (hist[i] > clip_limit) {
+          clipped += hist[i] - clip_limit;
+          hist[i] = clip_limit;
+        }
+      }
+      const int batch = clipped / 256;
+      int residual = clipped - batch * 256;
+      for (int i = 0; i < 256; ++i) hist[i] += batch;
+      if (residual != 0) {
+        const int step = 256 / residual > 1 ? 256 / residual : 1;
+        for (int i = 0; i < 256 && residual > 0; i += step, --residual)
+          ++hist[i];
+      }
+    }
+    int sum = 0;
+    uint8_t* l = lut.data() + t * 256;
+    for (int i = 0; i < 256; ++i) {
+      sum += hist[i];
+      l[i] = saturate_u8(static_cast<float>(sum) * lut_scale);
+    }
+  }
+  const float inv_th = 1.0f / static_cast<float>(th);
+  const float inv_tw = 1.0f / static_cast<float>(tw);
+  std::vector<int64_t> ind1(w), ind2(w);
+  std::vector<float> xa(w), xa1(w);
+  for (int64_t x = 0; x < w; ++x) {
+    const float txf = static_cast<float>(x) * inv_tw - 0.5f;
+    int64_t tx1 = static_cast<int64_t>(std::floor(txf));
+    int64_t tx2 = tx1 + 1;
+    xa[x] = txf - static_cast<float>(tx1);
+    xa1[x] = 1.0f - xa[x];
+    tx1 = tx1 > 0 ? tx1 : 0;
+    tx2 = tx2 < gx - 1 ? tx2 : gx - 1;
+    ind1[x] = tx1 * 256;
+    ind2[x] = tx2 * 256;
+  }
+  for (int64_t y = 0; y < h; ++y) {
+    const float tyf = static_cast<float>(y) * inv_th - 0.5f;
+    int64_t ty1 = static_cast<int64_t>(std::floor(tyf));
+    int64_t ty2 = ty1 + 1;
+    const float ya = tyf - static_cast<float>(ty1), ya1 = 1.0f - ya;
+    ty1 = ty1 > 0 ? ty1 : 0;
+    ty2 = ty2 < gy - 1 ? ty2 : gy - 1;
+    const uint8_t* l1 = lut.data() + ty1 * gx * 256;
+    const uint8_t* l2 = lut.data() + ty2 * gx * 256;
+    const uint8_t* s = src + y * w;
+    uint8_t* d = dst + y * w;
+    for (int64_t x = 0; x < w; ++x) {
+      const int v = s[x];
+      const float r = (l1[ind1[x] + v] * xa1[x] + l1[ind2[x] + v] * xa[x]) *
+                          ya1 +
+                      (l2[ind1[x] + v] * xa1[x] + l2[ind2[x] + v] * xa[x]) *
+                          ya;
+      d[x] = saturate_u8(r);
+    }
   }
 }
 

@@ -1,7 +1,8 @@
 """ctypes loader of the host-side data-pipeline kernels (port of
 ``pfst_tpu/native/hostaug.py``): the fused HSV round trip, PNG
-unfiltering, OpenCV-exact resizes (uint8, and float32 bilinear) and the
-TIFF LZW and PackBits codecs of ``hostaug.cc``.
+unfiltering, OpenCV-exact resizes (uint8, and float32 bilinear), affine
+warps and CLAHE, the uint8 LUT and the TIFF LZW and PackBits codecs of
+``hostaug.cc``.
 
 ``hostaug.cc`` is compiled by ``g++`` at first use into
 ``<repo>/build/pfst_tpu_torch/`` under a name keyed by a hash of the
@@ -31,6 +32,7 @@ _lib = None
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I16P = ctypes.POINTER(ctypes.c_int16)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I64 = ctypes.c_int64
 _SIGNATURES = {
@@ -44,6 +46,17 @@ _SIGNATURES = {
                            _I32P], None),
     'resize_linear_f32': ([_F32P, _I64, _I64, _F32P, _I64, _I64, _I32P,
                            _I32P, _F32P, _I32P, _I32P, _F32P], None),
+    'warp_affine_linear_u8': ([_U8P, _I64, _I64, _I64, _U8P, _I64, _I64,
+                               _F32P, _U8P], None),
+    'warp_affine_linear_u16': ([_U16P, _I64, _I64, _I64, _U16P, _I64, _I64,
+                                _F32P, _U16P], None),
+    'warp_affine_linear_f32': ([_F32P, _I64, _I64, _I64, _F32P, _I64, _I64,
+                                _F32P, _F32P], None),
+    'warp_affine_nearest': ([_U8P, _I64, _I64, _I64, _U8P, _I64, _I64,
+                             _F32P, _U8P], None),
+    'clahe_u8': ([_U8P, _I64, _I64, _U8P, ctypes.c_double, _I64, _I64],
+                 None),
+    'apply_lut_u8': ([_U8P, _U8P, _I64, _U8P], None),
     'tiff_lzw_decode': ([_U8P, _I64, _U8P, _I64], _I64),
     'tiff_lzw_encode': ([_U8P, _I64, _U8P, _I64], _I64),
     'packbits_decode': ([_U8P, _I64, _U8P, _I64], _I64),
@@ -216,6 +229,71 @@ def resize_linear_f32(img: np.ndarray, cols, rows) -> np.ndarray:
         _ptr(img, _F32P), w, cn, _ptr(out, _F32P), y0.size, x0.size,
         _ptr(x0, _I32P), _ptr(x1, _I32P), _ptr(fx, _F32P), _ptr(y0, _I32P),
         _ptr(y1, _I32P), _ptr(fy, _F32P))
+    return out
+
+
+_WARP_LINEAR = {np.dtype(np.uint8): ('warp_affine_linear_u8', _U8P),
+                np.dtype(np.uint16): ('warp_affine_linear_u16', _U16P),
+                np.dtype(np.float32): ('warp_affine_linear_f32', _F32P)}
+
+
+def warp_affine(img: np.ndarray, inverse, size_wh, nearest: bool,
+                border) -> np.ndarray:
+    """cv2.warpAffine of an (H, W[, C]) uint8, uint16 or float32 image
+    with a constant border: ``inverse`` the (2, 3) map from output to
+    source pixels (as float32), ``size_wh`` the output's (width, height),
+    ``border`` one value per channel (in the image's dtype),
+    INTER_NEAREST if ``nearest`` else INTER_LINEAR. As cv2 returns it, a
+    one-channel image comes back (H, W)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype not in _WARP_LINEAR:
+        raise ValueError(f'warp_affine takes uint8, uint16 or float32 '
+                         f'images, got {img.dtype}')
+    h, w = img.shape[:2]
+    cn = 1 if img.ndim == 2 else img.shape[2]
+    m = np.ascontiguousarray(inverse, np.float32).reshape(6)
+    border = np.ascontiguousarray(border, img.dtype).reshape(-1)
+    if border.size != cn:
+        raise ValueError(f'{border.size} border values for {cn} channels')
+    dw, dh = int(size_wh[0]), int(size_wh[1])
+    out = np.empty((dh, dw) + ((cn,) if cn > 1 else ()), img.dtype)
+    if nearest:
+        lib().warp_affine_nearest(_ptr(img), h, w, cn * img.itemsize,
+                                  _ptr(out), dh, dw, _ptr(m, _F32P),
+                                  _ptr(border))
+    else:
+        name, ptr = _WARP_LINEAR[img.dtype]
+        getattr(lib(), name)(_ptr(img, ptr), h, w, cn, _ptr(out, ptr), dh,
+                             dw, _ptr(m, _F32P), _ptr(border, ptr))
+    return out
+
+
+def clahe(plane: np.ndarray, clip_limit: float, grid_wh) -> np.ndarray:
+    """``cv2.createCLAHE(clip_limit, grid_wh).apply`` of an (H, W) uint8
+    plane."""
+    plane = _u8(plane)
+    if plane.ndim != 2:
+        raise ValueError(f'CLAHE takes one (H, W) plane, got {plane.shape}')
+    gx, gy = int(grid_wh[0]), int(grid_wh[1])
+    if gx < 1 or gy < 1:
+        raise ValueError(f'a CLAHE grid of {(gx, gy)} tiles')
+    out = np.empty_like(plane)
+    lib().clahe_u8(_ptr(plane), plane.shape[0], plane.shape[1], _ptr(out),
+                   float(clip_limit), gx, gy)
+    return out
+
+
+def apply_lut(img, lut) -> np.ndarray:
+    """``cv2.LUT`` of a uint8 image through a 256-entry uint8 table (a
+    one-channel (H, W, 1) image comes back (H, W), as from cv2)."""
+    img = _u8(img)
+    lut = _u8(lut)
+    if lut.shape != (256,):
+        raise ValueError(f'a LUT has 256 entries, got {lut.shape}')
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    out = np.empty_like(img)
+    lib().apply_lut_u8(_ptr(img), _ptr(out), img.size, _ptr(lut))
     return out
 
 

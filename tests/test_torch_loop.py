@@ -14,10 +14,13 @@ at 2 and at 4, an eval at 4) and a run resumed from its checkpoint at 2:
 * ``tools/train_torch.py`` and ``tools/test_torch.py`` run in-process;
 * ``tools/convert_jax_checkpoint_torch.py`` carries a JAX train state
   into a checkpoint the port resumes from;
-* the config branches the port does not do raise.
+* the config branches the port does not do raise; the TensorBoard and
+  W&B hooks run in the loop.
 """
+import glob
 import os.path as osp
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -52,6 +55,7 @@ from pfst_tpu_torch.core import (build_optimizer, load_checkpoint,  # noqa: E402
                                  load_weights_into_state, restore_state,
                                  torch_key_to_flax)
 from pfst_tpu_torch.core.checkpoint import state_dict_of  # noqa: E402
+from pfst_tpu_torch.core.hooks.tb_events import read_events  # noqa: E402
 from pfst_tpu_torch.datasets import build_dataloader, build_dataset  # noqa: E402
 from pfst_tpu_torch.datasets.pipelines import imread  # noqa: E402
 from pfst_tpu_torch.utils import Config  # noqa: E402
@@ -261,14 +265,68 @@ def test_jax_train_state_converts_into_a_port_checkpoint(runs, tmp_path):
                            state.teacher.state_dict()[w])
 
 
+class _Wandb(types.ModuleType):
+    """A stand-in ``wandb`` module recording its calls."""
+
+    def __init__(self):
+        super().__init__('wandb')
+        self.calls = []
+        self.Image = lambda a: ('image', np.asarray(a))
+        self.Histogram = lambda a: ('histogram', np.asarray(a))
+
+    def init(self, **kw):
+        self.calls.append(('init', kw))
+
+    def log(self, payload, step=None):
+        self.calls.append(('log', step, payload))
+
+    def finish(self):
+        self.calls.append(('finish',))
+
+
 @pytest.mark.parametrize('option', [
     {'parallel.tp': 2}, {'qat': {'bits': 8}},
-    {'log_config.hooks': [{'type': 'TensorboardLoggerHook'}]},
+    {'log_config.hooks': [{'type': 'TensorboardLoggerHook',
+                           'interval': 1}]},
     {'data.decode_cache_mb': 64},
-    {'custom_hooks': [{'type': 'WandbHookSeg'}]},
+    {'custom_hooks': [{'type': 'WandbHookSeg', 'interval': 1}]},
 ])
-def test_waiting_config_branches_raise(runs, option):
+def test_waiting_config_branches_raise(runs, option, tmp_path, monkeypatch):
+    """What the port does not do raises. The TensorBoard and W&B hooks
+    waited for the A12 hook slice and run now: the event file holds the
+    loop's log vars at each iteration, and with W&B (a stand-in module)
+    the loop collects the step's visualisation states, whose density map
+    the hook logs as an image."""
     cfg = runs['cfg'].copy()
     cfg.merge_from_dict(option)
-    with pytest.raises(NotImplementedError, match='ROADMAP|pack'):
-        train_segmentor(cfg, max_iters_override=1, device='cpu')
+    hooks = option.get('log_config.hooks') or option.get('custom_hooks')
+    if not hooks:
+        with pytest.raises(NotImplementedError, match='ROADMAP|pack'):
+            train_segmentor(cfg, max_iters_override=1, device='cpu')
+        return
+    wandb = _Wandb()
+    monkeypatch.setitem(sys.modules, 'wandb', wandb)
+    hist = []
+    state = train_segmentor(cfg, work_dir=str(tmp_path),
+                            max_iters_override=1, device='cpu',
+                            validate=False, history=hist)
+    assert state.step == 1
+    logs = [h['log_vars'] for h in hist if h['kind'] == 'log']
+    if hooks[0]['type'] == 'TensorboardLoggerHook':
+        (path,) = glob.glob(str(tmp_path / 'tb' / 'events.out.tfevents.*'))
+        events = read_events(path)
+        assert events[0]['file_version'] == 'brain.Event:2'
+        assert [e['step'] for e in events[1:]] == [1]
+        got = dict(events[1]['scalars'])
+        assert got.keys() == logs[0].keys()
+        for k, v in logs[0].items():
+            assert got[k] == np.float32(v), k
+        return
+    (log,) = [c for c in wandb.calls if c[0] == 'log']
+    assert log[1] == 1 and log[2]['loss'] == pytest.approx(
+        logs[0]['loss'], rel=1e-6)
+    # the loss's map: the head's 16x16 logits downscaled by 0.5
+    kind, density = log[2]['vis|density_sim_feat/0']
+    assert kind == 'image' and density.shape == (8, 8)
+    assert np.isfinite(density).all()
+    assert wandb.calls[-1] == ('finish',)

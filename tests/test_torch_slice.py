@@ -151,11 +151,13 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     trainer, UDA family and its losses and replay, the domain adaptors with
     their discriminator, losses and optimizer options, data (the EO
     datasets, the TIFF and HDF5 readers and the wrappers too), the hooks
-    and the pseudo-label generator, evaluation, checkpoint and host-kernel
-    modules named, so that a missing one fails), the port's tools but the
-    JAX checkpoint converter (which imports both packages by design) and
-    chip_smoke.py, in a fresh process: none of jax, flax, optax, orbax,
-    cv2, PIL, h5py or the JAX package."""
+    and the pseudo-label generator, the logger hooks and their event
+    writer, LoveDA, the environment utilities, evaluation, checkpoint and
+    host-kernel modules named, so that a missing one fails), the port's
+    tools but the JAX checkpoint converter (which imports both packages by
+    design) and chip_smoke.py, in a fresh process: none of jax, flax,
+    optax, orbax, cv2, PIL, h5py, tensorflow, tensorboard, wandb or the
+    JAX package."""
     code = '\n'.join([
         'import importlib, pkgutil, sys',
         'import pfst_tpu_torch',
@@ -185,17 +187,23 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'core.hooks', 'core.hooks.hook', 'core.hooks.loggers',",
         "          'core.hooks.pseudo_labeling_hook',",
         "          'core.hooks.rare_class_sampling_hook',",
-        "          'core.hooks.plot_statistics_hook', 'apis.pseudo_labels'):",
+        "          'core.hooks.plot_statistics_hook', 'apis.pseudo_labels',",
+        "          'core.hooks.tb_events', 'datasets.loveda',",
+        "          'utils.collect_env', 'utils.set_env'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',
         'import make_synthetic_data_torch, pack_dataset_torch',
         'import train_torch, test_torch',
         'import gen_pseudo_labels_torch, compute_class_stats_torch',
+        'import print_config_torch, confusion_matrix_torch',
+        'import browse_dataset_torch, get_flops_torch',
+        'import publish_model_torch, bench_loader_torch',
         'import chip_smoke',
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in",
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',",
-        "              'PIL', 'h5py', 'pfst_tpu'))",
+        "              'PIL', 'h5py', 'pfst_tpu', 'tensorflow',",
+        "              'tensorboard', 'wandb'))",
         'print(len(sys.modules), bad)',
         'sys.exit(1 if bad else 0)',
     ])

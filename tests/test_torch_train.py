@@ -47,6 +47,7 @@ from pfst_tpu.models import build_segmentor as jax_segmentor  # noqa: E402
 from pfst_tpu.models import build_train_model as jax_train_model  # noqa: E402
 from pfst_tpu.models.uda import uda_decorator as jax_uda  # noqa: E402
 from pfst_tpu.models.utils import dacs_transforms as jdt  # noqa: E402
+from pfst_tpu_torch.apis import build_algorithm  # noqa: E402
 from pfst_tpu_torch.core import (build_lr_schedule,  # noqa: E402
                                  build_optimizer,
                                  jax_variables_to_state_dict,
@@ -371,14 +372,16 @@ def jax_state():
 
 @pytest.fixture(scope='module')
 def jax_step(jax_state, tmp_path_factory):
-    """The JAX step's new state and log vars for each ``thre_type`` of
+    """The JAX step's new state, log vars and visualisation states
+    (``collect_vis``) for each ``thre_type`` of
     ``test_pfgst_step_matches_jax``, given the port's premix of that
     ``thre_type`` (the gradient-free half): the step with its premix as an
     argument does not depend on ``thre_type``, so it compiles once, and
     runs once a test run."""
     def compute():
         algo, tx, state, batch = jax_state
-        step_fn = algo.make_train_step(tx, MEAN, STD, jit=False)
+        step_fn = algo.make_train_step(tx, MEAN, STD, jit=False,
+                                       collect_vis=True)
         rng = jax.random.PRNGKey(7)
         premix = {t: _to_jax(_port_premix(t, state, batch, rng)[2])
                   for t in ('all', 'part')}
@@ -386,7 +389,7 @@ def jax_step(jax_state, tmp_path_factory):
             step = jax.jit(lambda s, b, r, p: step_fn(
                 s, b, r, premix=p)).lower(
                     state, batch, rng, premix['all']).compile(FAST_COMPILE)
-        return {t: jax.device_get(step(state, batch, rng, p)[:2])
+        return {t: jax.device_get(step(state, batch, rng, p))
                 for t, p in premix.items()}
 
     return shared_by_workers(tmp_path_factory, 'train_jax_step', compute)
@@ -482,7 +485,7 @@ def test_pfgst_step_matches_jax(jax_state, jax_step, thre_type):
     _, _, jstate, batch = jax_state
     rng = jax.random.PRNGKey(7)
     algo, state, premix, gen = _port_premix(thre_type, jstate, batch, rng)
-    new_state, log_vars = jax_step[thre_type]
+    new_state, log_vars, _ = jax_step[thre_type]
     assert state.step == START_STEP
     # the number of values each BN normalizes over, for the n/(n-1) gap
     counts = {}
@@ -591,7 +594,10 @@ def test_waiting_options_raise(case):
     ``tests/test_torch_uda_family.py``); so do the optimizer options
     ``paramwise_cfg``, ``cumulative_iters`` and ``skip_nonfinite``, which
     waited for the domain adaptors (held to optax in
-    ``tests/test_torch_optim.py``)."""
+    ``tests/test_torch_optim.py``), and ``collect_vis``, which waited for
+    the hooks that read it: the supervised step returns the JAX step's
+    triple with no states (the PFGST step's are held to JAX in
+    ``tests/test_torch_a12_rest.py``)."""
     cfg = _train_cfg('all')
     uda = dict(cfg['uda'], model=cfg['model'], device='cpu')
     if case == 'fdist':
@@ -636,14 +642,24 @@ def test_waiting_options_raise(case):
         want = 1.0 - SGD['lr'] * (3.0 if case == 'cumulative_iters' else 4.0)
         assert torch.allclose(p.detach(), torch.full((3,), want))
         return
+    if case == 'collect_vis':
+        trainer = build_algorithm({'model': _model_cfg()}, device='cpu')
+        state = trainer.init_state(torch.Generator().manual_seed(0),
+                                   build_optimizer(SGD))
+        rs = np.random.RandomState(0)
+        out = trainer.make_train_step(MEAN, STD, collect_vis=True)(
+            state, {'img': nchw(_images(rs, 2, 32)),
+                    'gt_semantic_seg': torch.from_numpy(
+                        rs.randint(0, 6, (2, 32, 32)))},
+            torch.Generator().manual_seed(0))
+        assert len(out) == 3 and out[2] == {} and out[0].step == 1
+        assert np.isfinite(out[1]['loss'].item())
+        return
+    model_cfg = _model_cfg()
+    model_cfg['decode_head']['sampler'] = dict(type='OHEMPixelSampler')
     with pytest.raises(NotImplementedError):
-        if case == 'collect_vis':
-            PFGST(**uda).make_train_step(MEAN, STD, collect_vis=True)
-        else:
-            model_cfg = _model_cfg()
-            model_cfg['decode_head']['sampler'] = dict(type='OHEMPixelSampler')
-            build_segmentor(model_cfg).forward_train(
-                torch.zeros(1, 3, 32, 32), torch.zeros(1, 32, 32))
+        build_segmentor(model_cfg).forward_train(
+            torch.zeros(1, 3, 32, 32), torch.zeros(1, 32, 32))
 
 
 def test_build_train_model_default_device_needs_cuda(monkeypatch):

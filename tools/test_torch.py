@@ -6,9 +6,15 @@
 
 Runs on the card unless ``--device cpu``. UDA checkpoints are detected by
 their keys and the student is evaluated (rsiseg ``tools/test.py:237-
-242``; ``--revise_checkpoint_key`` is accepted as a no-op). Writing
-predictions out (``--format-only``, ``--show-dir``) waits for ROADMAP
-A12; int8, spatial sharding and the launcher for A14.
+242``; ``--revise_checkpoint_key`` is accepted as a no-op).
+``--format-only`` writes each tile's label map as an 8-bit PNG named
+after the tile under ``--imgfile-prefix``::
+
+    python tools/test_torch.py <config> <checkpoint> --format-only \
+        --imgfile-prefix work_dirs/format
+
+``--show-dir`` is accepted and writes nothing, as in the JAX CLI. int8,
+spatial sharding and the launcher wait for ROADMAP A14.
 """
 import argparse
 import json
@@ -32,7 +38,9 @@ def parse_args(args=None):
                         help='output dir for --format-only pngs')
     parser.add_argument('--aug-test', action='store_true',
                         help='multi-scale + flip TTA')
-    parser.add_argument('--show-dir', help='dir to save viz overlays')
+    parser.add_argument('--show-dir',
+                        help='accepted for compatibility; writes nothing '
+                             '(the JAX CLI draws no overlays either)')
     parser.add_argument('--opacity', type=float, default=0.5)
     parser.add_argument('--revise_checkpoint_key', type=bool,
                         default=False, help='compat no-op')
@@ -72,6 +80,10 @@ def main(args=None):
     results = single_gpu_test(
         model, loader, pre_eval=bool(args.eval) and not args.format_only,
         format_only=args.format_only, out_dir=args.show_dir)
+    if args.format_only:
+        files = dataset.format_results(results, args.imgfile_prefix)
+        logger.info(f'{len(files)} result maps written to '
+                    f'{args.imgfile_prefix}')
     if args.eval:
         res = dataset.evaluate(results, metric=args.eval, logger=logger,
                                **dict(args.eval_options or {}))

@@ -54,12 +54,15 @@ def main(args=None):
     logger = get_root_logger(osp.join(work_dir, f'{timestamp}.log'))
     cfg.dump(osp.join(work_dir, osp.basename(args.config)))
 
-    import torch
-
     from pfst_tpu_torch.apis import set_random_seed, train_segmentor
+    from pfst_tpu_torch.utils.collect_env import collect_env
+    from pfst_tpu_torch.utils.set_env import setup_environment
+    setup_environment(cfg)
     seed = args.seed if args.seed is not None else cfg.get('seed', 0)
-    logger.info(f'torch {torch.__version__} cuda {torch.version.cuda} '
-                f'device {args.device} seed {seed}')
+    env_info = '\n'.join(f'{k}: {v}' for k, v in collect_env().items())
+    logger.info('Environment info:\n' + '-' * 40 + f'\n{env_info}\n' +
+                '-' * 40)
+    logger.info(f'device {args.device} seed {seed}')
     logger.info(f'Config:\n{cfg.dump()}')
     if args.deterministic:
         set_random_seed(seed, deterministic=True)
