@@ -51,7 +51,13 @@ Phases (any failure exits non-zero before the result lines):
    the median times of the kernel (per
    call, and on the device in a CUDA graph of ten launches), the plain
    version and SDPA (per call, and on the device: its forward, and its
-   backward alone), and the bound;
+   backward alone), and the bound; then with the library's bias ``ab``
+   (``FLASH_AB_CASES``): BEiT-B's (2, 12, 1601, 64) with its table
+   shared by the batch and Swin-T's first stage (722, 3, 49, 32) with the
+   shift mask, fp32 and bf16, timed beside SDPA given the bias as a float
+   mask, and random asymmetric biases at three small geometries; O, LSE,
+   dQ, dK, dV and dab held to the plain versions, two launches bitwise
+   equal;
 9. ViT-B/16 UPerNet serving at full width (``upernet_vit-b16_ln_mln``,
    seeded weights): 512x512 requests through ``make_inference_fn`` ->
    ``_finalize_views`` and ``make_state_fn`` -> ``sim_feat``, with the
@@ -175,7 +181,22 @@ Phases (any failure exits non-zero before the result lines):
    one PNG for each tile of the test set (phase 13's: 8 Vaihingen tiles
    of 1024^2), each decoding to the label map ``single_gpu_test`` returns
    for it;
-then one ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
+19. the transformer backbones with a relative-position bias at full
+   width (``upernet_{beit,mae,swin}.py``, seeded weights): BEiT-B and
+   MAE-B at 640^2 and Swin-T at 512^2 each answer 3 requests (logits ->
+   labels, then ``make_state_fn``'s similarity; 24 flash forwards a
+   request, all with ``ab``) and take 5 supervised steps at batch 2 with
+   AdamW and the configs' drop path, in fp32 and in bf16 autocast (12
+   launches of each flash kernel a step, every table moved); BEiT and
+   Swin card against CPU as phase 11 (128^2, BEiT at img_size 128, the
+   same drop-path masks on both sides, every table with a non-zero
+   gradient unless drop path dropped its branch for both images); BEiT
+   UPerNet through ``train_segmentor`` on phase 13's packs (the
+   source-only config's data, 512^2 crops, img_size 512, 6 classes) for
+   10 iterations with a slide-mode evaluation (512^2 windows, stride 341)
+   of the 1024^2 tiles, and ``tools/test_torch.py`` on its checkpoint;
+then a ``[phases]`` line with each phase's wall seconds, one
+``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -212,6 +233,12 @@ from pfst_tpu_torch.datasets import build_dataset
 from pfst_tpu_torch.datasets.pipelines import ClipNormalize, imread
 from pfst_tpu_torch.native import hostaug
 from pfst_tpu_torch.models import build_train_model
+from pfst_tpu_torch.models.backbones.beit import \
+    relative_position_index as beit_index
+from pfst_tpu_torch.models.backbones.beit import table_bias
+from pfst_tpu_torch.models.backbones.swin import attn_mask as swin_mask
+from pfst_tpu_torch.models.backbones.swin import \
+    relative_position_index as swin_index
 from pfst_tpu_torch.ops import neighborhood_sim as sim_module
 from pfst_tpu_torch.ops import (build, cuda_flash_attention,
                                 cuda_flash_attention_backward,
@@ -224,6 +251,8 @@ from pfst_tpu_torch.ops import (build, cuda_flash_attention,
                                 torch_neighborhood_similarity_backward)
 from pfst_tpu_torch.utils import Config
 
+T_START = time.time()   # after the imports
+PHASE_S = {}            # wall seconds of each phase, for the [phases] line
 ROOT = osp.dirname(osp.abspath(__file__))
 LEAF = osp.join(ROOT, 'configs', 'pfst',
                 'pfst_pots_irrg2vaih_irrg_deeplabv3plus_r50-d8.py')
@@ -294,6 +323,33 @@ FLASH_CASES = [((1, 12, 1025, 64), torch.float32, 'qkv'),
                ((1, 2, 17, 64), torch.float32, 'qkv'),
                ((1, 2, 17, 64), torch.bfloat16, 'qkv')]
 FLASH_FWD_TOL, FLASH_LSE_TOL, FLASH_BWD_TOL = 2e-5, 1e-5, 1e-4
+# flash attention with the library's bias ab (``flash_bias``): (shape,
+# dtype, layout, bias, timed). BEiT-B at 640^2 (N = 40 x 40 + 1, its table
+# shared by the batch) and Swin-T's first stage at 512^2 with the shift
+# mask (2 images of 19 x 19 windows of 49 tokens, d = 32), timed; random
+# asymmetric biases at small general geometries, checked only
+FLASH_AB_CASES = [((2, 12, 1601, 64), torch.float32, 'qkv', 'beit', True),
+                  ((2, 12, 1601, 64), torch.bfloat16, 'qkv', 'beit', True),
+                  ((722, 3, 49, 32), torch.float32, 'qkv', ('swin', 133),
+                   True),
+                  ((722, 3, 49, 32), torch.bfloat16, 'qkv', ('swin', 133),
+                   True)] + [
+    (shape, dtype, layout, bias, False)
+    for shape, layout, bias in (((2, 2, 17, 64), 'qkv', 'random'),
+                                ((1, 3, 130, 32), 'qkv', 'shared'),
+                                ((2, 1, 200, 128), 'contiguous', 'strided'))
+    for dtype in (torch.float32, torch.bfloat16)]
+# phase 19: the transformer backbones with a relative-position bias
+BEIT = osp.join(ROOT, 'configs', '_base_', 'models', 'upernet_beit.py')
+MAE = osp.join(ROOT, 'configs', '_base_', 'models', 'upernet_mae.py')
+SWIN = osp.join(ROOT, 'configs', '_base_', 'models', 'upernet_swin.py')
+TF_MODELS = {'beit': (BEIT, (640, 640)), 'mae': (MAE, (640, 640)),
+             'swin': (SWIN, (512, 512))}
+TF_LAYERS = 12          # attention layers: BEiT-B, MAE-B, Swin-T (2+2+6+2)
+N_TF_REQUESTS = 3
+TF_TRAIN_STEPS = 5      # 3 warm-ups, then the median of 2
+TF_CHECK_HW = (128, 128)
+TF_LOOP_CROP, TF_LOOP_STRIDE = 512, 341     # slide-mode eval of 1024^2 tiles
 # the ViT configs' input normalization (ImageNet mean/std, RGB)
 VIT_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
                 to_rgb=True)
@@ -666,7 +722,44 @@ def _flash_inputs(shape, dtype, layout, gen):
             for _ in range(3)]
 
 
-def flash_bounds(shape, dtype):
+def flash_bias(kind, shape, gen, device='cuda'):
+    """An fp32 ``ab`` for a (B, H, N, D) case, in the kernels' order (added
+    before the scale, so a model's bias over the scale), as the path gives
+    it or random and asymmetric, the cases that show a layout slip:
+
+    * 'beit': a BEiT table of normal draws through its relative-position
+      index (N = Wh Ww + 1 on a square grid), (1, H, N, N): one table
+      for every image, read with batch stride 0;
+    * ('swin', hp): Swin's (N = 49) table bias plus the shift mask of an
+      hp x hp padded grid, (B, H, 49, 49) over B / (hp / 7)^2 images;
+    * 'shared': normal draws, (1, H, N, N); 'random': (B, H, N, N);
+      'strided': 'random' read through a row stride of N + 3."""
+    b, h, n, d = shape
+    scale = d**-0.5
+    if kind == 'beit':
+        side = int(round((n - 1)**0.5))
+        index = torch.from_numpy(beit_index(side, side))
+        table = torch.randn(((2 * side - 1)**2 + 3, h), generator=gen)
+        ab = (table_bias(table, index) / scale)[None]
+    elif isinstance(kind, tuple) and kind[0] == 'swin':
+        hp = kind[1]
+        table = torch.randn((13**2, h), generator=gen)
+        bias = table_bias(table, torch.from_numpy(swin_index(7)))
+        mask = torch.from_numpy(swin_mask(hp, hp, 7, 3))
+        ab = ((bias[None] + mask[:, None]) / scale).repeat(
+            b // mask.shape[0], 1, 1, 1)
+    elif kind == 'shared':
+        ab = torch.randn((1, h, n, n), generator=gen) / scale
+    elif kind == 'random':
+        ab = torch.randn((b, h, n, n), generator=gen) / scale
+    elif kind == 'strided':
+        ab = (torch.randn((b, h, n, n + 3), generator=gen) / scale)[..., :n]
+    else:
+        raise ValueError(f'unknown bias {kind}')
+    return ab.to(device)
+
+
+def flash_bounds(shape, dtype, ab_batches=None):
     """Least times (ms, bound_by) of the forward, dK/dV and dQ kernels'
     functions: each input read once and each output written once over the
     HBM rate, against the operations over the peak of the input type:
@@ -678,14 +771,22 @@ def flash_bounds(shape, dtype):
     10 B H N^2 d (S recomputed, dP = dO V^T, dV, dK, dQ: 2 each), split
     6 : 4 here, dK/dV taking S, dV and dK and dQ taking dP and dQ. Bytes:
     forward q, k, v, O and the fp32 LSE; dK/dV q, k, v, dO, LSE and Di
-    in, dK and dV out; dQ the same inputs, dQ out."""
+    in, dK and dV out; dQ the same inputs, dQ out. With a bias
+    (``ab_batches``: the distinct batch slices of ``ab``, 1 for one table
+    shared by every batch, else B) each kernel also reads the fp32 ab once,
+    ``ab_batches * H * N^2 * 4`` bytes, and dQ writes the fp32 dab, ``B * H
+    * N^2 * 4``; its additions are not counted (N^2 against the products'
+    4 N^2 d a head)."""
     b, h, n, d = shape
     elt = torch.finfo(dtype).bits // 8
     peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
             else TF32X3_FLOP_PER_S)
     mat, stat = b * h * n * d * elt, b * h * n * 4
-    work = {'fwd': (4 * mat + stat, 4), 'dkv': (6 * mat + 2 * stat, 6),
-            'dq': (5 * mat + 2 * stat, 4)}
+    bias = 0 if ab_batches is None else ab_batches * h * n * n * 4
+    dab = 0 if ab_batches is None else b * h * n * n * 4
+    work = {'fwd': (4 * mat + stat + bias, 4),
+            'dkv': (6 * mat + 2 * stat + bias, 6),
+            'dq': (5 * mat + 2 * stat + bias + dab, 4)}
     out = {}
     for kernel, (nbytes, per) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -695,11 +796,12 @@ def flash_bounds(shape, dtype):
     return out
 
 
-def flash_allowances(qf, kf, vf, gf, o, lse, scale):
+def flash_allowances(qf, kf, vf, gf, o, lse, scale, ab=None):
     """What bf16 kernels may differ by from the fp32 plain versions beyond
     the fp32 limits, propagated from the roundings they share with the
-    TPU kernel: ``(O, dQ, dK, dV)``, each shaped like its output, from the
-    fp32 inputs' values, the plain fp32 ``o`` and ``lse`` and dL/dO ``gf``.
+    TPU kernel: ``(O, dQ, dK, dV, dab)``, each shaped like its output,
+    from the fp32 inputs' values, the plain fp32 ``o`` and ``lse``, dL/dO
+    ``gf`` and the bias ``ab`` (None for none; dab's allowance then 0).
     eps = 2^-8 bounds one rounding to bf16 (2^-9 to nearest, doubled for
     the fp32 sums around it):
 
@@ -709,13 +811,18 @@ def flash_allowances(qf, kf, vf, gf, o, lse, scale):
     * dS s rounded before (dS s) K: eps s |dS| |K| (dQ);
     * the bf16 O that Di = rowsum(dO O) reads (the library's backward
       reads its bf16 O too): |dDi| <= eps rowsum|O dO|, reaching dQ as
-      s |dDi| P|K| and dK as s P^T(|dDi| |Q|).
+      s |dDi| P|K|, dK as s P^T(|dDi| |Q|) and the fp32 dab = s dS as
+      s P |dDi|.
 
-    Each output's own rounding, eps |ref|, is ``flash_excess``'s."""
+    ab adds no rounding of its own: it is fp32 on both sides. Each
+    output's own rounding, eps |ref|, is ``flash_excess``'s."""
     eps = 2.0**-8
-    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
-                  - lse[..., None])
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp(s * scale - lse[..., None]) if ab is None else \
+        torch.exp((s + ab) * scale - lse[..., None])
+    del s
     ddi = eps * (o.abs() * gf.abs()).sum(-1, keepdim=True)
+    al_dab = 0.0 if ab is None else scale * p * ddi
     al_o = eps * torch.matmul(p, vf.abs())
     al_dq = scale * ddi * torch.matmul(p, kf.abs())
     al_dv = eps * torch.matmul(p.transpose(-1, -2), gf.abs())
@@ -725,7 +832,7 @@ def flash_allowances(qf, kf, vf, gf, o, lse, scale):
     del dp
     al_dk += eps * scale * torch.matmul(ds_abs.transpose(-1, -2), qf.abs())
     al_dq += eps * scale * torch.matmul(ds_abs, kf.abs())
-    return al_o, al_dq, al_dk, al_dv
+    return al_o, al_dq, al_dk, al_dv, al_dab
 
 
 def flash_excess(got, ref, rounding, allowance):
@@ -736,48 +843,80 @@ def flash_excess(got, ref, rounding, allowance):
                   - allowance).nan_to_num(nan=float('inf')).max())
 
 
-def flash_errors(q, k, v, g, scale):
-    """The three flash kernels on (q, k, v) and dL/dO ``g`` against the
-    plain versions, with the limits of phase 3c. Returns ``(o, lse,
-    errors)``; ``errors`` holds each excess beyond its allowance next to
-    its limit, the raw max |kernel - ref| of O and of dQ, dK, dV against
-    autograd and, for bf16 input, for information, the max |kernel -
-    plain| with the plain versions run in bf16."""
+def flash_errors(q, k, v, g, scale, ab=None, repeat=False):
+    """The three flash kernels on (q, k, v), the fp32 bias ``ab`` (or
+    None) and dL/dO ``g`` against the plain versions, with the limits of
+    phase 3c. Returns ``(o, lse, errors)``; ``errors`` holds each excess
+    beyond its allowance next to its limit, the raw max |kernel - ref| of
+    O and of dQ, dK, dV against autograd and, for bf16 input, for
+    information, the max |kernel - plain| with the plain versions run in
+    bf16. With ``ab``: dab (fp32, per batch) against the plain backward's
+    and, summed over the batch where ``ab`` has one, against autograd's
+    gradient of ``ab``, within dQ's ``FLASH_BWD_TOL * max(1, max|ref|)``
+    beyond the propagated Di rounding. With ``repeat``: a second
+    forward and backward must be bitwise equal to the first."""
     bf16 = q.dtype == torch.bfloat16
     rounding = 2.0**-8 if bf16 else 0.0
-    o, lse = cuda_flash_attention(q, k, v, scale)
+    o, lse = cuda_flash_attention(q, k, v, scale, ab)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-    ref, ref_lse = torch_attention(qf, kf, vf, scale, return_lse=True)
-    spread = (flash_allowances(qf, kf, vf, gf, ref, ref_lse, scale) if bf16
-              else (0.0,) * 4)
+    ref, ref_lse = torch_attention(qf, kf, vf, scale, return_lse=True, ab=ab)
+    spread = (flash_allowances(qf, kf, vf, gf, ref, ref_lse, scale, ab)
+              if bf16 else (0.0,) * 5)
     err = dict(fwd_err=float((o.float() - ref).abs().max()),
                fwd_excess=flash_excess(o, ref, rounding, spread[0]),
                fwd_limit=FLASH_FWD_TOL * max(1.0, float(ref.abs().max())),
                lse_rel_err=float(((lse - ref_lse).abs()
                                   / ref_lse.abs()).max()))
-    grads = cuda_flash_attention_backward(q, k, v, o, lse, g, scale)
+    grads = cuda_flash_attention_backward(q, k, v, o, lse, g, scale, ab)
     xs = [t.clone().requires_grad_() for t in (qf, kf, vf)]
-    auto = torch.autograd.grad(torch_attention(*xs, scale), xs, gf)
-    plain = torch_attention_backward(qf, kf, vf, ref, ref_lse, gf, scale)
+    if ab is not None:
+        xs.append(ab.clone().requires_grad_())
+    auto = torch.autograd.grad(
+        torch_attention(*xs[:3], scale, ab=xs[3] if ab is not None
+                        else None), xs, gf)
+    plain = torch_attention_backward(qf, kf, vf, ref, ref_lse, gf, scale, ab)
     err['bwd_limit'] = FLASH_BWD_TOL * max(1.0, max(float(a.abs().max())
-                                                    for a in auto))
+                                                    for a in auto[:3]))
     err['bwd_excess'] = max(
         flash_excess(got, r, rounding, e)
-        for got, a, pl, e in zip(grads, auto, plain, spread[1:])
+        for got, a, pl, e in zip(grads[:3], auto, plain, spread[1:4])
         for r in (a, pl))
     for name, got, a in zip(('dq_err', 'dk_err', 'dv_err'), grads, auto):
         err[name] = float((got.float() - a).abs().max())
+    ok_dab = True
+    if ab is not None:
+        dab, al = grads[3], spread[4]
+        shared = ab.shape[0] == 1 and dab.shape[0] > 1
+        summed = dab.sum(0, keepdim=True) if shared else dab
+        al_summed = al.sum(0, keepdim=True) if shared and bf16 else al
+        err['dab_limit'] = FLASH_BWD_TOL * max(1.0,
+                                               float(auto[3].abs().max()))
+        err['dab_excess'] = max(flash_excess(dab, plain[3], 0.0, al),
+                                flash_excess(summed, auto[3], 0.0,
+                                             al_summed))
+        err['dab_err'] = float((summed - auto[3]).abs().max())
+        ok_dab = err['dab_excess'] <= err['dab_limit']
     del spread, auto, plain, xs
     if bf16:
-        po, plse = torch_attention(q, k, v, scale, return_lse=True)
+        po, plse = torch_attention(q, k, v, scale, return_lse=True, ab=ab)
         err['fwd_err_plain_bf16'] = float((o.float() - po.float()).abs()
                                           .max())
         err['bwd_err_plain_bf16'] = max(
             float((a.float() - b.float()).abs().max()) for a, b in zip(
-                grads, torch_attention_backward(q, k, v, po, plse, g, scale)))
+                grads[:3], torch_attention_backward(q, k, v, po, plse, g,
+                                                    scale, ab)))
+    if repeat:
+        o2, lse2 = cuda_flash_attention(q, k, v, scale, ab)
+        again = cuda_flash_attention_backward(q, k, v, o2, lse2, g, scale,
+                                              ab)
+        err['repeat_bitwise_equal'] = bool(
+            torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip(grads, again)))
+        del o2, lse2, again
     err['ok'] = (err['fwd_excess'] <= err['fwd_limit']
                  and err['lse_rel_err'] <= FLASH_LSE_TOL
-                 and err['bwd_excess'] <= err['bwd_limit'])
+                 and err['bwd_excess'] <= err['bwd_limit'] and ok_dab
+                 and err.get('repeat_bitwise_equal', True))
     return o, lse, err
 
 
@@ -869,6 +1008,72 @@ def phase_flash_vs_plain():
         del q, k, v, g, gf
         torch.cuda.empty_cache()
     return cases
+
+
+def phase_flash_bias_vs_plain():
+    """Phase 3c with the bias: each flash kernel against its plain version
+    on ``FLASH_AB_CASES``, O, LSE, dQ, dK, dV and dab within phase 3c's
+    limits (``flash_errors``), two launches bitwise equal; the BEiT and
+    Swin shapes timed as phase 3c times, with SDPA given the same bias as
+    a float ``attn_mask`` (``ab * scale`` in q's type, after the scale
+    where SDPA adds it; its backward with the mask's gradient) as the
+    library's time, and the bound with ab's and dab's bytes."""
+    gen = torch.Generator().manual_seed(19)
+    cases = []
+    for shape, dtype, layout, bias, timed in FLASH_AB_CASES:
+        q, k, v = _flash_inputs(shape, dtype, layout, gen)
+        g = torch.randn(shape, generator=gen).to('cuda', dtype)
+        ab = flash_bias(bias, shape, gen)
+        scale = shape[-1]**-0.5
+        o, lse, err = flash_errors(q, k, v, g, scale, ab, repeat=True)
+        ok = err.pop('ok')
+        case = dict(shape=list(shape), dtype=str(dtype).split('.')[-1],
+                    layout=layout, bias=str(bias),
+                    ab_shape=list(ab.shape), **err)
+        if timed:
+            case.update(_flash_bias_times(q, k, v, g, o, lse, ab, scale))
+            bounds = flash_bounds(shape, dtype, ab.shape[0])
+            case['bound_ms'] = {kk: b[0] for kk, b in bounds.items()}
+            case['bound_by'] = {kk: b[1] for kk, b in bounds.items()}
+        log(f'[kernel] flash_attention with ab {case}')
+        if not ok:
+            raise AssertionError(f'flash kernels with ab disagree with the '
+                                 f'plain versions: {case}')
+        cases.append(case)
+        del q, k, v, g, ab, o, lse
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _flash_bias_times(q, k, v, g, o, lse, ab, scale):
+    di = (o.float() * g.float()).sum(-1).contiguous()
+    launch = {
+        'fwd': lambda: cuda_flash_attention(q, k, v, scale, ab),
+        'dkv': lambda: cuda_flash_attention_bwd_dkv(q, k, v, g, lse, di,
+                                                    scale, ab),
+        'dq': lambda: cuda_flash_attention_bwd_dq(q, k, v, g, lse, di, scale,
+                                                  ab)}
+    out = dict(ms={kk: cuda_time_ms(fn, 10) for kk, fn in launch.items()},
+               device_ms={kk: graph_ms(fn) for kk, fn in launch.items()},
+               plain_fwd_ms=cuda_time_ms(lambda: torch_attention(
+                   q, k, v, scale, ab=ab), 3),
+               plain_bwd_ms=cuda_time_ms(lambda: torch_attention_backward(
+                   q, k, v, o, lse, g, scale, ab), 3))
+    mask = (ab * scale).to(q.dtype).expand(q.shape[0], -1, -1, -1)
+    out['library_fwd_ms'] = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               scale=scale), 10)
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    mx = mask.detach().requires_grad_()
+    lib_out = F.scaled_dot_product_attention(*xs, attn_mask=mx, scale=scale)
+    out['library_bwd_ms'] = cuda_time_ms(lambda: torch.autograd.grad(
+        lib_out, xs + [mx], g, retain_graph=True), 10)
+    out['library_device_ms'] = {
+        'fwd': graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)),
+        'bwd': sdpa_backward_ms(lib_out, g)}
+    out['library_bwd_op'] = lib_out.grad_fn.name()
+    return out
 
 
 def _flash_counts():
@@ -1185,7 +1390,8 @@ def phase_train_card_vs_cpu(cfg, tag='[train card-vs-cpu]',
                        f'{RESIDUAL_SCALE}', self_gap_scale)
 
 
-def _check_train_sides(sides, threads, tag, self_gap_scale=None):
+def _check_train_sides(sides, threads, tag, self_gap_scale=None,
+                       allowed_zero=0):
     """Card step against the CPU step (``sides``: log vars and gradient
     groups of 'card', 'cpu' and 'cpu1', the CPU with one thread): log vars
     within rtol 1e-3 (atol 1e-5); gradients with cosine similarity >=
@@ -1193,7 +1399,10 @@ def _check_train_sides(sides, threads, tag, self_gap_scale=None):
     with a zero gradient. With ``self_gap_scale`` the norm limit is the
     larger of 1e-3 and ``self_gap_scale`` times the CPU's own 1-vs-N-thread
     norm gap: a step whose fp32 gradient norm the CPU itself reproduces
-    only to more than 1e-3 (ROADMAP C6) is held to a multiple of that."""
+    only to more than 1e-3 (ROADMAP C6) is held to a multiple of that.
+    ``allowed_zero``: parameter tensors a side may leave at a zero gradient
+    (those under a residual branch that drop path dropped for every
+    sample; the caller names and checks them)."""
     (card_lv, card_g), (cpu_lv, cpu_g) = sides['card'], sides['cpu']
     cpu1_g = sides['cpu1'][1]
     bad = {k: (card_lv[k], cpu_lv[k]) for k in cpu_lv
@@ -1217,8 +1426,11 @@ def _check_train_sides(sides, threads, tag, self_gap_scale=None):
         f'[cosine, norm gap] {json.dumps(per_group)}; loss card '
         f'{card_lv["loss"]:.6f} cpu {cpu_lv["loss"]:.6f}; CPU 1 thread '
         f'against {threads}: gradient cosine {self_cos:.8f}, norm rel diff '
-        f'{self_gap:.3e}; norm limit {norm_limit:.3e}')
-    if bad or set(card_lv) != set(cpu_lv) or zero or not (
+        f'{self_gap:.3e}; norm limit {norm_limit:.3e}'
+        + (f'; zero gradients allowed {allowed_zero} a side'
+           if allowed_zero else ''))
+    if bad or set(card_lv) != set(cpu_lv) or zero != 2 * allowed_zero or \
+            not (
             cos >= 0.9999 and norm_rel <= norm_limit):
         raise AssertionError(f'card and CPU training disagree: {bad}')
 
@@ -3172,9 +3384,272 @@ def phase_hooks(card, data):
                 top=top, busy_ms=busy, window_ms=window_ms / HOOK_PROF_STEPS)
 
 
-def _flash_entries(cases, serve, train):
+def tf_config(name, img_size=None, dtype=None, dropout=True):
+    """An A13 UPerNet config (``TF_MODELS``) at full width and depth with
+    the ``adamw_40k`` schedule, the ViT configs' input normalization, BEiT
+    and MAE at ``img_size`` (their tables follow the patch grid)."""
+    path, hw = TF_MODELS[name]
+    cfg = Config.fromfile(path)
+    cfg.img_norm_cfg = dict(VIT_NORM)
+    if name != 'swin':
+        cfg.model['backbone']['img_size'] = img_size or hw[0]
+    if dtype:
+        cfg.model['dtype'] = dtype
+    sched = Config.fromfile(ADAMW_40K)
+    for key in ('optimizer', 'optimizer_config', 'lr_config', 'runner'):
+        cfg[key] = sched[key]
+    if not dropout:
+        cfg.model['decode_head']['dropout_ratio'] = 0.0
+        cfg.model['auxiliary_head']['dropout_ratio'] = 0.0
+    return cfg
+
+
+def _tf_serving(name, cfg, model, hw):
+    """N_TF_REQUESTS requests as phase 9 serves them: logits -> labels,
+    then the feature state through the similarity kernel; 2 x 12 flash
+    forwards (with ab) and 1 similarity forward a request."""
+    infer, state_fn = make_inference_fn(model), make_state_fn(model)
+    imgs = [_request(cfg, 900 + seed, hw) for seed in range(N_TF_REQUESTS)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    for i, img in enumerate(imgs):
+        t0 = time.time()
+        img = img.cuda()
+        logits = infer(img)
+        labels = _finalize_views(model, [logits], [{'flip': False}], hw)
+        sim = state_fn(img)['sim_feat'].cpu()
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+        if labels.shape != hw or not (
+                0 <= labels.min() and labels.max() < model.num_classes) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f'[transformers serve {name}] request {i}: '
+                                 f'bad output')
+        if tuple(sim.shape) != (1, SIM_K**2, hw[0] // 4, hw[1] // 4) or \
+                not torch.isfinite(sim).all():
+            raise AssertionError(f'[transformers serve {name}] request {i}: '
+                                 f'bad sim_feat {tuple(sim.shape)}')
+    counts, sims = _flash_counts(), cuda_neighborhood_similarity.launches
+    warm = statistics.median(times[1:])
+    log(f'[transformers serve {name}] {N_TF_REQUESTS} requests of {hw}: ms '
+        f'per request {[round(t, 2) for t in times]}, warm median '
+        f'{warm:.2f}; flash launches fwd/dkv/dq {counts}, similarity {sims}')
+    want = (2 * TF_LAYERS * N_TF_REQUESTS, 0, 0)
+    if counts != want or sims != N_TF_REQUESTS:
+        raise AssertionError(f'[transformers serve {name}] launched flash '
+                             f'{counts} (want {want}) and similarity {sims}')
+    return dict(flash=counts, sim=sims, ms=times, warm_ms=warm)
+
+
+def _tf_tables(module):
+    return {n: p for n, p in module.named_parameters()
+            if n.endswith('relative_position_bias_table')}
+
+
+def _tf_train_run(name, dtype, card):
+    """TF_TRAIN_STEPS supervised steps at full width, batch 2 of the
+    model's size (drop path on); returns (s/iter, flash launches)."""
+    hw = TF_MODELS[name][1]
+    cfg = tf_config(name, dtype=dtype)
+    _, state, step = _vit_train_setup(cfg)
+    gen = torch.Generator().manual_seed(3)
+    tables = _tf_tables(state.student)
+    start = {n: p.detach().clone() for n, p in tables.items()}
+    batches = [_vit_batch(cfg, 4000 + i, hw) for i in range(TF_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, log_vars = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        vals = {k: float(v) for k, v in log_vars.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f'[transformers train {name}] step {i}: '
+                                 f'non-finite log vars {vals}')
+    counts = _flash_counts()
+    still = [n for n, p in tables.items() if torch.equal(p, start[n])]
+    s_iter = statistics.median(times[TRAIN_WARMUP:])
+    tag = 'fp32' if dtype is None else 'bf16'
+    log(f'[transformers train {name} {tag}] {TF_TRAIN_STEPS} steps, batch 2 '
+        f'of {hw}: s/iter {[round(t, 4) for t in times]}, median after '
+        f'{TRAIN_WARMUP} warm-ups {s_iter:.4f} s on {card}; flash launches '
+        f'fwd/dkv/dq {counts}; tables moved {len(tables) - len(still)} of '
+        f'{len(tables)}; last log vars '
+        f'{json.dumps({k: round(v, 6) for k, v in vals.items()})}')
+    if counts != (TF_LAYERS * TF_TRAIN_STEPS,) * 3:
+        raise AssertionError(f'[transformers train {name}] expected '
+                             f'{TF_LAYERS} launches of each flash kernel a '
+                             f'step, got {counts}')
+    if len(tables) != TF_LAYERS or still:
+        raise AssertionError(f'[transformers train {name}] tables that did '
+                             f'not move: {still}')
+    return s_iter, counts
+
+
+def _branch_params(backbone, masks):
+    """The parameter-name prefixes under residual branches that drop path
+    dropped for every sample of the batch (``masks`` as ``backbone`` drew
+    them, one a block): their gradients are zero, on the card as on the
+    CPU."""
+    if hasattr(backbone, 'stages'):     # Swin
+        blocks = [f'backbone.stages.{i}.blocks.{j}.'
+                  for i, stage in enumerate(backbone.stages)
+                  for j in range(len(stage.blocks))]
+        branch = (('attn.', 'norm1.'), ('ffn.', 'norm2.'))
+    else:
+        blocks = [f'backbone.layers.{i}.' for i in range(len(backbone.layers))]
+        branch = (('attn.', 'ln1.', 'gamma_1'), ('ffn.', 'ln2.', 'gamma_2'))
+    out = []
+    for prefix, keep in zip(blocks, masks):
+        for b in range(2):
+            if keep is not None and not bool(keep[b].any()):
+                out += [prefix + p for p in branch[b]]
+    return tuple(out)
+
+
+def _tf_card_vs_cpu(name):
+    """Phase 11's check for an A13 model: one supervised step on the card
+    and on the CPU from the same weights and batch at 2 x 128^2 (BEiT at
+    img_size 128), dropout off, TF32 off, the configs' drop path with the
+    same masks on both sides (drawn on the CPU from the step's seed;
+    recorded and compared); every relative-position table gets a non-zero
+    gradient where its branch was kept."""
+    from pfst_tpu_torch.models.backbones import beit as beit_mod
+    from pfst_tpu_torch.models.backbones import swin as swin_mod
+    cfg = tf_config(name, img_size=TF_CHECK_HW[0], dropout=False)
+    batch = {k: v.cpu() for k, v in _vit_batch(cfg, 7, TF_CHECK_HW).items()}
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    threads = torch.get_num_threads()
+    draw = beit_mod.drop_path_masks
+    drawn = {}
+    sides, zero_tables = {}, {}
+    try:
+        for side, device, n in (('card', 'cuda', threads),
+                                ('cpu', 'cpu', threads), ('cpu1', 'cpu', 1)):
+            torch.set_num_threads(n)
+
+            def record(*args, side=side):
+                drawn[side] = draw(*args)
+                return drawn[side]
+            beit_mod.drop_path_masks = swin_mod.drop_path_masks = record
+            _, state, step = _vit_train_setup(cfg, device)
+            _, log_vars = step(state, {k: v.to(device)
+                                       for k, v in batch.items()},
+                               torch.Generator().manual_seed(5))
+            sides[side] = ({k: float(v) for k, v in log_vars.items()},
+                           _grad_groups(state))
+            zero_tables[side] = sorted(
+                n for n, p in _tf_tables(state.student).items()
+                if not p.grad.any())
+            if side == 'card':
+                card_grads = {n: p.grad for n, p in
+                              state.student.named_parameters()}
+                backbone = state.student.backbone
+    finally:
+        beit_mod.drop_path_masks = swin_mod.drop_path_masks = draw
+        torch.set_num_threads(threads)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    same = all(
+        (a is None and b is None) or (a is not None and b is not None
+                                      and torch.equal(a.cpu(), b.cpu()))
+        for other in ('cpu', 'cpu1')
+        for a, b in zip(drawn['card'], drawn[other]))
+    dropped = _branch_params(backbone, drawn['card'])
+    zero = sorted(n for n, g in card_grads.items() if not g.any())
+    expected = sorted(n for n in card_grads if n.startswith(dropped))
+    want_tables = [n for n in expected
+                   if n.endswith('relative_position_bias_table')]
+    tag = f'[transformers card-vs-cpu {name}] {TF_CHECK_HW}'
+    log(f'{tag}: drop-path masks equal on both sides {same}; branches '
+        f'dropped for the whole batch {len(dropped) // 2}; tables with a '
+        f'zero gradient card {zero_tables["card"]} cpu '
+        f'{zero_tables["cpu"]}')
+    if not same or zero != expected or any(
+            zero_tables[s] != want_tables for s in sides):
+        raise AssertionError(f'{tag}: masks equal {same}, zero gradients '
+                             f'{zero[:6]} (expected {expected[:6]})')
+    _check_train_sides(sides, threads, tag, allowed_zero=len(expected))
+
+
+def _tf_loop(card, data):
+    """BEiT UPerNet through ``train_segmentor`` on phase 13's packs: the
+    source-only config with its model replaced by ``upernet_beit.py`` at
+    img_size 512 (its 512^2 crops) and 6 classes, evaluated in slide mode
+    (512^2 windows, stride 341) on the 1024^2 Vaihingen validation tiles,
+    then ``tools/test_torch.py`` on the checkpoint (``_config_run``); 12
+    launches of each flash kernel an iteration, and forwards for the
+    evaluations."""
+    pots, vaih, _ = data
+    cfg = _config_loop_config(SOURCE_ONLY, CONFIG_LOOP_ITERS, pots, vaih)
+    model = Config.fromfile(BEIT).model
+    model['backbone']['img_size'] = TF_LOOP_CROP
+    for head in ('decode_head', 'auxiliary_head'):
+        model[head]['num_classes'] = 6
+    model['test_cfg'] = dict(mode='slide',
+                             crop_size=(TF_LOOP_CROP, TF_LOOP_CROP),
+                             stride=(TF_LOOP_STRIDE, TF_LOOP_STRIDE))
+    cfg.model = model
+    out = _config_run(card, 'beit_upernet', cfg, False)
+    counts = _flash_counts()
+    log(f'[transformers loop] flash launches fwd/dkv/dq {counts} in '
+        f'{CONFIG_LOOP_ITERS} iterations, two slide-mode evaluations')
+    if counts[1:] != (TF_LAYERS * CONFIG_LOOP_ITERS,) * 2 or \
+            counts[0] <= counts[1]:
+        raise AssertionError(f'[transformers loop] flash launches {counts}')
+    out['flash'] = counts
+    return out
+
+
+def phase_transformers(card, data, ab_cases):
+    """Phase 19: BEiT-B, MAE-B (640^2) and Swin-T (512^2) UPerNet at full
+    width: requests, supervised steps in fp32 and bf16 autocast, BEiT and
+    Swin card against CPU, BEiT through the loop; the flash kernels run
+    with the tables' ab throughout."""
+    t0 = time.time()
+    serve, train = {}, {}
+    for name in TF_MODELS:
+        cfg = tf_config(name)
+        model = init_segmentor(cfg)
+        serve[name] = _tf_serving(name, cfg, model, TF_MODELS[name][1])
+        del model
+        torch.cuda.empty_cache()
+        for tag, dtype in (('fp32', None), ('bf16', 'bfloat16')):
+            train[(name, tag)] = _tf_train_run(name, dtype, card)
+            torch.cuda.empty_cache()
+    for name in ('beit', 'swin'):
+        _tf_card_vs_cpu(name)
+    loop = _tf_loop(card, data)
+    kernel_ms = {c['bias']: {k: (c['device_ms'][k], c['bound_ms'][k])
+                             for k in ('fwd', 'dkv', 'dq')}
+                 for c in ab_cases if c['dtype'] == 'float32'
+                 and 'device_ms' in c}
+    launches = [sum(r['flash'][i] for r in serve.values())
+                + sum(t[1][i] for t in train.values()) + loop['flash'][i]
+                for i in range(3)]
+    log(f'[transformers] warm ms per request ' + ', '.join(
+        f'{n} {r["warm_ms"]:.2f}' for n, r in serve.items())
+        + '; s/iter batch 2 ' + ', '.join(
+            f'{n} {t} {v[0]:.4f}' for (n, t), v in train.items())
+        + f'; fp32 device ms per kernel (and bound) {kernel_ms}; flash '
+        f'launches fwd/dkv/dq {launches}; phase {time.time() - t0:.1f} s '
+        f'on {card}')
+    return dict(serve=serve, train=train, loop=loop, launches=launches)
+
+
+def _flash_entries(cases, serve, train, ab_cases, tf):
     """The kernels-line entries of the three flash kernels: times of the
-    serving shape (forward) and the training shape (backward), fp32."""
+    ViT serving shape (forward) and training shape (backward), fp32; the
+    launches of phases 9, 11 and 19; and the cases with the bias
+    (``ab_cases``, phase 3c), with their times, bounds and SDPA's with
+    the same bias as a float mask."""
     fwd = next(c for c in cases if c['shape'] == [1, 12, 1025, 64]
                and c['dtype'] == 'float32')
     bwd = next(c for c in cases if c['shape'] == [2, 12, 1025, 64]
@@ -3195,10 +3670,20 @@ def _flash_entries(cases, serve, train):
             source='pfst_tpu_torch/ops/csrc/flash_attention.cu',
             replaces=f'{lib}:{line}',
             called_from='tools/attn_microbench.py:30',
-            launches=serve['flash'][i] + train_launches,
+            launches=serve['flash'][i] + train_launches
+            + tf['launches'][i],
+            launches_vit=serve['flash'][i] + train_launches,
+            launches_transformers=tf['launches'][i],
+            launches_per_transformer_request=tf['serve']['beit']['flash'][i]
+            / N_TF_REQUESTS,
+            launches_per_transformer_step=sum(
+                t[1][i] for t in tf['train'].values())
+            / (TF_TRAIN_STEPS * len(tf['train'])),
             launches_per_request=serve['flash'][i] / N_VIT_REQUESTS,
             launches_per_train_step=train_launches / steps,
-            max_abs_err=max(errs),
+            max_abs_err=max(errs + [c['fwd_err'] if i == 0 else max(
+                c['dk_err'], c['dv_err']) if i == 1 else max(
+                    c['dq_err'], c['dab_err']) for c in ab_cases]),
             max_abs_err_fp32=max(e for e, c in zip(errs, cases)
                                  if c['dtype'] == 'float32'),
             ms=case['ms'][kernel], device_ms=case['device_ms'][kernel],
@@ -3217,44 +3702,75 @@ def _flash_entries(cases, serve, train):
                       'device_ms': c['device_ms'][kernel],
                       'bound_ms': c['bound_ms'][kernel],
                       'library_device_ms': c['library_device_ms'][
-                          'fwd' if i == 0 else 'bwd']} for c in cases]))
+                          'fwd' if i == 0 else 'bwd']} for c in cases],
+            ab_cases=[{k: c[k] for k in ('shape', 'dtype', 'layout', 'bias',
+                                         'ab_shape')}
+                      | _ab_case_entry(c, kernel, i) for c in ab_cases]))
     return rows
 
 
+def _ab_case_entry(c, kernel, i):
+    err = (c['fwd_err'] if i == 0 else max(c['dk_err'], c['dv_err'])
+           if i == 1 else max(c['dq_err'], c['dab_err']))
+    out = dict(max_abs_err=err,
+               repeat_bitwise_equal=c['repeat_bitwise_equal'])
+    if 'ms' in c:
+        out.update(
+            ms=c['ms'][kernel], device_ms=c['device_ms'][kernel],
+            bound_ms=c['bound_ms'][kernel], bound_by=c['bound_by'][kernel],
+            plain_ms=c['plain_fwd_ms'] if i == 0 else c['plain_bwd_ms'],
+            library_ms=c['library_fwd_ms'] if i == 0
+            else c['library_bwd_ms'],
+            library_device_ms=c['library_device_ms'][
+                'fwd' if i == 0 else 'bwd'])
+    return out
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``PHASE_S`` under its name
+    without ``phase_``."""
+    t0 = time.time()
+    out = fn(*args)
+    PHASE_S[fn.__name__.removeprefix('phase_')] = round(time.time() - t0, 1)
+    return out
+
+
 def main():
-    card = phase_card()
-    phase_build()
-    cases = phase_kernel_vs_plain()
-    bwd_cases, bwd_geometry = phase_backward_vs_plain()
-    flash_cases = phase_flash_vs_plain()
+    card = timed(phase_card)
+    timed(phase_build)
+    cases = timed(phase_kernel_vs_plain)
+    bwd_cases, bwd_geometry = timed(phase_backward_vs_plain)
+    flash_cases = timed(phase_flash_vs_plain)
+    ab_cases = timed(phase_flash_bias_vs_plain)
     cfg = Config.fromfile(LEAF)
     model = init_segmentor(cfg)      # seeded random weights, on the card
-    launches, _ = phase_serving(cfg, model)
-    phase_card_vs_cpu(cfg, model)
-    phase_pseudo_label(cfg, model, card)
+    launches, _ = timed(phase_serving, cfg, model)
+    timed(phase_card_vs_cpu, cfg, model)
+    timed(phase_pseudo_label, cfg, model, card)
     del model
     torch.cuda.empty_cache()
-    train = phase_train(cfg, card)
-    phase_train_card_vs_cpu(cfg)
+    train = timed(phase_train, cfg, card)
+    timed(phase_train_card_vs_cpu, cfg)
     vit_cfg = vit_config()
     vit_model = init_segmentor(vit_cfg)      # seeded random weights
-    vit_serve = phase_vit_serving(vit_cfg, vit_model)
+    vit_serve = timed(phase_vit_serving, vit_cfg, vit_model)
     del vit_model
     torch.cuda.empty_cache()
-    phase_vit_card_vs_cpu()
-    vit_train = phase_vit_train(card)
-    phase_vit_train_card_vs_cpu()
-    phase_microbench()
+    timed(phase_vit_card_vs_cpu)
+    vit_train = timed(phase_vit_train, card)
+    timed(phase_vit_train_card_vs_cpu)
+    timed(phase_microbench)
     data_root = tempfile.mkdtemp(prefix='pfst_isprs_')
     try:
-        data = isprs_data(data_root)
-        loop = phase_loop(card, train['fp32'][0], data)
-        configs = phase_loop_configs(card, data)
-        eo = phase_eo(card)
-        uda = phase_uda(card, cfg, train['fp32'][0], data)
-        adaptors = phase_adaptors(card, cfg, train['fp32'][0], data)
-        pseudo = phase_pseudo_labels(card, data, cases)
-        hooks = phase_hooks(card, data)
+        data = timed(isprs_data, data_root)
+        loop = timed(phase_loop, card, train['fp32'][0], data)
+        configs = timed(phase_loop_configs, card, data)
+        eo = timed(phase_eo, card)
+        uda = timed(phase_uda, card, cfg, train['fp32'][0], data)
+        adaptors = timed(phase_adaptors, card, cfg, train['fp32'][0], data)
+        pseudo = timed(phase_pseudo_labels, card, data, cases)
+        hooks = timed(phase_hooks, card, data)
+        tf = timed(phase_transformers, card, data, ab_cases)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
@@ -3273,6 +3789,7 @@ def main():
         source='pfst_tpu_torch/ops/csrc/neighborhood_sim.cu',
         replaces='pfst_tpu/ops/pallas_sim.py:35',
         launches=launches + train_fwd + vit_serve['sim']
+        + sum(r['sim'] for r in tf['serve'].values())
         + loop['launches'][0] + loop['launches_b'][0] + eo_fwd
         + uda['launches'][0] + cfg_fwd + adaptors['launches'][0]
         + pseudo['launches'][0] + hooks['launches'][0],
@@ -3318,7 +3835,8 @@ def main():
         plain_ms=bwd_case['plain_ms'],
         bound_ms=bwd_case['bound_ms'], bound_by=bwd_case['bound_by'],
         library_ms=None, cases=bwd_cases, geometry_cases=bwd_geometry)]
-    kernels += _flash_entries(flash_cases, vit_serve, vit_train)
+    kernels += _flash_entries(flash_cases, vit_serve, vit_train, ab_cases,
+                              tf)
     log(f'[train] s/iter batch 2 of {TRAIN_HW}: fp32 {train["fp32"][0]:.4f}, '
         f'bf16 {train["bf16"][0]:.4f} on {card}')
     log(f'[vit] warm ms per {VIT_HW} request {vit_serve["warm_ms"]:.2f}; '
@@ -3342,6 +3860,9 @@ def main():
     log('[configs] s/iter through the loop: ' + ', '.join(
         f'{n} {r["s_iter_median"]:.4f}' for n, r in configs.items())
         + f' on {card}')
+    log(f'[phases] wall s {json.dumps(PHASE_S)}; in phases '
+        f'{sum(PHASE_S.values()):.1f} s, since the imports '
+        f'{time.time() - T_START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -19,7 +19,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
-from .convert import discriminator_key_to_flax, torch_key_to_flax
+from .convert import (backbone_family, discriminator_key_to_flax,
+                      torch_key_to_flax)
 
 
 def build_lr_schedule(lr_config: Optional[dict], base_lr: float,
@@ -114,18 +115,21 @@ def _layer_id_from_path(path: str, num_layers: int) -> int:
     return num_layers + 1
 
 
-def param_paths(named_params) -> Dict[str, str]:
+def param_paths(named_params, backbone: Optional[str] = None
+                ) -> Dict[str, str]:
     """Each parameter's name in the JAX package's tree, ``/``-joined
     (``backbone_mod/layer4_block0/conv1/conv/kernel``), where
     ``core.convert`` maps it, else its own name: the multipliers of
     ``paramwise_cfg`` and layer decay are read from these paths, as the JAX
-    file reads them from the flax paths."""
+    file reads them from the flax paths. ``backbone``: the model's
+    ``core.convert.backbone_family``."""
     named = list(named_params)
     uper = {n.split('.')[0] for n, _ in named if '.fpn_bottleneck.' in n}
     out = {}
     for name, p in named:
         mapped = torch_key_to_flax(name, p.ndim,
-                                   uper=name.split('.')[0] in uper) \
+                                   uper=name.split('.')[0] in uper,
+                                   backbone=backbone) \
             or discriminator_key_to_flax(name)
         out[name] = '/'.join(mapped[1]) \
             if mapped and mapped[0] == 'params' else name
@@ -333,7 +337,8 @@ def build_optimizer(optimizer_cfg: dict,
 
     The factory takes a module, its ``named_parameters()``, or, without
     ``paramwise_cfg`` and layer decay, bare parameters. Multipliers are
-    read from each parameter's JAX path (``param_paths``)."""
+    read from each parameter's JAX path (``param_paths``); a BEiT's or
+    Swin's paths need the module, whose backbone names its key family."""
     cfg, mults = _paramwise(optimizer_cfg)
     opt_type = cfg.pop('type', 'AdamW')
     base_lr = cfg.pop('lr', 1e-3)
@@ -357,6 +362,7 @@ def build_optimizer(optimizer_cfg: dict,
     max_norm = grad_clip.get('max_norm', 1.0) if grad_clip else None
 
     def bind(params) -> ScheduledOptimizer:
+        family = backbone_family(params)
         if isinstance(params, torch.nn.Module):
             params = params.named_parameters()
         params = list(params)
@@ -367,7 +373,7 @@ def build_optimizer(optimizer_cfg: dict,
             raise ValueError('paramwise_cfg and layer decay need named '
                              'parameters (a module or named_parameters())')
         else:
-            paths = param_paths(params)
+            paths = param_paths(params, family)
             by_mult: Dict[tuple, list] = {}
             for name, p in params:
                 by_mult.setdefault(mults(paths[name]), []).append(p)

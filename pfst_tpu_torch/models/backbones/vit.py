@@ -13,6 +13,8 @@ through ``ops.attention``: the flash kernels on the card, the plain
 formula on the CPU. Like the JAX file, ``drop_rate`` and ``norm_cfg``
 are accepted and unused, and a position-embedding resize supports only
 the modes of ``ops.resize`` (no bicubic: it raises, as JAX does).
+``with_cp`` rematerialises each block in the backward
+(``torch.utils.checkpoint``, the JAX file's ``nn.remat``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops import attention, resize
 from ..builder import BACKBONES
@@ -87,6 +90,15 @@ class ViTBlock(nn.Module):
         return x + self.ffn(self.ln2(x))
 
 
+def run_block(block: nn.Module, with_cp: bool, x, *args):
+    """``block(x, *args)``; with ``with_cp``, while a gradient is taken,
+    through ``torch.utils.checkpoint`` (not reentrant): its activations
+    are recomputed in the backward instead of kept."""
+    if with_cp and torch.is_grad_enabled():
+        return checkpoint(block, x, *args, use_reentrant=False)
+    return block(x, *args)
+
+
 class PatchEmbed(nn.Module):
 
     def __init__(self, in_channels: int, embed_dims: int, patch_size: int):
@@ -125,9 +137,7 @@ class VisionTransformer(nn.Module):
         # output_cls_token, pretrained and init_cfg are accepted for
         # config compatibility and unused, as in the JAX file
         del output_cls_token, drop_rate, norm_cfg, pretrained, init_cfg
-        if with_cp:
-            raise NotImplementedError('with_cp (block rematerialisation) is '
-                                      'not ported')
+        self.with_cp = with_cp
         self.img_size = img_size
         self.patch_size = patch_size
         self.out_indices = tuple(out_indices)
@@ -188,7 +198,7 @@ class VisionTransformer(nn.Module):
             seq = seq + grid_pos
         outs = []
         for i, layer in enumerate(self.layers):
-            seq = layer(seq)
+            seq = run_block(layer, self.with_cp, seq)
             if i in self.out_indices:
                 outs.append(seq[:, 1:] if self.with_cls_token else seq)
         if self.final_norm and outs:

@@ -23,8 +23,11 @@ _OPS_DIR = osp.dirname(osp.abspath(__file__))
 CSRC_DIR = osp.join(_OPS_DIR, 'csrc')
 BUILD_DIR = osp.join(osp.dirname(osp.dirname(_OPS_DIR)), 'build',
                      'pfst_tpu_torch')
+# --split-compile=0 optimizes the kernels of one source on every core
+# (flash_attention.cu's 36 instantiations: 20 s instead of 37 s on the
+# H100 machine, the same SASS up to register choice)
 NVCC_FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
-              '-Xcompiler', '-fPIC', '-shared')
+              '--split-compile=0', '-Xcompiler', '-fPIC', '-shared')
 
 _libs = {}
 _lock = threading.Lock()

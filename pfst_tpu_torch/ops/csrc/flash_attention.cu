@@ -4,13 +4,16 @@
 // reaches through jax.experimental.pallas.ops.tpu.flash_attention (jax
 // 0.9.0): the forward (_flash_attention_impl, pallas_call at :758), dK/dV
 // (_flash_attention_bwd_dkv, :1121) and dQ (_flash_attention_bwd_dq,
-// :1456), for the case the port runs: non-causal, no bias, no segment ids.
+// :1456), for the case the port runs: non-causal, no segment ids, with
+// or without the library's additive bias ab (flash_attention.py:144).
 //
-//   forward:  O = softmax(S) V with S = (Q K^T) * scale, and per query row
-//             LSE = max_j S + log sum_j exp(S - max_j S)   (fp32)
+//   forward:  O = softmax(S) V with S = (Q K^T + ab) * scale, and per query
+//             row LSE = max_j S + log sum_j exp(S - max_j S)   (fp32)
 //   backward: P = exp(S - LSE), Di = rowsum(dO * O)  (computed by the caller,
 //             as the library computes it in XLA), dS = P * (dO V^T - Di),
-//             dV = P^T dO, dK = (dS scale)^T Q, dQ = (dS scale) K
+//             dV = P^T dO, dK = (dS scale)^T Q, dQ = (dS scale) K, and
+//             dab = dS scale in fp32 (the dQ kernel, where the library's
+//             dQ kernel writes it, flash_attention.py:1243-1253)
 //
 // q, k, v, dO are (B, H, N, D) fp32 or bf16 with a contiguous last
 // dimension, base addresses and batch, head and row strides that are
@@ -18,7 +21,18 @@
 // aligned bases and strides; the wrapper copies a tensor that breaks
 // this); O, dQ, dK, dV are written with the strides the caller gives, in
 // the input type; LSE and Di are (B, H, N) fp32, contiguous. D is 32, 64
-// or 128.
+// or 128. ab (optional, null for none) and dab (the dQ kernel's, optional)
+// are (B, H, N, N) fp32 with a contiguous last dimension, read and written
+// through their own batch, head and row strides (a batch stride of 0
+// serves one bias to every batch). Every kernel adds ab[row, key] to the
+// accumulator element that holds that query row and key, with plain
+// loads in the accumulators' layout (in dK/dV, whose accumulators are
+// indexed by key row, down a column of ab). Each kernel is a template on
+// kBias: without a bias the launch takes the instantiation that has none
+// of this code, the kernels as they were before it, and their results.
+// ab adds 4 N^2 bytes a (b, h) to each kernel's reads and dab as many to
+// dQ's writes: at the BEiT's N = 1601 that makes the bf16 kernels bound
+// by bytes.
 //
 // What bounds it: the forward does 4*B*H*N^2*D flops on B*H*N*(4D) values
 // (N/2 flops per byte at D = 64, fp32), the backward 10*B*H*N^2*D, so at
@@ -85,10 +99,85 @@ constexpr int kRows = 64;      // rows a block owns
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// batch, head and row strides (elements) of up to six tensors
+// batch, head and row strides (elements) of up to six tensors, then of
+// ab (slot kAb) and dab (slot kDab)
+constexpr int kAb = 6, kDab = 7;
 struct Strides {
-  long long t[6][3];
+  long long t[8][3];
 };
+
+// The bias rows of the lane's accumulator rows row and row + 8 of head
+// (b, h) of t (ab or dab, by slot), or null where t is absent or the row
+// lies at or past N.
+template <typename T>
+__device__ __forceinline__ void bias_rows(T* (&r)[2], T* t, const Strides& st,
+                                          int slot, int b, int h, int row,
+                                          int N) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    r[i] = t != nullptr && row + 8 * i < N
+               ? t + b * st.t[slot][0] + h * st.t[slot][1] +
+                     (row + 8 * i) * st.t[slot][2]
+               : nullptr;
+}
+
+// ab + key, the head of the bias column of the lane's key rows key and
+// key + 8 of head (b, h) (dK/dV), or null where ab is absent or the key
+// lies at or past N.
+__device__ __forceinline__ void bias_cols(const float* (&k)[2],
+                                          const float* ab, const Strides& st,
+                                          int b, int h, int key, int N) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    k[i] = ab != nullptr && key + 8 * i < N
+               ? ab + b * st.t[kAb][0] + h * st.t[kAb][1] + key + 8 * i
+               : nullptr;
+}
+
+// s[j][e] += ab[row][key] for the accumulators of rows g (e < 2), g + 8
+// (r[0], r[1]) and keys c0 + 8 j + e % 2 before N (c0 = tile start + 2 t).
+template <int NB>
+__device__ __forceinline__ void add_bias(float (&s)[NB][4],
+                                         const float* const (&r)[2], int c0,
+                                         int N) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + 8 * j + (e & 1);
+      if (r[e >> 1] != nullptr && c < N) s[j][e] += r[e >> 1][c];
+    }
+}
+
+// The same for dK/dV's transposed accumulators: rows are keys, columns
+// queries, so element (key, query) adds ab[query][key], read down the
+// column of each key (k[0], k[1]: ab + key; rs: ab's row stride).
+template <int NB>
+__device__ __forceinline__ void add_bias_t(float (&s)[NB][4],
+                                           const float* const (&k)[2],
+                                           long long rs, int c0, int N) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + 8 * j + (e & 1);
+      if (k[e >> 1] != nullptr && c < N) s[j][e] += k[e >> 1][c * rs];
+    }
+}
+
+// dab[row][key] = ds[j][e] for the rows r[0], r[1] and keys before N.
+template <int NB>
+__device__ __forceinline__ void store_dab(const float (&ds)[NB][4],
+                                          float* const (&r)[2], int c0,
+                                          int N) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + 8 * j + (e & 1);
+      if (r[e >> 1] != nullptr && c < N) r[e >> 1][c] = ds[j][e];
+    }
+}
 
 // Tile shapes of the mma.sync kernels (fp32 forward and dK/dV). A
 // streamed tile holds 64 rows where a row is at most 128 bytes (fp32
@@ -107,12 +196,13 @@ constexpr size_t fwd_smem_bytes() {
   return (kRows + 4 * Tile<T, D>::kCols) * Tile<T, D>::kLd * sizeof(T);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int N, float scale,
-                     Strides st) {
+                     float* __restrict__ lse,
+                     const float* __restrict__ ab, int H, int N,
+                     float scale, Strides st) {
   using M = pfst::Mma<T>;
   constexpr int LD = Tile<T, D>::kLd;
   constexpr int KT = Tile<T, D>::kCols;  // keys per tile
@@ -144,6 +234,8 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {-INFINITY, -INFINITY};  // running max of S log2 e, rows g, g+8
   float l[2] = {0.f, 0.f};              // this lane's part of the row sums
   const float sl2 = scale * kLog2e;
+  const float* abr[2];
+  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), N);
   for (int it = 0; it < tiles; ++it) {
     const int stage = it & 1;
     if (it + 1 < tiles) {
@@ -178,8 +270,9 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // online softmax on the fragments: rows g (e < 2) and g + 8, keys
-    // it KT + 8 j + 2 t + e % 2; keys past N masked
+    // it KT + 8 j + 2 t + e % 2; the bias added first; keys past N masked
     const int c0 = it * KT + 2 * (lane & 3);
+    if constexpr (kBias) add_bias(s, abr, c0, N);
     float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NB; ++j)
@@ -249,12 +342,13 @@ constexpr size_t dkv_smem_bytes() {
          4 * Tile<T, D>::kCols * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ di, T* __restrict__ dk,
+                         const float* __restrict__ di,
+                         const float* __restrict__ ab, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int N, float scale,
                          Strides st) {
   using M = pfst::Mma<T>;
@@ -299,6 +393,8 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t kf[kHold ? KS : 1][4], vf[kHold ? KS : 1][4];
   float dka[DB][4] = {}, dva[DB][4] = {};
   const float sl2 = scale * kLog2e;
+  const float* abk[2];
+  bias_cols(abk, ab, st, b, h, row0 + wr + (lane >> 2), N);
   for (int it = 0; it < tiles; ++it) {
     const int stage = it & 1;
     if (it + 1 < tiles) {
@@ -356,10 +452,11 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // P^T and dS^T s on the fragments: key rows g, g + 8, query columns
-    // 8 j + 2 t + e % 2 of the tile; queries past N give P = 0. dS^T is
-    // scaled before a_from_acc rounds it, as the TPU kernel scales ds
-    // before ds.T.astype
+    // 8 j + 2 t + e % 2 of the tile, the bias added first; queries past N
+    // give P = 0. dS^T is scaled before a_from_acc rounds it, as the TPU
+    // kernel scales ds before ds.T.astype
     const int c0 = 2 * (lane & 3);
+    if constexpr (kBias) add_bias_t(s, abk, st.t[kAb][2], it * QT + c0, N);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -466,13 +563,14 @@ __device__ __forceinline__ float (&slice(float (&acc)[M][4], int r))[W / 8]
   return *reinterpret_cast<float(*)[W / 8][4]>(&acc[r * (W / 8)]);
 }
 
-template <int D, int C>
+template <int D, int C, bool kBias>
 __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int H, int N,
+                           float* __restrict__ lse,
+                           const float* __restrict__ ab, int H, int N,
                            float scale, Strides st) {
   using T = __nv_bfloat16;
   using M = pfst::Mma<T>;
@@ -539,6 +637,8 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   float m[2] = {-INFINITY, -INFINITY};  // running max of S log2 e, rows g, g+8
   float l[2] = {0.f, 0.f};              // this lane's part of the row sums
   const float sl2 = scale * kLog2e;
+  const float* abr[2];
+  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), N);
 
   pfst::mbar_wait(q_full, 0);
   for (int it = 0; it < tiles; ++it) {
@@ -559,9 +659,10 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
     pfst::wgmma_wait<0>();
     pfst::fence_regs(sc);
 
-    // online softmax on the fragments, as in flash_fwd_kernel, with the
-    // scale folded into one FMA before 2^x; only the last tile holds keys
-    // past N (masked to -inf)
+    // online softmax on the fragments, as in flash_fwd_kernel (the bias
+    // added first), with the scale folded into one FMA before 2^x; only
+    // the last tile holds keys past N (masked to -inf)
+    if constexpr (kBias) add_bias(sc, abr, it * KT + 2 * (lane & 3), N);
     if ((it + 1) * KT > N) {
       const int c0 = it * KT + 2 * (lane & 3);
 #pragma unroll
@@ -666,7 +767,7 @@ struct DkvSmem {
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
 };
 
-template <int D, int C>
+template <int D, int C, bool kBias>
 __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -674,6 +775,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
                                const __grid_constant__ CUtensorMap tdo,
                                const float* __restrict__ lse,
                                const float* __restrict__ di,
+                               const float* __restrict__ ab,
                                __nv_bfloat16* __restrict__ dk,
                                __nv_bfloat16* __restrict__ dv, int H, int N,
                                float scale, Strides st) {
@@ -754,6 +856,8 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   const int wr = kr + ((threadIdx.x >> 5) & 3) * 16;  // the warp's keys
   float dka[DB][4] = {}, dva[DB][4] = {};
   const float sl2 = scale * kLog2e;
+  const float* abk[2];
+  bias_cols(abk, ab, st, b, h, row0 + wr + (lane >> 2), N);
 
   // S^T = K Q^T and dP^T = V dO^T, all K-major in shared memory, into sc
   // and dp; issued one tile ahead, right behind the dV and dK products of
@@ -781,8 +885,11 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
     pfst::fence_regs(sc);
     pfst::fence_regs(dp);
 
-    // P^T and dS^T s, as in flash_bwd_dkv_kernel, the scale folded into
-    // one FMA before 2^x; only the last tile holds queries past N (P = 0)
+    // P^T and dS^T s, as in flash_bwd_dkv_kernel (the bias added first),
+    // the scale folded into one FMA before 2^x; only the last tile holds
+    // queries past N (P = 0)
+    if constexpr (kBias)
+      add_bias_t(sc, abk, st.t[kAb][2], it * QT + 2 * (lane & 3), N);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -1084,7 +1191,7 @@ __device__ __forceinline__ void dq_scores(float (&sc)[NB][4],
   }
 }
 
-template <typename T, int D, int C>
+template <typename T, int D, int C, bool kBias>
 // (bf16 with one consumer warpgroup: two blocks an SM; fp32's shared
 // memory takes one SM)
 __global__ void __launch_bounds__(128 * (C + 1),
@@ -1095,8 +1202,9 @@ __global__ void __launch_bounds__(128 * (C + 1),
                               const __grid_constant__ CUtensorMap tdo,
                               const float* __restrict__ lse,
                               const float* __restrict__ di,
-                              T* __restrict__ dq, int H, int N, float scale,
-                              Strides st) {
+                              const float* __restrict__ ab,
+                              T* __restrict__ dq, float* __restrict__ dab,
+                              int H, int N, float scale, Strides st) {
   using L = DqSmem<T, D, C>;
   using S = DqStage<T, D, C>;
   constexpr bool kSplit = L::kSplit;
@@ -1183,6 +1291,10 @@ __global__ void __launch_bounds__(128 * (C + 1),
   }
   float dqa[DB][4] = {};
   const float sl2 = scale * kLog2e;
+  const float* abr[2];
+  float* dabr[2];
+  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), N);
+  bias_rows(dabr, dab, st, kDab, b, h, row0 + wr + (lane >> 2), N);
 
   // fp32: each warp splits its own rows of Q and dO, hi in place and lo
   // into registers; the warpgroup's wgmma reads all its 64 rows, so its
@@ -1212,8 +1324,11 @@ __global__ void __launch_bounds__(128 * (C + 1),
     pfst::fence_regs(dp);
 
     // dS s on the fragments: query rows g, g + 8, keys it KT + 8 j + 2 t
-    // + e % 2, the scale folded into one FMA before 2^x; only the last
-    // tile holds keys past N (P = 0)
+    // + e % 2, the bias added first, the scale folded into one FMA before
+    // 2^x; only the last tile holds keys past N (P = 0). dab = dS s in
+    // fp32, before the rounding (bf16) or the split (fp32) that feeds the
+    // dQ product, where the library's dQ kernel writes ds
+    if constexpr (kBias) add_bias(sc, abr, it * KT + 2 * (lane & 3), N);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -1229,6 +1344,7 @@ __global__ void __launch_bounds__(128 * (C + 1),
         for (int e = 0; e < 4; ++e)
           if (c0 + 8 * j + (e & 1) >= N) dp[j][e] = 0.f;
     }
+    if constexpr (kBias) store_dab(dp, dabr, it * KT + 2 * (lane & 3), N);
 
     // dQ += (dS s) K, dS s from registers (fp32: hi in sa, lo in sl); then
     // the next tile's S and dP behind it
@@ -1305,9 +1421,11 @@ struct Args {
   const void* dout;
   const float* lse_in;
   const float* di;
+  const float* ab;  // null: no bias
   void* out0;   // O, dK or dQ
   void* out1;   // dV
   float* lse_out;
+  float* dab;   // null: not written
   int B, H, N;
   float scale;
   Strides st;
@@ -1331,7 +1449,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
 
 // The wgmma kernels (bf16 forward and dK/dV): tensor maps of q, k, v (and
 // dO), built on the host for each launch.
-template <int D>
+template <int D, bool kBias>
 cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
                          cudaStream_t stream) {
   using T = __nv_bfloat16;
@@ -1348,12 +1466,14 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
     if (err == cudaSuccess)
       err = pfst::bhnd_map<T, D, L::kKeys>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
     if (err == cudaSuccess)
-      err = allow_smem(flash_fwd_wgmma_kernel<D, kFwdWG>, L::kBytes, device,
+      err = allow_smem(flash_fwd_wgmma_kernel<D, kFwdWG, kBias>, L::kBytes,
+                       device,
                        done);
     if (err != cudaSuccess) return err;
-    flash_fwd_wgmma_kernel<D, kFwdWG><<<grid, threads, L::kBytes, stream>>>(
-        tq, tk, tv, static_cast<T*>(a.out0), a.lse_out, a.H, a.N, a.scale,
-        a.st);
+    flash_fwd_wgmma_kernel<D, kFwdWG, kBias>
+        <<<grid, threads, L::kBytes, stream>>>(
+        tq, tk, tv, static_cast<T*>(a.out0), a.lse_out, a.ab, a.H, a.N,
+        a.scale, a.st);
   } else {
     using L = DkvSmem<D, kDkvWG>;
     const dim3 threads(128 * (kDkvWG + 1));
@@ -1369,12 +1489,12 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
       err = pfst::bhnd_map<T, D, L::kQueries>(&tdo, a.dout, a.B, a.H, a.N,
                                            a.st.t[3]);
     if (err == cudaSuccess)
-      err = allow_smem(flash_bwd_dkv_wgmma_kernel<D, kDkvWG>, L::kBytes,
+      err = allow_smem(flash_bwd_dkv_wgmma_kernel<D, kDkvWG, kBias>, L::kBytes,
                        device, done);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_wgmma_kernel<D, kDkvWG>
+    flash_bwd_dkv_wgmma_kernel<D, kDkvWG, kBias>
         <<<grid, threads, L::kBytes, stream>>>(
-        tq, tk, tv, tdo, a.lse_in, a.di, static_cast<T*>(a.out0),
+        tq, tk, tv, tdo, a.lse_in, a.di, a.ab, static_cast<T*>(a.out0),
         static_cast<T*>(a.out1), a.H, a.N, a.scale, a.st);
   }
   return cudaGetLastError();
@@ -1382,7 +1502,7 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
 
 // dQ, both types: tensor maps of q, k, v, dO, built on the host for each
 // launch.
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 cudaError_t launch_dq(const Args& a, int device, cudaStream_t stream) {
   constexpr int C = dq_wg<T, D>();
   using L = DqSmem<T, D, C>;
@@ -1399,24 +1519,25 @@ cudaError_t launch_dq(const Args& a, int device, cudaStream_t stream) {
     err = pfst::bhnd_map<T, D, L::kRows>(&tdo, a.dout, a.B, a.H, a.N,
                                          a.st.t[3]);
   if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dq_wgmma_kernel<T, D, C>, L::kBytes, device,
+    err = allow_smem(flash_bwd_dq_wgmma_kernel<T, D, C, kBias>, L::kBytes,
+                     device,
                      done);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<T, D, C><<<grid, 128 * (C + 1), L::kBytes,
+  flash_bwd_dq_wgmma_kernel<T, D, C, kBias><<<grid, 128 * (C + 1), L::kBytes,
                                        stream>>>(
-      tq, tk, tv, tdo, a.lse_in, a.di, static_cast<T*>(a.out0), a.H, a.N,
-      a.scale, a.st);
+      tq, tk, tv, tdo, a.lse_in, a.di, a.ab, static_cast<T*>(a.out0), a.dab,
+      a.H, a.N, a.scale, a.st);
   return cudaGetLastError();
 }
 
 // One launch: dQ and the bf16 forward and dK/dV on the wgmma kernels, the
 // fp32 forward and dK/dV on the mma.sync kernels.
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 cudaError_t launch(Kind kind, const Args& a, int device,
                    cudaStream_t stream) {
-  if (kind == kDq) return launch_dq<T, D>(a, device, stream);
+  if (kind == kDq) return launch_dq<T, D, kBias>(a, device, stream);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_wgmma<D>(kind, a, device, stream);
+    return launch_wgmma<D, kBias>(kind, a, device, stream);
   } else {
     const dim3 grid((a.N + kRows - 1) / kRows, a.H, a.B);
     const T* q = static_cast<const T*>(a.q);
@@ -1426,52 +1547,65 @@ cudaError_t launch(Kind kind, const Args& a, int device,
     if (kind == kForward) {
       static std::atomic<unsigned long long> done{0};
       const size_t bytes = fwd_smem_bytes<T, D>();
-      err = allow_smem(flash_fwd_kernel<T, D>, bytes, device, done);
+      err = allow_smem(flash_fwd_kernel<T, D, kBias>, bytes, device, done);
       if (err != cudaSuccess) return err;
-      flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-          q, k, v, static_cast<T*>(a.out0), a.lse_out, a.H, a.N, a.scale,
-          a.st);
+      flash_fwd_kernel<T, D, kBias><<<grid, kThreads, bytes, stream>>>(
+          q, k, v, static_cast<T*>(a.out0), a.lse_out, a.ab, a.H, a.N,
+          a.scale, a.st);
       return cudaGetLastError();
     }
     static std::atomic<unsigned long long> done{0};
     const size_t bytes = dkv_smem_bytes<T, D>();
-    err = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes, device, done);
+    err = allow_smem(flash_bwd_dkv_kernel<T, D, kBias>, bytes, device, done);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.di,
+    flash_bwd_dkv_kernel<T, D, kBias><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.di, a.ab,
         static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H, a.N, a.scale,
         a.st);
     return cudaGetLastError();
   }
 }
 
-template <typename T>
+template <typename T, bool kBias>
 cudaError_t dispatch_d(Kind kind, int D, const Args& a, int device,
                        cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(kind, a, device, s);
-    case 64: return launch<T, 64>(kind, a, device, s);
-    case 128: return launch<T, 128>(kind, a, device, s);
+    case 32: return launch<T, 32, kBias>(kind, a, device, s);
+    case 64: return launch<T, 64, kBias>(kind, a, device, s);
+    case 128: return launch<T, 128, kBias>(kind, a, device, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Launch one kernel on `stream` on `device`, leaving the caller's current
-// device as it was. `strides` holds n_tensors x (batch, head, row) strides.
+// device as it was. `strides` holds n_tensors x (batch, head, row) strides,
+// `bias_strides` those of ab and dab (may be null when both are).
 int run(Kind kind, Args a, int D, const long long* strides, int n_tensors,
-        int is_bf16, int device, void* stream) {
+        const long long* bias_strides, int is_bf16, int device,
+        void* stream) {
   if (a.B <= 0 || a.B > 65535 || a.H <= 0 || a.H > 65535 || a.N <= 0 ||
-      strides == nullptr)
+      strides == nullptr ||
+      ((a.ab != nullptr || a.dab != nullptr) && bias_strides == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n_tensors; ++i)
     for (int j = 0; j < 3; ++j) a.st.t[i][j] = strides[i * 3 + j];
+  if (bias_strides != nullptr)
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 3; ++j)
+        a.st.t[kAb + i][j] = bias_strides[i * 3 + j];
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? dispatch_d<__nv_bfloat16>(kind, D, a, device, s)
-                : dispatch_d<float>(kind, D, a, device, s);
+  // each kernel is built with and without the bias: without it, the
+  // code of the kernels before the bias was added
+  if (a.ab != nullptr || a.dab != nullptr)
+    err = is_bf16 ? dispatch_d<__nv_bfloat16, true>(kind, D, a, device, s)
+                  : dispatch_d<float, true>(kind, D, a, device, s);
+  else
+    err = is_bf16 ? dispatch_d<__nv_bfloat16, false>(kind, D, a, device, s)
+                  : dispatch_d<float, false>(kind, D, a, device, s);
   const cudaError_t restored =
       prev != device ? cudaSetDevice(prev) : cudaSuccess;
   return static_cast<int>(err != cudaSuccess ? err : restored);
@@ -1480,55 +1614,37 @@ int run(Kind kind, Args a, int D, const long long* strides, int n_tensors,
 }  // namespace
 
 // Forward: O (strides[9..11]) and LSE (B, H, N) fp32 from q, k, v
-// (strides[0..8]). Returns the cudaError_t of the launch; 0 means accepted.
-extern "C" int pfst_flash_attention_forward(const void* q, const void* k,
-                                            const void* v, void* o,
-                                            float* lse, int B, int H, int N,
-                                            int D, const long long* strides,
-                                            float scale, int is_bf16,
-                                            int device, void* stream) {
+// (strides[0..8]) and the optional bias ab (null for none; its strides
+// bias_strides[0..2]). Returns the cudaError_t of the launch; 0 means
+// accepted.
+extern "C" int pfst_flash_attention_forward(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    const float* ab, int B, int H, int N, int D, const long long* strides,
+    const long long* bias_strides, float scale, int is_bf16, int device,
+    void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.out0 = o;
   a.lse_out = lse;
+  a.ab = ab;
   a.B = B;
   a.H = H;
   a.N = N;
   a.scale = scale;
-  return run(kForward, a, D, strides, 4, is_bf16, device, stream);
+  return run(kForward, a, D, strides, 4, bias_strides, is_bf16, device,
+             stream);
 }
 
 // dK (strides[12..14]) and dV (strides[15..17]) from q, k, v, dO
-// (strides[0..11]) and the forward's LSE and Di = rowsum(dO * O), both
-// (B, H, N) fp32.
+// (strides[0..11]), the forward's LSE and Di = rowsum(dO * O), both
+// (B, H, N) fp32, and the forward's ab (bias_strides[0..2]).
 extern "C" int pfst_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* di, void* dk, void* dv, int B, int H,
-    int N, int D, const long long* strides, float scale, int is_bf16,
-    int device, void* stream) {
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
-  a.lse_in = lse;
-  a.di = di;
-  a.out0 = dk;
-  a.out1 = dv;
-  a.B = B;
-  a.H = H;
-  a.N = N;
-  a.scale = scale;
-  return run(kDkv, a, D, strides, 6, is_bf16, device, stream);
-}
-
-// dQ (strides[12..14]) from q, k, v, dO (strides[0..11]), LSE and Di.
-extern "C" int pfst_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* di, void* dq, int B, int H, int N, int D,
-    const long long* strides, float scale, int is_bf16, int device,
+    const float* lse, const float* di, const float* ab, void* dk, void* dv,
+    int B, int H, int N, int D, const long long* strides,
+    const long long* bias_strides, float scale, int is_bf16, int device,
     void* stream) {
   Args a{};
   a.q = q;
@@ -1537,12 +1653,40 @@ extern "C" int pfst_flash_attention_bwd_dq(
   a.dout = dout;
   a.lse_in = lse;
   a.di = di;
-  a.out0 = dq;
+  a.ab = ab;
+  a.out0 = dk;
+  a.out1 = dv;
   a.B = B;
   a.H = H;
   a.N = N;
   a.scale = scale;
-  return run(kDq, a, D, strides, 5, is_bf16, device, stream);
+  return run(kDkv, a, D, strides, 6, bias_strides, is_bf16, device, stream);
+}
+
+// dQ (strides[12..14]) from q, k, v, dO (strides[0..11]), LSE, Di and ab
+// (bias_strides[0..2]); and dab = dS scale, fp32, where dab is not null
+// (bias_strides[3..5]).
+extern "C" int pfst_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, const float* ab, void* dq, float* dab,
+    int B, int H, int N, int D, const long long* strides,
+    const long long* bias_strides, float scale, int is_bf16, int device,
+    void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse_in = lse;
+  a.di = di;
+  a.ab = ab;
+  a.out0 = dq;
+  a.dab = dab;
+  a.B = B;
+  a.H = H;
+  a.N = N;
+  a.scale = scale;
+  return run(kDq, a, D, strides, 5, bias_strides, is_bf16, device, stream);
 }
 
 extern "C" const char* pfst_flash_error_string(int err) {

@@ -23,7 +23,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from conftest import tiny_model_cfg  # noqa: E402
-from torch_parity import jax_variables, load_port, nchw, nhwc  # noqa: E402
+from torch_parity import (jax_variables, load_port, nchw, nhwc,  # noqa: E402
+                          run_jit)
 
 from pfst_tpu.models import build_backbone as jax_build_backbone  # noqa: E402
 from pfst_tpu.models import build_segmentor as jax_segmentor  # noqa: E402
@@ -68,8 +69,8 @@ def _img(shape, seed=0):
 def test_encode_decode_matches_jax(pair):
     _, jmodel, variables, port = pair
     x = _img((2, 48, 64, 3))
-    ref_out, ref_st = jax.jit(lambda v, img: jmodel.apply(
-        v, img, method=jmodel.encode_decode))(variables, jnp.asarray(x))
+    ref_out, ref_st = run_jit(lambda v, img: jmodel.apply(
+        v, img, method=jmodel.encode_decode), variables, jnp.asarray(x))
     with torch.no_grad():
         out, states = port.encode_decode(nchw(x))
         fwd = port(nchw(x))
@@ -89,9 +90,9 @@ def test_slide_inference_matches_jax(pair):
     test_cfg = dict(mode='slide', crop_size=(32, 32), stride=(24, 20))
     jmodel = jax_segmentor({**cfg, 'test_cfg': test_cfg})
     x = _img((1, 40, 56, 3), seed=1)
-    ref = jax.jit(lambda v, img: jmodel.apply(
-        v, img, method=jmodel.inference_logits)[0])(variables,
-                                                    jnp.asarray(x))
+    ref = run_jit(lambda v, img: jmodel.apply(
+        v, img, method=jmodel.inference_logits)[0], variables,
+        jnp.asarray(x))
     port.test_cfg = test_cfg
     try:
         with torch.no_grad():
@@ -106,9 +107,9 @@ def test_inference_rescale_flip_matches_jax(pair):
     x = _img((1, 32, 48, 3), seed=2)
     kw = dict(rescale_size=(45, 61), flip=True,
               flip_direction=['horizontal', 'vertical'])
-    ref = jax.jit(lambda v, img: jmodel.apply(
-        v, img, method=jmodel.inference, **kw)[0])(variables,
-                                                   jnp.asarray(x))
+    ref = run_jit(lambda v, img: jmodel.apply(
+        v, img, method=jmodel.inference, **kw)[0], variables,
+        jnp.asarray(x))
     with torch.no_grad():
         probs, _ = port.inference(nchw(x), **kw)
         labels, probs2, _ = port.simple_test_logits(nchw(x))
@@ -172,7 +173,7 @@ def test_backbone_variants_match_jax(backbone):
     sd = jax_variables_to_state_dict(variables, template)
     port.load_state_dict({k[len('backbone.'):]: v for k, v in sd.items()})
     port.eval()
-    refs = jax.jit(jmodel.apply)(bb_vars, jnp.asarray(x))
+    refs = run_jit(jmodel.apply, bb_vars, jnp.asarray(x))
     with torch.no_grad():
         outs = port(nchw(x))
     assert len(outs) == len(refs) == 4

@@ -21,6 +21,7 @@ from pfst_tpu.ops.resize import resize as jax_resize  # noqa: E402
 from pfst_tpu.ops.unfold import unfold_neighbors as jax_unfold  # noqa: E402
 from pfst_tpu.ops.unfold import unfold_valid_mask as jax_mask  # noqa: E402
 from pfst_tpu_torch import ops  # noqa: E402
+from torch_parity import run_jit  # noqa: E402
 from pfst_tpu_torch.ops import build  # noqa: E402
 
 
@@ -39,9 +40,9 @@ def _nhwc(t):
     ((1, 1), None)])
 def test_resize_matches_jax(mode, align_corners, size, scale_factor):
     x = np.random.RandomState(0).randn(2, 13, 17, 3).astype(np.float32)
-    ref = np.asarray(jax_resize(
-        jnp.asarray(x), size=size, scale_factor=scale_factor, mode=mode,
-        align_corners=align_corners))
+    ref = np.asarray(run_jit(lambda v: jax_resize(
+        v, size=size, scale_factor=scale_factor, mode=mode,
+        align_corners=align_corners), jnp.asarray(x)))
     out = ops.resize(_nchw(x), size=size, scale_factor=scale_factor,
                      mode=mode, align_corners=align_corners)
     assert _nhwc(out).shape == ref.shape
@@ -53,7 +54,8 @@ def test_resize_chw_and_identity():
     t = _nchw(x)
     assert ops.resize(t, size=(6, 5)) is t
     out = ops.resize(t[0], size=(12, 10), mode='bilinear')
-    ref = np.asarray(jax_resize(jnp.asarray(x[0]), size=(12, 10)))
+    ref = np.asarray(run_jit(lambda v: jax_resize(v, size=(12, 10)),
+                             jnp.asarray(x[0])))
     np.testing.assert_allclose(out.numpy().transpose(1, 2, 0), ref,
                                atol=1e-5, rtol=0)
     with pytest.raises(ValueError):
@@ -72,7 +74,7 @@ def test_adaptive_avg_pool_matches_jax():
 @pytest.mark.parametrize('k,d', [(3, 1), (3, 2), (5, 1), (5, 2)])
 def test_unfold_neighbors_exact(k, d):
     x = np.random.RandomState(3).randn(2, 9, 11, 4).astype(np.float32)
-    ref = np.asarray(jax_unfold(jnp.asarray(x), k, d))
+    ref = np.asarray(run_jit(lambda v: jax_unfold(v, k, d), jnp.asarray(x)))
     out = ops.unfold_neighbors(_nchw(x), k, d)          # (B, k2, C, H, W)
     np.testing.assert_array_equal(out.numpy().transpose(0, 3, 4, 1, 2), ref)
     assert torch.equal(out[:, k * k // 2], _nchw(x))

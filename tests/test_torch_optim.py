@@ -26,7 +26,7 @@ import optax  # noqa: E402
 
 from conftest import tiny_model_cfg  # noqa: E402
 from test_torch_vit import tiny_vit_cfg  # noqa: E402
-from torch_parity import jax_variables, load_port  # noqa: E402
+from torch_parity import jax_variables, load_port, run_jit  # noqa: E402
 
 from pfst_tpu.core import optimizers as jax_opt  # noqa: E402
 from pfst_tpu.models import build_segmentor as jax_segmentor  # noqa: E402
@@ -237,8 +237,8 @@ def test_multipliers_match_jax_on_converted_names(model, mode):
                        paramwise_cfg=dict(num_layers=4, decay_rate=0.5))
     tx = jax_opt.build_optimizer(opt_cfg)
     params = variables['params']
-    updates, _ = tx.update(jax.tree.map(jnp.ones_like, params),
-                           tx.init(params), params)
+    updates, _ = run_jit(tx.update, jax.tree.map(jnp.ones_like, params),
+                         tx.init(params), params)
     want = jax_variables_to_state_dict(
         {'params': optax.apply_updates(params, updates),
          'batch_stats': variables['batch_stats']}, port.state_dict())

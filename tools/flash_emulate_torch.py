@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Run the kernels of ``pfst_tpu_torch/ops/csrc`` that use shared memory,
 warp collectives or the tensor cores on the CPU under an emulation of
-CUDA: the flash-attention kernels (``flash_attention.cu``), held to the
-plain versions with the limits of ``chip_smoke.py``'s phase 3c
-(``chip_smoke.flash_errors``), and the similarity forward and backward
+CUDA: the flash-attention kernels (``flash_attention.cu``), without and
+with the bias ``ab`` (``CASES``, ``CASES_AB``; the latter also two
+launches bitwise equal), held to the plain versions with the limits of
+``chip_smoke.py``'s phase 3c (``chip_smoke.flash_errors``), and the similarity forward and backward
 (``neighborhood_sim.cu``), held with phase 3's and 3b's
 (``chip_smoke.sim_errors``, ``chip_smoke.sim_bwd_errors``: against
 autograd of the plain forward and the plain gather backward, and two
@@ -13,6 +14,7 @@ For a change to either source or its headers, before any run on a card
 (needs ``g++`` with C++20; no ``nvcc``)::
 
     python3 tools/flash_emulate_torch.py
+    python3 tools/flash_emulate_torch.py --only flash_attention --bias-only
 
 How: the sources are copied into a temporary directory, where ``ptx.cuh``
 (the inline-PTX wrappers) is replaced by C++ with the PTX ISA's semantics,
@@ -64,8 +66,8 @@ import torch
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import (SIM_GEOMETRY_CASES, flash_errors,  # noqa: E402
-                        sim_bwd_errors, sim_errors)
+from chip_smoke import (SIM_GEOMETRY_CASES, flash_bias,  # noqa: E402
+                        flash_errors, sim_bwd_errors, sim_errors)
 from pfst_tpu_torch.ops import build  # noqa: E402
 
 # (shape (B, H, N, D), dtype, layout): every head dimension and type, N
@@ -87,6 +89,21 @@ CASES = [((1, 2, 17, 64), torch.float32, 'qkv'),
          ((1, 1, 80, 128), torch.float32, 'contiguous'),
          ((1, 2, 150, 64), torch.float32, 'offset'),
          ((1, 1, 37, 128), torch.float32, 'qkv')]
+# with a bias (``chip_smoke.flash_bias``): BEiT's batch-shared table at N
+# = 17 (4 x 4 + 1) and past a 64-key tile, Swin's windows with the shift
+# mask (a 14 x 14 padded grid: 4 windows an image, 2 images), random
+# asymmetric biases past a 128-row tile and at every head dimension,
+# and one read through a row stride of N + 3; two launches bitwise equal
+CASES_AB = [((2, 2, 17, 64), torch.float32, 'qkv', 'beit'),
+            ((2, 2, 17, 64), torch.bfloat16, 'qkv', 'beit'),
+            ((2, 1, 65, 32), torch.bfloat16, 'qkv', 'beit'),
+            ((8, 3, 49, 32), torch.float32, 'qkv', ('swin', 14)),
+            ((8, 3, 49, 32), torch.bfloat16, 'qkv', ('swin', 14)),
+            ((1, 2, 130, 64), torch.bfloat16, 'qkv', 'random'),
+            ((2, 1, 70, 32), torch.float32, 'contiguous', 'random'),
+            ((1, 1, 80, 128), torch.bfloat16, 'offset', 'shared'),
+            ((1, 1, 37, 128), torch.float32, 'qkv', 'strided'),
+            ((1, 2, 97, 64), torch.float32, 'qkv', 'random')]
 PRELUDE = r'''
 #pragma once
 #include <atomic>
@@ -865,18 +882,22 @@ def inputs(shape, dtype, layout, gen):
     return [torch.randn(shape, generator=gen).to(dtype) for _ in range(3)]
 
 
-def run_flash(gen):
+def run_flash(gen, cases=None):
     ok = True
-    for shape, dtype, layout in CASES:
+    for shape, dtype, layout, *bias in cases or (
+            [c + (None,) for c in CASES] + CASES_AB):
         q, k, v = inputs(shape, dtype, layout, gen)
         g = torch.randn(shape, generator=gen).to(dtype)
+        ab = None if bias[0] is None else flash_bias(bias[0], shape, gen,
+                                                     'cpu')
         t0 = time.time()
         try:
-            _, _, err = flash_errors(q, k, v, g, shape[-1]**-0.5)
+            _, _, err = flash_errors(q, k, v, g, shape[-1]**-0.5, ab,
+                                     repeat=ab is not None)
         except RuntimeError as e:  # an emulated fault (on stderr)
             err = {'ok': False, 'launch': str(e)}
         ok = err['ok'] and ok
-        print(f'{shape} {str(dtype)[6:]} {layout}: '
+        print(f'{shape} {str(dtype)[6:]} {layout} bias {bias[0]}: '
               f'{"OK" if err["ok"] else "FAIL"} ({time.time() - t0:.1f}s) '
               + ' '.join(f'{k_} {v_:.2e}' if isinstance(v_, float)
                          else f'{k_}: {v_}' for k_, v_ in err.items()
@@ -920,6 +941,8 @@ def main(argv=None):
     parser.add_argument('--keep', help='build in this directory and keep it')
     parser.add_argument('--only', choices=sorted(LAUNCHES),
                         help='emulate one source only')
+    parser.add_argument('--bias-only', action='store_true',
+                        help='flash: only the cases with a bias')
     args = parser.parse_args(argv)
     torch.set_num_threads(1)
     tmp = args.keep or tempfile.mkdtemp()
@@ -934,7 +957,8 @@ def main(argv=None):
         gen = torch.Generator().manual_seed(0)
         ok = True
         if 'flash_attention' in libs:
-            ok = run_flash(gen) and ok
+            ok = run_flash(gen, CASES_AB if args.bias_only else None) \
+                and ok
         if 'neighborhood_sim' in libs:
             ok = run_sim(gen) and ok
     finally:

@@ -25,8 +25,8 @@ The errors and limits are ``chip_smoke.flash_errors``'s (phase 3c),
 ``chip_smoke.sim_errors``'s (phase 3) and ``chip_smoke.sim_bwd_errors``'s
 (phase 3b). Exits 1 if a case fails, if a
 ``flash_*_wgmma_kernel`` instantiation (the bf16 forward and dK/dV, dQ
-in both types) has no HGMMA, or if another flash instantiation (the fp32
-forward and dK/dV) has no HMMA.
+in both types, each with and without the bias ``ab``) has no HGMMA, or
+if another flash instantiation (the fp32 forward and dK/dV) has no HMMA.
 """
 import collections
 import concurrent.futures
@@ -59,10 +59,10 @@ CASES = FLASH_CASES + [((2, 3, 130, 32), torch.bfloat16, 'qkv'),
 
 
 def kernel_name(mangled):
-    """'flash_fwd_kernel fp32 D=64' (or 'neighborhood_sim_kernel bf16
-    K=3 cosine d=2', 'd=any' for the general geometry) from a mangled
-    instantiation name; the forward and dK/dV wgmma kernels take bf16
-    only, and name no type."""
+    """'flash_fwd_kernel fp32 D=64' ('... ab' for the instantiation with
+    the bias; or 'neighborhood_sim_kernel bf16 K=3 cosine d=2', 'd=any'
+    for the general geometry) from a mangled instantiation name; the
+    forward and dK/dV wgmma kernels take bf16 only, and name no type."""
     kernel = re.search(r'(flash_\w+?|neighborhood_sim\w*?)_kernel', mangled)
     ints = re.findall(r'Li(\d+)E', mangled)
     arg = re.search(r'Li(\d+)E', mangled)
@@ -70,7 +70,8 @@ def kernel_name(mangled):
     dtype = 'bf16' if '__nv_bfloat16' in mangled or bf16_only else 'fp32'
     name = f'{kernel.group(0) if kernel else mangled} {dtype}'
     if kernel and kernel.group(0).startswith('flash'):
-        return f'{name} D={arg.group(1) if arg else "?"}'
+        bias = ' ab' if 'Lb1E' in mangled else ''
+        return f'{name} D={arg.group(1) if arg else "?"}{bias}'
     cosine = 'cosine' if 'Lb1E' in mangled else 'gaussian'
     ds = f'd={ints[1]}' if len(ints) > 1 and ints[1] != '0' else 'd=any'
     return f'{name} K={arg.group(1) if arg else "?"} {cosine} {ds}'
@@ -81,8 +82,11 @@ def ptxas_report(source, out_dir):
     instantiation's registers, spills and ptxas warnings; return the
     library's path."""
     out = osp.join(out_dir, f'{osp.splitext(source)[0]}.so')
+    # one compiler thread, so each entry's report follows its name
+    flags = [f for f in build.NVCC_FLAGS
+             if not f.startswith('--split-compile')]
     proc = subprocess.run(
-        [build._nvcc(), *build.NVCC_FLAGS, '-Xptxas', '-v', '-o', out,
+        [build._nvcc(), *flags, '-Xptxas', '-v', '-o', out,
          osp.join(build.CSRC_DIR, source)], capture_output=True, text=True)
     print(f'ptxas {source} rc', proc.returncode)
     name = None
@@ -127,9 +131,10 @@ def sass_counts(lib_path):
 
 def check_sass(counts):
     """Print the counts; False unless every wgmma instantiation (bf16
-    forward and dK/dV, dQ in both types: 12) has HGMMA and every other
-    flash instantiation (fp32 forward and dK/dV: 6) HMMA."""
-    ok = len(counts) == 18
+    forward and dK/dV, dQ in both types: 12, each with and without the
+    bias: 24) has HGMMA and every other flash instantiation (fp32 forward
+    and dK/dV: 12 with the bias's) HMMA."""
+    ok = len(counts) == 36
     for name, c in sorted(counts.items()):
         need = 'hgmma' if 'wgmma' in name else 'hmma'
         good = c[need] > 0
@@ -138,8 +143,8 @@ def check_sass(counts):
               f'STL/LDL {c["spill"]} registers {c["regs"]} '
               f'{sorted(c["setmaxreg"])}'
               f'{"" if good else " FAIL: no " + need.upper()}')
-    if len(counts) != 18:
-        print(f'FAIL: {len(counts)} flash instantiations, not 18')
+    if len(counts) != 36:
+        print(f'FAIL: {len(counts)} flash instantiations, not 36')
     return ok
 
 
