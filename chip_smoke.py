@@ -46,8 +46,10 @@ Phases (any failure exits non-zero before the result lines):
 3c. (run after 3b) each flash-attention kernel (forward, dK/dV, dQ)
    against its plain version at the ViT's shapes (1 and 2 x 12 x 1025 x
    64, fp32 and bf16, read through the strides of the block's qkv
-   layout), the microbench's (8 x 12 x {1024, 4096} x 64 bf16) and an
-   edge case (1 x 2 x 17 x 64, fp32 and bf16: N inside one tile), with
+   layout), the microbench's (8 x 12 x {1024, 4096} x 64 bf16), an
+   edge case (1 x 2 x 17 x 64, fp32 and bf16: N inside one tile), and
+   phase 20's (2 x 16 x 2305 x 64: ViT-L at 768^2, one valid key in the
+   last block; 2 x 12 x 1043 x 64: Segmenter's decoder), with
    the median times of the kernel (per
    call, and on the device in a CUDA graph of ten launches), the plain
    version and SDPA (per call, and on the device: its forward, and its
@@ -186,15 +188,28 @@ Phases (any failure exits non-zero before the result lines):
    MAE-B at 640^2 and Swin-T at 512^2 each answer 3 requests (logits ->
    labels, then ``make_state_fn``'s similarity; 24 flash forwards a
    request, all with ``ab``) and take 5 supervised steps at batch 2 with
-   AdamW and the configs' drop path, in fp32 and in bf16 autocast (12
-   launches of each flash kernel a step, every table moved); BEiT and
-   Swin card against CPU as phase 11 (128^2, BEiT at img_size 128, the
+   AdamW and the configs' drop path, in fp32 and then, on the same
+   weights, in bf16 autocast (12 launches of each flash kernel a step,
+   every table moved); BEiT, MAE and Swin card against CPU as phase 11 (128^2, BEiT at img_size 128, the
    same drop-path masks on both sides, every table with a non-zero
    gradient unless drop path dropped its branch for both images); BEiT
    UPerNet through ``train_segmentor`` on phase 13's packs (the
    source-only config's data, 512^2 crops, img_size 512, 6 classes) for
    10 iterations with a slide-mode evaluation (512^2 windows, stride 341)
    of the 1024^2 tiles, and ``tools/test_torch.py`` on its checkpoint;
+20. A13's defs on the ViT and the ResNet at full width and depth, each
+   from its ``configs/_base_/models`` config as it stands with seeded
+   weights (``A13_MODELS``): SETR naive, PUP and MLA (ViT-L/16) at
+   768^2, Segmenter (ViT-B/16, 19 classes) and DPT (ViT-B/16, its 14^2
+   position table resized to the grid) at 512^2, PSPNet (ResNetV1c-101,
+   14 bands), Semantic FPN and ANN (both defs) at 512^2 each answer 3
+   requests (logits -> labels, then ``make_state_fn``'s similarity on the
+   decoded features, at 1/4 of the request, 1/1 for SETR-PUP, 1/8 for
+   PSPNet and ANN, 1/16 for Segmenter; 2 x the attention layers of flash
+   forwards a request) and take 5 supervised steps at batch 2 with AdamW
+   in fp32 and then, on the same weights, in bf16 autocast (each flash
+   kernel once an attention layer a step); Segmenter, SETR-PUP and ANN
+   card against CPU as phase 11 (128^2, TF32 off);
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -321,7 +336,13 @@ FLASH_CASES = [((1, 12, 1025, 64), torch.float32, 'qkv'),
                ((8, 12, 1024, 64), torch.bfloat16, 'contiguous'),
                ((8, 12, 4096, 64), torch.bfloat16, 'contiguous'),
                ((1, 2, 17, 64), torch.float32, 'qkv'),
-               ((1, 2, 17, 64), torch.bfloat16, 'qkv')]
+               ((1, 2, 17, 64), torch.bfloat16, 'qkv'),
+               # phase 20: ViT-L at 768^2 (one valid key in the last
+               # block) and Segmenter's decoder, 32^2 patches + 19 classes
+               ((2, 16, 2305, 64), torch.float32, 'qkv'),
+               ((2, 16, 2305, 64), torch.bfloat16, 'qkv'),
+               ((2, 12, 1043, 64), torch.float32, 'qkv'),
+               ((2, 12, 1043, 64), torch.bfloat16, 'qkv')]
 FLASH_FWD_TOL, FLASH_LSE_TOL, FLASH_BWD_TOL = 2e-5, 1e-5, 1e-4
 # flash attention with the library's bias ab (``flash_bias``): (shape,
 # dtype, layout, bias, timed). BEiT-B at 640^2 (N = 40 x 40 + 1, its table
@@ -350,6 +371,20 @@ N_TF_REQUESTS = 3
 TF_TRAIN_STEPS = 5      # 3 warm-ups, then the median of 2
 TF_CHECK_HW = (128, 128)
 TF_LOOP_CROP, TF_LOOP_STRIDE = 512, 341     # slide-mode eval of 1024^2 tiles
+# phase 20: A13's defs on the ViT and the ResNet: (request and crop size,
+# attention layers a forward: the backbone's and Segmenter's decoder's,
+# stride of the decoded features that the similarity kernel reads)
+A13_MODELS = {'setr_naive': ((768, 768), 24, 4),
+              'setr_pup': ((768, 768), 24, 1),
+              'setr_mla': ((768, 768), 24, 4),
+              'segmenter_vit-b16_mask': ((512, 512), 14, 16),
+              'dpt_vit-b16': ((512, 512), 12, 4),
+              'pspnet_r50-d8': ((512, 512), 0, 8),
+              'fpn_r50': ((512, 512), 0, 4),
+              'ann_r50-d8': ((512, 512), 0, 8),
+              'annnet_r50-d8': ((512, 512), 0, 8)}
+A13_CHECKED = ('segmenter_vit-b16_mask', 'setr_pup', 'ann_r50-d8')
+MODEL_DEFS = osp.join(ROOT, 'configs', '_base_', 'models')
 # the ViT configs' input normalization (ImageNet mean/std, RGB)
 VIT_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
                 to_rgb=True)
@@ -1092,9 +1127,11 @@ def _reset_counts():
 
 def _request(cfg, seed, hw):
     """A normalized request image (the test pipeline's Normalize on a
-    seeded random uint8 image), NCHW on the card."""
+    seeded random uint8 image of as many bands as the normalization
+    has), NCHW on the card."""
     norm = cfg.img_norm_cfg
-    img = np.random.RandomState(seed).randint(0, 256, (*hw, 3), np.uint8)
+    img = np.random.RandomState(seed).randint(
+        0, 256, (*hw, len(norm['mean'])), np.uint8)
     img = img.astype(np.float32)
     if norm.get('to_rgb'):
         img = img[..., ::-1]
@@ -1517,17 +1554,24 @@ def phase_vit_card_vs_cpu():
         raise AssertionError('ViT card and CPU disagree')
 
 
-def _vit_train_cfg(img_size, dtype=None, dropout=True):
-    """The ViT config with the ``adamw_40k`` schedule (AdamW, poly with
-    linear warmup, 40k iterations) composed in."""
-    cfg = vit_config(img_size, dtype)
+def _with_adamw_40k(cfg, dropout=True):
+    """``cfg`` with the ``adamw_40k`` schedule (AdamW, poly with linear
+    warmup, 40k iterations) composed in; ``dropout=False`` turns every
+    head's dropout off (a list of auxiliary heads too)."""
     sched = Config.fromfile(ADAMW_40K)
     for key in ('optimizer', 'optimizer_config', 'lr_config', 'runner'):
         cfg[key] = sched[key]
     if not dropout:
-        cfg.model['decode_head']['dropout_ratio'] = 0.0
-        cfg.model['auxiliary_head']['dropout_ratio'] = 0.0
+        aux = cfg.model.get('auxiliary_head') or []
+        for head in [cfg.model['decode_head'],
+                     *(aux if isinstance(aux, list) else [aux])]:
+            head['dropout_ratio'] = 0.0
     return cfg
+
+
+def _vit_train_cfg(img_size, dtype=None, dropout=True):
+    """The ViT config with the ``adamw_40k`` schedule composed in."""
+    return _with_adamw_40k(vit_config(img_size, dtype), dropout)
 
 
 def _vit_train_setup(cfg, device='cuda'):
@@ -1541,14 +1585,14 @@ def _vit_train_setup(cfg, device='cuda'):
 
 
 def _vit_batch(cfg, seed, hw):
-    """2 seeded uint8-noise images, normalized, and labels of the
-    config's classes in 32x32 blocks with a band of 255 across the top,
-    on the card."""
+    """2 seeded uint8-noise images of the normalization's bands,
+    normalized, and labels of the config's classes in 32x32 blocks with a
+    band of 255 across the top, on the card."""
     rs = np.random.RandomState(seed)
     norm = cfg.img_norm_cfg
-    mean = np.asarray(norm['mean'], np.float32).reshape(1, 3, 1, 1)
-    std = np.asarray(norm['std'], np.float32).reshape(1, 3, 1, 1)
-    img = rs.randint(0, 256, (2, 3, *hw)).astype(np.float32)
+    mean = np.asarray(norm['mean'], np.float32).reshape(1, -1, 1, 1)
+    std = np.asarray(norm['std'], np.float32).reshape(1, -1, 1, 1)
+    img = rs.randint(0, 256, (2, mean.shape[1], *hw)).astype(np.float32)
     num_classes = cfg.model['decode_head']['num_classes']
     cells = rs.randint(0, num_classes, (2, hw[0] // 32, hw[1] // 32))
     gt = cells.repeat(32, axis=1).repeat(32, axis=2)
@@ -1610,9 +1654,17 @@ def phase_vit_train_card_vs_cpu():
     """One supervised step on the card and on the CPU from the same
     weights and batch at 2 x 128^2 (img_size 128), dropout off, TF32 off,
     held as phase 8 holds the PFGST step."""
-    cfg = _vit_train_cfg(VIT_TRAIN_CHECK_HW[0], dropout=False)
-    batch = {k: v.cpu() for k, v in
-             _vit_batch(cfg, 7, VIT_TRAIN_CHECK_HW).items()}
+    _supervised_card_vs_cpu(
+        _vit_train_cfg(VIT_TRAIN_CHECK_HW[0], dropout=False),
+        VIT_TRAIN_CHECK_HW, '[vit train card-vs-cpu]')
+
+
+def _supervised_card_vs_cpu(cfg, hw, tag):
+    """One supervised step of ``cfg`` (dropout off) on the card and on
+    the CPU (all threads, and one) from the same weights and batch at 2 x
+    ``hw``, TF32 off, held by ``_check_train_sides``; a ResNet's residual
+    blocks end at phase 8's BN scale (``_scale_residual``)."""
+    batch = {k: v.cpu() for k, v in _vit_batch(cfg, 7, hw).items()}
     old = (torch.backends.cudnn.allow_tf32,
            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -1624,17 +1676,18 @@ def phase_vit_train_card_vs_cpu():
                                 ('cpu', 'cpu', threads), ('cpu1', 'cpu', 1)):
             torch.set_num_threads(n)
             _, state, step = _vit_train_setup(cfg, device)
+            _scale_residual(state, RESIDUAL_SCALE)
             _, log_vars = step(state, {k: v.to(device)
                                        for k, v in batch.items()},
                                torch.Generator().manual_seed(5))
             sides[side] = ({k: float(v) for k, v in log_vars.items()},
                            _grad_groups(state))
+            del state, step
     finally:
         torch.set_num_threads(threads)
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = old
-    _check_train_sides(sides, threads,
-                       f'[vit train card-vs-cpu] {VIT_TRAIN_CHECK_HW}')
+    _check_train_sides(sides, threads, f'{tag} {hw}')
 
 
 def phase_microbench():
@@ -3384,30 +3437,37 @@ def phase_hooks(card, data):
                 top=top, busy_ms=busy, window_ms=window_ms / HOOK_PROF_STEPS)
 
 
-def tf_config(name, img_size=None, dtype=None, dropout=True):
-    """An A13 UPerNet config (``TF_MODELS``) at full width and depth with
-    the ``adamw_40k`` schedule, the ViT configs' input normalization, BEiT
-    and MAE at ``img_size`` (their tables follow the patch grid)."""
-    path, hw = TF_MODELS[name]
+def model_config(path, img_size=None, dropout=True):
+    """The model def at ``path`` at full width and depth with the
+    ``adamw_40k`` schedule and the ViT configs' input normalization (for
+    a backbone of other than 3 bands, such as PSPNet's 14, a per-band one
+    of as many), its backbone at ``img_size`` where given (BEiT's and
+    MAE's tables follow the patch grid); ``dropout=False`` turns every
+    head's off."""
     cfg = Config.fromfile(path)
-    cfg.img_norm_cfg = dict(VIT_NORM)
-    if name != 'swin':
-        cfg.model['backbone']['img_size'] = img_size or hw[0]
-    if dtype:
-        cfg.model['dtype'] = dtype
-    sched = Config.fromfile(ADAMW_40K)
-    for key in ('optimizer', 'optimizer_config', 'lr_config', 'runner'):
-        cfg[key] = sched[key]
-    if not dropout:
-        cfg.model['decode_head']['dropout_ratio'] = 0.0
-        cfg.model['auxiliary_head']['dropout_ratio'] = 0.0
-    return cfg
+    bands = cfg.model['backbone'].get('in_channels', 3)
+    cfg.img_norm_cfg = dict(VIT_NORM) if bands == 3 else dict(
+        mean=[100.0 + 5 * i for i in range(bands)],
+        std=[50.0 + 2 * i for i in range(bands)])
+    if img_size:
+        cfg.model['backbone']['img_size'] = img_size
+    return _with_adamw_40k(cfg, dropout)
 
 
-def _tf_serving(name, cfg, model, hw):
+def tf_config(name, img_size=None, dropout=True):
+    """A phase-19 UPerNet (``TF_MODELS``), BEiT and MAE at ``img_size``
+    (default: the request size), Swin as it stands."""
+    path, hw = TF_MODELS[name]
+    return model_config(path, None if name == 'swin' else img_size or hw[0],
+                        dropout)
+
+
+def _tf_serving(name, cfg, model, hw, layers=TF_LAYERS, stride=4,
+                tag='transformers'):
     """N_TF_REQUESTS requests as phase 9 serves them: logits -> labels,
-    then the feature state through the similarity kernel; 2 x 12 flash
-    forwards (with ab) and 1 similarity forward a request."""
+    then the feature state through the similarity kernel, on the decoded
+    features at 1/``stride`` of the request; 2 x ``layers`` flash
+    forwards and 1 similarity forward a request."""
     infer, state_fn = make_inference_fn(model), make_state_fn(model)
     imgs = [_request(cfg, 900 + seed, hw) for seed in range(N_TF_REQUESTS)]
     torch.cuda.synchronize()
@@ -3418,28 +3478,32 @@ def _tf_serving(name, cfg, model, hw):
         img = img.cuda()
         logits = infer(img)
         labels = _finalize_views(model, [logits], [{'flip': False}], hw)
-        sim = state_fn(img)['sim_feat'].cpu()
+        st = state_fn(img)
+        sim = st['sim_feat'].cpu()
         torch.cuda.synchronize()
         times.append((time.time() - t0) * 1e3)
         if labels.shape != hw or not (
                 0 <= labels.min() and labels.max() < model.num_classes) or \
                 not torch.isfinite(logits).all():
-            raise AssertionError(f'[transformers serve {name}] request {i}: '
+            raise AssertionError(f'[{tag} serve {name}] request {i}: '
                                  f'bad output')
-        if tuple(sim.shape) != (1, SIM_K**2, hw[0] // 4, hw[1] // 4) or \
+        if tuple(sim.shape) != (1, SIM_K**2, hw[0] // stride,
+                                hw[1] // stride) or \
                 not torch.isfinite(sim).all():
-            raise AssertionError(f'[transformers serve {name}] request {i}: '
+            raise AssertionError(f'[{tag} serve {name}] request {i}: '
                                  f'bad sim_feat {tuple(sim.shape)}')
     counts, sims = _flash_counts(), cuda_neighborhood_similarity.launches
     warm = statistics.median(times[1:])
-    log(f'[transformers serve {name}] {N_TF_REQUESTS} requests of {hw}: ms '
+    log(f'[{tag} serve {name}] {N_TF_REQUESTS} requests of {hw}: ms '
         f'per request {[round(t, 2) for t in times]}, warm median '
-        f'{warm:.2f}; flash launches fwd/dkv/dq {counts}, similarity {sims}')
-    want = (2 * TF_LAYERS * N_TF_REQUESTS, 0, 0)
+        f'{warm:.2f}; flash launches fwd/dkv/dq {counts}, similarity {sims} '
+        f'on features {tuple(st["decoded_features"].shape)}')
+    want = (2 * layers * N_TF_REQUESTS, 0, 0)
     if counts != want or sims != N_TF_REQUESTS:
-        raise AssertionError(f'[transformers serve {name}] launched flash '
+        raise AssertionError(f'[{tag} serve {name}] launched flash '
                              f'{counts} (want {want}) and similarity {sims}')
-    return dict(flash=counts, sim=sims, ms=times, warm_ms=warm)
+    return dict(flash=counts, sim=sims, ms=times, warm_ms=warm,
+                sim_shape=list(st['decoded_features'].shape))
 
 
 def _tf_tables(module):
@@ -3447,15 +3511,31 @@ def _tf_tables(module):
             if n.endswith('relative_position_bias_table')}
 
 
-def _tf_train_run(name, dtype, card):
-    """TF_TRAIN_STEPS supervised steps at full width, batch 2 of the
-    model's size (drop path on); returns (s/iter, flash launches)."""
-    hw = TF_MODELS[name][1]
-    cfg = tf_config(name, dtype=dtype)
+def _train_runs(cfg, hw, layers, tag, card, watch):
+    """TF_TRAIN_STEPS supervised steps at full width, batch 2 of ``hw``,
+    in fp32 and then, on the same train state, in bf16 autocast (the
+    segmentor's ``dtype``, which a config's ``model.dtype`` sets): one
+    weight initialisation for both. ``watch(student)`` names the
+    parameters that must move. Returns {'fp32': (s/iter, flash launches),
+    'bf16': ...}."""
     _, state, step = _vit_train_setup(cfg)
+    out = {}
+    for kind, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        state.student.dtype = dtype
+        state, out[kind] = _train_steps(state, step, cfg, hw, layers,
+                                        f'{tag} {kind}', card,
+                                        watch(state.student))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_steps(state, step, cfg, hw, layers, tag, card, watch):
+    """The steps of one type; fails on non-finite log vars, on other than
+    ``layers`` launches of each flash kernel a step, and where a parameter
+    of ``watch`` (name -> parameter) did not move. Returns (state,
+    (s/iter, flash launches))."""
     gen = torch.Generator().manual_seed(3)
-    tables = _tf_tables(state.student)
-    start = {n: p.detach().clone() for n, p in tables.items()}
+    start = {n: p.detach().clone() for n, p in watch.items()}
     batches = [_vit_batch(cfg, 4000 + i, hw) for i in range(TF_TRAIN_STEPS)]
     torch.cuda.synchronize()
     _reset_counts()
@@ -3468,26 +3548,34 @@ def _tf_train_run(name, dtype, card):
         times.append(time.time() - t0)
         vals = {k: float(v) for k, v in log_vars.items()}
         if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f'[transformers train {name}] step {i}: '
-                                 f'non-finite log vars {vals}')
+            raise AssertionError(f'[{tag}] step {i}: non-finite log vars '
+                                 f'{vals}')
     counts = _flash_counts()
-    still = [n for n, p in tables.items() if torch.equal(p, start[n])]
+    still = [n for n, p in watch.items() if torch.equal(p, start[n])]
     s_iter = statistics.median(times[TRAIN_WARMUP:])
-    tag = 'fp32' if dtype is None else 'bf16'
-    log(f'[transformers train {name} {tag}] {TF_TRAIN_STEPS} steps, batch 2 '
-        f'of {hw}: s/iter {[round(t, 4) for t in times]}, median after '
-        f'{TRAIN_WARMUP} warm-ups {s_iter:.4f} s on {card}; flash launches '
-        f'fwd/dkv/dq {counts}; tables moved {len(tables) - len(still)} of '
-        f'{len(tables)}; last log vars '
+    log(f'[{tag}] {TF_TRAIN_STEPS} steps, batch 2 of {hw}: s/iter '
+        f'{[round(t, 4) for t in times]}, median after {TRAIN_WARMUP} '
+        f'warm-ups {s_iter:.4f} s on {card}; flash launches fwd/dkv/dq '
+        f'{counts}; moved {len(watch) - len(still)} of {len(watch)} watched '
+        f'parameters; last log vars '
         f'{json.dumps({k: round(v, 6) for k, v in vals.items()})}')
-    if counts != (TF_LAYERS * TF_TRAIN_STEPS,) * 3:
-        raise AssertionError(f'[transformers train {name}] expected '
-                             f'{TF_LAYERS} launches of each flash kernel a '
-                             f'step, got {counts}')
-    if len(tables) != TF_LAYERS or still:
-        raise AssertionError(f'[transformers train {name}] tables that did '
-                             f'not move: {still}')
-    return s_iter, counts
+    if counts != (layers * TF_TRAIN_STEPS,) * 3:
+        raise AssertionError(f'[{tag}] expected {layers} launches of each '
+                             f'flash kernel a step, got {counts}')
+    if not watch or still:
+        raise AssertionError(f'[{tag}] parameters that did not move: '
+                             f'{still or "none watched"}')
+    return state, (s_iter, counts)
+
+
+def _tf_watch(student):
+    """Phase 19's watched parameters: every relative-position table, one
+    an attention layer."""
+    tables = _tf_tables(student)
+    if len(tables) != TF_LAYERS:
+        raise AssertionError(f'{len(tables)} relative-position tables, '
+                             f'want {TF_LAYERS}')
+    return tables
 
 
 def _branch_params(backbone, masks):
@@ -3610,21 +3698,22 @@ def _tf_loop(card, data):
 
 def phase_transformers(card, data, ab_cases):
     """Phase 19: BEiT-B, MAE-B (640^2) and Swin-T (512^2) UPerNet at full
-    width: requests, supervised steps in fp32 and bf16 autocast, BEiT and
-    Swin card against CPU, BEiT through the loop; the flash kernels run
-    with the tables' ab throughout."""
+    width: requests, supervised steps in fp32 and then bf16 autocast,
+    BEiT, MAE and Swin card against CPU, BEiT through the loop; the flash
+    kernels run with the tables' ab throughout."""
     t0 = time.time()
     serve, train = {}, {}
-    for name in TF_MODELS:
+    for name, (_, hw) in TF_MODELS.items():
         cfg = tf_config(name)
         model = init_segmentor(cfg)
-        serve[name] = _tf_serving(name, cfg, model, TF_MODELS[name][1])
+        serve[name] = _tf_serving(name, cfg, model, hw)
         del model
         torch.cuda.empty_cache()
-        for tag, dtype in (('fp32', None), ('bf16', 'bfloat16')):
-            train[(name, tag)] = _tf_train_run(name, dtype, card)
-            torch.cuda.empty_cache()
-    for name in ('beit', 'swin'):
+        for tag, run in _train_runs(cfg, hw, TF_LAYERS,
+                                    f'transformers train {name}', card,
+                                    _tf_watch).items():
+            train[(name, tag)] = run
+    for name in ('beit', 'mae', 'swin'):
         _tf_card_vs_cpu(name)
     loop = _tf_loop(card, data)
     kernel_ms = {c['bias']: {k: (c['device_ms'][k], c['bound_ms'][k])
@@ -3644,10 +3733,52 @@ def phase_transformers(card, data, ab_cases):
     return dict(serve=serve, train=train, loop=loop, launches=launches)
 
 
-def _flash_entries(cases, serve, train, ab_cases, tf):
+def _a13_watch(student):
+    """Phase 20's watched parameter: the decode head's first."""
+    name, p = next(iter(student.decode_head.named_parameters()))
+    return {f'decode_head.{name}': p}
+
+
+def phase_a13_heads(card):
+    """Phase 20: A13's defs on the ViT (SETR naive, PUP and MLA with ViT-L
+    at 768^2; Segmenter and DPT with ViT-B at 512^2) and on the ResNet
+    (PSPNet, Semantic FPN, ANN at 512^2), each from its config as it
+    stands with seeded weights: requests (logits -> labels, then the
+    feature state through the similarity kernel), supervised steps in
+    fp32 and bf16 autocast; Segmenter, SETR-PUP and ANN card against
+    CPU. Every attention layer on the flash kernels."""
+    t0 = time.time()
+    serve, train = {}, {}
+    for name, (hw, layers, stride) in A13_MODELS.items():
+        cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'))
+        model = init_segmentor(cfg)
+        serve[name] = _tf_serving(name, cfg, model, hw, layers, stride, 'a13')
+        del model
+        torch.cuda.empty_cache()
+        for tag, run in _train_runs(cfg, hw, layers, f'a13 train {name}',
+                                    card, _a13_watch).items():
+            train[(name, tag)] = run
+    for name in A13_CHECKED:
+        # phase 11's check (a ResNet's blocks at phase 8's BN scale)
+        _supervised_card_vs_cpu(
+            model_config(osp.join(MODEL_DEFS, f'{name}.py'), dropout=False),
+            TF_CHECK_HW, f'[a13 card-vs-cpu {name}]')
+    launches = [sum(r['flash'][i] for r in serve.values())
+                + sum(t[1][i] for t in train.values()) for i in range(3)]
+    log('[a13] warm ms per request ' + ', '.join(
+        f'{n} {r["warm_ms"]:.2f}' for n, r in serve.items())
+        + '; s/iter batch 2 ' + ', '.join(
+            f'{n} {t} {v[0]:.4f}' for (n, t), v in train.items())
+        + f'; flash launches fwd/dkv/dq {launches}, similarity '
+        f'{sum(r["sim"] for r in serve.values())}; phase '
+        f'{time.time() - t0:.1f} s on {card}')
+    return dict(serve=serve, train=train, launches=launches)
+
+
+def _flash_entries(cases, serve, train, ab_cases, tf, a13):
     """The kernels-line entries of the three flash kernels: times of the
     ViT serving shape (forward) and training shape (backward), fp32; the
-    launches of phases 9, 11 and 19; and the cases with the bias
+    launches of phases 9, 11, 19 and 20; and the cases with the bias
     (``ab_cases``, phase 3c), with their times, bounds and SDPA's with
     the same bias as a float mask."""
     fwd = next(c for c in cases if c['shape'] == [1, 12, 1025, 64]
@@ -3671,9 +3802,17 @@ def _flash_entries(cases, serve, train, ab_cases, tf):
             replaces=f'{lib}:{line}',
             called_from='tools/attn_microbench.py:30',
             launches=serve['flash'][i] + train_launches
-            + tf['launches'][i],
+            + tf['launches'][i] + a13['launches'][i],
             launches_vit=serve['flash'][i] + train_launches,
             launches_transformers=tf['launches'][i],
+            launches_a13=a13['launches'][i],
+            launches_per_a13_request={
+                n: r['flash'][i] / N_TF_REQUESTS
+                for n, r in a13['serve'].items() if r['flash'][0]},
+            launches_per_a13_step={
+                n: t[1][i] / TF_TRAIN_STEPS
+                for (n, tag), t in a13['train'].items()
+                if tag == 'fp32' and t[1][0]},
             launches_per_transformer_request=tf['serve']['beit']['flash'][i]
             / N_TF_REQUESTS,
             launches_per_transformer_step=sum(
@@ -3773,6 +3912,7 @@ def main():
         tf = timed(phase_transformers, card, data, ab_cases)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
+    a13 = timed(phase_a13_heads, card)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
     eo_bwd = sum(r['launches'][1] for r in eo.values())
     cfg_fwd = sum(r['launches'][0] for r in configs.values())
@@ -3790,6 +3930,7 @@ def main():
         replaces='pfst_tpu/ops/pallas_sim.py:35',
         launches=launches + train_fwd + vit_serve['sim']
         + sum(r['sim'] for r in tf['serve'].values())
+        + sum(r['sim'] for r in a13['serve'].values())
         + loop['launches'][0] + loop['launches_b'][0] + eo_fwd
         + uda['launches'][0] + cfg_fwd + adaptors['launches'][0]
         + pseudo['launches'][0] + hooks['launches'][0],
@@ -3806,6 +3947,9 @@ def main():
             for n, r in adaptors['algorithms'].items()},
         launches_pseudo_label_phase=pseudo['launches'][0],
         launches_hooks_phase=hooks['launches'][0],
+        launches_a13_phase=sum(r['sim'] for r in a13['serve'].values()),
+        a13_feature_shapes={n: r['sim_shape']
+                            for n, r in a13['serve'].items()},
         max_abs_err=max(c['max_abs_err'] for c in cases),
         ms=main_case['ms'], device_ms=main_case['device_ms'],
         plain_ms=main_case['plain_ms'],
@@ -3836,7 +3980,7 @@ def main():
         bound_ms=bwd_case['bound_ms'], bound_by=bwd_case['bound_by'],
         library_ms=None, cases=bwd_cases, geometry_cases=bwd_geometry)]
     kernels += _flash_entries(flash_cases, vit_serve, vit_train, ab_cases,
-                              tf)
+                              tf, a13)
     log(f'[train] s/iter batch 2 of {TRAIN_HW}: fp32 {train["fp32"][0]:.4f}, '
         f'bf16 {train["bf16"][0]:.4f} on {card}')
     log(f'[vit] warm ms per {VIT_HW} request {vit_serve["warm_ms"]:.2f}; '

@@ -8,11 +8,16 @@ carry. ``torch_key_to_flax`` is the port's own copy of that tool's key
 map (``convert_torch_checkpoint.py:47-151`` and, for the ViT,
 ``:350-395``; for BEiT, MAE and Swin, of ``transformer_key_to_flax``,
 ``:290-349`` and ``:394-446``), extended to mmseg's ``avg_down``
-downsample (``downsample.{1,2}`` after the pooling layer), the
-``MultiLevelNeck`` and the ``UPerHead``. A BEiT's keys share the ViT's
-``layers.{i}`` prefix, so the key map of a backbone is chosen by the
-family its class declares (``key_family``, read by
-``backbone_family``). Swin's patch-merging weights are permuted
+downsample (``downsample.{1,2}`` after the pooling layer), the necks
+(``MultiLevelNeck``, ``MLANeck``, ``FPN``), the heads, and lists of
+auxiliary heads (``auxiliary_head.{i}``, the JAX file's
+``aux_heads_{i}``). A BEiT's keys share the ViT's ``layers.{i}`` prefix
+and the necks' lists share names, so the key map of a backbone and of a
+neck is chosen by the family its class declares (``key_family``, read by
+``key_families``). The heads' keys do not collide: where a head follows
+mmseg's structure its keys are mmseg's, and where the JAX file departs
+from it (SETR-MLA's head, DPT, ANN, Segmenter's missing ``mask_norm``)
+they are the JAX file's names. Swin's patch-merging weights are permuted
 between mmseg's ``nn.Unfold`` channel order, which the port keeps, and
 the JAX file's position-major order (``convert_torch_checkpoint.py:
 267-288``, here in the other direction); mmseg's downsample at the end of
@@ -111,13 +116,6 @@ def _vit_key(rest):
     return None
 
 
-def backbone_family(model) -> Optional[str]:
-    """The key family that ``model``'s backbone class declares as
-    ``key_family`` ('beit' for BEiT and MAE, 'swin'), or None (ResNet,
-    ViT, or a model without a backbone)."""
-    return getattr(getattr(model, 'backbone', None), 'key_family', None)
-
-
 def _leaf_name(sub, leaf, names):
     """(name, flax leaf) of an mmseg LayerNorm or Linear ``sub.leaf``
     renamed by ``names``, or None."""
@@ -207,59 +205,151 @@ def _conv_module(rest, path):
             'params', path + ['conv', leaf])
     if rest[0] == 'bn':
         return _bn(rest[1], path)
+    if rest[0] == 'ln':
+        leaf = _LN_LEAVES.get(rest[1])
+        return None if leaf is None else (
+            'params', path + ['norm', 'ln', leaf])
     if rest[0] in ('depthwise_conv', 'pointwise_conv'):
         return _conv_module(rest[1:], path + [rest[0]])
     return None
 
 
-_HEADS = {'decode_head': 'decode_head_mod', 'auxiliary_head': 'aux_heads_0'}
+_HEADS = {'decode_head': 'decode_head_mod', 'auxiliary_head': 'aux_heads'}
+# the neck key maps, by the family the neck's class declares: its
+# ModuleLists' names to the JAX file's ``{name}{i}`` prefixes
+_NECKS = {'multilevel': {'lateral_convs': 'lateral', 'convs': 'conv'},
+          'mla': {'lateral': 'lateral', 'conv': 'conv'},
+          'fpn': {'lateral_convs': 'lateral', 'fpn_convs': 'fpn_conv'}}
+# heads whose ModuleLists keep the JAX file's ``{name}{i}`` names:
+# SETR-MLA's and DPT's
+_JAX_NAMED_LISTS = ('mla_conv', 'reassemble', 'project', 'fuse')
+# Segmenter's mmseg names to the JAX file's; its decoder layers are the
+# ViT's blocks, whose names (``_VIT_BLOCK``) the JAX file suffixes ``_{i}``
+_SEGMENTER = {'dec_proj': 'proj_in', 'decoder_norm': 'norm_out',
+              'patch_proj': 'patch_proj', 'classes_proj': 'cls_proj'}
 
 
-def _neck_key(r):
-    """MultiLevelNeck: ``lateral_convs.{i}`` and ``convs.{i}``."""
-    name = {'lateral_convs': 'lateral', 'convs': 'conv'}.get(r[0])
-    return None if name is None else _conv_module(
+def key_families(model) -> dict:
+    """The key families that ``model``'s backbone and neck classes declare
+    (``key_family``), as the keyword arguments ``backbone`` and ``neck``
+    of ``torch_key_to_flax`` and ``jax_variables_to_state_dict``; a part
+    without a declared family is left out."""
+    out = {}
+    for part in ('backbone', 'neck'):
+        family = getattr(getattr(model, part, None), 'key_family', None)
+        if family is not None:
+            out[part] = family
+    return out
+
+
+def _neck_key(r, neck):
+    """A neck's ``{list}.{i}`` ConvModules by its family's map. Raises
+    ``ValueError`` without a family: the necks' list names collide."""
+    if neck is None:
+        raise ValueError(f'neck key neck.{".".join(r)} without the neck\'s '
+                         'family: pass **key_families(model)')
+    name = _NECKS[neck].get(r[0])
+    return None if name is None or len(r) < 3 else _conv_module(
         r[2:], ['neck_mod', f'{name}{r[1]}'])
 
 
-def _head_key(top, r, uper=False):
-    base = [_HEADS[top]]
+def _dense(leaf, path):
+    leaf = _DENSE_LEAVES.get(leaf)
+    return None if leaf is None else ('params', path + [leaf])
+
+
+def _segmenter_key(r, base):
+    if r == ['cls_emb']:
+        return 'params', base + ['cls_emb']
+    if r[0] in _SEGMENTER and len(r) == 2:
+        name = _SEGMENTER[r[0]]
+        leaves = _LN_LEAVES if name.startswith('norm') else _DENSE_LEAVES
+        return None if r[1] not in leaves else (
+            'params', base + [name, leaves[r[1]]])
+    if r[0] != 'layers':
+        return None
+    sub, leaf = '.'.join(r[2:-1]), r[-1]
+    if sub == 'attn.attn' and leaf in ('in_proj_weight', 'in_proj_bias'):
+        return 'params', base + [f'qkv_{r[1]}', 'kernel'
+                                 if leaf.endswith('weight') else 'bias']
+    names = _leaf_name(sub, leaf, _VIT_BLOCK)
+    return None if names is None else (
+        'params', base + [f'{names[0]}_{r[1]}', names[1]])
+
+
+def _head_key(base, r, uper=False):
     if uper:
         # UPerHead: mmseg's names to the JAX file's
-        if r[0] == 'psp_modules':
-            return _conv_module(r[3:], base + ['ppm', f'pool{r[1]}'])
         if r[0] in ('lateral_convs', 'fpn_convs'):
             name = 'lateral' if r[0] == 'lateral_convs' else 'fpn_conv'
             return _conv_module(r[2:], base + [f'{name}{r[1]}'])
         if r[0] in ('bottleneck', 'fpn_bottleneck'):
             name = 'psp_bottleneck' if r[0] == 'bottleneck' else r[0]
             return _conv_module(r[1:], base + [name])
+    if r[0] == 'psp_modules':
+        # PPM branch j: Sequential(adaptive pool, ConvModule)
+        return _conv_module(r[3:], base + ['ppm', f'pool{r[1]}'])
     if r[0] == 'image_pool':
         # Sequential(AdaptiveAvgPool2d, ConvModule)
         return _conv_module(r[2:], base + ['image_pool_conv'])
     if r[0] == 'aspp_modules':
         return _conv_module(r[2:], base + ['aspp_modules', f'branch{r[1]}'])
-    if r[0] in ('bottleneck', 'c1_bottleneck', 'conv_cat'):
+    if r[0] in ('bottleneck', 'c1_bottleneck', 'conv_cat', 'high_in',
+                'out_proj', 'head_conv'):
         return _conv_module(r[1:], base + [r[0]])
     if r[0] == 'sep_bottleneck':
         return _conv_module(r[2:], base + [f'sep_bottleneck{int(r[1]) + 1}'])
     if r[0] == 'convs':
         return _conv_module(r[2:], base + [f'conv{r[1]}'])
+    if r[0] in _JAX_NAMED_LISTS:
+        return _conv_module(r[2:], base + [f'{r[0]}{r[1]}'])
+    if r[0] == 'up_convs':
+        # SETRUPHead: Sequential(ConvModule, Upsample)
+        return _conv_module(r[3:], base + [f'up_conv{r[1]}'])
+    if r[0] == 'scale_heads':
+        # FPNHead level i: ConvModules, each but level 0's followed by an
+        # upsampling
+        i, k = int(r[1]), int(r[2])
+        return _conv_module(r[3:], base + [
+            f'scale{i}_conv{k if i == 0 else k // 2}'])
+    if r[0] == 'norm' and len(r) == 2:
+        leaf = _LN_LEAVES.get(r[1])
+        return None if leaf is None else ('params', base + ['norm', leaf])
+    if r[0] == 'q' and len(r) == 2:
+        # ANNHead's 1x1 query conv
+        leaf = {'weight': 'kernel', 'bias': 'bias'}.get(r[1])
+        return None if leaf is None else ('params', base + ['q', leaf])
+    if r[0] in ('k', 'v') and len(r) == 2:
+        return _dense(r[1], base + [r[0]])
     if r[0] == 'conv_seg':
         leaf = {'weight': 'kernel', 'bias': 'bias'}.get(r[1])
         return None if leaf is None else (
             'params', base + ['cls', 'conv_seg', leaf])
-    return None
+    return _segmenter_key(r, base)
+
+
+def _head_prefix(parts):
+    """(the head's key prefix, its JAX module name, the rest of the key):
+    ``auxiliary_head.{i}`` of a list of auxiliary heads is the JAX
+    file's ``aux_heads_{i}``, a single one ``aux_heads_0``."""
+    if parts[0] == 'auxiliary_head':
+        if parts[1].isdigit():
+            return (f'auxiliary_head.{parts[1]}', f'aux_heads_{parts[1]}',
+                    parts[2:])
+        return 'auxiliary_head', 'aux_heads_0', parts[1:]
+    return parts[0], _HEADS[parts[0]], parts[1:]
 
 
 def torch_key_to_flax(key: str, ndim: int, uper: bool = False,
-                      backbone: Optional[str] = None
+                      backbone: Optional[str] = None,
+                      neck: Optional[str] = None
                       ) -> Optional[Tuple[str, list]]:
     """Map one rsiseg state-dict key (of a tensor with ``ndim`` dims) to
     ``(collection, path)`` in the JAX tree, or None. ``uper``: the key's
     head is a ``UPerHead`` (whose ``bottleneck`` is the JAX file's
-    ``psp_bottleneck``, where other heads keep the name). ``backbone``:
-    the model's ``backbone_family``, None for the ResNet and ViT keys."""
+    ``psp_bottleneck``, where other heads keep the name). ``backbone``,
+    ``neck``: the families of ``key_families`` (``backbone`` None for
+    the ResNet and ViT keys); a neck key needs its family."""
     parts = key.split('.')
     if parts[0] == 'backbone':
         if backbone == 'beit':
@@ -268,10 +358,24 @@ def torch_key_to_flax(key: str, ndim: int, uper: bool = False,
             return _swin_key(parts[1:])
         return _backbone_key(parts[1:], ndim)
     if parts[0] == 'neck':
-        return _neck_key(parts[1:])
+        return _neck_key(parts[1:], neck)
     if parts[0] in _HEADS:
-        return _head_key(parts[0], parts[1:], uper)
+        _, name, rest = _head_prefix(parts)
+        return _head_key([name], rest, uper)
     return None
+
+
+def head_prefix(key: str) -> Optional[str]:
+    """The prefix of the head that holds ``key`` (``decode_head``,
+    ``auxiliary_head`` or ``auxiliary_head.{i}``), or None."""
+    parts = key.split('.')
+    return _head_prefix(parts)[0] if parts[0] in _HEADS else None
+
+
+def uper_heads(keys) -> set:
+    """The prefixes of the ``UPerHead``s among ``keys``: the heads with an
+    ``fpn_bottleneck``."""
+    return {head_prefix(k) for k in keys if '.fpn_bottleneck.' in k}
 
 
 def discriminator_key_to_flax(key: str) -> Optional[Tuple[str, list]]:
@@ -307,7 +411,8 @@ def _official_to_unfold(arr):
 def jax_variables_to_state_dict(
         variables: Mapping,
         template: Mapping[str, torch.Tensor],
-        backbone: Optional[str] = None) -> dict:
+        backbone: Optional[str] = None,
+        neck: Optional[str] = None) -> dict:
     """JAX ``{'params', 'batch_stats'}`` tree -> port state dict.
 
     ``template`` is the port model's ``state_dict()``: it names the keys
@@ -316,20 +421,20 @@ def jax_variables_to_state_dict(
     (out, in); LayerNorm scales become weights, and ``pos_embed``,
     ``cls_token``, the relative-position tables (entries, heads), q/v
     biases and layer scales carry as they are; Swin's patch-merging norm
-    and reduction go to mmseg's unfold order. ``backbone``: the model's
-    ``backbone_family``, as ``torch_key_to_flax`` takes it. Raises
+    and reduction go to mmseg's unfold order. ``backbone``, ``neck``: the
+    model's ``key_families``, as ``torch_key_to_flax`` takes them. Raises
     ``KeyError`` naming
     every key of the port that has no source in ``variables``.
     """
-    uper = {k.split('.')[0] for k in template if '.fpn_bottleneck.' in k}
+    uper = uper_heads(template)
     out, missing = {}, []
     for key, ref in template.items():
         if key.endswith('num_batches_tracked'):
             out[key] = torch.zeros_like(ref)
             continue
         mapped = torch_key_to_flax(key, ref.ndim,
-                                   uper=key.split('.')[0] in uper,
-                                   backbone=backbone) \
+                                   uper=head_prefix(key) in uper,
+                                   backbone=backbone, neck=neck) \
             or discriminator_key_to_flax(key)
         leaf = None if mapped is None else _leaf(
             variables.get(mapped[0], {}), mapped[1])
@@ -378,7 +483,7 @@ def load_jax_train_state(jax_state, state):
         ref = module.state_dict()
         sd = jax_variables_to_state_dict(
             {'params': params, 'batch_stats': stats}, ref,
-            backbone_family(module))
+            **key_families(module))
         module.load_state_dict({k: v.to(ref[k].device)
                                 for k, v in sd.items()})
     state.step = int(np.asarray(jax_state.step))

@@ -160,20 +160,9 @@ class VisionTransformer(nn.Module):
         """The JAX file's initializers: Dense kernels and the patch
         embedding lecun-normal with zero bias, LayerNorms at scale 1 and
         bias 0, ``pos_embed`` truncated-normal(0.02), ``cls_token`` 0."""
-        from ..utils.layers import lecun_normal_
+        from ..utils.layers import init_flax_defaults_
         with torch.no_grad():
-            for m in self.modules():
-                weight = getattr(m, 'in_proj_weight', None)
-                if weight is None and isinstance(m, (nn.Linear, nn.Conv2d)):
-                    weight = m.weight
-                if weight is not None:
-                    lecun_normal_(weight, generator)
-                    bias = getattr(m, 'in_proj_bias', getattr(m, 'bias',
-                                                              None))
-                    bias.zero_()
-                elif isinstance(m, nn.LayerNorm):
-                    m.weight.fill_(1.0)
-                    m.bias.zero_()
+            init_flax_defaults_(self, generator)
             nn.init.trunc_normal_(self.pos_embed, 0.0, 0.02, -0.04, 0.04,
                                   generator=generator)
             if self.with_cls_token:

@@ -1,7 +1,13 @@
 from .aspp_head import ASPPHead, DepthwiseSeparableASPPHead
-from .fcn_head import FCNHead
-from .psp_head import PPM, adaptive_avg_pool
+from .context_heads import ANNHead
+from .fcn_head import FCNHead, FPNHead
+from .point_rend import DPTHead
+from .psp_head import PPM, PSPHead, adaptive_avg_pool
+from .transformer_heads import (SegmenterMaskTransformerHead, SETRMLAHead,
+                                SETRUPHead)
 from .uper_head import UPerHead
 
-__all__ = ['ASPPHead', 'DepthwiseSeparableASPPHead', 'FCNHead', 'PPM',
-           'adaptive_avg_pool', 'UPerHead']
+__all__ = ['ANNHead', 'ASPPHead', 'DepthwiseSeparableASPPHead', 'DPTHead',
+           'FCNHead', 'FPNHead', 'PPM', 'PSPHead', 'adaptive_avg_pool',
+           'SegmenterMaskTransformerHead', 'SETRMLAHead', 'SETRUPHead',
+           'UPerHead']

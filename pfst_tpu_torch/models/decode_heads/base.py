@@ -33,6 +33,20 @@ def transform_inputs(inputs, in_index, input_transform: Optional[str],
     return inputs[in_index]
 
 
+class Upsample(nn.Module):
+    """Bilinear resize by an integer factor, a module so that it can sit
+    in a ``Sequential`` (mmseg's ``Upsample``; no parameters)."""
+
+    def __init__(self, scale: int, align_corners: bool):
+        super().__init__()
+        self.scale = scale
+        self.align_corners = align_corners
+
+    def forward(self, x):
+        return resize(x, scale_factor=self.scale, mode='bilinear',
+                      align_corners=self.align_corners)
+
+
 class BaseDecodeHead(nn.Module):
     """Common head kwargs (mirroring mmseg's ``BaseDecodeHead``) and the
     dropout + ``conv_seg`` classifier."""

@@ -1,18 +1,29 @@
-"""FCN head, the auxiliary head of the PFST configs (port of
-``FCNHead`` in ``pfst_tpu/models/decode_heads/fcn_head.py``).
+"""FCN head, the auxiliary head of the PFST configs, and the
+Semantic-FPN head (port of ``FCNHead`` and ``FPNHead`` in
+``pfst_tpu/models/decode_heads/fcn_head.py``).
 
-``num_convs`` 3x3 conv+BN+ReLU blocks (``convs.i``), optional input
-concat (``conv_cat``), then the dropout + ``conv_seg`` classifier.
-Serving does not run it; it is built so that checkpoints load.
+``FCNHead``: ``num_convs`` 3x3 conv+BN+ReLU blocks (``convs.i``),
+optional input concat (``conv_cat``), then the dropout + ``conv_seg``
+classifier. Serving does not run it; it is built so that checkpoints
+load.
+
+``FPNHead`` (``:111-156``): level i runs ``max(1, log2(stride_i /
+stride_0))`` 3x3 ConvModules, each followed by a bilinear x2 but on
+level 0; the levels are summed and classified. mmseg's names:
+``scale_heads.{i}.{k}``, the convs and (parameterless) upsamplings of
+level i in turn.
 """
 from __future__ import annotations
+
+import math
+from typing import Sequence
 
 import torch
 import torch.nn as nn
 
 from ..builder import HEADS
 from ..utils.layers import ConvModule
-from .base import BaseDecodeHead
+from .base import BaseDecodeHead, Upsample
 
 
 @HEADS.register_module()
@@ -42,3 +53,38 @@ class FCNHead(BaseDecodeHead):
         if self.concat_input:
             feats = self.conv_cat(torch.cat([x, feats], dim=1))
         return self.cls_seg(feats), feats
+
+
+@HEADS.register_module()
+class FPNHead(BaseDecodeHead):
+
+    def __init__(self, in_channels: Sequence[int] = (256, 256, 256, 256),
+                 channels: int = 128, num_classes: int = 19,
+                 feature_strides: Sequence[int] = (4, 8, 16, 32),
+                 in_index=(0, 1, 2, 3), input_transform='multiple_select',
+                 **kwargs):
+        super().__init__(list(in_channels), channels, num_classes,
+                         in_index=list(in_index),
+                         input_transform=input_transform or
+                         'multiple_select', **kwargs)
+        base = feature_strides[0]
+        self.scale_heads = nn.ModuleList()
+        for c, stride in zip(in_channels, feature_strides):
+            n_up = 1 if stride == base else max(
+                1, int(math.log2(stride // base)))
+            layers = []
+            for j in range(n_up):
+                layers.append(ConvModule(c if j == 0 else channels, channels,
+                                         3, padding=1,
+                                         norm_cfg=self.norm_cfg))
+                if stride != base:
+                    layers.append(Upsample(2, self.align_corners))
+            self.scale_heads.append(nn.Sequential(*layers))
+
+    def forward(self, inputs):
+        xs = self._transform_inputs(inputs)
+        out = None
+        for head, x in zip(self.scale_heads, xs):
+            x = head(x)
+            out = x if out is None else out + x
+        return self.cls_seg(out), out

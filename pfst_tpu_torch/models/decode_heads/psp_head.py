@@ -1,6 +1,8 @@
-"""Pyramid pooling (port of ``adaptive_avg_pool`` and ``PPM`` in
-``pfst_tpu/models/decode_heads/psp_head.py:19-60``). ``PSPHead`` itself
-is not ported yet."""
+"""Pyramid pooling and PSPNet's head (port of
+``pfst_tpu/models/decode_heads/psp_head.py``): ``adaptive_avg_pool``,
+``PPM`` (``:19-60``) and ``PSPHead`` (``:63-96``), the input beside its
+PPM branches through the 3x3 ``bottleneck``, under mmseg's names
+(``psp_modules.{j}.1``, ``bottleneck``, ``conv_seg``)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -10,7 +12,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import resize
+from ..builder import HEADS
 from ..utils.layers import ConvModule
+from .base import BaseDecodeHead
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
@@ -49,3 +53,25 @@ class PPM(nn.ModuleList):
     def forward(self, x):
         return [resize(branch(x), size=x.shape[2:], mode='bilinear',
                        align_corners=self.align_corners) for branch in self]
+
+
+@HEADS.register_module()
+class PSPHead(BaseDecodeHead):
+
+    def __init__(self, in_channels: int = 2048, channels: int = 512,
+                 num_classes: int = 19,
+                 pool_scales: Sequence[int] = (1, 2, 3, 6), in_index=3,
+                 **kwargs):
+        super().__init__(in_channels, channels, num_classes,
+                         in_index=in_index, **kwargs)
+        cfgs = dict(norm_cfg=self.norm_cfg, act_cfg=self.act_cfg)
+        self.psp_modules = PPM(pool_scales, in_channels, channels,
+                               self.align_corners, **cfgs)
+        self.bottleneck = ConvModule(
+            in_channels + len(pool_scales) * channels, channels, 3,
+            padding=1, **cfgs)
+
+    def forward(self, inputs):
+        x = self._transform_inputs(inputs)
+        feats = self.bottleneck(torch.cat([x, *self.psp_modules(x)], dim=1))
+        return self.cls_seg(feats), feats

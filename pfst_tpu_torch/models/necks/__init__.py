@@ -1,4 +1,6 @@
 from .featurepyramid import Feature2Pyramid
+from .fpn import FPN
+from .mla_neck import MLANeck
 from .multilevel_neck import MultiLevelNeck
 
-__all__ = ['Feature2Pyramid', 'MultiLevelNeck']
+__all__ = ['Feature2Pyramid', 'FPN', 'MLANeck', 'MultiLevelNeck']

@@ -21,6 +21,7 @@ _NO_ACT = {'type': 'none'}
 
 @NECKS.register_module()
 class MultiLevelNeck(nn.Module):
+    key_family = 'multilevel'   # core.convert's key map
 
     def __init__(self,
                  in_channels: Sequence[int] = (768,) * 4,

@@ -25,7 +25,7 @@ from ...utils.misc import add_prefix
 from ..builder import (SEGMENTORS, build_backbone, build_head, build_loss,
                        build_neck)
 from ..losses.accuracy import accuracy
-from ..utils.layers import init_conv_
+from ..utils.layers import init_conv_, lecun_normal_
 
 
 def _head_losses(head, loss_fns, seg_logit, seg_label, seg_weight=None):
@@ -117,7 +117,8 @@ class EncoderDecoder(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """The JAX package's initializers, drawn from ``generator``:
         convs truncated-normal fan-out (``layers.py:126-127``), the
-        classifiers normal(0.01) (``base.py:55``), biases zero, norms
+        classifiers normal(0.01) (``base.py:55``), Dense layers flax's
+        default lecun-normal, biases zero, norms
         at scale 1, shift 0, running mean 0 and variance 1. A child with
         its own ``init_weights`` (the ViT backbone: flax's default Dense
         and Conv initializers) initializes itself."""
@@ -134,6 +135,9 @@ class EncoderDecoder(nn.Module):
                         init_conv_(m.weight, generator)
                     if m.bias is not None:
                         m.bias.zero_()
+                elif isinstance(m, nn.Linear):
+                    lecun_normal_(m.weight, generator)
+                    m.bias.zero_()
         for m in own:
             m.init_weights(generator)
         return self

@@ -47,6 +47,22 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
                           generator=generator)
 
 
+def init_flax_defaults_(module: nn.Module, generator: torch.Generator):
+    """flax's default initializers on every Dense and Conv of ``module``
+    (the attention's in-projection among them): lecun-normal kernels, zero
+    biases; LayerNorms at scale 1 and bias 0."""
+    for m in module.modules():
+        weight = getattr(m, 'in_proj_weight', None)
+        if weight is None and isinstance(m, (nn.Linear, nn.Conv2d)):
+            weight = m.weight
+        if weight is not None:
+            lecun_normal_(weight, generator)
+            getattr(m, 'in_proj_bias', getattr(m, 'bias', None)).zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
 class ChannelLayerNorm(nn.Module):
     """LayerNorm over the channels of each pixel of an NCHW map (flax's
     ``nn.LayerNorm`` on the last axis of NHWC)."""

@@ -1,0 +1,86 @@
+"""Which of the 49 ``configs/_base_/models`` defs the port can build:
+every component ``type`` of a def looked up in the port's registry, with
+no JAX and no model built. The 17 buildable defs resolve every type; each
+of the other 32 raises the registry's ``KeyError`` at its first missing
+type. This pins the count ROADMAP quotes (A13).
+"""
+import glob
+import os.path as osp
+
+import pytest
+
+from pfst_tpu_torch.models import MODELS
+from pfst_tpu_torch.utils import Config
+
+CONFIGS = osp.join(osp.dirname(__file__), '..', 'configs', '_base_',
+                   'models')
+
+
+def _types(node, out, key=''):
+    """The component ``type`` names of a model dict in its order, leaving
+    out those of ``*_cfg`` dicts (norms, activations)."""
+    if isinstance(node, dict):
+        if isinstance(node.get('type'), str) and not key.endswith('_cfg'):
+            out.append(node['type'])
+        for k, v in node.items():
+            _types(v, out, k)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _types(v, out, key)
+    return out
+
+
+# the defs the port builds (ROADMAP's count), and each other def's first
+# type that no port registry holds
+BUILDABLE = {'ann_r50-d8', 'annnet_r50-d8', 'deeplabv3_r50-d8',
+             'deeplabv3plus_r50-d8', 'dpt_vit-b16', 'fcn_r50-d8', 'fpn_r50',
+             'pspnet_r50-d8', 'segmenter_vit-b16_mask', 'setr_mla',
+             'setr_naive', 'setr_pup', 'upernet_beit', 'upernet_mae',
+             'upernet_r50', 'upernet_swin', 'upernet_vit-b16_ln_mln'}
+FIRST_MISSING = {
+    'apcnet_r50-d8': 'APCHead', 'bisenetv1_r18-d32': 'BiSeNetV1',
+    'bisenetv2': 'BiSeNetV2', 'ccnet_r50-d8': 'CCHead', 'cgnet': 'CGNet',
+    'danet_r50-d8': 'DAHead', 'deeplabv3_unet_s5-d16': 'UNet',
+    'dmnet_r50-d8': 'DMHead', 'dnl_r50-d8': 'DNLHead',
+    'emanet_r50-d8': 'EMAHead', 'encnet_r50-d8': 'EncHead',
+    'erfnet_fcn': 'ERFNet', 'fast_scnn': 'FastSCNN',
+    'fastfcn_r50-d32_jpu_psp': 'JPU', 'fcn_hr18': 'HRNet',
+    'fcn_unet_s5-d16': 'UNet', 'gcnet_r50-d8': 'GCHead',
+    'icnet_r50-d8': 'ICNet', 'isanet_r50-d8': 'ISAHead',
+    'knet_s3_fcn': 'IterativeDecodeHead', 'lraspp_m-v3-d8': 'MobileNetV3',
+    'nonlocal_r50-d8': 'NLHead', 'ocrnet_hr18': 'CascadeEncoderDecoder',
+    'ocrnet_r50-d8': 'CascadeEncoderDecoder',
+    'pointrend_r50': 'CascadeEncoderDecoder', 'psanet_r50-d8': 'PSAHead',
+    'pspnet_unet_s5-d16': 'UNet', 'segformer_mit-b0': 'MixVisionTransformer',
+    'stdc': 'STDCContextPathNet', 'twins_pcpvt-s_fpn': 'PCPVT',
+    'twins_pcpvt-s_upernet': 'PCPVT', 'upernet_convnext': 'ConvNeXt'}
+MODEL_DEFS = sorted(glob.glob(osp.join(CONFIGS, '*.py')))
+
+
+def _resolve(model):
+    """Look every component type of ``model`` up in the port's registry,
+    raising the registry's ``KeyError`` at the first it lacks."""
+    for t in _types(model, []):
+        if MODELS.get(t) is None:
+            MODELS.build({'type': t})   # raises before building anything
+
+
+def test_buildable_count_is_17_of_49():
+    names = {osp.basename(p)[:-3] for p in MODEL_DEFS}
+    assert len(names) == 49 and BUILDABLE | set(FIRST_MISSING) == names
+    assert len(BUILDABLE) == 17 and not BUILDABLE & set(FIRST_MISSING)
+
+
+@pytest.mark.parametrize('path', MODEL_DEFS, ids=osp.basename)
+def test_model_def_resolves_in_the_port_registries(path):
+    """A buildable def resolves every type; another raises ``KeyError``
+    naming its first missing type. No model is built."""
+    name = osp.basename(path)[:-3]
+    model = Config.fromfile(path).to_dict()['model']
+    if name in BUILDABLE:
+        _resolve(model)
+    else:
+        # the registry's message, in the quotes of a KeyError's str()
+        want = f'^.{FIRST_MISSING[name]} is not registered in models'
+        with pytest.raises(KeyError, match=want):
+            _resolve(model)

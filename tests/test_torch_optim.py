@@ -35,6 +35,7 @@ from pfst_tpu_torch.core import (build_optimizer, build_optimizers,  # noqa: E40
                                  jax_variables_to_state_dict,
                                  load_checkpoint, load_weights_into_state,
                                  restore_state, save_checkpoint)
+from pfst_tpu_torch.core.convert import key_families  # noqa: E402
 from pfst_tpu_torch.models import build_segmentor  # noqa: E402
 
 ATOL = 2.4e-7
@@ -241,7 +242,8 @@ def test_multipliers_match_jax_on_converted_names(model, mode):
                          tx.init(params), params)
     want = jax_variables_to_state_dict(
         {'params': optax.apply_updates(params, updates),
-         'batch_stats': variables['batch_stats']}, port.state_dict())
+         'batch_stats': variables['batch_stats']}, port.state_dict(),
+        **key_families(port))
     opt = build_optimizer(opt_cfg)(port)
     for p in port.parameters():
         p.grad = torch.ones_like(p)

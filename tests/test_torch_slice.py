@@ -152,7 +152,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     their discriminator, losses and optimizer options, data (the EO
     datasets, the TIFF and HDF5 readers and the wrappers too), the hooks
     and the pseudo-label generator, the logger hooks and their event
-    writer, LoveDA, the environment utilities, evaluation, checkpoint and
+    writer, LoveDA, the environment utilities, the SETR, Segmenter, DPT,
+    PSPNet, Semantic-FPN and ANN heads and the MLA and FPN necks,
+    evaluation, checkpoint and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
     design) and chip_smoke.py, in a fresh process: none of jax, flax,
@@ -189,7 +191,13 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'core.hooks.rare_class_sampling_hook',",
         "          'core.hooks.plot_statistics_hook', 'apis.pseudo_labels',",
         "          'core.hooks.tb_events', 'datasets.loveda',",
-        "          'utils.collect_env', 'utils.set_env'):",
+        "          'utils.collect_env', 'utils.set_env',",
+        "          'models.decode_heads.transformer_heads',",
+        "          'models.decode_heads.point_rend',",
+        "          'models.decode_heads.psp_head',",
+        "          'models.decode_heads.fcn_head',",
+        "          'models.decode_heads.context_heads',",
+        "          'models.necks.mla_neck', 'models.necks.fpn'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

@@ -63,7 +63,7 @@ from pfst_tpu_torch.apis import (build_algorithm, init_segmentor,  # noqa: E402
 from pfst_tpu_torch.core import (build_optimizer,  # noqa: E402
                                  jax_variables_to_state_dict)
 from pfst_tpu_torch.core import optimizers as port_opt  # noqa: E402
-from pfst_tpu_torch.core.convert import backbone_family  # noqa: E402
+from pfst_tpu_torch.core.convert import key_families  # noqa: E402
 from pfst_tpu_torch.models import build_neck, build_segmentor  # noqa: E402
 from pfst_tpu_torch.ops import (attention, torch_attention,  # noqa: E402
                                 torch_attention_backward)
@@ -381,7 +381,7 @@ def test_state_dict_under_mmseg_names(family, refs, tmp_path):
     del cut['params']['backbone_mod'][name[family]]
     with pytest.raises(KeyError, match='backbone.'):
         jax_variables_to_state_dict(cut, port.state_dict(),
-                                    backbone_family(port))
+                                    **key_families(port))
 
 
 # --------------------------------- training ---------------------------------
@@ -413,7 +413,7 @@ def _jax_step(family, variables, batch):
     return new_state, log_vars
 
 
-@pytest.mark.parametrize('family', ['beit', 'swin'])
+@pytest.mark.parametrize('family', ['beit', 'mae', 'swin'])
 def test_supervised_sgd_step_matches_jax(family):
     """One SGD step of ``SupervisedTrainer`` against the JAX trainer's
     from the same weights and batch (drop path 0): log vars and every
@@ -447,11 +447,11 @@ def test_supervised_sgd_step_matches_jax(family):
         np.testing.assert_allclose(got[k].item(), float(ref_vars[k]),
                                    rtol=2e-4, atol=2e-5, err_msg=k)
     template = state.student.state_dict()
-    family = backbone_family(state.student)
-    before = jax_variables_to_state_dict(variables, template, family)
+    families = key_families(state.student)
+    before = jax_variables_to_state_dict(variables, template, **families)
     after = jax_variables_to_state_dict(
         {'params': new_state.params, 'batch_stats': new_state.batch_stats},
-        template, family)
+        template, **families)
     m = 0.1
     for key, value in template.items():
         name, leaf = key.rsplit('.', 1)
@@ -504,7 +504,7 @@ def test_with_cp_gives_the_same_loss_and_gradients(family):
                                    msg=name)
 
 
-@pytest.mark.parametrize('family', ['beit', 'swin'])
+@pytest.mark.parametrize('family', ['beit', 'mae', 'swin'])
 def test_layer_decay_and_custom_key_labels_match_jax(family, refs):
     """Each converted parameter's layer-decay depth and ``custom_keys``
     label equal the JAX file's for the same leaf of the JAX tree (labels
@@ -512,7 +512,7 @@ def test_layer_decay_and_custom_key_labels_match_jax(family, refs):
     variables = refs(family)['variables']
     port = _port(family, variables)
     paths = port_opt.param_paths(port.named_parameters(),
-                                 backbone_family(port))
+                                 **key_families(port))
     jax_paths = {'/'.join(str(getattr(p, 'key', p)) for p in path)
                  for path, _ in jax.tree_util.tree_leaves_with_path(
                      variables['params'])}

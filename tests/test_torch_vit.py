@@ -47,6 +47,7 @@ from pfst_tpu_torch.apis import (build_algorithm, init_segmentor,  # noqa: E402
 from pfst_tpu_torch.core import (build_optimizer,  # noqa: E402
                                  jax_variables_to_state_dict,
                                  torch_key_to_flax)
+from pfst_tpu_torch.core.convert import key_families  # noqa: E402
 from pfst_tpu_torch.models import (build_backbone, build_head,  # noqa: E402
                                    build_neck, build_segmentor)
 from pfst_tpu_torch.models.decode_heads import psp_head  # noqa: E402
@@ -89,8 +90,11 @@ def _load(port, variables, prefix, jax_name):
     """JAX ``variables`` of one submodule into ``port`` (keys without the
     segmentor's ``prefix.``)."""
     template = {f'{prefix}.{k}': v for k, v in port.state_dict().items()}
+    holder = torch.nn.Module()
+    setattr(holder, prefix, port)
     sd = jax_variables_to_state_dict(
-        {c: {jax_name: t} for c, t in variables.items()}, template)
+        {c: {jax_name: t} for c, t in variables.items()}, template,
+        **key_families(holder))
     port.load_state_dict({k[len(prefix) + 1:]: v for k, v in sd.items()})
     return port.eval()
 
@@ -273,7 +277,8 @@ def test_jax_variables_to_state_dict_names_missing_keys(pair):
                       if k != 'neck_mod'},
            'batch_stats': variables['batch_stats']}
     with pytest.raises(KeyError, match='neck.lateral_convs.0.conv.weight'):
-        jax_variables_to_state_dict(cut, port.state_dict())
+        jax_variables_to_state_dict(cut, port.state_dict(),
+                                    **key_families(port))
 
 
 def test_init_weights_follow_jax_initializers():
@@ -289,7 +294,7 @@ def test_init_weights_follow_jax_initializers():
     sd = port.state_dict()
     template = {k: torch.zeros_like(v) for k, v in sd.items()}
     want = jax_variables_to_state_dict(jax.tree.map(np.asarray, ref),
-                                       template)
+                                       template, **key_families(port))
     checked = 0
     for key, value in sd.items():
         if not key.startswith(('backbone.', 'neck.')):
@@ -351,10 +356,11 @@ def test_supervised_sgd_step_matches_jax(pair):
         np.testing.assert_allclose(got[k].item(), float(ref_vars[k]),
                                    rtol=2e-4, atol=2e-5, err_msg=k)
     template = state.student.state_dict()
-    before = jax_variables_to_state_dict(variables, template)
+    families = key_families(state.student)
+    before = jax_variables_to_state_dict(variables, template, **families)
     after = jax_variables_to_state_dict(
         {'params': new_state.params, 'batch_stats': new_state.batch_stats},
-        template)
+        template, **families)
     m = 0.1
     for key, value in template.items():
         name, leaf = key.rsplit('.', 1)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from pfst_tpu_torch.core import jax_variables_to_state_dict
-from pfst_tpu_torch.core.convert import backbone_family
+from pfst_tpu_torch.core.convert import key_families
 
 # XLA:CPU compile options for the tests' JAX programs, each of which runs
 # once: LLVM's costly optimisations off (a PFGST train step of
@@ -119,7 +119,7 @@ def jax_variables(model, shape, seed=0):
 def load_port(port_model, variables):
     """Load JAX ``variables`` into ``port_model``; return it in eval mode."""
     port_model.load_state_dict(jax_variables_to_state_dict(
-        variables, port_model.state_dict(), backbone_family(port_model)))
+        variables, port_model.state_dict(), **key_families(port_model)))
     return port_model.eval()
 
 

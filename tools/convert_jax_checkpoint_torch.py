@@ -50,11 +50,11 @@ def convert(cfg, restored):
         step=restored.get('step', 0))
     if state.teacher is None:
         from pfst_tpu_torch.core import jax_variables_to_state_dict
-        from pfst_tpu_torch.core.convert import backbone_family
+        from pfst_tpu_torch.core.convert import key_families
         ref = state.student.state_dict()
         state.student.load_state_dict(jax_variables_to_state_dict(
             {'params': jstate.params, 'batch_stats': jstate.batch_stats},
-            ref, backbone_family(state.student)))
+            ref, **key_families(state.student)))
         state.step = int(jstate.step)
         state.optimizer.set_step(state.step)
         return state
