@@ -49,7 +49,9 @@ Phases (any failure exits non-zero before the result lines):
    layout), the microbench's (8 x 12 x {1024, 4096} x 64 bf16), an
    edge case (1 x 2 x 17 x 64, fp32 and bf16: N inside one tile), and
    phase 20's (2 x 16 x 2305 x 64: ViT-L at 768^2, one valid key in the
-   last block; 2 x 12 x 1043 x 64: Segmenter's decoder), with
+   last block; 2 x 12 x 1043 x 64: Segmenter's decoder; keys shorter
+   than the queries, N_k = 256: MiT-B0's and PCPVT-S's stage 0, 2 x 1 x
+   16384 x {32, 64}, and a middle MiT-B0 stage, 2 x 5 x 1024 x 32), with
    the median times of the kernel (per
    call, and on the device in a CUDA graph of ten launches), the plain
    version and SDPA (per call, and on the device: its forward, and its
@@ -57,9 +59,11 @@ Phases (any failure exits non-zero before the result lines):
    (``FLASH_AB_CASES``): BEiT-B's (2, 12, 1601, 64) with its table
    shared by the batch and Swin-T's first stage (722, 3, 49, 32) with the
    shift mask, fp32 and bf16, timed beside SDPA given the bias as a float
-   mask, and random asymmetric biases at three small geometries; O, LSE,
-   dQ, dK, dV and dab held to the plain versions, two launches bitwise
-   equal;
+   mask, and random asymmetric biases at three small geometries; then
+   keys shorter and longer than the queries, checked only (N_k in {1, 4,
+   49, 130} under N_q in {17, 200, 1000}, and 300 against 17; d 32, 64,
+   128; with a random (B, H, N_q, N_k) bias and without); O, LSE, dQ, dK,
+   dV and dab held to the plain versions, two launches bitwise equal;
 9. ViT-B/16 UPerNet serving at full width (``upernet_vit-b16_ln_mln``,
    seeded weights): 512x512 requests through ``make_inference_fn`` ->
    ``_finalize_views`` and ``make_state_fn`` -> ``sim_feat``, with the
@@ -202,14 +206,18 @@ Phases (any failure exits non-zero before the result lines):
    weights (``A13_MODELS``): SETR naive, PUP and MLA (ViT-L/16) at
    768^2, Segmenter (ViT-B/16, 19 classes) and DPT (ViT-B/16, its 14^2
    position table resized to the grid) at 512^2, PSPNet (ResNetV1c-101,
-   14 bands), Semantic FPN and ANN (both defs) at 512^2 each answer 3
-   requests (logits -> labels, then ``make_state_fn``'s similarity on the
-   decoded features, at 1/4 of the request, 1/1 for SETR-PUP, 1/8 for
-   PSPNet and ANN, 1/16 for Segmenter; 2 x the attention layers of flash
-   forwards a request) and take 5 supervised steps at batch 2 with AdamW
-   in fp32 and then, on the same weights, in bf16 autocast (each flash
-   kernel once an attention layer a step); Segmenter, SETR-PUP and ANN
-   card against CPU as phase 11 (128^2, TF32 off);
+   14 bands), Semantic FPN and ANN (both defs), SegFormer (MiT-B0: 8
+   attention layers, keys on a 16^2 grid) and Twins PCPVT-S under
+   UPerNet and Semantic FPN (16 attention layers, N_k = 16^2) at 512^2
+   each answer 3 requests (logits -> labels, then ``make_state_fn``'s
+   similarity on the decoded features, at 1/4 of the request, 1/1 for
+   SETR-PUP, 1/8 for PSPNet and ANN, 1/16 for Segmenter; 2 x the
+   attention layers of flash forwards a request) and take 5 supervised
+   steps at batch 2 with AdamW in fp32 and then, on the same weights, in
+   bf16 autocast (each flash kernel once an attention layer a step);
+   Segmenter, SETR-PUP, ANN, SegFormer and Twins-FPN card against CPU as
+   phase 11 (128^2, TF32 off; MiT's stage 0 there: 32^2 queries, 4^2
+   keys);
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -326,9 +334,12 @@ SIM_GEOMETRY_CASES = [((2, 20, 9, 37), 3, 1),
                       ((1, 12, 9, 20), 7, 1),
                       ((1, 10, 9, 24), 7, 2),
                       ((1, 3, 37, 70), 3, 33)]
-# flash attention: (shape (B, heads, N, d), dtype, layout). 'qkv': q, k, v
-# are the strided views of the ViT block's (B, N, 3, heads, d) projection;
-# 'contiguous': the microbench's separate (B, heads, N, d) tensors
+# flash attention: (shape (B, heads, N, d), dtype, layout[, N_k]). 'qkv':
+# q, k, v are the strided views of the ViT block's (B, N, 3, heads, d)
+# projection, or with N_k (keys and values shorter or longer than the
+# queries), of MiT's (B, N, heads, d) query and (B, N_k, 2, heads, d)
+# key-value projections; 'contiguous': the microbench's separate (B,
+# heads, N, d) tensors
 FLASH_CASES = [((1, 12, 1025, 64), torch.float32, 'qkv'),
                ((1, 12, 1025, 64), torch.bfloat16, 'qkv'),
                ((2, 12, 1025, 64), torch.float32, 'qkv'),
@@ -342,13 +353,21 @@ FLASH_CASES = [((1, 12, 1025, 64), torch.float32, 'qkv'),
                ((2, 16, 2305, 64), torch.float32, 'qkv'),
                ((2, 16, 2305, 64), torch.bfloat16, 'qkv'),
                ((2, 12, 1043, 64), torch.float32, 'qkv'),
-               ((2, 12, 1043, 64), torch.bfloat16, 'qkv')]
+               ((2, 12, 1043, 64), torch.bfloat16, 'qkv')] + [
+    # phase 20's spatial-reduction attention at 512^2, N_k = 16^2: MiT-B0
+    # and PCPVT-S stage 0 (128^2 queries, sr 8), a middle MiT-B0 stage
+    # (32^2 queries, 5 heads, sr 2)
+    (shape, dtype, 'qkv', 256)
+    for shape in ((2, 1, 16384, 32), (2, 1, 16384, 64), (2, 5, 1024, 32))
+    for dtype in (torch.float32, torch.bfloat16)]
 FLASH_FWD_TOL, FLASH_LSE_TOL, FLASH_BWD_TOL = 2e-5, 1e-5, 1e-4
 # flash attention with the library's bias ab (``flash_bias``): (shape,
 # dtype, layout, bias, timed). BEiT-B at 640^2 (N = 40 x 40 + 1, its table
 # shared by the batch) and Swin-T's first stage at 512^2 with the shift
 # mask (2 images of 19 x 19 windows of 49 tokens, d = 32), timed; random
-# asymmetric biases at small general geometries, checked only
+# asymmetric biases at small general geometries, checked only; then
+# (with a sixth entry, N_k) keys shorter and longer than the queries,
+# checked only, with a random (B, H, N, N_k) bias and without (None)
 FLASH_AB_CASES = [((2, 12, 1601, 64), torch.float32, 'qkv', 'beit', True),
                   ((2, 12, 1601, 64), torch.bfloat16, 'qkv', 'beit', True),
                   ((722, 3, 49, 32), torch.float32, 'qkv', ('swin', 133),
@@ -359,6 +378,12 @@ FLASH_AB_CASES = [((2, 12, 1601, 64), torch.float32, 'qkv', 'beit', True),
     for shape, layout, bias in (((2, 2, 17, 64), 'qkv', 'random'),
                                 ((1, 3, 130, 32), 'qkv', 'shared'),
                                 ((2, 1, 200, 128), 'contiguous', 'strided'))
+    for dtype in (torch.float32, torch.bfloat16)] + [
+    ((b, h, n, d), dtype, 'qkv', bias, False, nk)
+    for i, (nk, n) in enumerate([(nk, n) for nk in (1, 4, 49, 130)
+                                 for n in (17, 200, 1000)] + [(300, 17)])
+    for b, h, d in [((2, 2, 64), (1, 3, 32), (2, 1, 128))[(i + i // 3) % 3]]
+    for bias in ('random', None)
     for dtype in (torch.float32, torch.bfloat16)]
 # phase 19: the transformer backbones with a relative-position bias
 BEIT = osp.join(ROOT, 'configs', '_base_', 'models', 'upernet_beit.py')
@@ -382,8 +407,12 @@ A13_MODELS = {'setr_naive': ((768, 768), 24, 4),
               'pspnet_r50-d8': ((512, 512), 0, 8),
               'fpn_r50': ((512, 512), 0, 4),
               'ann_r50-d8': ((512, 512), 0, 8),
-              'annnet_r50-d8': ((512, 512), 0, 8)}
-A13_CHECKED = ('segmenter_vit-b16_mask', 'setr_pup', 'ann_r50-d8')
+              'annnet_r50-d8': ((512, 512), 0, 8),
+              'segformer_mit-b0': ((512, 512), 8, 4),
+              'twins_pcpvt-s_upernet': ((512, 512), 16, 4),
+              'twins_pcpvt-s_fpn': ((512, 512), 16, 4)}
+A13_CHECKED = ('segmenter_vit-b16_mask', 'setr_pup', 'ann_r50-d8',
+               'segformer_mit-b0', 'twins_pcpvt-s_fpn')
 MODEL_DEFS = osp.join(ROOT, 'configs', '_base_', 'models')
 # the ViT configs' input normalization (ImageNet mean/std, RGB)
 VIT_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
@@ -748,17 +777,24 @@ def phase_backward_vs_plain():
     return cases, geometry
 
 
-def _flash_inputs(shape, dtype, layout, gen):
+def _flash_inputs(shape, dtype, layout, gen, nk=None):
+    """q (B, H, N, d) and k, v (B, H, N_k, d) on the card (``nk`` None:
+    N_k = N), in the case's layout (``FLASH_CASES``)."""
     b, h, n, d = shape
-    if layout == 'qkv':
+    if layout == 'qkv' and nk is None:
         qkv = torch.randn((b, n, 3, h, d), generator=gen).to('cuda', dtype)
         return qkv.permute(2, 0, 3, 1, 4).unbind(0)
-    return [torch.randn(shape, generator=gen).to('cuda', dtype)
-            for _ in range(3)]
+    if layout == 'qkv':
+        q = torch.randn((b, n, h, d), generator=gen).to('cuda', dtype)
+        kv = torch.randn((b, nk, 2, h, d), generator=gen).to('cuda', dtype)
+        return (q.transpose(1, 2), *kv.permute(2, 0, 3, 1, 4).unbind(0))
+    return [torch.randn((b, h, m, d), generator=gen).to('cuda', dtype)
+            for m in (n, nk or n, nk or n)]
 
 
-def flash_bias(kind, shape, gen, device='cuda'):
-    """An fp32 ``ab`` for a (B, H, N, D) case, in the kernels' order (added
+def flash_bias(kind, shape, gen, device='cuda', nk=None):
+    """An fp32 ``ab`` for a (B, H, N, D) case (against N_k = ``nk`` keys,
+    N where None), in the kernels' order (added
     before the scale, so a model's bias over the scale), as the path gives
     it or random and asymmetric, the cases that show a layout slip:
 
@@ -767,9 +803,10 @@ def flash_bias(kind, shape, gen, device='cuda'):
       for every image, read with batch stride 0;
     * ('swin', hp): Swin's (N = 49) table bias plus the shift mask of an
       hp x hp padded grid, (B, H, 49, 49) over B / (hp / 7)^2 images;
-    * 'shared': normal draws, (1, H, N, N); 'random': (B, H, N, N);
-      'strided': 'random' read through a row stride of N + 3."""
+    * 'shared': normal draws, (1, H, N, N_k); 'random': (B, H, N, N_k);
+      'strided': 'random' read through a row stride of N_k + 3."""
     b, h, n, d = shape
+    nk = nk or n
     scale = d**-0.5
     if kind == 'beit':
         side = int(round((n - 1)**0.5))
@@ -784,48 +821,52 @@ def flash_bias(kind, shape, gen, device='cuda'):
         ab = ((bias[None] + mask[:, None]) / scale).repeat(
             b // mask.shape[0], 1, 1, 1)
     elif kind == 'shared':
-        ab = torch.randn((1, h, n, n), generator=gen) / scale
+        ab = torch.randn((1, h, n, nk), generator=gen) / scale
     elif kind == 'random':
-        ab = torch.randn((b, h, n, n), generator=gen) / scale
+        ab = torch.randn((b, h, n, nk), generator=gen) / scale
     elif kind == 'strided':
-        ab = (torch.randn((b, h, n, n + 3), generator=gen) / scale)[..., :n]
+        ab = (torch.randn((b, h, n, nk + 3), generator=gen) / scale)[..., :nk]
     else:
         raise ValueError(f'unknown bias {kind}')
     return ab.to(device)
 
 
-def flash_bounds(shape, dtype, ab_batches=None):
+def flash_bounds(shape, dtype, ab_batches=None, nk=None):
     """Least times (ms, bound_by) of the forward, dK/dV and dQ kernels'
-    functions: each input read once and each output written once over the
+    functions for q of ``shape`` (B, H, N, d) against N_k = ``nk`` keys
+    (N where None): each input read once and each output written once over the
     HBM rate, against the operations over the peak of the input type:
     bf16 at the tensor cores' 989 TFLOP/s; fp32 at 495 / 3 = 165 TFLOP/s,
     the tensor cores' rate for fp32-accurate products as 3xTF32, which is
     above the CUDA cores' 67, so no fp32 kernel can read faster than its
     bound. Forward:
-    4 B H N^2 d flops (S = Q K^T and P V). The whole backward needs
-    10 B H N^2 d (S recomputed, dP = dO V^T, dV, dK, dQ: 2 each), split
-    6 : 4 here, dK/dV taking S, dV and dK and dQ taking dP and dQ. Bytes:
-    forward q, k, v, O and the fp32 LSE; dK/dV q, k, v, dO, LSE and Di
-    in, dK and dV out; dQ the same inputs, dQ out. With a bias
+    4 B H N N_k d flops (S = Q K^T and P V). The whole backward needs
+    10 B H N N_k d (S recomputed, dP = dO V^T, dV, dK, dQ: 2 each), split
+    6 : 4 here, dK/dV taking S, dV and dK and dQ taking dP and dQ. Bytes
+    (q, O, dO, dQ of N rows, LSE and Di of N values; k, v, dK, dV of N_k
+    rows): forward q, k, v, O and the fp32 LSE; dK/dV q, k, v, dO, LSE
+    and Di in, dK and dV out; dQ the same inputs, dQ out. With a bias
     (``ab_batches``: the distinct batch slices of ``ab``, 1 for one table
-    shared by every batch, else B) each kernel also reads the fp32 ab once,
-    ``ab_batches * H * N^2 * 4`` bytes, and dQ writes the fp32 dab, ``B * H
-    * N^2 * 4``; its additions are not counted (N^2 against the products'
-    4 N^2 d a head)."""
+    shared by every batch, else B) each kernel also reads the fp32 ab
+    once, ``ab_batches * H * N * N_k * 4`` bytes, and dQ writes the fp32
+    dab, ``B * H * N * N_k * 4``; its additions are not counted (N N_k
+    against the products' 4 N N_k d a head)."""
     b, h, n, d = shape
+    nk = nk or n
     elt = torch.finfo(dtype).bits // 8
     peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
             else TF32X3_FLOP_PER_S)
-    mat, stat = b * h * n * d * elt, b * h * n * 4
-    bias = 0 if ab_batches is None else ab_batches * h * n * n * 4
-    dab = 0 if ab_batches is None else b * h * n * n * 4
-    work = {'fwd': (4 * mat + stat + bias, 4),
-            'dkv': (6 * mat + 2 * stat + bias, 6),
-            'dq': (5 * mat + 2 * stat + bias + dab, 4)}
+    mq, mk = b * h * n * d * elt, b * h * nk * d * elt
+    stat = b * h * n * 4
+    bias = 0 if ab_batches is None else ab_batches * h * n * nk * 4
+    dab = 0 if ab_batches is None else b * h * n * nk * 4
+    work = {'fwd': (2 * mq + 2 * mk + stat + bias, 4),
+            'dkv': (2 * mq + 4 * mk + 2 * stat + bias, 6),
+            'dq': (3 * mq + 2 * mk + 2 * stat + bias + dab, 4)}
     out = {}
     for kernel, (nbytes, per) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = per * b * h * n * n * d / peak
+        t_ops = per * b * h * n * nk * d / peak
         out[kernel] = (max(t_bytes, t_ops) * 1e3,
                        'bytes' if t_bytes >= t_ops else 'operations')
     return out
@@ -900,8 +941,8 @@ def flash_errors(q, k, v, g, scale, ab=None, repeat=False):
     err = dict(fwd_err=float((o.float() - ref).abs().max()),
                fwd_excess=flash_excess(o, ref, rounding, spread[0]),
                fwd_limit=FLASH_FWD_TOL * max(1.0, float(ref.abs().max())),
-               lse_rel_err=float(((lse - ref_lse).abs()
-                                  / ref_lse.abs()).max()))
+               lse_err=float(((lse - ref_lse).abs()
+                              / ref_lse.abs().clamp(min=1.0)).max()))
     grads = cuda_flash_attention_backward(q, k, v, o, lse, g, scale, ab)
     xs = [t.clone().requires_grad_() for t in (qf, kf, vf)]
     if ab is not None:
@@ -949,7 +990,7 @@ def flash_errors(q, k, v, g, scale, ab=None, repeat=False):
             and all(torch.equal(a, b) for a, b in zip(grads, again)))
         del o2, lse2, again
     err['ok'] = (err['fwd_excess'] <= err['fwd_limit']
-                 and err['lse_rel_err'] <= FLASH_LSE_TOL
+                 and err['lse_err'] <= FLASH_LSE_TOL
                  and err['bwd_excess'] <= err['bwd_limit'] and ok_dab
                  and err.get('repeat_bitwise_equal', True))
     return o, lse, err
@@ -975,10 +1016,14 @@ def phase_flash_vs_plain():
     Forward: O within ``FLASH_FWD_TOL * max(1, max|ref|)`` of the plain
     forward in fp32 on the same input values (fp32 sums in another
     order), plus for a bf16 O its rounding 2^-8 |ref|; LSE within
-    ``FLASH_LSE_TOL`` relative. Backward: dQ, dK, dV against autograd of
+    ``FLASH_LSE_TOL * max(1, |ref|)``, elementwise: relative where |LSE|
+    >= 1 and absolute below, where P = exp(S - LSE) sees the absolute
+    error (at N_k = 1 the LSE is the one score q.k s, which may lie near
+    0, where a relative bound measures only the cancellation in q.k).
+    Backward: dQ, dK, dV against autograd of
     the plain fp32 forward and against ``torch_attention_backward``, on
     the same values and a random dL/dO, within ``FLASH_BWD_TOL * max(1,
-    max|ref|)``: sums of N = 1025 to 4096 fp32 terms in another order
+    max|ref|)``: sums of N = 256 to 16384 fp32 terms in another order
     (the fp32 kernels measured <= 8.1e-6 as 3xTF32, <= 6.9e-7 as fp32
     FMAs on the CUDA cores). For bf16 input, each output's own
     rounding, 2^-8 |ref|, and the roundings that ``flash_allowances``
@@ -989,8 +1034,9 @@ def phase_flash_vs_plain():
     alone)."""
     gen = torch.Generator().manual_seed(4)
     cases = []
-    for shape, dtype, layout in FLASH_CASES:
-        q, k, v = _flash_inputs(shape, dtype, layout, gen)
+    for shape, dtype, layout, *nk in FLASH_CASES:
+        nk = nk[0] if nk else None
+        q, k, v = _flash_inputs(shape, dtype, layout, gen, nk)
         g = torch.randn(shape, generator=gen).to('cuda', dtype)
         scale = shape[-1]**-0.5
         o, lse, err = flash_errors(q, k, v, g, scale)
@@ -1024,9 +1070,10 @@ def phase_flash_vs_plain():
             'bwd': sdpa_backward_ms(lib_out, g)}
         lib_bwd_op = lib_out.grad_fn.name()
         del xs, lib_out, di, o, lse
-        bounds = flash_bounds(shape, dtype)
+        bounds = flash_bounds(shape, dtype, nk=nk)
         ok = err.pop('ok')
-        case = dict(shape=list(shape), dtype=str(dtype).split('.')[-1],
+        case = dict(shape=list(shape), kv_len=k.shape[2],
+                    dtype=str(dtype).split('.')[-1],
                     layout=layout, **err, ms=ms, device_ms=device_ms,
                     plain_fwd_ms=plain_fwd_ms,
                     plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
@@ -1046,31 +1093,35 @@ def phase_flash_vs_plain():
 
 
 def phase_flash_bias_vs_plain():
-    """Phase 3c with the bias: each flash kernel against its plain version
-    on ``FLASH_AB_CASES``, O, LSE, dQ, dK, dV and dab within phase 3c's
-    limits (``flash_errors``), two launches bitwise equal; the BEiT and
+    """Phase 3c with the bias, and keys shorter or longer than the
+    queries: each flash kernel against its plain version on
+    ``FLASH_AB_CASES``, O, LSE, dQ, dK, dV and (with a bias) dab within
+    phase 3c's limits (``flash_errors``), two launches bitwise equal; the
+    BEiT and
     Swin shapes timed as phase 3c times, with SDPA given the same bias as
     a float ``attn_mask`` (``ab * scale`` in q's type, after the scale
     where SDPA adds it; its backward with the mask's gradient) as the
     library's time, and the bound with ab's and dab's bytes."""
     gen = torch.Generator().manual_seed(19)
     cases = []
-    for shape, dtype, layout, bias, timed in FLASH_AB_CASES:
-        q, k, v = _flash_inputs(shape, dtype, layout, gen)
+    for shape, dtype, layout, bias, timed, *nk in FLASH_AB_CASES:
+        nk = nk[0] if nk else None
+        q, k, v = _flash_inputs(shape, dtype, layout, gen, nk)
         g = torch.randn(shape, generator=gen).to('cuda', dtype)
-        ab = flash_bias(bias, shape, gen)
+        ab = None if bias is None else flash_bias(bias, shape, gen, nk=nk)
         scale = shape[-1]**-0.5
         o, lse, err = flash_errors(q, k, v, g, scale, ab, repeat=True)
         ok = err.pop('ok')
-        case = dict(shape=list(shape), dtype=str(dtype).split('.')[-1],
-                    layout=layout, bias=str(bias),
-                    ab_shape=list(ab.shape), **err)
+        case = dict(shape=list(shape), kv_len=k.shape[2],
+                    dtype=str(dtype).split('.')[-1], layout=layout,
+                    bias=str(bias),
+                    ab_shape=None if ab is None else list(ab.shape), **err)
         if timed:
             case.update(_flash_bias_times(q, k, v, g, o, lse, ab, scale))
             bounds = flash_bounds(shape, dtype, ab.shape[0])
             case['bound_ms'] = {kk: b[0] for kk, b in bounds.items()}
             case['bound_by'] = {kk: b[1] for kk, b in bounds.items()}
-        log(f'[kernel] flash_attention with ab {case}')
+        log(f'[kernel] flash_attention with ab {bias} {case}')
         if not ok:
             raise AssertionError(f'flash kernels with ab disagree with the '
                                  f'plain versions: {case}')
@@ -3741,12 +3792,14 @@ def _a13_watch(student):
 
 def phase_a13_heads(card):
     """Phase 20: A13's defs on the ViT (SETR naive, PUP and MLA with ViT-L
-    at 768^2; Segmenter and DPT with ViT-B at 512^2) and on the ResNet
-    (PSPNet, Semantic FPN, ANN at 512^2), each from its config as it
-    stands with seeded weights: requests (logits -> labels, then the
+    at 768^2; Segmenter and DPT with ViT-B at 512^2), on the ResNet
+    (PSPNet, Semantic FPN, ANN at 512^2), on MiT-B0 (SegFormer) and on
+    Twins PCPVT-S (UPerNet, Semantic FPN) at 512^2, each from its config
+    as it stands with seeded weights: requests (logits -> labels, then the
     feature state through the similarity kernel), supervised steps in
-    fp32 and bf16 autocast; Segmenter, SETR-PUP and ANN card against
-    CPU. Every attention layer on the flash kernels."""
+    fp32 and bf16 autocast; ``A13_CHECKED`` card against CPU. Every
+    attention layer on the flash kernels (MiT's and PCPVT's with keys
+    shorter than the queries)."""
     t0 = time.time()
     serve, train = {}, {}
     for name, (hw, layers, stride) in A13_MODELS.items():
@@ -3822,7 +3875,7 @@ def _flash_entries(cases, serve, train, ab_cases, tf, a13):
             launches_per_train_step=train_launches / steps,
             max_abs_err=max(errs + [c['fwd_err'] if i == 0 else max(
                 c['dk_err'], c['dv_err']) if i == 1 else max(
-                    c['dq_err'], c['dab_err']) for c in ab_cases]),
+                    c['dq_err'], c.get('dab_err', 0.0)) for c in ab_cases]),
             max_abs_err_fp32=max(e for e, c in zip(errs, cases)
                                  if c['dtype'] == 'float32'),
             ms=case['ms'][kernel], device_ms=case['device_ms'][kernel],
@@ -3836,21 +3889,23 @@ def _flash_entries(cases, serve, train, ab_cases, tf, a13):
                 'fwd' if i == 0 else 'bwd'],
             library_bwd_op=case['library_bwd_op'],
             timed_at=case['shape'],
-            cases=[{k: c[k] for k in ('shape', 'dtype', 'layout')}
+            cases=[{k: c[k] for k in ('shape', 'kv_len', 'dtype', 'layout')}
                    | {'ms': c['ms'][kernel],
                       'device_ms': c['device_ms'][kernel],
                       'bound_ms': c['bound_ms'][kernel],
+                      'plain_ms': c['plain_fwd_ms'] if i == 0
+                      else c['plain_bwd_ms'],
                       'library_device_ms': c['library_device_ms'][
                           'fwd' if i == 0 else 'bwd']} for c in cases],
-            ab_cases=[{k: c[k] for k in ('shape', 'dtype', 'layout', 'bias',
-                                         'ab_shape')}
+            ab_cases=[{k: c[k] for k in ('shape', 'kv_len', 'dtype', 'layout',
+                                         'bias', 'ab_shape')}
                       | _ab_case_entry(c, kernel, i) for c in ab_cases]))
     return rows
 
 
 def _ab_case_entry(c, kernel, i):
     err = (c['fwd_err'] if i == 0 else max(c['dk_err'], c['dv_err'])
-           if i == 1 else max(c['dq_err'], c['dab_err']))
+           if i == 1 else max(c['dq_err'], c.get('dab_err', 0.0)))
     out = dict(max_abs_err=err,
                repeat_bitwise_equal=c['repeat_bitwise_equal'])
     if 'ms' in c:

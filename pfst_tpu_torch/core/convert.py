@@ -7,7 +7,8 @@ returns a state dict with the rsiseg key names the port's modules
 carry. ``torch_key_to_flax`` is the port's own copy of that tool's key
 map (``convert_torch_checkpoint.py:47-151`` and, for the ViT,
 ``:350-395``; for BEiT, MAE and Swin, of ``transformer_key_to_flax``,
-``:290-349`` and ``:394-446``), extended to mmseg's ``avg_down``
+``:290-349`` and ``:394-446``; for MiT, ``:449-515``), extended to
+mmseg's ``avg_down``
 downsample (``downsample.{1,2}`` after the pooling layer), the necks
 (``MultiLevelNeck``, ``MLANeck``, ``FPN``), the heads, and lists of
 auxiliary heads (``auxiliary_head.{i}``, the JAX file's
@@ -21,7 +22,14 @@ they are the JAX file's names. Swin's patch-merging weights are permuted
 between mmseg's ``nn.Unfold`` channel order, which the port keeps, and
 the JAX file's position-major order (``convert_torch_checkpoint.py:
 267-288``, here in the other direction); mmseg's downsample at the end of
-stage i is the JAX file's ``merge_*{i + 1}``.
+stage i is the JAX file's ``merge_*{i + 1}``. MiT's stacked q|k|v
+in-projection (mmseg's ``attn.attn.in_proj_*``) is the JAX file's three
+Dense layers ``q``, ``k``, ``v`` concatenated (a path element ``q|k|v``),
+and its Mix-FFN's 1x1 convs ``ffn.layers.{0,4}`` are the JAX file's
+Dense ``fc1``, ``fc2``; Twins, which the JAX tool does not map, keeps the
+JAX file's names for its own modules and MiT's inside them. A
+``SegformerHead`` (told by its ``fusion_conv``) maps mmseg's ``convs.{i}``
+to the JAX file's ``proj{i}``, where an FCN head's are ``conv{i}``.
 ``discriminator_key_to_flax`` maps ``FCDiscriminator``'s ``conv{i}``
 weights (``tests/test_uda_golden_trace.py:1021-1026``).
 ``load_jax_train_state`` carries a JAX ``UDATrainState`` (or the
@@ -196,6 +204,75 @@ def _swin_key(rest):
         'params', blk + names[0].split('/') + [names[1]])
 
 
+def _leaf_of(leaf, ndim):
+    """flax's leaf for a torch ``weight`` (a kernel, or a LayerNorm's
+    scale where 1-D) or ``bias``."""
+    if leaf == 'bias':
+        return 'bias'
+    return None if leaf != 'weight' else ('kernel' if ndim > 1 else 'scale')
+
+
+# MiT's and Twins' block modules (mmseg's names, inside the blocks of both
+# families) to the JAX file's
+_MIT_BLOCK = {'norm1': ['norm1'], 'norm2': ['norm2'],
+              'attn.attn.out_proj': ['attn', 'proj'], 'attn.sr': ['attn', 'sr'],
+              'attn.norm': ['attn', 'sr_norm'], 'attn.qkv': ['attn', 'qkv'],
+              'attn.proj': ['attn', 'proj'],
+              'ffn.layers.0': ['ffn', 'fc1'], 'ffn.layers.1': ['ffn', 'dwconv'],
+              'ffn.layers.4': ['ffn', 'fc2']}
+
+
+def _mit_block_key(r, path, ndim):
+    """A key ``r`` inside a MiT or Twins block at JAX ``path``: the stacked
+    in-projection to ``q|k|v`` (three Dense layers, concatenated)."""
+    sub, leaf = '.'.join(r[:-1]), r[-1]
+    if sub == 'attn.attn' and leaf in ('in_proj_weight', 'in_proj_bias'):
+        return 'params', path + ['attn', 'q|k|v', 'kernel'
+                                 if leaf.endswith('weight') else 'bias']
+    name, flax_leaf = _MIT_BLOCK.get(sub), _leaf_of(leaf, ndim)
+    return None if name is None or flax_leaf is None else (
+        'params', path + name + [flax_leaf])
+
+
+def _mit_key(rest, ndim):
+    """mmseg MiT keys (``convert_torch_checkpoint.py:449-515``):
+    ``layers.{i}.0`` the patch embedding, ``.1.{j}`` the blocks, ``.2``
+    the stage norm."""
+    base = ['backbone_mod']
+    if rest[0] != 'layers' or len(rest) < 4:
+        return None
+    i, part = rest[1], rest[2]
+    if part == '0' and rest[3] in ('projection', 'norm') and len(rest) == 5:
+        name = 'patch_embed' if rest[3] == 'projection' else 'embed_norm'
+        leaf = _leaf_of(rest[4], ndim)
+        return None if leaf is None else ('params',
+                                          base + [f'{name}{i}', leaf])
+    if part == '2' and len(rest) == 4:
+        leaf = _leaf_of(rest[3], ndim)
+        return None if leaf is None else ('params',
+                                          base + [f'stage_norm{i}', leaf])
+    if part == '1' and len(rest) > 4:
+        return _mit_block_key(rest[4:], base + [f'stage{i}_block{rest[3]}'],
+                              ndim)
+    return None
+
+
+def _twins_key(rest, ndim):
+    """Twins keys: the JAX file's own names (``patch_embed{i}``,
+    ``embed_norm{i}``, ``peg{i}.proj``, ``s{i}_b{j}``), MiT's inside the
+    blocks."""
+    base = ['backbone_mod']
+    if re.fullmatch(r's\d+_b\d+', rest[0]):
+        return _mit_block_key(rest[1:], base + [rest[0]], ndim)
+    leaf = _leaf_of(rest[-1], ndim)
+    if leaf is None or not (
+            re.fullmatch(r'(patch_embed|embed_norm)\d+', rest[0])
+            and len(rest) == 2
+            or re.fullmatch(r'peg\d+', rest[0]) and rest[1:-1] == ['proj']):
+        return None
+    return 'params', base + rest[:-1] + [leaf]
+
+
 def _conv_module(rest, path):
     """mmcv ConvModule: conv.weight/bias, bn.*; DepthwiseSeparable
     nests two of them."""
@@ -277,7 +354,11 @@ def _segmenter_key(r, base):
         'params', base + [f'{names[0]}_{r[1]}', names[1]])
 
 
-def _head_key(base, r, uper=False):
+def _head_key(base, r, uper=False, segformer=False):
+    if segformer and r[0] in ('convs', 'fusion_conv'):
+        # SegformerHead: mmseg's names to the JAX file's
+        return _conv_module(r[2:], base + [f'proj{r[1]}']) \
+            if r[0] == 'convs' else _conv_module(r[1:], base + ['fusion'])
     if uper:
         # UPerHead: mmseg's names to the JAX file's
         if r[0] in ('lateral_convs', 'fpn_convs'):
@@ -342,26 +423,30 @@ def _head_prefix(parts):
 
 def torch_key_to_flax(key: str, ndim: int, uper: bool = False,
                       backbone: Optional[str] = None,
-                      neck: Optional[str] = None
+                      neck: Optional[str] = None, segformer: bool = False
                       ) -> Optional[Tuple[str, list]]:
     """Map one rsiseg state-dict key (of a tensor with ``ndim`` dims) to
     ``(collection, path)`` in the JAX tree, or None. ``uper``: the key's
     head is a ``UPerHead`` (whose ``bottleneck`` is the JAX file's
-    ``psp_bottleneck``, where other heads keep the name). ``backbone``,
-    ``neck``: the families of ``key_families`` (``backbone`` None for
-    the ResNet and ViT keys); a neck key needs its family."""
+    ``psp_bottleneck``, where other heads keep the name); ``segformer``: a
+    ``SegformerHead`` (whose ``convs`` are the JAX file's ``proj``).
+    ``backbone``, ``neck``: the families of ``key_families``
+    (``backbone`` None for the ResNet and ViT keys); a neck key needs its
+    family. A path element ``a|b|c`` names leaves concatenated on their
+    last axis."""
     parts = key.split('.')
     if parts[0] == 'backbone':
-        if backbone == 'beit':
-            return _beit_key(parts[1:])
-        if backbone == 'swin':
-            return _swin_key(parts[1:])
-        return _backbone_key(parts[1:], ndim)
+        family = {'beit': _beit_key, 'swin': _swin_key}.get(backbone)
+        if family is not None:
+            return family(parts[1:])
+        family = {'mit': _mit_key, 'twins': _twins_key}.get(
+            backbone, _backbone_key)
+        return family(parts[1:], ndim)
     if parts[0] == 'neck':
         return _neck_key(parts[1:], neck)
     if parts[0] in _HEADS:
         _, name, rest = _head_prefix(parts)
-        return _head_key([name], rest, uper)
+        return _head_key([name], rest, uper, segformer)
     return None
 
 
@@ -378,6 +463,12 @@ def uper_heads(keys) -> set:
     return {head_prefix(k) for k in keys if '.fpn_bottleneck.' in k}
 
 
+def segformer_heads(keys) -> set:
+    """The prefixes of the ``SegformerHead``s among ``keys``: the heads
+    with a ``fusion_conv``."""
+    return {head_prefix(k) for k in keys if '.fusion_conv.' in k}
+
+
 def discriminator_key_to_flax(key: str) -> Optional[Tuple[str, list]]:
     """``FCDiscriminator``'s ``conv{i}.weight`` / ``.bias`` (OIHW) to the
     JAX module's ``conv{i}/kernel`` (HWIO) / ``bias``, or None."""
@@ -390,7 +481,11 @@ def discriminator_key_to_flax(key: str) -> Optional[Tuple[str, list]]:
 
 def _leaf(tree, path):
     node = tree
-    for k in path:
+    for i, k in enumerate(path):
+        if '|' in k:    # leaves concatenated on their last axis (q|k|v)
+            parts = [_leaf(node, [a, *path[i + 1:]]) for a in k.split('|')]
+            return None if any(p is None for p in parts) else \
+                np.concatenate([np.asarray(p) for p in parts], axis=-1)
         if not isinstance(node, Mapping) or k not in node:
             return None
         node = node[k]
@@ -418,7 +513,9 @@ def jax_variables_to_state_dict(
     ``template`` is the port model's ``state_dict()``: it names the keys
     to fill and their shapes. Conv kernels go HWIO -> OIHW (depthwise
     ``(3, 3, 1, C)`` -> ``(C, 1, 3, 3)``), Dense kernels (in, out) ->
-    (out, in); LayerNorm scales become weights, and ``pos_embed``,
+    (out, in), or (out, in, 1, 1) where the port holds a 1x1 conv (MiT's
+    Mix-FFN); MiT's q, k, v kernels and biases are stacked into one
+    in-projection; LayerNorm scales become weights, and ``pos_embed``,
     ``cls_token``, the relative-position tables (entries, heads), q/v
     biases and layer scales carry as they are; Swin's patch-merging norm
     and reduction go to mmseg's unfold order. ``backbone``, ``neck``: the
@@ -426,7 +523,7 @@ def jax_variables_to_state_dict(
     ``KeyError`` naming
     every key of the port that has no source in ``variables``.
     """
-    uper = uper_heads(template)
+    uper, segformer = uper_heads(template), segformer_heads(template)
     out, missing = {}, []
     for key, ref in template.items():
         if key.endswith('num_batches_tracked'):
@@ -434,7 +531,8 @@ def jax_variables_to_state_dict(
             continue
         mapped = torch_key_to_flax(key, ref.ndim,
                                    uper=head_prefix(key) in uper,
-                                   backbone=backbone, neck=neck) \
+                                   backbone=backbone, neck=neck,
+                                   segformer=head_prefix(key) in segformer) \
             or discriminator_key_to_flax(key)
         leaf = None if mapped is None else _leaf(
             variables.get(mapped[0], {}), mapped[1])
@@ -446,6 +544,8 @@ def jax_variables_to_state_dict(
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         elif arr.ndim == 2 and mapped[1][-1] == 'kernel':
             arr = arr.T                      # Dense (in, out) -> (out, in)
+            if ref.ndim == 4:
+                arr = arr[:, :, None, None]  # as a 1x1 conv
         if mapped[1][-2].startswith(('merge_norm', 'merge_reduce')):
             arr = _official_to_unfold(arr)
         if tuple(arr.shape) != tuple(ref.shape):

@@ -3,11 +3,12 @@ from .context_heads import ANNHead
 from .fcn_head import FCNHead, FPNHead
 from .point_rend import DPTHead
 from .psp_head import PPM, PSPHead, adaptive_avg_pool
+from .segformer_head import SegformerHead
 from .transformer_heads import (SegmenterMaskTransformerHead, SETRMLAHead,
                                 SETRUPHead)
 from .uper_head import UPerHead
 
 __all__ = ['ANNHead', 'ASPPHead', 'DepthwiseSeparableASPPHead', 'DPTHead',
            'FCNHead', 'FPNHead', 'PPM', 'PSPHead', 'adaptive_avg_pool',
-           'SegmenterMaskTransformerHead', 'SETRMLAHead', 'SETRUPHead',
-           'UPerHead']
+           'SegformerHead', 'SegmenterMaskTransformerHead', 'SETRMLAHead',
+           'SETRUPHead', 'UPerHead']

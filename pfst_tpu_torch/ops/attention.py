@@ -4,13 +4,17 @@ attention that ``tools/attn_microbench.py::flash`` calls,
 ``jax.experimental.pallas.ops.tpu.flash_attention`` in jax 0.9.0, whose
 ``ab`` argument (``flash_attention.py:144``) this is, added to the logits
 before the scale (``:399-409``); and of the attention of the ViT, BEiT
-and Swin blocks, ``pfst_tpu/models/backbones/{vit,beit,swin}.py``).
+and Swin blocks, ``pfst_tpu/models/backbones/{vit,beit,swin}.py``, and of
+the spatial-reduction attention of MiT and Twins,
+``pfst_tpu/models/backbones/{mit,twins}.py``).
 
-q, k, v are ``(B, H, N, D)``; ``ab`` is fp32 ``(B, H, N, N)`` or ``(1, H,
-N, N)`` (one bias for every batch, read with a batch stride of 0), or
-None; non-causal, no segment ids. A module whose bias is added after the
-scale (BEiT's and Swin's relative-position tables) passes ``bias /
-scale``.
+q is ``(B, H, Nq, D)``, k and v ``(B, H, Nk, D)`` for any Nk >= 1, the
+library's ``q_seq_len`` and ``kv_seq_len`` (MiT's keys are its queries'
+grid after a stride-``sr`` convolution: Nk = Nq / sr^2); ``ab`` is fp32
+``(B, H, Nq, Nk)`` or ``(1, H, Nq, Nk)`` (one bias for every batch, read
+with a batch stride of 0), or None; non-causal, no segment ids. A module
+whose bias is added after the scale (BEiT's and Swin's relative-position
+tables) passes ``bias / scale``.
 
 * ``torch_attention``: the plain version, the naive formula of
   ``attn_microbench.py:22-27``: fp32 scores and softmax, P rounded to v's
@@ -20,7 +24,8 @@ scale``.
   fp32 from the forward's ``o`` and ``lse``: ``P = exp(S - lse)``,
   ``Di = rowsum(dO o)``, ``dS = P (dO V^T - Di)``, ``dQ = (dS s) K``,
   ``dK = (dS s)^T Q``, ``dV = P^T dO`` and, with ``ab``, ``dab = dS s``
-  in fp32 (the library's dQ kernel writes it, ``:1243-1253``), with P
+  in fp32, (B, H, Nq, Nk) (the library's dQ kernel writes it,
+  ``:1243-1253``), with P
   and ``dS s`` rounded to the inputs' type before the products, where the
   backward kernels round them: the TPU kernels scale dS before they round
   it (``ds * sm_scale``, then ``ds.astype``).
@@ -31,7 +36,7 @@ scale``.
   ``cuda_flash_attention_backward`` runs both.
 * ``attention``: a CUDA tensor goes through an autograd Function whose
   forward and backward are the kernels (``ab``'s gradient is dab, summed
-  over the batch for a ``(1, H, N, N)`` bias); a CPU tensor goes to the
+  over the batch for a ``(1, H, Nq, Nk)`` bias); a CPU tensor goes to the
   plain version under ordinary autograd. There is no switch between them.
 
 The three kernels run on the tensor cores: bf16 input as bf16 products
@@ -67,8 +72,9 @@ def _scores(q, k, scale, ab):
 def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, return_lse: bool = False,
                     ab: Optional[torch.Tensor] = None):
-    """Plain version: (B, H, N, D) -> (B, H, N, D) in q's type (and the
-    (B, H, N) fp32 log-sum-exp with ``return_lse``)."""
+    """Plain version: q (B, H, Nq, D), k, v (B, H, Nk, D) -> (B, H, Nq, D)
+    in q's type (and the (B, H, Nq) fp32 log-sum-exp with
+    ``return_lse``)."""
     s = _scores(q, k, scale, ab)
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
@@ -83,7 +89,7 @@ def torch_attention_backward(q, k, v, o, lse, grad, scale, ab=None):
     and ``grad = dL/do``, computed in fp32; for bf16 input P and the
     scaled dS are rounded to bf16 before the dV, dK and dQ products, as in
     the kernels and the TPU kernels. With ``ab`` also ``dab = dS s``, fp32
-    (B, H, N, N), taken before that rounding."""
+    (B, H, Nq, Nk), taken before that rounding."""
     qf, kf, vf, gf = q.float(), k.float(), v.float(), grad.float()
     p = torch.exp(_scores(qf, kf, scale, ab) - lse.float()[..., None])
     di = (o.float() * gf).sum(dim=-1, keepdim=True)
@@ -97,19 +103,24 @@ def torch_attention_backward(q, k, v, o, lse, grad, scale, ab=None):
 
 
 def _check_args(q, k, v, ab=None):
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f'expected q, k, v of one (B, H, N, D) shape, got '
-                         f'{tuple(q.shape)}, {tuple(k.shape)}, '
-                         f'{tuple(v.shape)}')
+    """q (B, H, Nq, D), k and v of one (B, H, Nk, D) shape, one type; ab
+    (1 or B, H, Nq, Nk) or None."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or \
+            k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f'expected q of one (B, H, N, D) shape and k, v of '
+                         f'one (B, H, N_k, D) shape, got {tuple(q.shape)}, '
+                         f'{tuple(k.shape)}, {tuple(v.shape)}')
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f'q, k, v differ in type: {q.dtype}, {k.dtype}, '
                         f'{v.dtype}')
     if ab is not None:
         b, h, n, _ = q.shape
+        nk = k.shape[2]
         if ab.ndim != 4 or ab.shape[0] not in (1, b) or \
-                tuple(ab.shape[1:]) != (h, n, n):
-            raise ValueError(f'ab must be ({b} or 1, {h}, {n}, {n}) for q '
-                             f'of {tuple(q.shape)}, got {tuple(ab.shape)}')
+                tuple(ab.shape[1:]) != (h, n, nk):
+            raise ValueError(f'ab must be ({b} or 1, {h}, {n}, {nk}) for q '
+                             f'of {tuple(q.shape)} and k of '
+                             f'{tuple(k.shape)}, got {tuple(ab.shape)}')
 
 
 def _check_kernel_input(q, k, v):
@@ -121,21 +132,23 @@ def _check_kernel_input(q, k, v):
     if d not in HEAD_DIMS:
         raise ValueError(f'the kernels take a head dimension in '
                          f'{HEAD_DIMS}, got {d}')
-    if n == 0 or not 1 <= b <= 65535 or not 1 <= h <= 65535:
+    if n == 0 or k.shape[2] == 0 or not 1 <= b <= 65535 or \
+            not 1 <= h <= 65535:
         raise ValueError(f'the kernels take 1 to 65535 batches and heads '
-                         f'and a non-empty sequence, got {tuple(q.shape)}')
+                         f'and non-empty sequences, got {tuple(q.shape)}, '
+                         f'{tuple(k.shape)}')
     for t in (q, k, v):
         if t.device.type != 'cuda' or t.device != q.device:
             raise ValueError(f'the kernels take CUDA tensors on one device, '
                              f'got {q.device}, {k.device}, {v.device}')
 
 
-def _bias(ab, q):
+def _bias(ab, q, k):
     """``ab`` as the kernels read it (fp32 on q's device, a contiguous last
     dimension: else a contiguous copy), or None."""
     if ab is None:
         return None
-    _check_args(q, q, q, ab)
+    _check_args(q, k, k, ab)
     if ab.dtype != torch.float32 or ab.device != q.device:
         raise TypeError(f'the kernels take a float32 ab on {q.device}, got '
                         f'{ab.dtype} on {ab.device}')
@@ -181,11 +194,11 @@ def _library():
     if lib.pfst_flash_attention_forward.argtypes is None:
         i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
         lib.pfst_flash_attention_forward.argtypes = \
-            [p] * 6 + [i] * 4 + [p, p, f, i, i, p]
+            [p] * 6 + [i] * 5 + [p, p, f, i, i, p]
         lib.pfst_flash_attention_bwd_dkv.argtypes = \
-            [p] * 9 + [i] * 4 + [p, p, f, i, i, p]
+            [p] * 9 + [i] * 5 + [p, p, f, i, i, p]
         lib.pfst_flash_attention_bwd_dq.argtypes = \
-            [p] * 9 + [i] * 4 + [p, p, f, i, i, p]
+            [p] * 9 + [i] * 5 + [p, p, f, i, i, p]
         for fn in (lib.pfst_flash_attention_forward,
                    lib.pfst_flash_attention_bwd_dkv,
                    lib.pfst_flash_attention_bwd_dq):
@@ -216,7 +229,8 @@ def _launch_forward(lib, q, k, v, scale, ab):
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = lib.pfst_flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _ptr(ab), b, h, n, d, _strides(q, k, v, o),
+        lse.data_ptr(), _ptr(ab), b, h, n, k.shape[2], d,
+        _strides(q, k, v, o),
         _bias_strides(ab), float(scale), int(q.dtype == torch.bfloat16),
         *_device_and_stream(q))
     _raise_on(lib, err, 'flash_attention forward')
@@ -230,7 +244,8 @@ def _launch_bwd_dkv(lib, q, k, v, grad, lse, di, scale, ab):
     err = lib.pfst_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), grad.data_ptr(),
         lse.data_ptr(), di.data_ptr(), _ptr(ab), dk.data_ptr(),
-        dv.data_ptr(), b, h, n, d, _strides(q, k, v, grad, dk, dv),
+        dv.data_ptr(), b, h, n, k.shape[2], d,
+        _strides(q, k, v, grad, dk, dv),
         _bias_strides(ab), float(scale), int(q.dtype == torch.bfloat16),
         *_device_and_stream(q))
     _raise_on(lib, err, 'flash_attention dK/dV')
@@ -239,13 +254,14 @@ def _launch_bwd_dkv(lib, q, k, v, grad, lse, di, scale, ab):
 
 def _launch_bwd_dq(lib, q, k, v, grad, lse, di, scale, ab):
     b, h, n, d = q.shape
+    nk = k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dab = None if ab is None else torch.empty(
-        (b, h, n, n), dtype=torch.float32, device=q.device)
+        (b, h, n, nk), dtype=torch.float32, device=q.device)
     err = lib.pfst_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), grad.data_ptr(),
         lse.data_ptr(), di.data_ptr(), _ptr(ab), dq.data_ptr(), _ptr(dab),
-        b, h, n, d, _strides(q, k, v, grad, dq), _bias_strides(ab, dab),
+        b, h, n, nk, d, _strides(q, k, v, grad, dq), _bias_strides(ab, dab),
         float(scale), int(q.dtype == torch.bfloat16),
         *_device_and_stream(q))
     _raise_on(lib, err, 'flash_attention dQ')
@@ -254,13 +270,14 @@ def _launch_bwd_dq(lib, q, k, v, grad, lse, di, scale, ab):
 
 def cuda_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, ab: Optional[torch.Tensor] = None):
-    """The forward kernel: ``(o, lse)``, o (B, H, N, D) in q's type (a view
-    of a (B, N, H, D) tensor), lse (B, H, N) fp32, launched on the current
-    stream; ``ab`` the fp32 bias added before the scale, or None.
-    ``launches`` counts launches."""
+    """The forward kernel: ``(o, lse)``, o (B, H, Nq, D) in q's type (a
+    view of a (B, Nq, H, D) tensor), lse (B, H, Nq) fp32, launched on the
+    current stream; k, v (B, H, Nk, D); ``ab`` the fp32 bias added before
+    the scale, (1 or B, H, Nq, Nk), or None. ``launches`` counts
+    launches."""
     _check_kernel_input(q, k, v)
     out = _launch_forward(_library(), _aligned(q), _aligned(k), _aligned(v),
-                          scale, _bias(ab, q))
+                          scale, _bias(ab, q, k))
     cuda_flash_attention.launches += 1
     return out
 
@@ -287,13 +304,13 @@ def _check_backward_input(q, k, v, grad, lse, di):
 
 
 def cuda_flash_attention_bwd_dkv(q, k, v, grad, lse, di, scale, ab=None):
-    """The dK/dV kernel: ``(dk, dv)`` from q, k, v, ``grad`` = dL/do, the
-    forward's ``lse`` and ``di = rowsum(grad * o)`` (B, H, N) fp32, and
-    the forward's ``ab``. One launch on the current stream; ``launches``
-    counts launches."""
+    """The dK/dV kernel: ``(dk, dv)`` (k's shape) from q, k, v, ``grad`` =
+    dL/do, the forward's ``lse`` and ``di = rowsum(grad * o)`` (B, H, Nq)
+    fp32, and the forward's ``ab``. One launch on the current stream;
+    ``launches`` counts launches."""
     _check_backward_input(q, k, v, grad, lse, di)
     out = _launch_bwd_dkv(_library(), _aligned(q), _aligned(k), _aligned(v),
-                          _aligned(grad), lse, di, scale, _bias(ab, q))
+                          _aligned(grad), lse, di, scale, _bias(ab, q, k))
     cuda_flash_attention_bwd_dkv.launches += 1
     return out
 
@@ -304,13 +321,13 @@ cuda_flash_attention_bwd_dkv.launches = 0
 def cuda_flash_attention_bwd_dq(q, k, v, grad, lse, di, scale, ab=None):
     """The dQ kernel (``wgmma`` + TMA, bf16 or fp32 as 3xTF32): ``dq``
     from the same inputs as the dK/dV kernel, and with ``ab`` ``(dq,
-    dab)``, ``dab = dS s`` fp32 (B, H, N, N), as
+    dab)``, ``dab = dS s`` fp32 (B, H, Nq, Nk), as
     ``torch_attention_backward`` returns it. ``launches`` counts
     launches."""
     _check_backward_input(q, k, v, grad, lse, di)
     dq, dab = _launch_bwd_dq(_library(), _aligned(q), _aligned(k),
                              _aligned(v), _aligned(grad), lse, di, scale,
-                             _bias(ab, q))
+                             _bias(ab, q, k))
     cuda_flash_attention_bwd_dq.launches += 1
     return dq if ab is None else (dq, dab)
 
@@ -319,7 +336,7 @@ cuda_flash_attention_bwd_dq.launches = 0
 
 
 def cuda_flash_attention_backward(q, k, v, o, lse, grad, scale, ab=None):
-    """``(dq, dk, dv)``, and with ``ab`` also ``dab`` (B, H, N, N) fp32,
+    """``(dq, dk, dv)``, and with ``ab`` also ``dab`` (B, H, Nq, Nk) fp32,
     through the two backward kernels; ``di = rowsum(grad * o)`` is a
     PyTorch reduction, as the library computes it in XLA outside its
     kernels (``flash_attention.py:273-275``)."""

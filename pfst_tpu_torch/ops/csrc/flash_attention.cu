@@ -15,30 +15,34 @@
 //             dab = dS scale in fp32 (the dQ kernel, where the library's
 //             dQ kernel writes it, flash_attention.py:1243-1253)
 //
-// q, k, v, dO are (B, H, N, D) fp32 or bf16 with a contiguous last
+// q and dO are (B, H, Nq, D), k and v (B, H, Nk, D): Nq queries against Nk
+// keys and values, any Nk >= 1 (SegFormer's and Twins' spatial-reduction
+// attention: Nk = Nq / sr^2), fp32 or bf16 with a contiguous last
 // dimension, base addresses and batch, head and row strides that are
 // multiples of 16 bytes (cp.async moves 16-byte chunks, TMA wants 16-byte
 // aligned bases and strides; the wrapper copies a tensor that breaks
-// this); O, dQ, dK, dV are written with the strides the caller gives, in
-// the input type; LSE and Di are (B, H, N) fp32, contiguous. D is 32, 64
-// or 128. ab (optional, null for none) and dab (the dQ kernel's, optional)
-// are (B, H, N, N) fp32 with a contiguous last dimension, read and written
-// through their own batch, head and row strides (a batch stride of 0
-// serves one bias to every batch). Every kernel adds ab[row, key] to the
-// accumulator element that holds that query row and key, with plain
-// loads in the accumulators' layout (in dK/dV, whose accumulators are
-// indexed by key row, down a column of ab). Each kernel is a template on
-// kBias: without a bias the launch takes the instantiation that has none
-// of this code, the kernels as they were before it, and their results.
-// ab adds 4 N^2 bytes a (b, h) to each kernel's reads and dab as many to
-// dQ's writes: at the BEiT's N = 1601 that makes the bf16 kernels bound
-// by bytes.
+// this); O and dQ (Nq rows), dK and dV (Nk rows) are written with the
+// strides the caller gives, in the input type; LSE and Di are (B, H, Nq)
+// fp32, contiguous. D is 32, 64 or 128. ab (optional, null for none) and
+// dab (the dQ kernel's, optional) are (B, H, Nq, Nk) fp32 with a
+// contiguous last dimension, read and written through their own batch,
+// head and row strides (a batch stride of 0 serves one bias to every
+// batch). Every kernel adds ab[row, key] to the accumulator element that
+// holds that query row and key, with plain loads in the accumulators'
+// layout (in dK/dV, whose accumulators are indexed by key row, down a
+// column of ab). Each kernel is a template on kBias: without a bias the
+// launch takes the instantiation that has none of this code, the kernels
+// as they were before it, and their results. ab adds 4 Nq Nk bytes a
+// (b, h) to each kernel's reads and dab as many to dQ's writes: at the
+// BEiT's N = 1601 that makes the bf16 kernels bound by bytes. Nq and Nk
+// are runtime arguments: the grid of the forward and dQ runs over Nq, that
+// of dK/dV over Nk, and each kernel's loop over the other side.
 //
-// What bounds it: the forward does 4*B*H*N^2*D flops on B*H*N*(4D) values
-// (N/2 flops per byte at D = 64, fp32), the backward 10*B*H*N^2*D, so at
-// the ViT's N = 1025 every kernel is bound by arithmetic, not memory: by
-// 989 TFLOP/s on the tensor cores for bf16, by 495 / 3 = 165 TFLOP/s for
-// fp32 as 3xTF32.
+// What bounds it: the forward does 4*B*H*Nq*Nk*D flops on B*H*(2 Nq + 2 Nk)
+// *D values (N/2 flops per byte at Nq = Nk = N, D = 64, fp32), the
+// backward 10*B*H*Nq*Nk*D, so at the ViT's N = 1025 every kernel is bound
+// by arithmetic, not memory: by 989 TFLOP/s on the tensor cores for bf16,
+// by 495 / 3 = 165 TFLOP/s for fp32 as 3xTF32.
 //
 // Two designs, chosen by input type and kernel:
 //
@@ -56,10 +60,11 @@
 //   shared memory, in the input type: the copy of tile t + 1 is issued
 //   before the arithmetic on tile t.
 //
-// Both: rows at or past N are zero-filled by the copies and their scores
-// masked (-inf in the forward, P = 0 in the backward), so N need not be a
-// multiple of a tile (N = 1025: the last tile holds one key); such rows of
-// the block's own are never written. Blocks own disjoint outputs, so no
+// Both: rows at or past Nq (queries) or Nk (keys) are zero-filled by the
+// copies and their scores masked (keys -inf in the forward, P = 0 in the
+// backward), so neither need be a multiple of a tile (N = 1025: the last
+// tile holds one key; Nk = 16 against a 128-key tile); such rows of the
+// block's own are never written. Blocks own disjoint outputs, so no
 // kernel uses atomics and every result is deterministic.
 // * Forward: S = Q K^T lands in accumulators, where the online softmax
 //   runs (row max and sum over a lane quad by two shuffles each). P =
@@ -69,7 +74,7 @@
 //   acc / l in the input type, LSE fp32.
 // * dK/dV: keys are the M side of every product, so S^T = K Q^T and
 //   dP^T = V dO^T land in accumulators indexed by key row: P^T = exp(S^T -
-//   LSE) (0 past N), dS^T s = P^T (dP^T - Di) s, both rounded to the input
+//   LSE) (0 past Nq), dS^T s = P^T (dP^T - Di) s, both rounded to the input
 //   type (the TPU kernel's p.T.astype, and ds.T.astype after its
 //   ds * sm_scale) and reused in registers as the A operands of
 //   dV += P^T dO and dK += (dS^T s) Q.
@@ -108,14 +113,14 @@ struct Strides {
 
 // The bias rows of the lane's accumulator rows row and row + 8 of head
 // (b, h) of t (ab or dab, by slot), or null where t is absent or the row
-// lies at or past N.
+// lies at or past n (Nq).
 template <typename T>
 __device__ __forceinline__ void bias_rows(T* (&r)[2], T* t, const Strides& st,
                                           int slot, int b, int h, int row,
-                                          int N) {
+                                          int n) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    r[i] = t != nullptr && row + 8 * i < N
+    r[i] = t != nullptr && row + 8 * i < n
                ? t + b * st.t[slot][0] + h * st.t[slot][1] +
                      (row + 8 * i) * st.t[slot][2]
                : nullptr;
@@ -123,59 +128,61 @@ __device__ __forceinline__ void bias_rows(T* (&r)[2], T* t, const Strides& st,
 
 // ab + key, the head of the bias column of the lane's key rows key and
 // key + 8 of head (b, h) (dK/dV), or null where ab is absent or the key
-// lies at or past N.
+// lies at or past n (Nk).
 __device__ __forceinline__ void bias_cols(const float* (&k)[2],
                                           const float* ab, const Strides& st,
-                                          int b, int h, int key, int N) {
+                                          int b, int h, int key, int n) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    k[i] = ab != nullptr && key + 8 * i < N
+    k[i] = ab != nullptr && key + 8 * i < n
                ? ab + b * st.t[kAb][0] + h * st.t[kAb][1] + key + 8 * i
                : nullptr;
 }
 
 // s[j][e] += ab[row][key] for the accumulators of rows g (e < 2), g + 8
-// (r[0], r[1]) and keys c0 + 8 j + e % 2 before N (c0 = tile start + 2 t).
+// (r[0], r[1]) and keys c0 + 8 j + e % 2 before n (Nk; c0 = tile start +
+// 2 t).
 template <int NB>
 __device__ __forceinline__ void add_bias(float (&s)[NB][4],
                                          const float* const (&r)[2], int c0,
-                                         int N) {
+                                         int n) {
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = c0 + 8 * j + (e & 1);
-      if (r[e >> 1] != nullptr && c < N) s[j][e] += r[e >> 1][c];
+      if (r[e >> 1] != nullptr && c < n) s[j][e] += r[e >> 1][c];
     }
 }
 
 // The same for dK/dV's transposed accumulators: rows are keys, columns
 // queries, so element (key, query) adds ab[query][key], read down the
-// column of each key (k[0], k[1]: ab + key; rs: ab's row stride).
+// column of each key (k[0], k[1]: ab + key; rs: ab's row stride), for
+// queries before n (Nq).
 template <int NB>
 __device__ __forceinline__ void add_bias_t(float (&s)[NB][4],
                                            const float* const (&k)[2],
-                                           long long rs, int c0, int N) {
+                                           long long rs, int c0, int n) {
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = c0 + 8 * j + (e & 1);
-      if (k[e >> 1] != nullptr && c < N) s[j][e] += k[e >> 1][c * rs];
+      if (k[e >> 1] != nullptr && c < n) s[j][e] += k[e >> 1][c * rs];
     }
 }
 
-// dab[row][key] = ds[j][e] for the rows r[0], r[1] and keys before N.
+// dab[row][key] = ds[j][e] for the rows r[0], r[1] and keys before n (Nk).
 template <int NB>
 __device__ __forceinline__ void store_dab(const float (&ds)[NB][4],
                                           float* const (&r)[2], int c0,
-                                          int N) {
+                                          int n) {
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = c0 + 8 * j + (e & 1);
-      if (r[e >> 1] != nullptr && c < N) r[e >> 1][c] = ds[j][e];
+      if (r[e >> 1] != nullptr && c < n) r[e >> 1][c] = ds[j][e];
     }
 }
 
@@ -201,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse,
-                     const float* __restrict__ ab, int H, int N,
+                     const float* __restrict__ ab, int H, int Nq, int Nk,
                      float scale, Strides st) {
   using M = pfst::Mma<T>;
   constexpr int LD = Tile<T, D>::kLd;
@@ -222,11 +229,11 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows;
   const T* kb = k + b * st.t[1][0] + h * st.t[1][1];
   const T* vb = v + b * st.t[2][0] + h * st.t[2][1];
-  const int tiles = (N + KT - 1) / KT;
+  const int tiles = (Nk + KT - 1) / KT;
   pfst::load_rows<T, D, kRows, kThreads>(
-      qs, q + b * st.t[0][0] + h * st.t[0][1], st.t[0][2], row0, N);
-  pfst::load_rows<T, D, KT, kThreads>(ks, kb, st.t[1][2], 0, N);
-  pfst::load_rows<T, D, KT, kThreads>(vs, vb, st.t[2][2], 0, N);
+      qs, q + b * st.t[0][0] + h * st.t[0][1], st.t[0][2], row0, Nq);
+  pfst::load_rows<T, D, KT, kThreads>(ks, kb, st.t[1][2], 0, Nk);
+  pfst::load_rows<T, D, KT, kThreads>(vs, vb, st.t[2][2], 0, Nk);
   pfst::cp_async_commit();
 
   uint32_t qf[KS][4];
@@ -235,15 +242,15 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};              // this lane's part of the row sums
   const float sl2 = scale * kLog2e;
   const float* abr[2];
-  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), N);
+  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), Nq);
   for (int it = 0; it < tiles; ++it) {
     const int stage = it & 1;
     if (it + 1 < tiles) {
       const int next = (stage ^ 1) * KT * LD;
       pfst::load_rows<T, D, KT, kThreads>(ks + next, kb, st.t[1][2],
-                                          (it + 1) * KT, N);
+                                          (it + 1) * KT, Nk);
       pfst::load_rows<T, D, KT, kThreads>(vs + next, vb, st.t[2][2],
-                                          (it + 1) * KT, N);
+                                          (it + 1) * KT, Nk);
     }
     pfst::cp_async_commit();
     pfst::cp_async_wait<1>();  // tile it (and on it = 0 the query rows)
@@ -270,20 +277,20 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // online softmax on the fragments: rows g (e < 2) and g + 8, keys
-    // it KT + 8 j + 2 t + e % 2; the bias added first; keys past N masked
+    // it KT + 8 j + 2 t + e % 2; the bias added first; keys past Nk masked
     const int c0 = it * KT + 2 * (lane & 3);
-    if constexpr (kBias) add_bias(s, abr, c0, N);
+    if constexpr (kBias) add_bias(s, abr, c0, Nk);
     float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = c0 + 8 * j + (e & 1) < N ? s[j][e] * sl2 : -INFINITY;
+        s[j][e] = c0 + 8 * j + (e & 1) < Nk ? s[j][e] * sl2 : -INFINITY;
         mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
       }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      // the tile holds key it KT < N, so mn is finite and alpha is 0 on
+      // the tile holds key it KT < Nk, so mn is finite and alpha is 0 on
       // the first tile (m = -inf), never NaN
       const float mn = fmaxf(m[i], pfst::quad_max(mt[i]));
       const float alpha = exp2f(m[i] - mn);
@@ -319,12 +326,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   T* ob = o + b * st.t[3][0] + h * st.t[3][1];
-  float* lb = lse + (static_cast<long long>(b) * H + h) * N;
+  float* lb = lse + (static_cast<long long>(b) * H + h) * Nq;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float li = pfst::quad_sum(l[i]);
     const int row = row0 + wr + (lane >> 2) + 8 * i;
-    if (row < N) {
+    if (row < Nq) {
       const float inv = 1.f / li;
       T* orow = ob + row * st.t[3][2] + 2 * (lane & 3);
 #pragma unroll
@@ -336,10 +343,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tensor cores' fp32 accumulate rounds each mma's sum toward zero, a
+// bias that grows with the number of mmas summed into one accumulator: over
+// N_q = 16384 queries dK and dV came out ~1e-4 of their largest value short
+// (the same sums over N = 1025 stay near 2e-5). So dK/dV sums the products
+// of kFlushRows queries in its accumulators, then adds them with rounded
+// fp32 adds into running sums in shared memory (a thread's own slots) and
+// starts again from zero: ~2e-6 at N_q = 16384, as a model of the
+// truncation measures it.
+constexpr int kFlushRows = 256;
+
 template <typename T, int D>
 constexpr size_t dkv_smem_bytes() {
   return (2 * kRows + 4 * Tile<T, D>::kCols) * Tile<T, D>::kLd * sizeof(T) +
-         4 * Tile<T, D>::kCols * sizeof(float);
+         4 * Tile<T, D>::kCols * sizeof(float) +
+         2 * (D / 8) * 4 * kThreads * sizeof(float);  // running dK, dV sums
+}
+
+// sum[e][i] (thread-strided slots) += acc[e][i]; acc = 0
+template <int DB>
+__device__ __forceinline__ void flush_sums(float* sum, float (&acc)[DB][4]) {
+#pragma unroll
+  for (int e = 0; e < DB; ++e)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sum[(4 * e + i) * kThreads] += acc[e][i];
+      acc[e][i] = 0.f;
+    }
 }
 
 template <typename T, int D, bool kBias>
@@ -349,8 +379,8 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ lse,
                          const float* __restrict__ di,
                          const float* __restrict__ ab, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int N, float scale,
-                         Strides st) {
+                         T* __restrict__ dv, int H, int Nq, int Nk,
+                         float scale, Strides st) {
   using M = pfst::Mma<T>;
   constexpr int LD = Tile<T, D>::kLd;
   constexpr int QT = Tile<T, D>::kCols;  // query rows per tile
@@ -370,6 +400,9 @@ __global__ void __launch_bounds__(kThreads)
   T* dos = qs + 2 * QT * LD;           // [2][QT][LD]  dO ring
   float* ls = reinterpret_cast<float*>(dos + 2 * QT * LD);  // [2][QT] LSE
   float* ds = ls + 2 * QT;                                  // [2][QT] Di
+  // the thread's running sums of dK and dV, [DB][4] each, kThreads apart
+  float* dks = ds + 2 * QT + threadIdx.x;
+  float* dvs = dks + 4 * DB * kThreads;
 
   const int lane = threadIdx.x & 31;
   const int wr = (threadIdx.x >> 5) * 16;
@@ -378,33 +411,34 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows;
   const T* qb = q + b * st.t[0][0] + h * st.t[0][1];
   const T* dob = dout + b * st.t[3][0] + h * st.t[3][1];
-  const long long stat0 = (static_cast<long long>(b) * H + h) * N;
-  const int tiles = (N + QT - 1) / QT;
+  const long long stat0 = (static_cast<long long>(b) * H + h) * Nq;
+  const int tiles = (Nq + QT - 1) / QT;
   pfst::load_rows<T, D, kRows, kThreads>(
-      ks, k + b * st.t[1][0] + h * st.t[1][1], st.t[1][2], row0, N);
+      ks, k + b * st.t[1][0] + h * st.t[1][1], st.t[1][2], row0, Nk);
   pfst::load_rows<T, D, kRows, kThreads>(
-      vs, v + b * st.t[2][0] + h * st.t[2][1], st.t[2][2], row0, N);
-  pfst::load_rows<T, D, QT, kThreads>(qs, qb, st.t[0][2], 0, N);
-  pfst::load_rows<T, D, QT, kThreads>(dos, dob, st.t[3][2], 0, N);
-  pfst::load_vec<QT>(ls, lse + stat0, 0, N);
-  pfst::load_vec<QT>(ds, di + stat0, 0, N);
+      vs, v + b * st.t[2][0] + h * st.t[2][1], st.t[2][2], row0, Nk);
+  pfst::load_rows<T, D, QT, kThreads>(qs, qb, st.t[0][2], 0, Nq);
+  pfst::load_rows<T, D, QT, kThreads>(dos, dob, st.t[3][2], 0, Nq);
+  pfst::load_vec<QT>(ls, lse + stat0, 0, Nq);
+  pfst::load_vec<QT>(ds, di + stat0, 0, Nq);
   pfst::cp_async_commit();
 
   uint32_t kf[kHold ? KS : 1][4], vf[kHold ? KS : 1][4];
   float dka[DB][4] = {}, dva[DB][4] = {};
+  for (int i = 0; i < 4 * DB; ++i) dks[i * kThreads] = dvs[i * kThreads] = 0.f;
   const float sl2 = scale * kLog2e;
   const float* abk[2];
-  bias_cols(abk, ab, st, b, h, row0 + wr + (lane >> 2), N);
+  bias_cols(abk, ab, st, b, h, row0 + wr + (lane >> 2), Nk);
   for (int it = 0; it < tiles; ++it) {
     const int stage = it & 1;
     if (it + 1 < tiles) {
       const int next = (stage ^ 1) * QT;
       pfst::load_rows<T, D, QT, kThreads>(qs + next * LD, qb, st.t[0][2],
-                                          (it + 1) * QT, N);
+                                          (it + 1) * QT, Nq);
       pfst::load_rows<T, D, QT, kThreads>(dos + next * LD, dob, st.t[3][2],
-                                          (it + 1) * QT, N);
-      pfst::load_vec<QT>(ls + next, lse + stat0, (it + 1) * QT, N);
-      pfst::load_vec<QT>(ds + next, di + stat0, (it + 1) * QT, N);
+                                          (it + 1) * QT, Nq);
+      pfst::load_vec<QT>(ls + next, lse + stat0, (it + 1) * QT, Nq);
+      pfst::load_vec<QT>(ds + next, di + stat0, (it + 1) * QT, Nq);
     }
     pfst::cp_async_commit();
     pfst::cp_async_wait<1>();  // tile it (and on it = 0 the key rows)
@@ -452,17 +486,17 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // P^T and dS^T s on the fragments: key rows g, g + 8, query columns
-    // 8 j + 2 t + e % 2 of the tile, the bias added first; queries past N
+    // 8 j + 2 t + e % 2 of the tile, the bias added first; queries past Nq
     // give P = 0. dS^T is scaled before a_from_acc rounds it, as the TPU
     // kernel scales ds before ds.T.astype
     const int c0 = 2 * (lane & 3);
-    if constexpr (kBias) add_bias_t(s, abk, st.t[kAb][2], it * QT + c0, N);
+    if constexpr (kBias) add_bias_t(s, abk, st.t[kAb][2], it * QT + c0, Nq);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = c0 + 8 * j + (e & 1);
-        const float p = it * QT + c < N
+        const float p = it * QT + c < Nq
                             ? exp2f(s[j][e] * sl2 - lt[c] * kLog2e)
                             : 0.f;
         dp[j][e] = p * (dp[j][e] - dt[c]) * scale;
@@ -485,6 +519,10 @@ __global__ void __launch_bounds__(kThreads)
         M::mma(dka[e + 1], sa, bf[2], bf[3]);
       }
     }
+    if ((it + 1) % (kFlushRows / QT) == 0 || it + 1 == tiles) {
+      flush_sums(dks, dka);
+      flush_sums(dvs, dva);
+    }
     __syncthreads();  // the stage is read; the next copy may overwrite it
   }
 
@@ -493,13 +531,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wr + (lane >> 2) + 8 * i;
-    if (row < N) {
+    if (row < Nk) {
       T* dkr = dkb + row * st.t[4][2] + 2 * (lane & 3);
       T* dvr = dvb + row * st.t[5][2] + 2 * (lane & 3);
 #pragma unroll
       for (int e = 0; e < DB; ++e) {
-        pfst::store2(dkr + 8 * e, dka[e][2 * i], dka[e][2 * i + 1]);
-        pfst::store2(dvr + 8 * e, dva[e][2 * i], dva[e][2 * i + 1]);
+        const int j = (4 * e + 2 * i) * kThreads;
+        pfst::store2(dkr + 8 * e, dks[j], dks[j + kThreads]);
+        pfst::store2(dvr + 8 * e, dvs[j], dvs[j + kThreads]);
       }
     }
   }
@@ -521,8 +560,9 @@ __global__ void __launch_bounds__(kThreads)
 // ones. The accumulators keep mma.sync's m16n8 layout per warp, so the
 // softmax, the masks, the roundings (Mma<bf16>::a_from_acc, which also
 // forms the register A operand of the second product) and the stores are
-// the mma.sync kernels'. Rows past N are zero-filled by TMA and masked as
-// there.
+// the mma.sync kernels'. Rows past Nq or Nk are zero-filled by TMA (a box
+// may reach wholly past the tensor: its bytes still count in full towards
+// the barrier's expect_tx) and masked as there.
 
 // Consumer warpgroups a block. The forward runs one (two blocks an SM),
 // dK/dV two (one block an SM): the faster count for each on the H100 at
@@ -570,8 +610,8 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
                            const __grid_constant__ CUtensorMap tv,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse,
-                           const float* __restrict__ ab, int H, int N,
-                           float scale, Strides st) {
+                           const float* __restrict__ ab, int H, int Nq,
+                           int Nk, float scale, Strides st) {
   using T = __nv_bfloat16;
   using M = pfst::Mma<T>;
   using L = FwdSmem<D, C>;
@@ -597,7 +637,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * L::kRows;
-  const int tiles = (N + KT - 1) / KT;
+  const int tiles = (Nk + KT - 1) / KT;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     pfst::mbar_init(q_full, 1);
@@ -638,7 +678,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   float l[2] = {0.f, 0.f};              // this lane's part of the row sums
   const float sl2 = scale * kLog2e;
   const float* abr[2];
-  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), N);
+  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), Nq);
 
   pfst::mbar_wait(q_full, 0);
   for (int it = 0; it < tiles; ++it) {
@@ -661,15 +701,15 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
 
     // online softmax on the fragments, as in flash_fwd_kernel (the bias
     // added first), with the scale folded into one FMA before 2^x; only
-    // the last tile holds keys past N (masked to -inf)
-    if constexpr (kBias) add_bias(sc, abr, it * KT + 2 * (lane & 3), N);
-    if ((it + 1) * KT > N) {
+    // the last tile holds keys past Nk (masked to -inf)
+    if constexpr (kBias) add_bias(sc, abr, it * KT + 2 * (lane & 3), Nk);
+    if ((it + 1) * KT > Nk) {
       const int c0 = it * KT + 2 * (lane & 3);
 #pragma unroll
       for (int j = 0; j < NB; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (c0 + 8 * j + (e & 1) >= N) sc[j][e] = -INFINITY;
+          if (c0 + 8 * j + (e & 1) >= Nk) sc[j][e] = -INFINITY;
     }
     float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -678,7 +718,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
       for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], sc[j][e]);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      // the tile holds key it KT < N, so mn is finite and alpha is 0 on
+      // the tile holds key it KT < Nk, so mn is finite and alpha is 0 on
       // the first tile (m = -inf), never NaN
       const float mn = fmaxf(m[i], pfst::quad_max(mt[i]) * sl2);
       const float alpha = pfst::ex2(m[i] - mn);
@@ -724,12 +764,12 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   }
 
   T* ob = o + b * st.t[3][0] + h * st.t[3][1];
-  float* lb = lse + (static_cast<long long>(b) * H + h) * N;
+  float* lb = lse + (static_cast<long long>(b) * H + h) * Nq;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float li = pfst::quad_sum(l[i]);
     const int row = row0 + wr + (lane >> 2) + 8 * i;
-    if (row < N) {
+    if (row < Nq) {
       const float inv = 1.f / li;
       T* orow = ob + row * st.t[3][2] + 2 * (lane & 3);
 #pragma unroll
@@ -777,8 +817,8 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
                                const float* __restrict__ di,
                                const float* __restrict__ ab,
                                __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv, int H, int N,
-                               float scale, Strides st) {
+                               __nv_bfloat16* __restrict__ dv, int H,
+                               int Nq, int Nk, float scale, Strides st) {
   using T = __nv_bfloat16;
   using M = pfst::Mma<T>;
   using L = DkvSmem<D, C>;
@@ -806,7 +846,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * L::kRows;
-  const int tiles = (N + QT - 1) / QT;
+  const int tiles = (Nq + QT - 1) / QT;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     pfst::mbar_init(kv_full, 1);
@@ -822,7 +862,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
     pfst::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
-      const long long stat0 = (static_cast<long long>(b) * H + h) * N;
+      const long long stat0 = (static_cast<long long>(b) * H + h) * Nq;
       if (lane == 0) {
         pfst::mbar_expect_tx(kv_full, 2 * pfst::tile_bytes<T, D, L::kRows>());
         pfst::tma_tile<T, D, L::kRows>(ks, &tk, kv_full, row0, h, b);
@@ -833,8 +873,8 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
         pfst::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
         for (int i = lane; i < QT; i += 32) {
           const int row = it * QT + i;
-          ls[s * QT + i] = row < N ? lse[stat0 + row] * kLog2e : 0.f;
-          ds[s * QT + i] = row < N ? di[stat0 + row] : 0.f;
+          ls[s * QT + i] = row < Nq ? lse[stat0 + row] * kLog2e : 0.f;
+          ds[s * QT + i] = row < Nq ? di[stat0 + row] : 0.f;
         }
         if (lane == 0) {  // its arrival, with the tiles' bytes
           pfst::mbar_expect_tx(full + s, 2 * kTile);
@@ -857,7 +897,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
   float dka[DB][4] = {}, dva[DB][4] = {};
   const float sl2 = scale * kLog2e;
   const float* abk[2];
-  bias_cols(abk, ab, st, b, h, row0 + wr + (lane >> 2), N);
+  bias_cols(abk, ab, st, b, h, row0 + wr + (lane >> 2), Nk);
 
   // S^T = K Q^T and dP^T = V dO^T, all K-major in shared memory, into sc
   // and dp; issued one tile ahead, right behind the dV and dK products of
@@ -887,9 +927,9 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
 
     // P^T and dS^T s, as in flash_bwd_dkv_kernel (the bias added first),
     // the scale folded into one FMA before 2^x; only the last tile holds
-    // queries past N (P = 0)
+    // queries past Nq (P = 0)
     if constexpr (kBias)
-      add_bias_t(sc, abk, st.t[kAb][2], it * QT + 2 * (lane & 3), N);
+      add_bias_t(sc, abk, st.t[kAb][2], it * QT + 2 * (lane & 3), Nq);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -899,13 +939,13 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
         dp[j][e] = p * (dp[j][e] - dt[c]) * scale;
         sc[j][e] = p;
       }
-    if ((it + 1) * QT > N) {
+    if ((it + 1) * QT > Nq) {
       const int c0 = it * QT + 2 * (lane & 3);
 #pragma unroll
       for (int j = 0; j < NB; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (c0 + 8 * j + (e & 1) >= N) sc[j][e] = dp[j][e] = 0.f;
+          if (c0 + 8 * j + (e & 1) >= Nq) sc[j][e] = dp[j][e] = 0.f;
     }
     uint32_t pa[PS][4], sa[PS][4];
 #pragma unroll
@@ -962,7 +1002,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wr + (lane >> 2) + 8 * i;
-    if (row < N) {
+    if (row < Nk) {
       T* dkr = dkb + row * st.t[4][2] + 2 * (lane & 3);
       T* dvr = dvb + row * st.t[5][2] + 2 * (lane & 3);
 #pragma unroll
@@ -982,7 +1022,7 @@ __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
 // a ring of stages (full / empty mbarriers); each consumer loads the LSE
 // and Di of its own rows once into registers. Per tile a consumer runs
 // S = Q K^T and dP = dO V^T (shared x shared, all K-major), forms
-// dS s = P (dP - Di) s on the accumulators (P = 0 for keys past N, on the
+// dS s = P (dP - Di) s on the accumulators (P = 0 for keys past Nk, on the
 // last tile only), and runs dQ += (dS s) K with dS s as the register A
 // operand; the next tile's S and dP are issued right behind it.
 //
@@ -1204,7 +1244,8 @@ __global__ void __launch_bounds__(128 * (C + 1),
                               const float* __restrict__ di,
                               const float* __restrict__ ab,
                               T* __restrict__ dq, float* __restrict__ dab,
-                              int H, int N, float scale, Strides st) {
+                              int H, int Nq, int Nk, float scale,
+                              Strides st) {
   using L = DqSmem<T, D, C>;
   using S = DqStage<T, D, C>;
   constexpr bool kSplit = L::kSplit;
@@ -1231,7 +1272,7 @@ __global__ void __launch_bounds__(128 * (C + 1),
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * L::kRows;
-  const int tiles = (N + KT - 1) / KT;
+  const int tiles = (Nk + KT - 1) / KT;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     pfst::mbar_init(qd_full, 1);
@@ -1281,20 +1322,20 @@ __global__ void __launch_bounds__(128 * (C + 1),
   const int qr = (wg - 1) * 64;                       // the warpgroup's rows
   const int wr = qr + ((threadIdx.x >> 5) & 3) * 16;  // the warp's rows
   // LSE (times log2 e) and Di of the lane's rows g and g + 8
-  const long long stat0 = (static_cast<long long>(b) * H + h) * N;
+  const long long stat0 = (static_cast<long long>(b) * H + h) * Nq;
   float lr[2], dr[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wr + (lane >> 2) + 8 * i;
-    lr[i] = row < N ? lse[stat0 + row] * kLog2e : 0.f;
-    dr[i] = row < N ? di[stat0 + row] : 0.f;
+    lr[i] = row < Nq ? lse[stat0 + row] * kLog2e : 0.f;
+    dr[i] = row < Nq ? di[stat0 + row] : 0.f;
   }
   float dqa[DB][4] = {};
   const float sl2 = scale * kLog2e;
   const float* abr[2];
   float* dabr[2];
-  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), N);
-  bias_rows(dabr, dab, st, kDab, b, h, row0 + wr + (lane >> 2), N);
+  bias_rows(abr, ab, st, kAb, b, h, row0 + wr + (lane >> 2), Nq);
+  bias_rows(dabr, dab, st, kDab, b, h, row0 + wr + (lane >> 2), Nq);
 
   // fp32: each warp splits its own rows of Q and dO, hi in place and lo
   // into registers; the warpgroup's wgmma reads all its 64 rows, so its
@@ -1325,10 +1366,10 @@ __global__ void __launch_bounds__(128 * (C + 1),
 
     // dS s on the fragments: query rows g, g + 8, keys it KT + 8 j + 2 t
     // + e % 2, the bias added first, the scale folded into one FMA before
-    // 2^x; only the last tile holds keys past N (P = 0). dab = dS s in
+    // 2^x; only the last tile holds keys past Nk (P = 0). dab = dS s in
     // fp32, before the rounding (bf16) or the split (fp32) that feeds the
     // dQ product, where the library's dQ kernel writes ds
-    if constexpr (kBias) add_bias(sc, abr, it * KT + 2 * (lane & 3), N);
+    if constexpr (kBias) add_bias(sc, abr, it * KT + 2 * (lane & 3), Nk);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -1336,15 +1377,15 @@ __global__ void __launch_bounds__(128 * (C + 1),
         const float p = pfst::ex2(fmaf(sc[j][e], sl2, -lr[e >> 1]));
         dp[j][e] = p * (dp[j][e] - dr[e >> 1]) * scale;
       }
-    if ((it + 1) * KT > N) {
+    if ((it + 1) * KT > Nk) {
       const int c0 = it * KT + 2 * (lane & 3);
 #pragma unroll
       for (int j = 0; j < NB; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (c0 + 8 * j + (e & 1) >= N) dp[j][e] = 0.f;
+          if (c0 + 8 * j + (e & 1) >= Nk) dp[j][e] = 0.f;
     }
-    if constexpr (kBias) store_dab(dp, dabr, it * KT + 2 * (lane & 3), N);
+    if constexpr (kBias) store_dab(dp, dabr, it * KT + 2 * (lane & 3), Nk);
 
     // dQ += (dS s) K, dS s from registers (fp32: hi in sa, lo in sl); then
     // the next tile's S and dP behind it
@@ -1402,7 +1443,7 @@ __global__ void __launch_bounds__(128 * (C + 1),
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wr + (lane >> 2) + 8 * i;
-    if (row < N) {
+    if (row < Nq) {
       T* dqr = dqb + row * st.t[4][2] + 2 * (lane & 3);
 #pragma unroll
       for (int e = 0; e < DB; ++e)
@@ -1426,7 +1467,7 @@ struct Args {
   void* out1;   // dV
   float* lse_out;
   float* dab;   // null: not written
-  int B, H, N;
+  int B, H, Nq, Nk;  // queries (q, dO, O, dQ, LSE, Di), keys (k, v, dK, dV)
   float scale;
   Strides st;
 };
@@ -1447,8 +1488,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
   return err;
 }
 
-// The wgmma kernels (bf16 forward and dK/dV): tensor maps of q, k, v (and
-// dO), built on the host for each launch.
+// The wgmma kernels (bf16 forward and dK/dV): tensor maps of q (and dO)
+// over Nq rows and of k, v over Nk, built on the host for each launch; the
+// forward's grid runs over Nq, dK/dV's over Nk.
 template <int D, bool kBias>
 cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
                          cudaStream_t stream) {
@@ -1459,12 +1501,14 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
     using L = FwdSmem<D, kFwdWG>;
     const dim3 threads(128 * (kFwdWG + 1));
     static std::atomic<unsigned long long> done{0};
-    const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
-    err = pfst::bhnd_map<T, D, L::kRows>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+    const dim3 grid((a.Nq + L::kRows - 1) / L::kRows, a.H, a.B);
+    err = pfst::bhnd_map<T, D, L::kRows>(&tq, a.q, a.B, a.H, a.Nq, a.st.t[0]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<T, D, L::kKeys>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+      err = pfst::bhnd_map<T, D, L::kKeys>(&tk, a.k, a.B, a.H, a.Nk,
+                                           a.st.t[1]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<T, D, L::kKeys>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+      err = pfst::bhnd_map<T, D, L::kKeys>(&tv, a.v, a.B, a.H, a.Nk,
+                                           a.st.t[2]);
     if (err == cudaSuccess)
       err = allow_smem(flash_fwd_wgmma_kernel<D, kFwdWG, kBias>, L::kBytes,
                        device,
@@ -1472,22 +1516,25 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
     if (err != cudaSuccess) return err;
     flash_fwd_wgmma_kernel<D, kFwdWG, kBias>
         <<<grid, threads, L::kBytes, stream>>>(
-        tq, tk, tv, static_cast<T*>(a.out0), a.lse_out, a.ab, a.H, a.N,
-        a.scale, a.st);
+        tq, tk, tv, static_cast<T*>(a.out0), a.lse_out, a.ab, a.H, a.Nq,
+        a.Nk, a.scale, a.st);
   } else {
     using L = DkvSmem<D, kDkvWG>;
     const dim3 threads(128 * (kDkvWG + 1));
     static std::atomic<unsigned long long> done{0};
-    const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
+    const dim3 grid((a.Nk + L::kRows - 1) / L::kRows, a.H, a.B);
     CUtensorMap tdo;
-    err = pfst::bhnd_map<T, D, L::kQueries>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+    err = pfst::bhnd_map<T, D, L::kQueries>(&tq, a.q, a.B, a.H, a.Nq,
+                                            a.st.t[0]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<T, D, L::kRows>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+      err = pfst::bhnd_map<T, D, L::kRows>(&tk, a.k, a.B, a.H, a.Nk,
+                                           a.st.t[1]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<T, D, L::kRows>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+      err = pfst::bhnd_map<T, D, L::kRows>(&tv, a.v, a.B, a.H, a.Nk,
+                                           a.st.t[2]);
     if (err == cudaSuccess)
-      err = pfst::bhnd_map<T, D, L::kQueries>(&tdo, a.dout, a.B, a.H, a.N,
-                                           a.st.t[3]);
+      err = pfst::bhnd_map<T, D, L::kQueries>(&tdo, a.dout, a.B, a.H, a.Nq,
+                                              a.st.t[3]);
     if (err == cudaSuccess)
       err = allow_smem(flash_bwd_dkv_wgmma_kernel<D, kDkvWG, kBias>, L::kBytes,
                        device, done);
@@ -1495,28 +1542,28 @@ cudaError_t launch_wgmma(Kind kind, const Args& a, int device,
     flash_bwd_dkv_wgmma_kernel<D, kDkvWG, kBias>
         <<<grid, threads, L::kBytes, stream>>>(
         tq, tk, tv, tdo, a.lse_in, a.di, a.ab, static_cast<T*>(a.out0),
-        static_cast<T*>(a.out1), a.H, a.N, a.scale, a.st);
+        static_cast<T*>(a.out1), a.H, a.Nq, a.Nk, a.scale, a.st);
   }
   return cudaGetLastError();
 }
 
-// dQ, both types: tensor maps of q, k, v, dO, built on the host for each
-// launch.
+// dQ, both types: tensor maps of q, dO (Nq rows) and k, v (Nk rows), built
+// on the host for each launch; the grid runs over Nq.
 template <typename T, int D, bool kBias>
 cudaError_t launch_dq(const Args& a, int device, cudaStream_t stream) {
   constexpr int C = dq_wg<T, D>();
   using L = DqSmem<T, D, C>;
   static std::atomic<unsigned long long> done{0};
-  const dim3 grid((a.N + L::kRows - 1) / L::kRows, a.H, a.B);
+  const dim3 grid((a.Nq + L::kRows - 1) / L::kRows, a.H, a.B);
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err =
-      pfst::bhnd_map<T, D, L::kRows>(&tq, a.q, a.B, a.H, a.N, a.st.t[0]);
+      pfst::bhnd_map<T, D, L::kRows>(&tq, a.q, a.B, a.H, a.Nq, a.st.t[0]);
   if (err == cudaSuccess)
-    err = pfst::bhnd_map<T, D, L::kKeys>(&tk, a.k, a.B, a.H, a.N, a.st.t[1]);
+    err = pfst::bhnd_map<T, D, L::kKeys>(&tk, a.k, a.B, a.H, a.Nk, a.st.t[1]);
   if (err == cudaSuccess)
-    err = pfst::bhnd_map<T, D, L::kKeys>(&tv, a.v, a.B, a.H, a.N, a.st.t[2]);
+    err = pfst::bhnd_map<T, D, L::kKeys>(&tv, a.v, a.B, a.H, a.Nk, a.st.t[2]);
   if (err == cudaSuccess)
-    err = pfst::bhnd_map<T, D, L::kRows>(&tdo, a.dout, a.B, a.H, a.N,
+    err = pfst::bhnd_map<T, D, L::kRows>(&tdo, a.dout, a.B, a.H, a.Nq,
                                          a.st.t[3]);
   if (err == cudaSuccess)
     err = allow_smem(flash_bwd_dq_wgmma_kernel<T, D, C, kBias>, L::kBytes,
@@ -1526,12 +1573,13 @@ cudaError_t launch_dq(const Args& a, int device, cudaStream_t stream) {
   flash_bwd_dq_wgmma_kernel<T, D, C, kBias><<<grid, 128 * (C + 1), L::kBytes,
                                        stream>>>(
       tq, tk, tv, tdo, a.lse_in, a.di, a.ab, static_cast<T*>(a.out0), a.dab,
-      a.H, a.N, a.scale, a.st);
+      a.H, a.Nq, a.Nk, a.scale, a.st);
   return cudaGetLastError();
 }
 
 // One launch: dQ and the bf16 forward and dK/dV on the wgmma kernels, the
-// fp32 forward and dK/dV on the mma.sync kernels.
+// fp32 forward (a grid over Nq) and dK/dV (over Nk) on the mma.sync
+// kernels.
 template <typename T, int D, bool kBias>
 cudaError_t launch(Kind kind, const Args& a, int device,
                    cudaStream_t stream) {
@@ -1539,7 +1587,8 @@ cudaError_t launch(Kind kind, const Args& a, int device,
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return launch_wgmma<D, kBias>(kind, a, device, stream);
   } else {
-    const dim3 grid((a.N + kRows - 1) / kRows, a.H, a.B);
+    const dim3 grid(((kind == kForward ? a.Nq : a.Nk) + kRows - 1) / kRows,
+                    a.H, a.B);
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
@@ -1550,8 +1599,8 @@ cudaError_t launch(Kind kind, const Args& a, int device,
       err = allow_smem(flash_fwd_kernel<T, D, kBias>, bytes, device, done);
       if (err != cudaSuccess) return err;
       flash_fwd_kernel<T, D, kBias><<<grid, kThreads, bytes, stream>>>(
-          q, k, v, static_cast<T*>(a.out0), a.lse_out, a.ab, a.H, a.N,
-          a.scale, a.st);
+          q, k, v, static_cast<T*>(a.out0), a.lse_out, a.ab, a.H, a.Nq,
+          a.Nk, a.scale, a.st);
       return cudaGetLastError();
     }
     static std::atomic<unsigned long long> done{0};
@@ -1560,8 +1609,8 @@ cudaError_t launch(Kind kind, const Args& a, int device,
     if (err != cudaSuccess) return err;
     flash_bwd_dkv_kernel<T, D, kBias><<<grid, kThreads, bytes, stream>>>(
         q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.di, a.ab,
-        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H, a.N, a.scale,
-        a.st);
+        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H, a.Nq, a.Nk,
+        a.scale, a.st);
     return cudaGetLastError();
   }
 }
@@ -1583,7 +1632,8 @@ cudaError_t dispatch_d(Kind kind, int D, const Args& a, int device,
 int run(Kind kind, Args a, int D, const long long* strides, int n_tensors,
         const long long* bias_strides, int is_bf16, int device,
         void* stream) {
-  if (a.B <= 0 || a.B > 65535 || a.H <= 0 || a.H > 65535 || a.N <= 0 ||
+  if (a.B <= 0 || a.B > 65535 || a.H <= 0 || a.H > 65535 || a.Nq <= 0 ||
+      a.Nk <= 0 ||
       strides == nullptr ||
       ((a.ab != nullptr || a.dab != nullptr) && bias_strides == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1613,15 +1663,15 @@ int run(Kind kind, Args a, int D, const long long* strides, int n_tensors,
 
 }  // namespace
 
-// Forward: O (strides[9..11]) and LSE (B, H, N) fp32 from q, k, v
-// (strides[0..8]) and the optional bias ab (null for none; its strides
-// bias_strides[0..2]). Returns the cudaError_t of the launch; 0 means
-// accepted.
+// Forward: O (strides[9..11]) and LSE (B, H, N) fp32 from q (B, H, N, D),
+// k and v (B, H, Nk, D) (strides[0..8]) and the optional bias ab (B, H, N,
+// Nk) (null for none; its strides bias_strides[0..2]). Returns the
+// cudaError_t of the launch; 0 means accepted.
 extern "C" int pfst_flash_attention_forward(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    const float* ab, int B, int H, int N, int D, const long long* strides,
-    const long long* bias_strides, float scale, int is_bf16, int device,
-    void* stream) {
+    const float* ab, int B, int H, int N, int Nk, int D,
+    const long long* strides, const long long* bias_strides, float scale,
+    int is_bf16, int device, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -1631,7 +1681,8 @@ extern "C" int pfst_flash_attention_forward(
   a.ab = ab;
   a.B = B;
   a.H = H;
-  a.N = N;
+  a.Nq = N;
+  a.Nk = Nk;
   a.scale = scale;
   return run(kForward, a, D, strides, 4, bias_strides, is_bf16, device,
              stream);
@@ -1639,11 +1690,12 @@ extern "C" int pfst_flash_attention_forward(
 
 // dK (strides[12..14]) and dV (strides[15..17]) from q, k, v, dO
 // (strides[0..11]), the forward's LSE and Di = rowsum(dO * O), both
-// (B, H, N) fp32, and the forward's ab (bias_strides[0..2]).
+// (B, H, N) fp32, and the forward's ab (bias_strides[0..2]); dK and dV
+// have k's (B, H, Nk, D).
 extern "C" int pfst_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* di, const float* ab, void* dk, void* dv,
-    int B, int H, int N, int D, const long long* strides,
+    int B, int H, int N, int Nk, int D, const long long* strides,
     const long long* bias_strides, float scale, int is_bf16, int device,
     void* stream) {
   Args a{};
@@ -1658,18 +1710,19 @@ extern "C" int pfst_flash_attention_bwd_dkv(
   a.out1 = dv;
   a.B = B;
   a.H = H;
-  a.N = N;
+  a.Nq = N;
+  a.Nk = Nk;
   a.scale = scale;
   return run(kDkv, a, D, strides, 6, bias_strides, is_bf16, device, stream);
 }
 
 // dQ (strides[12..14]) from q, k, v, dO (strides[0..11]), LSE, Di and ab
-// (bias_strides[0..2]); and dab = dS scale, fp32, where dab is not null
-// (bias_strides[3..5]).
+// (bias_strides[0..2]); and dab = dS scale, fp32 (B, H, N, Nk), where dab
+// is not null (bias_strides[3..5]).
 extern "C" int pfst_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* di, const float* ab, void* dq, float* dab,
-    int B, int H, int N, int D, const long long* strides,
+    int B, int H, int N, int Nk, int D, const long long* strides,
     const long long* bias_strides, float scale, int is_bf16, int device,
     void* stream) {
   Args a{};
@@ -1684,7 +1737,8 @@ extern "C" int pfst_flash_attention_bwd_dq(
   a.dab = dab;
   a.B = B;
   a.H = H;
-  a.N = N;
+  a.Nq = N;
+  a.Nk = Nk;
   a.scale = scale;
   return run(kDq, a, D, strides, 5, bias_strides, is_bf16, device, stream);
 }

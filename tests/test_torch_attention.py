@@ -149,6 +149,91 @@ def test_kernels_take_cuda_tensors_only():
         attention(meta, meta, meta, 0.125)
 
 
+# keys and values shorter or longer than the queries (MiT's and Twins'
+# spatial-reduction attention): (N_q, N_k)
+KV_LENGTHS = [(17, 1), (17, 16), (17, 49), (64, 1), (64, 16), (64, 49),
+              (17, 64)]
+
+
+@pytest.mark.parametrize('with_ab', [False, True], ids=['no-ab', 'ab'])
+@pytest.mark.parametrize('nq, nk', KV_LENGTHS)
+def test_plain_versions_with_nk_other_than_nq_match_mha_reference(nq, nk,
+                                                                  with_ab):
+    """q (B, H, N_q, D) against k, v (B, H, N_k, D), with and without a
+    (B, H, N_q, N_k) ``ab``: the forward, its LSE and the backward (dab
+    included) against the library's ``mha_reference`` and its VJP (scale
+    folded into q and ab), and against autograd of the plain forward,
+    within 1e-5."""
+    b, h, d = 2, 3, 16
+    rs = np.random.RandomState(nq * 100 + nk)
+    q, g = (rs.randn(b, h, nq, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, h, nk, d).astype(np.float32) for _ in range(2))
+    ab = (rs.randn(b, h, nq, nk) * 3.0).astype(np.float32) if with_ab \
+        else None
+    scale = d**-0.5
+    tq, tk, tv, tg = _t(q, k, v, g)
+    tab = None if ab is None else torch.from_numpy(ab)
+    out, lse = torch_attention(tq, tk, tv, scale, return_lse=True, ab=tab)
+    assert out.shape == (b, h, nq, d) and lse.shape == (b, h, nq)
+    ref = mha_reference(q, k, v, ab, sm_scale=scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+    s = np.einsum('bhqd,bhkd->bhqk', q, k).astype(np.float64)
+    s = (s if ab is None else s + ab) * scale
+    np.testing.assert_allclose(lse.numpy(), np.log(np.exp(s).sum(-1)),
+                               rtol=1e-6, atol=1e-6)
+    args = (q, k, v) if ab is None else (q, k, v, ab)
+    _, vjp = jax.vjp(lambda q_, k_, v_, *ab_: mha_reference(
+        q_ * scale, k_, v_, ab_[0] * scale if ab_ else None, sm_scale=1.0),
+        *args)
+    want = [np.asarray(r) for r in vjp(jnp.asarray(g))]
+    got = torch_attention_backward(tq, tk, tv, out, lse, tg, scale, ab=tab)
+    xs = [t.clone().requires_grad_() for t in (tq, tk, tv)] + (
+        [] if tab is None else [tab.clone().requires_grad_()])
+    auto = torch.autograd.grad(attention(*xs[:3], scale, *xs[3:]), xs, tg)
+    assert len(got) == len(want) == len(auto) == len(args)
+    for name, x, a, r in zip(('dq', 'dk', 'dv', 'dab'), got, auto, want):
+        assert x.shape == a.shape == r.shape, name
+        np.testing.assert_allclose(x.numpy(), r, atol=1e-5, rtol=1e-5,
+                                   err_msg=f'{name} vs mha_reference')
+        np.testing.assert_allclose(x.numpy(), a.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=f'{name} vs autograd')
+
+
+def test_check_args_refuses_mismatched_kv_and_bias():
+    """k and v must share their N_k; ``ab`` must be (1 or B, H, N_q,
+    N_k): one of (., H, N_q, N_q) is refused when N_k != N_q; heads and
+    head widths must match q's."""
+    q = torch.zeros(2, 3, 17, 32)
+    k = torch.zeros(2, 3, 4, 32)
+    with pytest.raises(ValueError, match='one .B, H, N_k, D. shape'):
+        attention(q, k, torch.zeros(2, 3, 5, 32), 0.125)
+    for bad in (torch.zeros(2, 2, 4, 32), torch.zeros(2, 3, 4, 16)):
+        with pytest.raises(ValueError, match='one .B, H, N_k, D. shape'):
+            attention(q, bad, bad, 0.125)
+    for ab in (torch.zeros(2, 3, 17, 17), torch.zeros(1, 3, 4, 17)):
+        with pytest.raises(ValueError, match=r'ab must be \(2 or 1, 3, 17, '
+                                             r'4\)'):
+            attention(q, k, k, 0.125, ab)
+    out = attention(q, k, k, 0.125, torch.zeros(1, 3, 17, 4))
+    assert out.shape == q.shape
+
+
+def test_kernels_refuse_cpu_tensors_with_nk_other_than_nq():
+    """The CUDA entry points refuse CPU tensors at N_k != N_q too; they
+    never fall back to the plain versions."""
+    q, g = torch.zeros(1, 2, 17, 64), torch.zeros(1, 2, 17, 64)
+    k = v = torch.zeros(1, 2, 4, 64)
+    stats = torch.zeros((1, 2, 17))
+    ab = torch.zeros(1, 2, 17, 4)
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_flash_attention(q, k, v, 0.125, ab)
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_flash_attention_bwd_dkv(q, k, v, g, stats, stats, 0.125, ab)
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_flash_attention_bwd_dq(q, k, v, g, stats, stats, 0.125, ab)
+
+
 def test_microbench_needs_a_card(monkeypatch):
     """Without a card the microbench raises unless asked for the CPU, and
     on the CPU it times the plain version only, never as ``flash``."""
@@ -344,3 +429,42 @@ def test_fp32_dq_kernel_arithmetic_is_fp32_accurate(three):
         err = float((got.double() - ref).abs().max())
         limit = chip_smoke.FLASH_BWD_TOL * max(1.0, float(ref.abs().max()))
         assert (err <= limit) == three, (err, limit)
+
+
+def _to_fp32_toward_zero(x):
+    """fp64 ``x`` rounded to fp32 toward zero, as the tensor cores' fp32
+    accumulate rounds an mma's sum."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f.astype(np.float64)
+
+
+@pytest.mark.parametrize('flush', [256, None], ids=['flush-256', 'control'])
+def test_fp32_dkv_sums_over_long_query_loops_stay_fp32_accurate(flush):
+    """dV = P^T dO over MiT-B0 stage 0's 16384 queries for one block's 64
+    keys, as the fp32 dK/dV kernel sums it: m16n8k8 products, three a
+    k-step (3xTF32), each mma's sum rounded toward zero into its
+    accumulator. Flushing the accumulators every ``kFlushRows`` = 256
+    queries into rounded fp32 sums, as the kernel does, stays within phase
+    3c's ``FLASH_BWD_TOL * max(1, max|ref|)`` of fp64; one accumulator
+    over all 16384 (the planted control) does not."""
+    rs = np.random.RandomState(9)
+    nq, nk, d = 16384, 64, 32
+    s = rs.randn(nq, nk)
+    p = np.exp(s - s.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True) * 4.0      # a row's share of 256 keys
+    g = rs.randn(nq, d)
+    ref = p.T @ g
+    acc, total = np.zeros((nk, d)), np.zeros((nk, d), np.float32)
+    for i0 in range(0, nq, 8):
+        part = p[i0:i0 + 8].T @ g[i0:i0 + 8] / 3.0
+        for _ in range(3):
+            acc = _to_fp32_toward_zero(acc + part)
+        if flush and (i0 + 8) % flush == 0:
+            total += acc.astype(np.float32)
+            acc = np.zeros((nk, d))
+    got = total.astype(np.float64) + acc
+    err = float(np.abs(got - ref).max())
+    limit = chip_smoke.FLASH_BWD_TOL * max(1.0, float(np.abs(ref).max()))
+    assert (err <= limit) == bool(flush), (err, limit)

@@ -1,7 +1,7 @@
 """Which of the 49 ``configs/_base_/models`` defs the port can build:
 every component ``type`` of a def looked up in the port's registry, with
-no JAX and no model built. The 17 buildable defs resolve every type; each
-of the other 32 raises the registry's ``KeyError`` at its first missing
+no JAX and no model built. The 20 buildable defs resolve every type; each
+of the other 29 raises the registry's ``KeyError`` at its first missing
 type. This pins the count ROADMAP quotes (A13).
 """
 import glob
@@ -34,8 +34,9 @@ def _types(node, out, key=''):
 # type that no port registry holds
 BUILDABLE = {'ann_r50-d8', 'annnet_r50-d8', 'deeplabv3_r50-d8',
              'deeplabv3plus_r50-d8', 'dpt_vit-b16', 'fcn_r50-d8', 'fpn_r50',
-             'pspnet_r50-d8', 'segmenter_vit-b16_mask', 'setr_mla',
-             'setr_naive', 'setr_pup', 'upernet_beit', 'upernet_mae',
+             'pspnet_r50-d8', 'segformer_mit-b0', 'segmenter_vit-b16_mask',
+             'setr_mla', 'setr_naive', 'setr_pup', 'twins_pcpvt-s_fpn',
+             'twins_pcpvt-s_upernet', 'upernet_beit', 'upernet_mae',
              'upernet_r50', 'upernet_swin', 'upernet_vit-b16_ln_mln'}
 FIRST_MISSING = {
     'apcnet_r50-d8': 'APCHead', 'bisenetv1_r18-d32': 'BiSeNetV1',
@@ -51,9 +52,8 @@ FIRST_MISSING = {
     'nonlocal_r50-d8': 'NLHead', 'ocrnet_hr18': 'CascadeEncoderDecoder',
     'ocrnet_r50-d8': 'CascadeEncoderDecoder',
     'pointrend_r50': 'CascadeEncoderDecoder', 'psanet_r50-d8': 'PSAHead',
-    'pspnet_unet_s5-d16': 'UNet', 'segformer_mit-b0': 'MixVisionTransformer',
-    'stdc': 'STDCContextPathNet', 'twins_pcpvt-s_fpn': 'PCPVT',
-    'twins_pcpvt-s_upernet': 'PCPVT', 'upernet_convnext': 'ConvNeXt'}
+    'pspnet_unet_s5-d16': 'UNet', 'stdc': 'STDCContextPathNet',
+    'upernet_convnext': 'ConvNeXt'}
 MODEL_DEFS = sorted(glob.glob(osp.join(CONFIGS, '*.py')))
 
 
@@ -65,10 +65,10 @@ def _resolve(model):
             MODELS.build({'type': t})   # raises before building anything
 
 
-def test_buildable_count_is_17_of_49():
+def test_buildable_count_is_20_of_49():
     names = {osp.basename(p)[:-3] for p in MODEL_DEFS}
     assert len(names) == 49 and BUILDABLE | set(FIRST_MISSING) == names
-    assert len(BUILDABLE) == 17 and not BUILDABLE & set(FIRST_MISSING)
+    assert len(BUILDABLE) == 20 and not BUILDABLE & set(FIRST_MISSING)
 
 
 @pytest.mark.parametrize('path', MODEL_DEFS, ids=osp.basename)

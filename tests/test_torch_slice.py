@@ -153,8 +153,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     datasets, the TIFF and HDF5 readers and the wrappers too), the hooks
     and the pseudo-label generator, the logger hooks and their event
     writer, LoveDA, the environment utilities, the SETR, Segmenter, DPT,
-    PSPNet, Semantic-FPN and ANN heads and the MLA and FPN necks,
-    evaluation, checkpoint and
+    PSPNet, Semantic-FPN and ANN heads and the MLA and FPN necks, the MiT
+    and Twins backbones and the SegFormer head, evaluation, checkpoint
+    and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
     design) and chip_smoke.py, in a fresh process: none of jax, flax,
@@ -197,7 +198,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'models.decode_heads.psp_head',",
         "          'models.decode_heads.fcn_head',",
         "          'models.decode_heads.context_heads',",
-        "          'models.necks.mla_neck', 'models.necks.fpn'):",
+        "          'models.necks.mla_neck', 'models.necks.fpn',",
+        "          'models.backbones.mit', 'models.backbones.twins',",
+        "          'models.decode_heads.segformer_head'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

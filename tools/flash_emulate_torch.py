@@ -15,6 +15,7 @@ For a change to either source or its headers, before any run on a card
 
     python3 tools/flash_emulate_torch.py
     python3 tools/flash_emulate_torch.py --only flash_attention --bias-only
+    python3 tools/flash_emulate_torch.py --only flash_attention --kv-only
 
 How: the sources are copied into a temporary directory, where ``ptx.cuh``
 (the inline-PTX wrappers) is replaced by C++ with the PTX ISA's semantics,
@@ -66,8 +67,9 @@ import torch
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import (SIM_GEOMETRY_CASES, flash_bias,  # noqa: E402
-                        flash_errors, sim_bwd_errors, sim_errors)
+from chip_smoke import (FLASH_AB_CASES, SIM_GEOMETRY_CASES,  # noqa: E402
+                        flash_bias, flash_errors, sim_bwd_errors,
+                        sim_errors)
 from pfst_tpu_torch.ops import build  # noqa: E402
 
 # (shape (B, H, N, D), dtype, layout): every head dimension and type, N
@@ -88,7 +90,12 @@ CASES = [((1, 2, 17, 64), torch.float32, 'qkv'),
          ((1, 1, 80, 128), torch.bfloat16, 'offset'),
          ((1, 1, 80, 128), torch.float32, 'contiguous'),
          ((1, 2, 150, 64), torch.float32, 'offset'),
-         ((1, 1, 37, 128), torch.float32, 'qkv')]
+         ((1, 1, 37, 128), torch.float32, 'qkv')] + [
+    # (a fifth entry: N_k) keys shorter and longer than the queries, at
+    # the geometries of chip_smoke's FLASH_AB_CASES without a bias: N_k of
+    # 1 or 4 rows against a 64- or 128-row tile, N_q past a 128-row block
+    (case[0], case[1], case[2], None, case[5])
+    for case in FLASH_AB_CASES if case[3] is None]
 # with a bias (``chip_smoke.flash_bias``): BEiT's batch-shared table at N
 # = 17 (4 x 4 + 1) and past a 64-key tile, Swin's windows with the shift
 # mask (a 14 x 14 padded grid: 4 windows an image, 2 images), random
@@ -103,7 +110,10 @@ CASES_AB = [((2, 2, 17, 64), torch.float32, 'qkv', 'beit'),
             ((2, 1, 70, 32), torch.float32, 'contiguous', 'random'),
             ((1, 1, 80, 128), torch.bfloat16, 'offset', 'shared'),
             ((1, 1, 37, 128), torch.float32, 'qkv', 'strided'),
-            ((1, 2, 97, 64), torch.float32, 'qkv', 'random')]
+            ((1, 2, 97, 64), torch.float32, 'qkv', 'random')] + [
+    # the same with chip_smoke's random (B, H, N_q, N_k) bias
+    (case[0], case[1], case[2], case[3], case[5])
+    for case in FLASH_AB_CASES if len(case) == 6 and case[3] is not None]
 PRELUDE = r'''
 #pragma once
 #include <atomic>
@@ -871,8 +881,14 @@ def use_libraries(libs):
         module._device_and_stream = lambda t: (0, None)
 
 
-def inputs(shape, dtype, layout, gen):
+def inputs(shape, dtype, layout, gen, nk=None):
+    """q, k, v on the CPU as ``chip_smoke._flash_inputs`` lays them out,
+    and 'offset' views one element past 16-byte alignment."""
     b, h, n, d = shape
+    if layout == 'qkv' and nk is not None:
+        q = torch.randn((b, n, h, d), generator=gen).to(dtype)
+        kv = torch.randn((b, nk, 2, h, d), generator=gen).to(dtype)
+        return (q.transpose(1, 2), *kv.permute(2, 0, 3, 1, 4).unbind(0))
     if layout == 'qkv':
         qkv = torch.randn((b, n, 3, h, d), generator=gen).to(dtype)
         return qkv.permute(2, 0, 3, 1, 4).unbind(0)
@@ -884,12 +900,12 @@ def inputs(shape, dtype, layout, gen):
 
 def run_flash(gen, cases=None):
     ok = True
-    for shape, dtype, layout, *bias in cases or (
-            [c + (None,) for c in CASES] + CASES_AB):
-        q, k, v = inputs(shape, dtype, layout, gen)
+    for case in cases or CASES + CASES_AB:
+        shape, dtype, layout, bias, nk = (*case, None, None)[:5]
+        q, k, v = inputs(shape, dtype, layout, gen, nk)
         g = torch.randn(shape, generator=gen).to(dtype)
-        ab = None if bias[0] is None else flash_bias(bias[0], shape, gen,
-                                                     'cpu')
+        ab = None if bias is None else flash_bias(bias, shape, gen, 'cpu',
+                                                  nk)
         t0 = time.time()
         try:
             _, _, err = flash_errors(q, k, v, g, shape[-1]**-0.5, ab,
@@ -897,7 +913,8 @@ def run_flash(gen, cases=None):
         except RuntimeError as e:  # an emulated fault (on stderr)
             err = {'ok': False, 'launch': str(e)}
         ok = err['ok'] and ok
-        print(f'{shape} {str(dtype)[6:]} {layout} bias {bias[0]}: '
+        print(f'{shape} N_k {k.shape[2]} {str(dtype)[6:]} {layout} bias '
+              f'{bias}: '
               f'{"OK" if err["ok"] else "FAIL"} ({time.time() - t0:.1f}s) '
               + ' '.join(f'{k_} {v_:.2e}' if isinstance(v_, float)
                          else f'{k_}: {v_}' for k_, v_ in err.items()
@@ -943,6 +960,8 @@ def main(argv=None):
                         help='emulate one source only')
     parser.add_argument('--bias-only', action='store_true',
                         help='flash: only the cases with a bias')
+    parser.add_argument('--kv-only', action='store_true',
+                        help='flash: only the cases with N_k != N_q')
     args = parser.parse_args(argv)
     torch.set_num_threads(1)
     tmp = args.keep or tempfile.mkdtemp()
@@ -957,8 +976,10 @@ def main(argv=None):
         gen = torch.Generator().manual_seed(0)
         ok = True
         if 'flash_attention' in libs:
-            ok = run_flash(gen, CASES_AB if args.bias_only else None) \
-                and ok
+            cases = [c for c in CASES + CASES_AB
+                     if (not args.bias_only or len(c) > 3 and c[3])
+                     and (not args.kv_only or len(c) == 5)]
+            ok = run_flash(gen, cases) and ok
         if 'neighborhood_sim' in libs:
             ok = run_sim(gen) and ok
     finally:

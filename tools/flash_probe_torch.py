@@ -163,9 +163,9 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def check(shape, dtype, layout, gen):
+def check(shape, dtype, layout, gen, nk=None):
     b, h, n, d = shape
-    q, k, v = _flash_inputs(shape, dtype, layout, gen)
+    q, k, v = _flash_inputs(shape, dtype, layout, gen, nk)
     g = torch.randn(shape, generator=gen).to('cuda', dtype)
     s = d**-0.5
     o, lse, err = flash_errors(q, k, v, g, s)
@@ -182,9 +182,9 @@ def check(shape, dtype, layout, gen):
                                                           di, s)),
              graph_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                              scale=s))]
-    flops = 4 * b * h * n * n * d
-    print(f'{shape} {dtype} {layout}: fwd excess {err["fwd_excess"]:.2e} '
-          f'(limit {err["fwd_limit"]:.1e}) lse {err["lse_rel_err"]:.2e}; '
+    flops = 4 * b * h * n * k.shape[2] * d
+    print(f'{shape} N_k {k.shape[2]} {dtype} {layout}: fwd excess {err["fwd_excess"]:.2e} '
+          f'(limit {err["fwd_limit"]:.1e}) lse {err["lse_err"]:.2e}; '
           f'bwd excess {err["bwd_excess"]:.2e} (limit '
           f'{err["bwd_limit"]:.1e}) {"OK" if err["ok"] else "FAIL"}; ms fwd '
           f'{t_fwd:.4f} ({flops / t_fwd / 1e9:.1f} TFLOP/s) dkv {t_dkv:.4f} '
@@ -307,7 +307,7 @@ def main():
                 ok = check_sim_bwd(shape, sim_type, dtype, gen,
                                    dilation) and ok
         for case in CASES:
-            ok = check(*case, gen) and ok
+            ok = check(*case[:3], gen, *case[3:]) and ok
             torch.cuda.empty_cache()
     sys.exit(0 if ok else 1)
 

@@ -58,16 +58,18 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 from pfst_tpu_torch.ops import cuda_flash_attention_bwd_dq
 gen = torch.Generator().manual_seed(4)
-for shape, dtype, layout in cs.FLASH_CASES:
-    q, k, v = cs._flash_inputs(shape, dtype, layout, gen)
+for shape, dtype, layout, *nk in cs.FLASH_CASES:
+    nk = nk[0] if nk else None
+    q, k, v = cs._flash_inputs(shape, dtype, layout, gen, nk)
     g = torch.randn(shape, generator=gen).to('cuda', dtype)
     s = shape[-1]**-0.5
     o, lse, err = cs.flash_errors(q, k, v, g, s)
     di = (o.float() * g.float()).sum(-1).contiguous()
     ms = cs.graph_ms(lambda: cuda_flash_attention_bwd_dq(q, k, v, g, lse,
                                                          di, s))
-    bound = cs.flash_bounds(shape, dtype)['dq'][0]
-    print(f'{sys.argv[2]} {shape} {str(dtype)[6:]} {layout} ok {err["ok"]} '
+    bound = cs.flash_bounds(shape, dtype, nk=nk)['dq'][0]
+    print(f'{sys.argv[2]} {shape} N_k {k.shape[2]} {str(dtype)[6:]} {layout} '
+          f'ok {err["ok"]} '
           f'dq_err {err["dq_err"]:.2e} dQ device ms {ms:.4f} bound '
           f'{bound:.4f} x{ms / bound:.2f}', flush=True)
     del q, k, v, g, o, lse, di
