@@ -217,7 +217,13 @@ Phases (any failure exits non-zero before the result lines):
    bf16 autocast (each flash kernel once an attention layer a step);
    Segmenter, SETR-PUP, ANN, SegFormer and Twins-FPN card against CPU as
    phase 11 (128^2, TF32 off; MiT's stage 0 there: 32^2 queries, 4^2
-   keys);
+   keys); then the CNN backbones' twelve defs the same way at 512^2, with
+   no attention: UNet under FCN, DeepLabV3 and PSPNet (slide-mode
+   requests, 256^2 windows at stride 170; features at 1/1), HRNet-W18
+   under FCN and ConvNeXt-B under UPerNet (1/4), MobileNetV3-large under
+   LR-ASPP (1/2), Fast-SCNN, CGNet, ERFNet, BiSeNetV1 (R18) and BiSeNetV2
+   (1/8), and ICNet (ResNetV1c-50, 1/16); UNet-DeepLabV3, HRNet,
+   ConvNeXt (drop path off there), LR-ASPP and ICNet card against CPU;
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -410,9 +416,26 @@ A13_MODELS = {'setr_naive': ((768, 768), 24, 4),
               'annnet_r50-d8': ((512, 512), 0, 8),
               'segformer_mit-b0': ((512, 512), 8, 4),
               'twins_pcpvt-s_upernet': ((512, 512), 16, 4),
-              'twins_pcpvt-s_fpn': ((512, 512), 16, 4)}
+              'twins_pcpvt-s_fpn': ((512, 512), 16, 4),
+              'fcn_unet_s5-d16': ((512, 512), 0, 1),
+              'deeplabv3_unet_s5-d16': ((512, 512), 0, 1),
+              'pspnet_unet_s5-d16': ((512, 512), 0, 1),
+              'fcn_hr18': ((512, 512), 0, 4),
+              'upernet_convnext': ((512, 512), 0, 4),
+              'lraspp_m-v3-d8': ((512, 512), 0, 2),
+              'fast_scnn': ((512, 512), 0, 8),
+              'cgnet': ((512, 512), 0, 8),
+              'erfnet_fcn': ((512, 512), 0, 8),
+              'bisenetv1_r18-d32': ((512, 512), 0, 8),
+              'bisenetv2': ((512, 512), 0, 8),
+              'icnet_r50-d8': ((512, 512), 0, 16)}
 A13_CHECKED = ('segmenter_vit-b16_mask', 'setr_pup', 'ann_r50-d8',
-               'segformer_mit-b0', 'twins_pcpvt-s_fpn')
+               'segformer_mit-b0', 'twins_pcpvt-s_fpn',
+               'deeplabv3_unet_s5-d16', 'fcn_hr18', 'upernet_convnext',
+               'lraspp_m-v3-d8', 'icnet_r50-d8')
+# backbone settings of the card-against-CPU step: ConvNeXt-B's drop path
+# (0.4 over 36 blocks) would drop some branch for both images of the batch
+A13_CHECK_BACKBONE = {'upernet_convnext': dict(drop_path_rate=0.0)}
 MODEL_DEFS = osp.join(ROOT, 'configs', '_base_', 'models')
 # the ViT configs' input normalization (ImageNet mean/std, RGB)
 VIT_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
@@ -3793,16 +3816,19 @@ def _a13_watch(student):
 def phase_a13_heads(card):
     """Phase 20: A13's defs on the ViT (SETR naive, PUP and MLA with ViT-L
     at 768^2; Segmenter and DPT with ViT-B at 512^2), on the ResNet
-    (PSPNet, Semantic FPN, ANN at 512^2), on MiT-B0 (SegFormer) and on
-    Twins PCPVT-S (UPerNet, Semantic FPN) at 512^2, each from its config
-    as it stands with seeded weights: requests (logits -> labels, then the
-    feature state through the similarity kernel), supervised steps in
-    fp32 and bf16 autocast; ``A13_CHECKED`` card against CPU. Every
+    (PSPNet, Semantic FPN, ANN at 512^2), on MiT-B0 (SegFormer), on
+    Twins PCPVT-S (UPerNet, Semantic FPN) and on the CNN backbones (UNet,
+    HRNet, ConvNeXt, MobileNetV3, the real-time nets) at 512^2, each from
+    its config as it stands with seeded weights: requests (logits ->
+    labels, then the feature state through the similarity kernel),
+    supervised steps in fp32 and bf16 autocast; ``A13_CHECKED`` card
+    against CPU (``A13_CHECK_BACKBONE``'s settings there). Every
     attention layer on the flash kernels (MiT's and PCPVT's with keys
     shorter than the queries)."""
     t0 = time.time()
-    serve, train = {}, {}
+    serve, train, def_s = {}, {}, {}
     for name, (hw, layers, stride) in A13_MODELS.items():
+        t_def = time.time()
         cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'))
         model = init_segmentor(cfg)
         serve[name] = _tf_serving(name, cfg, model, hw, layers, stride, 'a13')
@@ -3811,11 +3837,15 @@ def phase_a13_heads(card):
         for tag, run in _train_runs(cfg, hw, layers, f'a13 train {name}',
                                     card, _a13_watch).items():
             train[(name, tag)] = run
+        def_s[name] = round(time.time() - t_def, 1)
     for name in A13_CHECKED:
+        t_def = time.time()
         # phase 11's check (a ResNet's blocks at phase 8's BN scale)
-        _supervised_card_vs_cpu(
-            model_config(osp.join(MODEL_DEFS, f'{name}.py'), dropout=False),
-            TF_CHECK_HW, f'[a13 card-vs-cpu {name}]')
+        cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'), dropout=False)
+        cfg.model['backbone'].update(A13_CHECK_BACKBONE.get(name, {}))
+        _supervised_card_vs_cpu(cfg, TF_CHECK_HW,
+                                f'[a13 card-vs-cpu {name}]')
+        def_s[f'{name} card-vs-cpu'] = round(time.time() - t_def, 1)
     launches = [sum(r['flash'][i] for r in serve.values())
                 + sum(t[1][i] for t in train.values()) for i in range(3)]
     log('[a13] warm ms per request ' + ', '.join(
@@ -3823,7 +3853,8 @@ def phase_a13_heads(card):
         + '; s/iter batch 2 ' + ', '.join(
             f'{n} {t} {v[0]:.4f}' for (n, t), v in train.items())
         + f'; flash launches fwd/dkv/dq {launches}, similarity '
-        f'{sum(r["sim"] for r in serve.values())}; phase '
+        f'{sum(r["sim"] for r in serve.values())}; wall s a def (requests '
+        f'and steps) and a check {json.dumps(def_s)}; phase '
         f'{time.time() - t0:.1f} s on {card}')
     return dict(serve=serve, train=train, launches=launches)
 

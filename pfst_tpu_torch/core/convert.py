@@ -27,7 +27,12 @@ in-projection (mmseg's ``attn.attn.in_proj_*``) is the JAX file's three
 Dense layers ``q``, ``k``, ``v`` concatenated (a path element ``q|k|v``),
 and its Mix-FFN's 1x1 convs ``ffn.layers.{0,4}`` are the JAX file's
 Dense ``fc1``, ``fc2``; Twins, which the JAX tool does not map, keeps the
-JAX file's names for its own modules and MiT's inside them. A
+JAX file's names for its own modules and MiT's inside them, and so do
+the CNN backbones and ``ICNeck`` (the ``cnn`` family: UNet, HRNet,
+ConvNeXt, the MobileNets and the real-time nets), with mmcv's
+``ConvModule`` names and the port's ResNet names inside (``_cnn_key``).
+An ``LRASPPHead`` (told by its ``conv_up``) keeps the JAX file's names
+too, its classifier directly ``conv_seg``. A
 ``SegformerHead`` (told by its ``fusion_conv``) maps mmseg's ``convs.{i}``
 to the JAX file's ``proj{i}``, where an FCN head's are ``conv{i}``.
 ``discriminator_key_to_flax`` maps ``FCDiscriminator``'s ``conv{i}``
@@ -56,10 +61,11 @@ def _bn(suffix, path):
     return None if leaf is None else (leaf[0], path + ['norm', 'bn', leaf[1]])
 
 
-def _backbone_key(rest, ndim):
+def _backbone_key(rest, ndim, base=('backbone_mod',)):
+    """A ResNet key (or a ViT's), its JAX path under ``base``."""
     if rest[0] in ('pos_embed', 'cls_token', 'patch_embed', 'layers', 'ln1'):
         return _vit_key(rest)
-    base = ['backbone_mod']
+    base = list(base)
     if rest[0] == 'stem':
         idx = int(rest[1])
         conv_i = {0: 1, 3: 2, 6: 3}.get(idx)
@@ -273,6 +279,62 @@ def _twins_key(rest, ndim):
     return 'params', base + rest[:-1] + [leaf]
 
 
+_NORMS = ('bn', 'gn', 'ln', 'in')
+_STATS = {'running_mean': 'mean', 'running_var': 'var'}
+
+
+def _cnn_leaf(mods, leaf, ndim):
+    """(collection, path) of ``leaf`` of the module at JAX path ``mods``:
+    a norm's scale, shift and statistics, a kernel, bias or ``gamma``."""
+    if leaf in _STATS:
+        return 'batch_stats', mods + [_STATS[leaf]]
+    if leaf == 'weight':
+        return 'params', mods + ['kernel' if ndim > 1 else 'scale']
+    if leaf in ('bias', 'gamma'):
+        return 'params', mods + [leaf]
+    return None
+
+
+def _cnn_key(rest, ndim, base):
+    """The ``cnn`` family: the CNN backbones and necks whose modules have
+    the JAX file's names (UNet, HRNet, ConvNeXt, the MobileNets, the
+    real-time nets, ``ICNeck``), with three kinds of module inside that
+    keep the port's names:
+
+    * mmcv's ``ConvModule``: ``X.bn.*`` is the JAX ``X/norm/bn/*``, unless
+      ``X`` is itself a norm name: then it is the JAX file's standalone
+      ``Norm`` module, whose ``X/bn/*`` carries as it is (CGNet);
+    * the port's ResNet blocks (HRNet's): ``B.conv{k}`` and ``B.bn{k}`` are
+      the JAX ``B/conv{k}/conv`` and ``B/conv{k}/norm/bn``,
+      ``B.downsample.{0,1}`` the JAX ``B/downsample/conv/{conv,norm/bn}``;
+    * a sub-backbone under flax's auto-name (``ResNet_0``, ``ResNetV1c_0``)
+      with the ResNet keys inside, and ICNet's ``PPM``, whose branch
+      ``psp.{j}.1`` is the JAX ``psp/pool{j}``.
+    """
+    mods, leaf = list(rest[:-1]), rest[-1]
+    for i, part in enumerate(mods):
+        if re.fullmatch(r'ResNet(V1[cd])?_\d+', part):
+            return _backbone_key(rest[i + 1:], ndim, base + rest[:i + 1])
+        if part == 'psp' and mods[i + 2:i + 3] == ['1']:
+            mods[i + 1:i + 3] = [f'pool{mods[i + 1]}']
+            break
+    path = base + mods
+    if len(mods) >= 2 and mods[-1] == '1' and mods[-2] == 'downsample':
+        return _cnn_leaf(path[:-1] + ['conv', 'norm', 'bn'], leaf, ndim)
+    if len(mods) >= 2 and mods[-1] == '0' and mods[-2] == 'downsample':
+        return None if leaf != 'weight' else (
+            'params', path[:-1] + ['conv', 'conv', 'kernel'])
+    if re.fullmatch(r'conv\d+', mods[-1]) and leaf == 'weight':
+        return 'params', path + ['conv', 'kernel']
+    m = re.fullmatch(r'bn(\d+)', mods[-1])
+    if m:
+        return _cnn_leaf(path[:-1] + [f'conv{m.group(1)}', 'norm', 'bn'],
+                         leaf, ndim)
+    if mods[-1] in _NORMS and not (len(mods) >= 2 and mods[-2] in _NORMS):
+        return _cnn_leaf(path[:-1] + ['norm', mods[-1]], leaf, ndim)
+    return _cnn_leaf(path, leaf, ndim)
+
+
 def _conv_module(rest, path):
     """mmcv ConvModule: conv.weight/bias, bn.*; DepthwiseSeparable
     nests two of them."""
@@ -319,12 +381,14 @@ def key_families(model) -> dict:
     return out
 
 
-def _neck_key(r, neck):
+def _neck_key(r, neck, ndim):
     """A neck's ``{list}.{i}`` ConvModules by its family's map. Raises
     ``ValueError`` without a family: the necks' list names collide."""
     if neck is None:
         raise ValueError(f'neck key neck.{".".join(r)} without the neck\'s '
                          'family: pass **key_families(model)')
+    if neck == 'cnn':
+        return _cnn_key(r, ndim, ['neck_mod'])
     name = _NECKS[neck].get(r[0])
     return None if name is None or len(r) < 3 else _conv_module(
         r[2:], ['neck_mod', f'{name}{r[1]}'])
@@ -354,7 +418,7 @@ def _segmenter_key(r, base):
         'params', base + [f'{names[0]}_{r[1]}', names[1]])
 
 
-def _head_key(base, r, uper=False, segformer=False):
+def _head_key(base, r, uper=False, segformer=False, lraspp=False):
     if segformer and r[0] in ('convs', 'fusion_conv'):
         # SegformerHead: mmseg's names to the JAX file's
         return _conv_module(r[2:], base + [f'proj{r[1]}']) \
@@ -376,8 +440,14 @@ def _head_key(base, r, uper=False, segformer=False):
     if r[0] == 'aspp_modules':
         return _conv_module(r[2:], base + ['aspp_modules', f'branch{r[1]}'])
     if r[0] in ('bottleneck', 'c1_bottleneck', 'conv_cat', 'high_in',
-                'out_proj', 'head_conv'):
+                'out_proj', 'head_conv', 'conv_up'):
         return _conv_module(r[1:], base + [r[0]])
+    if r[0] == 'image_pool_conv' and len(r) == 2:
+        # LRASPPHead's plain 1x1 conv
+        return _dense(r[1], base + [r[0]])
+    if r[0] == 'lateral' and len(r) == 3:
+        # LRASPPHead's plain 1x1 convs
+        return _dense(r[2], base + [f'lateral{r[1]}'])
     if r[0] == 'sep_bottleneck':
         return _conv_module(r[2:], base + [f'sep_bottleneck{int(r[1]) + 1}'])
     if r[0] == 'convs':
@@ -403,9 +473,8 @@ def _head_key(base, r, uper=False, segformer=False):
     if r[0] in ('k', 'v') and len(r) == 2:
         return _dense(r[1], base + [r[0]])
     if r[0] == 'conv_seg':
-        leaf = {'weight': 'kernel', 'bias': 'bias'}.get(r[1])
-        return None if leaf is None else (
-            'params', base + ['cls', 'conv_seg', leaf])
+        # under the JAX file's ``ClsSeg``, but LRASPPHead's is its own
+        return _dense(r[1], base + ([] if lraspp else ['cls']) + ['conv_seg'])
     return _segmenter_key(r, base)
 
 
@@ -423,13 +492,15 @@ def _head_prefix(parts):
 
 def torch_key_to_flax(key: str, ndim: int, uper: bool = False,
                       backbone: Optional[str] = None,
-                      neck: Optional[str] = None, segformer: bool = False
-                      ) -> Optional[Tuple[str, list]]:
+                      neck: Optional[str] = None, segformer: bool = False,
+                      lraspp: bool = False) -> Optional[Tuple[str, list]]:
     """Map one rsiseg state-dict key (of a tensor with ``ndim`` dims) to
     ``(collection, path)`` in the JAX tree, or None. ``uper``: the key's
     head is a ``UPerHead`` (whose ``bottleneck`` is the JAX file's
     ``psp_bottleneck``, where other heads keep the name); ``segformer``: a
-    ``SegformerHead`` (whose ``convs`` are the JAX file's ``proj``).
+    ``SegformerHead`` (whose ``convs`` are the JAX file's ``proj``);
+    ``lraspp``: an ``LRASPPHead`` (whose ``conv_seg`` is the JAX file's
+    own, not ``ClsSeg``'s).
     ``backbone``, ``neck``: the families of ``key_families``
     (``backbone`` None for the ResNet and ViT keys); a neck key needs its
     family. A path element ``a|b|c`` names leaves concatenated on their
@@ -439,14 +510,16 @@ def torch_key_to_flax(key: str, ndim: int, uper: bool = False,
         family = {'beit': _beit_key, 'swin': _swin_key}.get(backbone)
         if family is not None:
             return family(parts[1:])
+        if backbone == 'cnn':
+            return _cnn_key(parts[1:], ndim, ['backbone_mod'])
         family = {'mit': _mit_key, 'twins': _twins_key}.get(
             backbone, _backbone_key)
         return family(parts[1:], ndim)
     if parts[0] == 'neck':
-        return _neck_key(parts[1:], neck)
+        return _neck_key(parts[1:], neck, ndim)
     if parts[0] in _HEADS:
         _, name, rest = _head_prefix(parts)
-        return _head_key([name], rest, uper, segformer)
+        return _head_key([name], rest, uper, segformer, lraspp)
     return None
 
 
@@ -467,6 +540,12 @@ def segformer_heads(keys) -> set:
     """The prefixes of the ``SegformerHead``s among ``keys``: the heads
     with a ``fusion_conv``."""
     return {head_prefix(k) for k in keys if '.fusion_conv.' in k}
+
+
+def lraspp_heads(keys) -> set:
+    """The prefixes of the ``LRASPPHead``s among ``keys``: the heads with
+    a ``conv_up``."""
+    return {head_prefix(k) for k in keys if '.conv_up.' in k}
 
 
 def discriminator_key_to_flax(key: str) -> Optional[Tuple[str, list]]:
@@ -524,6 +603,7 @@ def jax_variables_to_state_dict(
     every key of the port that has no source in ``variables``.
     """
     uper, segformer = uper_heads(template), segformer_heads(template)
+    lraspp = lraspp_heads(template)
     out, missing = {}, []
     for key, ref in template.items():
         if key.endswith('num_batches_tracked'):
@@ -532,7 +612,8 @@ def jax_variables_to_state_dict(
         mapped = torch_key_to_flax(key, ref.ndim,
                                    uper=head_prefix(key) in uper,
                                    backbone=backbone, neck=neck,
-                                   segformer=head_prefix(key) in segformer) \
+                                   segformer=head_prefix(key) in segformer,
+                                   lraspp=head_prefix(key) in lraspp) \
             or discriminator_key_to_flax(key)
         leaf = None if mapped is None else _leaf(
             variables.get(mapped[0], {}), mapped[1])

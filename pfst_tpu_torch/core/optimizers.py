@@ -20,7 +20,8 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from .convert import (discriminator_key_to_flax, head_prefix, key_families,
-                      segformer_heads, torch_key_to_flax, uper_heads)
+                      lraspp_heads, segformer_heads, torch_key_to_flax,
+                      uper_heads)
 
 
 def build_lr_schedule(lr_config: Optional[dict], base_lr: float,
@@ -126,12 +127,14 @@ def param_paths(named_params, backbone: Optional[str] = None,
     named = list(named_params)
     uper = uper_heads(n for n, _ in named)
     segformer = segformer_heads(n for n, _ in named)
+    lraspp = lraspp_heads(n for n, _ in named)
     out = {}
     for name, p in named:
         mapped = torch_key_to_flax(name, p.ndim,
                                    uper=head_prefix(name) in uper,
                                    backbone=backbone, neck=neck,
-                                   segformer=head_prefix(name) in segformer) \
+                                   segformer=head_prefix(name) in segformer,
+                                   lraspp=head_prefix(name) in lraspp) \
             or discriminator_key_to_flax(name)
         out[name] = '/'.join(mapped[1]) \
             if mapped and mapped[0] == 'params' else name

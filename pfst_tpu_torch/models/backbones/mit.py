@@ -40,18 +40,9 @@ import torch.nn.functional as F
 
 from ...ops import attention
 from ..builder import BACKBONES
+from ..utils.layers import pad_same
 from .beit import drop_path, drop_path_masks
 from .vit import _LN_EPS, _InOutProj, run_block
-
-
-def pad_same(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """(B, C, H, W) zero-padded as flax's ``padding='SAME'`` pads a conv
-    whose kernel is its stride: each side up to a multiple of ``stride``,
-    the smaller half of the padding before."""
-    ph, pw = (-x.shape[2]) % stride, (-x.shape[3]) % stride
-    if not ph and not pw:
-        return x
-    return F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
 
 
 def tokens_to_map(seq: torch.Tensor, hw) -> torch.Tensor:

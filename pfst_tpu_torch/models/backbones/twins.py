@@ -39,9 +39,10 @@ import torch.nn.functional as F
 
 from ...ops import attention
 from ..builder import BACKBONES
+from ..utils.layers import pad_same
 from .beit import drop_path, drop_path_masks
 from .mit import (EfficientAttention, MixFFN, init_flax, map_to_tokens,
-                  pad_same, tokens_to_map)
+                  tokens_to_map)
 from .swin import window_partition, window_reverse
 from .vit import _LN_EPS, run_block
 

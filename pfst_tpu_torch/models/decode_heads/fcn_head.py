@@ -1,11 +1,12 @@
-"""FCN head, the auxiliary head of the PFST configs, and the
-Semantic-FPN head (port of ``FCNHead`` and ``FPNHead`` in
+"""FCN head, the auxiliary head of the PFST configs, its
+depthwise-separable variant, and the Semantic-FPN head (port of
+``FCNHead``, ``DepthwiseSeparableFCNHead`` and ``FPNHead`` in
 ``pfst_tpu/models/decode_heads/fcn_head.py``).
 
 ``FCNHead``: ``num_convs`` 3x3 conv+BN+ReLU blocks (``convs.i``),
 optional input concat (``conv_cat``), then the dropout + ``conv_seg``
-classifier. Serving does not run it; it is built so that checkpoints
-load.
+classifier; with no convs and no concat the classifier takes the input
+at its own width, as the JAX file's infers it.
 
 ``FPNHead`` (``:111-156``): level i runs ``max(1, log2(stride_i /
 stride_0))`` 3x3 ConvModules, each followed by a bilinear x2 but on
@@ -22,12 +23,14 @@ import torch
 import torch.nn as nn
 
 from ..builder import HEADS
-from ..utils.layers import ConvModule
+from ..utils.layers import ConvModule, DepthwiseSeparableConvModule
 from .base import BaseDecodeHead, Upsample
 
 
 @HEADS.register_module()
 class FCNHead(BaseDecodeHead):
+
+    conv_module = ConvModule
 
     def __init__(self, in_channels: int = 1024, channels: int = 256,
                  num_classes: int = 19, num_convs: int = 2,
@@ -38,14 +41,18 @@ class FCNHead(BaseDecodeHead):
         cfgs = dict(norm_cfg=self.norm_cfg, act_cfg=self.act_cfg)
         pad = (kernel_size // 2) * dilation
         self.convs = nn.Sequential(*[
-            ConvModule(in_channels if i == 0 else channels, channels,
-                       kernel_size, padding=pad, dilation=dilation, **cfgs)
+            self.conv_module(in_channels if i == 0 else channels, channels,
+                             kernel_size, padding=pad, dilation=dilation,
+                             **cfgs)
             for i in range(num_convs)])
         self.concat_input = concat_input
         if concat_input:
-            self.conv_cat = ConvModule(
+            self.conv_cat = self.conv_module(
                 in_channels + (channels if num_convs else in_channels),
                 channels, kernel_size, padding=kernel_size // 2, **cfgs)
+        elif not num_convs:
+            # the JAX file classifies the input itself, at its width
+            self.conv_seg = nn.Conv2d(in_channels, num_classes, 1)
 
     def forward(self, inputs):
         x = self._transform_inputs(inputs)
@@ -53,6 +60,22 @@ class FCNHead(BaseDecodeHead):
         if self.concat_input:
             feats = self.conv_cat(torch.cat([x, feats], dim=1))
         return self.cls_seg(feats), feats
+
+
+@HEADS.register_module()
+class DepthwiseSeparableFCNHead(FCNHead):
+    """``FCNHead`` with ``DepthwiseSeparableConvModule``s
+    (``fcn_head.py:65-108``, mmseg's ``sep_fcn_head.py``; the Fast-SCNN
+    head): ``convs.{i}`` (the JAX file's ``conv{i}``) and ``conv_cat``."""
+
+    conv_module = DepthwiseSeparableConvModule
+
+    def __init__(self, in_channels: int = 128, channels: int = 128,
+                 num_classes: int = 19, num_convs: int = 1,
+                 concat_input: bool = False, in_index=-1, **kwargs):
+        super().__init__(in_channels, channels, num_classes, num_convs,
+                         concat_input=concat_input, in_index=in_index,
+                         **kwargs)
 
 
 @HEADS.register_module()

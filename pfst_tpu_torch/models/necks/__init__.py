@@ -1,6 +1,7 @@
 from .featurepyramid import Feature2Pyramid
 from .fpn import FPN
+from .ic_neck import ICNeck
 from .mla_neck import MLANeck
 from .multilevel_neck import MultiLevelNeck
 
-__all__ = ['Feature2Pyramid', 'FPN', 'MLANeck', 'MultiLevelNeck']
+__all__ = ['Feature2Pyramid', 'FPN', 'ICNeck', 'MLANeck', 'MultiLevelNeck']

@@ -10,7 +10,10 @@ over the same grid as the JAX ``fori_loop`` (here a plain loop), and
 (``encoder_decoder.py:140-241``) is the plain-head branch: decode and
 auxiliary losses under the ``decode.`` / ``aux.`` prefixes, in fp32.
 The K-Net, EncNet, DAHead and PointRend branches and the OHEM sampler
-are not ported and raise.
+are not ported and raise. Where a backbone or neck declares the widths
+of its outputs (``feature_channels``), the next module is built at the
+width it is fed, as flax infers it, and not at the one its config
+declares (``_at_fed_width``).
 """
 from __future__ import annotations
 
@@ -53,6 +56,25 @@ def _build_losses(loss_cfg):
     return (build_loss(loss_cfg),)
 
 
+def _at_fed_width(cfg, channels):
+    """``cfg`` with ``in_channels`` the width it is fed, by its
+    ``in_index`` and ``input_transform`` (one width, their sum for
+    ``resize_concat``, or a list), where the module before declares its
+    outputs' widths ``channels`` (``feature_channels``): flax infers a
+    conv's input width from what it is fed, so the JAX program builds each
+    head at that width, whatever the config declares (ICNet's decode head
+    is declared 128 wide and fed ICNet's 256-channel map, CGNet's 256 and
+    fed 128)."""
+    if channels is None:
+        return cfg
+    idx, transform = cfg['in_index'], cfg.get('input_transform')
+    if isinstance(idx, int) and transform is None:
+        return {**cfg, 'in_channels': channels[idx]}
+    widths = [channels[i] for i in ([idx] if isinstance(idx, int) else idx)]
+    return {**cfg, 'in_channels': sum(widths)
+            if transform == 'resize_concat' else widths}
+
+
 def _check_plain_head(head):
     """The training branches the port does not have yet."""
     for attr, what in (('all_stage_logits', 'K-Net stage losses'),
@@ -85,13 +107,19 @@ class EncoderDecoder(nn.Module):
         if pretrained is not None:
             backbone.setdefault('pretrained', pretrained)
         self.backbone = build_backbone(backbone)
-        self.neck = build_neck(neck) if neck else None
-        self.decode_head = build_head(decode_head)
+        widths = getattr(self.backbone, 'feature_channels', None)
+        self.neck = None
+        if neck:
+            self.neck = build_neck(neck if widths is None else
+                                   {**neck, 'in_channels': list(widths)})
+            widths = getattr(self.neck, 'feature_channels', None)
+        self.decode_head = build_head(_at_fed_width(decode_head, widths))
         if isinstance(auxiliary_head, (list, tuple)):
             self.auxiliary_head = nn.ModuleList(
-                build_head(a) for a in auxiliary_head)
+                build_head(_at_fed_width(a, widths)) for a in auxiliary_head)
         elif auxiliary_head is not None:
-            self.auxiliary_head = build_head(auxiliary_head)
+            self.auxiliary_head = build_head(_at_fed_width(auxiliary_head,
+                                                           widths))
         else:
             self.auxiliary_head = None
         self.train_cfg = train_cfg

@@ -29,6 +29,16 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+def pad_same(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """(B, C, H, W) zero-padded as flax's ``padding='SAME'`` pads a conv
+    whose kernel is its stride: each side up to a multiple of ``stride``,
+    the smaller half of the padding before."""
+    ph, pw = (-x.shape[2]) % stride, (-x.shape[3]) % stride
+    if not ph and not pw:
+        return x
+    return F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+
+
 def init_conv_(weight: torch.Tensor, generator: torch.Generator):
     """The JAX convs' initializer (``layers.py:126-127``):
     ``variance_scaling(2.0, 'fan_out', 'truncated_normal')``."""
@@ -109,6 +119,21 @@ def Norm(features: int, norm_cfg: Optional[dict] = None) -> nn.Module:
     for p in layer.parameters():
         p.requires_grad_(requires_grad)
     return layer
+
+
+class NormEvalModule(nn.Module):
+    """A backbone with ``norm_eval``: its batch norms stay in eval mode
+    while it trains, as the JAX files run them on running statistics."""
+
+    norm_eval = False
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
 
 
 def build_act(act_cfg: Optional[dict]) -> Optional[Callable]:

@@ -1,7 +1,7 @@
 """Which of the 49 ``configs/_base_/models`` defs the port can build:
 every component ``type`` of a def looked up in the port's registry, with
-no JAX and no model built. The 20 buildable defs resolve every type; each
-of the other 29 raises the registry's ``KeyError`` at its first missing
+no JAX and no model built. The 32 buildable defs resolve every type; each
+of the other 17 raises the registry's ``KeyError`` at its first missing
 type. This pins the count ROADMAP quotes (A13).
 """
 import glob
@@ -32,28 +32,27 @@ def _types(node, out, key=''):
 
 # the defs the port builds (ROADMAP's count), and each other def's first
 # type that no port registry holds
-BUILDABLE = {'ann_r50-d8', 'annnet_r50-d8', 'deeplabv3_r50-d8',
-             'deeplabv3plus_r50-d8', 'dpt_vit-b16', 'fcn_r50-d8', 'fpn_r50',
-             'pspnet_r50-d8', 'segformer_mit-b0', 'segmenter_vit-b16_mask',
-             'setr_mla', 'setr_naive', 'setr_pup', 'twins_pcpvt-s_fpn',
-             'twins_pcpvt-s_upernet', 'upernet_beit', 'upernet_mae',
-             'upernet_r50', 'upernet_swin', 'upernet_vit-b16_ln_mln'}
+BUILDABLE = {'ann_r50-d8', 'annnet_r50-d8', 'bisenetv1_r18-d32', 'bisenetv2',
+             'cgnet', 'deeplabv3_r50-d8', 'deeplabv3_unet_s5-d16',
+             'deeplabv3plus_r50-d8', 'dpt_vit-b16', 'erfnet_fcn', 'fast_scnn',
+             'fcn_hr18', 'fcn_r50-d8', 'fcn_unet_s5-d16', 'fpn_r50',
+             'icnet_r50-d8', 'lraspp_m-v3-d8', 'pspnet_r50-d8',
+             'pspnet_unet_s5-d16', 'segformer_mit-b0',
+             'segmenter_vit-b16_mask', 'setr_mla', 'setr_naive', 'setr_pup',
+             'twins_pcpvt-s_fpn', 'twins_pcpvt-s_upernet', 'upernet_beit',
+             'upernet_convnext', 'upernet_mae', 'upernet_r50', 'upernet_swin',
+             'upernet_vit-b16_ln_mln'}
 FIRST_MISSING = {
-    'apcnet_r50-d8': 'APCHead', 'bisenetv1_r18-d32': 'BiSeNetV1',
-    'bisenetv2': 'BiSeNetV2', 'ccnet_r50-d8': 'CCHead', 'cgnet': 'CGNet',
-    'danet_r50-d8': 'DAHead', 'deeplabv3_unet_s5-d16': 'UNet',
-    'dmnet_r50-d8': 'DMHead', 'dnl_r50-d8': 'DNLHead',
-    'emanet_r50-d8': 'EMAHead', 'encnet_r50-d8': 'EncHead',
-    'erfnet_fcn': 'ERFNet', 'fast_scnn': 'FastSCNN',
-    'fastfcn_r50-d32_jpu_psp': 'JPU', 'fcn_hr18': 'HRNet',
-    'fcn_unet_s5-d16': 'UNet', 'gcnet_r50-d8': 'GCHead',
-    'icnet_r50-d8': 'ICNet', 'isanet_r50-d8': 'ISAHead',
-    'knet_s3_fcn': 'IterativeDecodeHead', 'lraspp_m-v3-d8': 'MobileNetV3',
-    'nonlocal_r50-d8': 'NLHead', 'ocrnet_hr18': 'CascadeEncoderDecoder',
+    'apcnet_r50-d8': 'APCHead', 'ccnet_r50-d8': 'CCHead',
+    'danet_r50-d8': 'DAHead', 'dmnet_r50-d8': 'DMHead',
+    'dnl_r50-d8': 'DNLHead', 'emanet_r50-d8': 'EMAHead',
+    'encnet_r50-d8': 'EncHead', 'fastfcn_r50-d32_jpu_psp': 'JPU',
+    'gcnet_r50-d8': 'GCHead', 'isanet_r50-d8': 'ISAHead',
+    'knet_s3_fcn': 'IterativeDecodeHead', 'nonlocal_r50-d8': 'NLHead',
+    'ocrnet_hr18': 'CascadeEncoderDecoder',
     'ocrnet_r50-d8': 'CascadeEncoderDecoder',
     'pointrend_r50': 'CascadeEncoderDecoder', 'psanet_r50-d8': 'PSAHead',
-    'pspnet_unet_s5-d16': 'UNet', 'stdc': 'STDCContextPathNet',
-    'upernet_convnext': 'ConvNeXt'}
+    'stdc': 'STDCContextPathNet'}
 MODEL_DEFS = sorted(glob.glob(osp.join(CONFIGS, '*.py')))
 
 
@@ -65,10 +64,10 @@ def _resolve(model):
             MODELS.build({'type': t})   # raises before building anything
 
 
-def test_buildable_count_is_20_of_49():
+def test_buildable_count_is_32_of_49():
     names = {osp.basename(p)[:-3] for p in MODEL_DEFS}
     assert len(names) == 49 and BUILDABLE | set(FIRST_MISSING) == names
-    assert len(BUILDABLE) == 20 and not BUILDABLE & set(FIRST_MISSING)
+    assert len(BUILDABLE) == 32 and not BUILDABLE & set(FIRST_MISSING)
 
 
 @pytest.mark.parametrize('path', MODEL_DEFS, ids=osp.basename)

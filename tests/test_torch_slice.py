@@ -154,8 +154,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     and the pseudo-label generator, the logger hooks and their event
     writer, LoveDA, the environment utilities, the SETR, Segmenter, DPT,
     PSPNet, Semantic-FPN and ANN heads and the MLA and FPN necks, the MiT
-    and Twins backbones and the SegFormer head, evaluation, checkpoint
-    and
+    and Twins backbones and the SegFormer head, the CNN backbones, the
+    LR-ASPP head and ICNet's neck, evaluation, checkpoint and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
     design) and chip_smoke.py, in a fresh process: none of jax, flax,
@@ -200,7 +200,11 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'models.decode_heads.context_heads',",
         "          'models.necks.mla_neck', 'models.necks.fpn',",
         "          'models.backbones.mit', 'models.backbones.twins',",
-        "          'models.decode_heads.segformer_head'):",
+        "          'models.decode_heads.segformer_head',",
+        "          'models.backbones.unet', 'models.backbones.hrnet',",
+        "          'models.backbones.convnext', 'models.backbones.mobilenet',",
+        "          'models.backbones.fast_cnns', 'models.necks.ic_neck',",
+        "          'models.decode_heads.lraspp_head'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',
@@ -210,6 +214,7 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         'import print_config_torch, confusion_matrix_torch',
         'import browse_dataset_torch, get_flops_torch',
         'import publish_model_torch, bench_loader_torch',
+        'import trace_step_torch',
         'import chip_smoke',
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in",
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',",
