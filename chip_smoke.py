@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the result lines):
 3. each kernel against its plain PyTorch version at the path's shapes
    (SeasonNet's (16, 512, 32, 32) cosine, the UDA family's
    (2, 1024, 128, 128) and FMDAAdaptor's (2, 2048, 128, 128) gaussian,
-   both types, among them),
+   phase 20's UNet (1, 64, 512, 512) and HRNet (1, 270, 128, 128)
+   gaussian, both types, among them),
    with its median time (per call, and on the device in a CUDA graph of
    ten launches), the plain version's and the memory/compute bound;
 3b. the similarity's backward kernel against autograd of the plain
@@ -222,8 +223,16 @@ Phases (any failure exits non-zero before the result lines):
    requests, 256^2 windows at stride 170; features at 1/1), HRNet-W18
    under FCN and ConvNeXt-B under UPerNet (1/4), MobileNetV3-large under
    LR-ASPP (1/2), Fast-SCNN, CGNet, ERFNet, BiSeNetV1 (R18) and BiSeNetV2
-   (1/8), and ICNet (ResNetV1c-50, 1/16); UNet-DeepLabV3, HRNet,
-   ConvNeXt (drop path off there), LR-ASPP and ICNet card against CPU;
+   (1/8), and ICNet (ResNetV1c-50, 1/16); then the attention and
+   context heads' twelve defs on the ResNetV1c-50 the same way at 512^2
+   (features at 1/8): DANet (its steps with the PAM and CAM branch
+   losses), NonLocal, GCNet, DNL, APCNet, DMNet, EMANet (its bases
+   moving-averaged), ISANet, CCNet, PSANet (97^2 masks), EncNet (its
+   steps with the SE loss) and FastFCN (JPU and PSP head);
+   UNet-DeepLabV3, HRNet, ConvNeXt (drop path off there), LR-ASPP,
+   ICNet, DANet, EncNet, EMANet, CCNet and PSANet card against CPU (the
+   heads' 0-d ``gamma``s at 0.1 there); phase 20's line gives each
+   def's wall seconds and peak allocation;
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -321,11 +330,17 @@ FMDA_SIM_SHAPE = (2, 2048, 128, 128)
 # and the pseudo-label generator's second pass (phase 17): one 1024^2
 # tile's level-3 map, gaussian
 PL_SIM_SHAPE = (1, 2048, 128, 128)
+# and the two decoded-feature shapes of phase 20 farthest from the
+# kernel's design: UNet's at stride 1 of a 512^2 request (262k pixels of
+# 64 channels, 4 channels a warp) and HRNet-W18's at stride 4 (270
+# channels, not a multiple of 16)
+A13_SIM_SHAPES = ((1, 64, 512, 512), (1, 270, 128, 128))
 SIM_CASES = [((1, 512, 128, 128), 'gaussian'), ((2, 512, 64, 64), 'cosine'),
              ((1, 768, 128, 128), 'gaussian'),
              (SEASON_NET_SIM_SHAPE, 'cosine'), (UDA_SIM_SHAPE, 'cosine'),
              (UDA_SIM_SHAPE, 'gaussian'), (FMDA_SIM_SHAPE, 'gaussian'),
-             (PL_SIM_SHAPE, 'gaussian')]
+             (PL_SIM_SHAPE, 'gaussian'), (A13_SIM_SHAPES[0], 'gaussian'),
+             (A13_SIM_SHAPES[1], 'gaussian')]
 # the similarity kernels' general geometry, small: (shape (B, C, H, W), k,
 # d), each for both similarity types and input types: W past a 32-pixel
 # segment, odd W (unaligned bf16 pairs), d = 2 with W a multiple of 8
@@ -428,11 +443,19 @@ A13_MODELS = {'setr_naive': ((768, 768), 24, 4),
               'erfnet_fcn': ((512, 512), 0, 8),
               'bisenetv1_r18-d32': ((512, 512), 0, 8),
               'bisenetv2': ((512, 512), 0, 8),
-              'icnet_r50-d8': ((512, 512), 0, 16)}
+              'icnet_r50-d8': ((512, 512), 0, 16),
+              **{name: ((512, 512), 0, 8) for name in (
+                  'danet_r50-d8', 'nonlocal_r50-d8', 'gcnet_r50-d8',
+                  'dnl_r50-d8', 'apcnet_r50-d8', 'dmnet_r50-d8',
+                  'emanet_r50-d8', 'isanet_r50-d8', 'ccnet_r50-d8',
+                  'psanet_r50-d8', 'encnet_r50-d8',
+                  'fastfcn_r50-d32_jpu_psp')}}
 A13_CHECKED = ('segmenter_vit-b16_mask', 'setr_pup', 'ann_r50-d8',
                'segformer_mit-b0', 'twins_pcpvt-s_fpn',
                'deeplabv3_unet_s5-d16', 'fcn_hr18', 'upernet_convnext',
-               'lraspp_m-v3-d8', 'icnet_r50-d8')
+               'lraspp_m-v3-d8', 'icnet_r50-d8', 'danet_r50-d8',
+               'encnet_r50-d8', 'emanet_r50-d8', 'ccnet_r50-d8',
+               'psanet_r50-d8')
 # backbone settings of the card-against-CPU step: ConvNeXt-B's drop path
 # (0.4 over 36 blocks) would drop some branch for both images of the batch
 A13_CHECK_BACKBONE = {'upernet_convnext': dict(drop_path_rate=0.0)}
@@ -501,6 +524,12 @@ FS_WEIGHTS = {'src_pos': 0.3, 'src_neg': 0.2, 'sim_pos': 0.5,
 CHECK_HW = (128, 128)
 # the last BN scale of each residual block in the card-against-CPU step
 RESIDUAL_SCALE = 0.25
+# the card-against-CPU steps' learned residual scalars (DANet's PAM and
+# CAM, CCNet): at their initial 0 their branches' convs get no gradient;
+# at 0.25 the fp32 step itself is ill-conditioned (the CPU's gradient
+# norm 4.7e-4 to 1.6e-3 off fp64 for DANet, 6.9e-4 for CCNet), at 0.1
+# within 1.4e-4 (tools/grad_conditioning_torch.py)
+GAMMA_SCALE = 0.1
 # phase 13: iterations of run A, the checkpoint run B resumes from, the
 # iterations whose source decode losses are compared, the samples timed
 # per pipeline
@@ -1442,6 +1471,15 @@ def _scale_residual(state, scale):
             state.teacher.load_state_dict(state.student.state_dict())
 
 
+def _nonzero_gammas(state, value):
+    """Every 0-d ``gamma`` of the student set to ``value``, as
+    ``_scale_residual`` sets the residual blocks' last BN scale."""
+    with torch.no_grad():
+        for name, p in state.student.named_parameters():
+            if name.rsplit('.', 1)[-1] == 'gamma' and p.ndim == 0:
+                p.fill_(value)
+
+
 def _grad_groups(state):
     """The student's gradients (left on the parameters by the step) in
     fp64 on the CPU, by group: the stem, each ResNet stage, each head."""
@@ -1658,10 +1696,10 @@ def _vit_train_setup(cfg, device='cuda'):
     return algo, state, algo.make_train_step(norm['mean'], norm['std'])
 
 
-def _vit_batch(cfg, seed, hw):
+def _vit_batch(cfg, seed, hw, device='cuda'):
     """2 seeded uint8-noise images of the normalization's bands,
     normalized, and labels of the config's classes in 32x32 blocks with a
-    band of 255 across the top, on the card."""
+    band of 255 across the top, on ``device``."""
     rs = np.random.RandomState(seed)
     norm = cfg.img_norm_cfg
     mean = np.asarray(norm['mean'], np.float32).reshape(1, -1, 1, 1)
@@ -1671,8 +1709,8 @@ def _vit_batch(cfg, seed, hw):
     cells = rs.randint(0, num_classes, (2, hw[0] // 32, hw[1] // 32))
     gt = cells.repeat(32, axis=1).repeat(32, axis=2)
     gt[:, :hw[0] // 16] = 255
-    return dict(img=torch.from_numpy((img - mean) / std).cuda(),
-                gt_semantic_seg=torch.from_numpy(gt).cuda())
+    return dict(img=torch.from_numpy((img - mean) / std).to(device),
+                gt_semantic_seg=torch.from_numpy(gt).to(device))
 
 
 def _vit_train_run(name, dtype, card):
@@ -1737,7 +1775,8 @@ def _supervised_card_vs_cpu(cfg, hw, tag):
     """One supervised step of ``cfg`` (dropout off) on the card and on
     the CPU (all threads, and one) from the same weights and batch at 2 x
     ``hw``, TF32 off, held by ``_check_train_sides``; a ResNet's residual
-    blocks end at phase 8's BN scale (``_scale_residual``)."""
+    blocks end at phase 8's BN scale (``_scale_residual``), and the heads'
+    0-d ``gamma``s are ``GAMMA_SCALE`` (``_nonzero_gammas``)."""
     batch = {k: v.cpu() for k, v in _vit_batch(cfg, 7, hw).items()}
     old = (torch.backends.cudnn.allow_tf32,
            torch.backends.cuda.matmul.allow_tf32)
@@ -1751,6 +1790,7 @@ def _supervised_card_vs_cpu(cfg, hw, tag):
             torch.set_num_threads(n)
             _, state, step = _vit_train_setup(cfg, device)
             _scale_residual(state, RESIDUAL_SCALE)
+            _nonzero_gammas(state, GAMMA_SCALE)
             _, log_vars = step(state, {k: v.to(device)
                                        for k, v in batch.items()},
                                torch.Generator().manual_seed(5))
@@ -3818,17 +3858,23 @@ def phase_a13_heads(card):
     at 768^2; Segmenter and DPT with ViT-B at 512^2), on the ResNet
     (PSPNet, Semantic FPN, ANN at 512^2), on MiT-B0 (SegFormer), on
     Twins PCPVT-S (UPerNet, Semantic FPN) and on the CNN backbones (UNet,
-    HRNet, ConvNeXt, MobileNetV3, the real-time nets) at 512^2, each from
-    its config as it stands with seeded weights: requests (logits ->
-    labels, then the feature state through the similarity kernel),
-    supervised steps in fp32 and bf16 autocast; ``A13_CHECKED`` card
-    against CPU (``A13_CHECK_BACKBONE``'s settings there). Every
+    HRNet, ConvNeXt, MobileNetV3, the real-time nets) at 512^2, the
+    attention and context heads on the ResNet-50-D8 (DANet, NonLocal,
+    GCNet, DNL, APCNet, DMNet, EMANet, ISANet, CCNet, PSANet, EncNet) and
+    FastFCN's JPU at 512^2, each from its config as it stands with seeded
+    weights: requests (logits -> labels, then the feature state through
+    the similarity kernel), supervised steps in fp32 and bf16 autocast
+    (DANet's and EncNet's with their extra losses), each def's wall
+    seconds and peak allocation; ``A13_CHECKED`` card against CPU
+    (``A13_CHECK_BACKBONE``'s settings there, the heads' 0-d ``gamma``s
+    at ``GAMMA_SCALE``). Every
     attention layer on the flash kernels (MiT's and PCPVT's with keys
     shorter than the queries)."""
     t0 = time.time()
-    serve, train, def_s = {}, {}, {}
+    serve, train, def_s, def_gb = {}, {}, {}, {}
     for name, (hw, layers, stride) in A13_MODELS.items():
         t_def = time.time()
+        torch.cuda.reset_peak_memory_stats()
         cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'))
         model = init_segmentor(cfg)
         serve[name] = _tf_serving(name, cfg, model, hw, layers, stride, 'a13')
@@ -3838,6 +3884,7 @@ def phase_a13_heads(card):
                                     card, _a13_watch).items():
             train[(name, tag)] = run
         def_s[name] = round(time.time() - t_def, 1)
+        def_gb[name] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
     for name in A13_CHECKED:
         t_def = time.time()
         # phase 11's check (a ResNet's blocks at phase 8's BN scale)
@@ -3854,8 +3901,9 @@ def phase_a13_heads(card):
             f'{n} {t} {v[0]:.4f}' for (n, t), v in train.items())
         + f'; flash launches fwd/dkv/dq {launches}, similarity '
         f'{sum(r["sim"] for r in serve.values())}; wall s a def (requests '
-        f'and steps) and a check {json.dumps(def_s)}; phase '
-        f'{time.time() - t0:.1f} s on {card}')
+        f'and steps) and a check {json.dumps(def_s)}; peak GiB allocated '
+        f'a def {json.dumps(def_gb)}; phase {time.time() - t0:.1f} s on '
+        f'{card}')
     return dict(serve=serve, train=train, launches=launches)
 
 

@@ -32,7 +32,12 @@ the CNN backbones and ``ICNeck`` (the ``cnn`` family: UNet, HRNet,
 ConvNeXt, the MobileNets and the real-time nets), with mmcv's
 ``ConvModule`` names and the port's ResNet names inside (``_cnn_key``).
 An ``LRASPPHead`` (told by its ``conv_up``) keeps the JAX file's names
-too, its classifier directly ``conv_seg``. A
+too, its classifier directly ``conv_seg``. So do the attention and context
+heads of DANet, NL, DNL, GCNet, APCNet, DMNet, EMANet, ISANet, CCNet,
+PSANet and EncNet for their own modules (``_JAX_NAMED_HEAD``), mapped as
+the ``cnn`` family maps a module, with their scalar ``gamma``s, EMANet's
+``bases`` (a ``batch_stats`` leaf) and the encoding's ``codewords`` and
+``scale``; their ``bottleneck`` and ``conv_seg`` are mmseg's. A
 ``SegformerHead`` (told by its ``fusion_conv``) maps mmseg's ``convs.{i}``
 to the JAX file's ``proj{i}``, where an FCN head's are ``conv{i}``.
 ``discriminator_key_to_flax`` maps ``FCDiscriminator``'s ``conv{i}``
@@ -418,7 +423,23 @@ def _segmenter_key(r, base):
         'params', base + [f'{names[0]}_{r[1]}', names[1]])
 
 
-def _head_key(base, r, uper=False, segformer=False, lraspp=False):
+# the attention and context heads' own modules, which keep the JAX file's
+# names (``attention_heads.py``, ``context_heads.py``, ``isa_cc_heads.py``,
+# ``enc_head.py``)
+_JAX_NAMED_HEAD = re.compile(
+    r'(pam|cam)(_in|_out|_cls)?|conv_in|theta|phi|g|conv_out_nl|unary|'
+    r'context_mask|transform(1|2|_ln)|pool_proj\d+|query\d+|ema_(in|out)|'
+    r'global|local|(query|key|value)_conv|reduce(_p)?|'
+    r'attention(_p)?_(conv|mask)|proj|fc|se_layer')
+
+
+def _head_key(base, r, ndim, uper=False, segformer=False, lraspp=False):
+    if _JAX_NAMED_HEAD.fullmatch(r[0]) and len(r) > 1:
+        return _cnn_key(r, ndim, base)
+    if r in (['gamma'], ['encoding', 'codewords'], ['encoding', 'scale']):
+        return 'params', base + r
+    if r == ['bases']:
+        return 'batch_stats', base + r
     if segformer and r[0] in ('convs', 'fusion_conv'):
         # SegformerHead: mmseg's names to the JAX file's
         return _conv_module(r[2:], base + [f'proj{r[1]}']) \
@@ -519,7 +540,7 @@ def torch_key_to_flax(key: str, ndim: int, uper: bool = False,
         return _neck_key(parts[1:], neck, ndim)
     if parts[0] in _HEADS:
         _, name, rest = _head_prefix(parts)
-        return _head_key([name], rest, uper, segformer, lraspp)
+        return _head_key([name], rest, ndim, uper, segformer, lraspp)
     return None
 
 

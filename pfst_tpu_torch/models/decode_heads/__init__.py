@@ -1,6 +1,9 @@
 from .aspp_head import ASPPHead, DepthwiseSeparableASPPHead
-from .context_heads import ANNHead
+from .attention_heads import DAHead, GCHead, NLHead
+from .context_heads import ANNHead, APCHead, DMHead, DNLHead, EMAHead
+from .enc_head import EncHead
 from .fcn_head import DepthwiseSeparableFCNHead, FCNHead, FPNHead
+from .isa_cc_heads import CCHead, ISAHead, PSAHead
 from .lraspp_head import LRASPPHead
 from .point_rend import DPTHead
 from .psp_head import PPM, PSPHead, adaptive_avg_pool
@@ -9,8 +12,10 @@ from .transformer_heads import (SegmenterMaskTransformerHead, SETRMLAHead,
                                 SETRUPHead)
 from .uper_head import UPerHead
 
-__all__ = ['ANNHead', 'ASPPHead', 'DepthwiseSeparableASPPHead',
-           'DepthwiseSeparableFCNHead', 'DPTHead', 'FCNHead', 'FPNHead',
-           'LRASPPHead', 'PPM', 'PSPHead', 'adaptive_avg_pool',
+__all__ = ['ANNHead', 'APCHead', 'ASPPHead', 'CCHead', 'DAHead',
+           'DepthwiseSeparableASPPHead', 'DepthwiseSeparableFCNHead',
+           'DMHead', 'DNLHead', 'DPTHead', 'EMAHead', 'EncHead', 'FCNHead',
+           'FPNHead', 'GCHead', 'ISAHead', 'LRASPPHead', 'NLHead', 'PSAHead',
+           'PPM', 'PSPHead', 'adaptive_avg_pool',
            'SegformerHead', 'SegmenterMaskTransformerHead', 'SETRMLAHead',
            'SETRUPHead', 'UPerHead']

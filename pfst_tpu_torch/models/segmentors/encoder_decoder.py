@@ -7,10 +7,13 @@ rsiseg state-dict prefixes. Inference follows
 logits to the input, ``slide_inference`` averages overlapping windows
 over the same grid as the JAX ``fori_loop`` (here a plain loop), and
 ``inference`` softmaxes after the rescale. ``forward_train``
-(``encoder_decoder.py:140-241``) is the plain-head branch: decode and
-auxiliary losses under the ``decode.`` / ``aux.`` prefixes, in fp32.
-The K-Net, EncNet, DAHead and PointRend branches and the OHEM sampler
-are not ported and raise. Where a backbone or neck declares the widths
+(``encoder_decoder.py:140-241``): decode and auxiliary losses under the
+``decode.`` / ``aux.`` prefixes, in fp32, with the EncNet branch (the SE
+loss ``decode.loss_se`` from the same forward) and the DAHead branch (a
+loss of each of its outputs, ``decode.pam_cam.*``, ``decode.pam.*``,
+``decode.cam.*``); inference reads a head's first two outputs. The
+K-Net and PointRend branches, STDC's boundary targets and the OHEM
+sampler are not ported and raise. Where a backbone or neck declares the widths
 of its outputs (``feature_channels``), the next module is built at the
 width it is fed, as flax infers it, and not at the one its config
 declares (``_at_fed_width``).
@@ -78,8 +81,6 @@ def _at_fed_width(cfg, channels):
 def _check_plain_head(head):
     """The training branches the port does not have yet."""
     for attr, what in (('all_stage_logits', 'K-Net stage losses'),
-                       ('use_se_loss', 'the EncNet SE loss'),
-                       ('branch_loss_names', 'the DAHead branch losses'),
                        ('point_losses', 'the PointRend point loss'),
                        ('transform_targets', 'STDC boundary targets'),
                        ('sampler', 'the OHEM pixel sampler')):
@@ -147,7 +148,9 @@ class EncoderDecoder(nn.Module):
         convs truncated-normal fan-out (``layers.py:126-127``), the
         classifiers normal(0.01) (``base.py:55``), Dense layers flax's
         default lecun-normal, biases zero, norms
-        at scale 1, shift 0, running mean 0 and variance 1. A child with
+        at scale 1, shift 0, running mean 0 and variance 1, learned
+        scalars (``gamma``) 0; a module with its own draws (``draw_``:
+        EncNet's codewords, EMANet's bases) makes them. A child with
         its own ``init_weights`` (the ViT backbone: flax's default Dense
         and Conv initializers) initializes itself."""
         own = [m for m in self.children() if hasattr(m, 'init_weights')]
@@ -166,6 +169,8 @@ class EncoderDecoder(nn.Module):
                 elif isinstance(m, nn.Linear):
                     lecun_normal_(m.weight, generator)
                     m.bias.zero_()
+                if hasattr(m, 'draw_'):
+                    m.draw_(generator)
         for m in own:
             m.init_weights(generator)
         return self
@@ -184,14 +189,19 @@ class EncoderDecoder(nn.Module):
             x = self.neck(x)
         return x
 
-    def forward(self, img):
-        """Full forward returning everything downstream consumers need."""
+    def forward(self, img, **head_kwargs):
+        """Full forward returning everything downstream consumers need.
+        ``head_kwargs`` go to the decode head (EncNet's ``with_se``); its
+        outputs past the first two are ``branch_logits`` (DAHead's
+        branches, EncNet's SE logits)."""
         with self._autocast(img):
             feats = self.extract_feat(img)
-            logits, decoded = self.decode_head(feats)[:2]
+            logits, decoded, *branches = self.decode_head(feats,
+                                                          **head_kwargs)
             aux_logits = tuple(h(feats)[0] for h in self._aux_heads())
         return {'feats': feats, 'seg_logits': logits,
-                'decoded_features': decoded, 'aux_logits': aux_logits}
+                'decoded_features': decoded, 'aux_logits': aux_logits,
+                'branch_logits': tuple(branches)}
 
     def encode_decode(self, img):
         """Logits resized to the input size (+ states)."""
@@ -219,11 +229,25 @@ class EncoderDecoder(nn.Module):
         for head in heads:
             _check_plain_head(head)
         gt = gt_semantic_seg.long()
-        out = self(img)
-        losses = add_prefix(_head_losses(self.decode_head,
-                                         self._decode_losses,
+        dh = self.decode_head
+        se = getattr(dh, 'use_se_loss', False)
+        out = self(img, with_se=True) if se else self(img)
+        branches = getattr(dh, 'branch_loss_names', ())
+        primary = f'decode.{dh.primary_loss_name}' if branches else 'decode'
+        losses = add_prefix(_head_losses(dh, self._decode_losses,
                                          out['seg_logits'], gt, seg_weight),
-                            'decode')
+                            primary)
+        for name, logit in zip(branches, out['branch_logits']):
+            losses.update(add_prefix(
+                _head_losses(dh, self._decode_losses, logit, gt, seg_weight),
+                f'decode.{name}'))
+        if se:
+            # EncNet's SE loss (``encoder_decoder.py:166-189``): the SE
+            # logits' sigmoid CE against the classes present
+            se_loss = build_loss(dict(dh.loss_se_decode or dict(
+                type='CrossEntropyLoss', use_sigmoid=True, loss_weight=0.2)))
+            losses['decode.loss_se'] = se_loss(
+                out['branch_logits'][0].float(), dh.se_onehot_labels(gt))
         for i, (head, aux_logit) in enumerate(zip(heads[1:],
                                                   out['aux_logits'])):
             prefix = 'aux' if len(heads) == 2 else f'aux_{i}'

@@ -155,7 +155,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     writer, LoveDA, the environment utilities, the SETR, Segmenter, DPT,
     PSPNet, Semantic-FPN and ANN heads and the MLA and FPN necks, the MiT
     and Twins backbones and the SegFormer head, the CNN backbones, the
-    LR-ASPP head and ICNet's neck, evaluation, checkpoint and
+    LR-ASPP head and ICNet's neck, the attention and context heads, the
+    PSA mask, the encoding layer and the JPU, evaluation, checkpoint and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
     design) and chip_smoke.py, in a fresh process: none of jax, flax,
@@ -204,7 +205,11 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'models.backbones.unet', 'models.backbones.hrnet',",
         "          'models.backbones.convnext', 'models.backbones.mobilenet',",
         "          'models.backbones.fast_cnns', 'models.necks.ic_neck',",
-        "          'models.decode_heads.lraspp_head'):",
+        "          'models.decode_heads.lraspp_head',",
+        "          'models.decode_heads.attention_heads',",
+        "          'models.decode_heads.isa_cc_heads',",
+        "          'models.decode_heads.enc_head', 'models.necks.jpu',",
+        "          'ops.psa_mask', 'ops.encoding'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',
@@ -214,7 +219,7 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         'import print_config_torch, confusion_matrix_torch',
         'import browse_dataset_torch, get_flops_torch',
         'import publish_model_torch, bench_loader_torch',
-        'import trace_step_torch',
+        'import trace_step_torch, grad_conditioning_torch',
         'import chip_smoke',
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in",
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',",
