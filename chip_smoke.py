@@ -231,8 +231,17 @@ Phases (any failure exits non-zero before the result lines):
    steps with the SE loss) and FastFCN (JPU and PSP head);
    UNet-DeepLabV3, HRNet, ConvNeXt (drop path off there), LR-ASPP,
    ICNet, DANet, EncNet, EMANet, CCNet and PSANet card against CPU (the
-   heads' 0-d ``gamma``s at 0.1 there); phase 20's line gives each
-   def's wall seconds and peak allocation;
+   heads' 0-d ``gamma``s at 0.1 there); then the cascades, K-Net and STDC
+   the same way at 512^2: OCRNet on HRNet-W18 (features at 1/4) and on
+   the ResNetV1c-50-D8 (1/8), PointRend on the ResNet-50 FPN (1/4; its
+   requests refine the 2048 most uncertain coarse logits, its steps take
+   the point loss), K-Net (1/8; three attention layers a forward on the
+   flash kernels: 6 forwards a request, 3 launches of each kernel a step;
+   its steps with the four stages' losses) and STDC (1/8; its steps with
+   the OHEM-weighted CE and the boundary head's CE and Dice); OCRNet-R50,
+   PointRend and K-Net card against CPU, STDC's gaps printed and not
+   held; phase 20's line gives each def's wall seconds and peak
+   allocation;
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -374,7 +383,11 @@ FLASH_CASES = [((1, 12, 1025, 64), torch.float32, 'qkv'),
                ((2, 16, 2305, 64), torch.float32, 'qkv'),
                ((2, 16, 2305, 64), torch.bfloat16, 'qkv'),
                ((2, 12, 1043, 64), torch.float32, 'qkv'),
-               ((2, 12, 1043, 64), torch.bfloat16, 'qkv')] + [
+               ((2, 12, 1043, 64), torch.bfloat16, 'qkv'),
+               # phase 20: K-Net's attention between its 19 kernels (8
+               # heads over the 512-wide embedding), in a step's batch
+               ((2, 8, 19, 64), torch.float32, 'qkv'),
+               ((2, 8, 19, 64), torch.bfloat16, 'qkv')] + [
     # phase 20's spatial-reduction attention at 512^2, N_k = 16^2: MiT-B0
     # and PCPVT-S stage 0 (128^2 queries, sr 8), a middle MiT-B0 stage
     # (32^2 queries, 5 heads, sr 2)
@@ -449,13 +462,25 @@ A13_MODELS = {'setr_naive': ((768, 768), 24, 4),
                   'dnl_r50-d8', 'apcnet_r50-d8', 'dmnet_r50-d8',
                   'emanet_r50-d8', 'isanet_r50-d8', 'ccnet_r50-d8',
                   'psanet_r50-d8', 'encnet_r50-d8',
-                  'fastfcn_r50-d32_jpu_psp')}}
+                  'fastfcn_r50-d32_jpu_psp')},
+              # the cascades, K-Net (3 attention layers, one a stage) and
+              # STDC
+              'ocrnet_hr18': ((512, 512), 0, 4),
+              'ocrnet_r50-d8': ((512, 512), 0, 8),
+              'pointrend_r50': ((512, 512), 0, 4),
+              'knet_s3_fcn': ((512, 512), 3, 8),
+              'stdc': ((512, 512), 0, 8)}
 A13_CHECKED = ('segmenter_vit-b16_mask', 'setr_pup', 'ann_r50-d8',
                'segformer_mit-b0', 'twins_pcpvt-s_fpn',
                'deeplabv3_unet_s5-d16', 'fcn_hr18', 'upernet_convnext',
                'lraspp_m-v3-d8', 'icnet_r50-d8', 'danet_r50-d8',
                'encnet_r50-d8', 'emanet_r50-d8', 'ccnet_r50-d8',
-               'psanet_r50-d8')
+               'psanet_r50-d8', 'ocrnet_r50-d8', 'pointrend_r50',
+               'knet_s3_fcn')
+# card against CPU for the record only: STDC's context-path BNs
+# (``conv_avg``, ``arm{0,1}_atten``) normalize one pooled value an image,
+# two a channel at batch 2 (ROADMAP C6)
+A13_RECORDED = ('stdc',)
 # backbone settings of the card-against-CPU step: ConvNeXt-B's drop path
 # (0.4 over 36 blocks) would drop some branch for both images of the batch
 A13_CHECK_BACKBONE = {'upernet_convnext': dict(drop_path_rate=0.0)}
@@ -1540,7 +1565,7 @@ def phase_train_card_vs_cpu(cfg, tag='[train card-vs-cpu]',
 
 
 def _check_train_sides(sides, threads, tag, self_gap_scale=None,
-                       allowed_zero=0):
+                       allowed_zero=0, gate=True):
     """Card step against the CPU step (``sides``: log vars and gradient
     groups of 'card', 'cpu' and 'cpu1', the CPU with one thread): log vars
     within rtol 1e-3 (atol 1e-5); gradients with cosine similarity >=
@@ -1551,7 +1576,8 @@ def _check_train_sides(sides, threads, tag, self_gap_scale=None,
     only to more than 1e-3 (ROADMAP C6) is held to a multiple of that.
     ``allowed_zero``: parameter tensors a side may leave at a zero gradient
     (those under a residual branch that drop path dropped for every
-    sample; the caller names and checks them)."""
+    sample; the caller names and checks them). With ``gate=False`` the
+    readings are printed and returned, and nothing is held to them."""
     (card_lv, card_g), (cpu_lv, cpu_g) = sides['card'], sides['cpu']
     cpu1_g = sides['cpu1'][1]
     bad = {k: (card_lv[k], cpu_lv[k]) for k in cpu_lv
@@ -1577,7 +1603,11 @@ def _check_train_sides(sides, threads, tag, self_gap_scale=None,
         f'against {threads}: gradient cosine {self_cos:.8f}, norm rel diff '
         f'{self_gap:.3e}; norm limit {norm_limit:.3e}'
         + (f'; zero gradients allowed {allowed_zero} a side'
-           if allowed_zero else ''))
+           if allowed_zero else '') + ('' if gate else '; not gated'))
+    if not gate:
+        return dict(outside=len(bad), cosine=round(cos, 8),
+                    norm_gap=float(f'{norm_rel:.3e}'),
+                    cpu_norm_gap=float(f'{self_gap:.3e}'), zero=zero)
     if bad or set(card_lv) != set(cpu_lv) or zero != 2 * allowed_zero or \
             not (
             cos >= 0.9999 and norm_rel <= norm_limit):
@@ -1674,11 +1704,19 @@ def _with_adamw_40k(cfg, dropout=True):
     for key in ('optimizer', 'optimizer_config', 'lr_config', 'runner'):
         cfg[key] = sched[key]
     if not dropout:
-        aux = cfg.model.get('auxiliary_head') or []
-        for head in [cfg.model['decode_head'],
-                     *(aux if isinstance(aux, list) else [aux])]:
+        for head in _head_cfgs(cfg.model):
             head['dropout_ratio'] = 0.0
     return cfg
+
+
+def _head_cfgs(model):
+    """Every head config of ``model``: the decode head (a cascade's stages,
+    K-Net's generate head too) and the auxiliary heads."""
+    heads = []
+    for node in (model['decode_head'], model.get('auxiliary_head') or []):
+        heads += node if isinstance(node, list) else [node]
+    return heads + [h['kernel_generate_head'] for h in heads
+                    if h.get('kernel_generate_head')]
 
 
 def _vit_train_cfg(img_size, dtype=None, dropout=True):
@@ -1705,7 +1743,7 @@ def _vit_batch(cfg, seed, hw, device='cuda'):
     mean = np.asarray(norm['mean'], np.float32).reshape(1, -1, 1, 1)
     std = np.asarray(norm['std'], np.float32).reshape(1, -1, 1, 1)
     img = rs.randint(0, 256, (2, mean.shape[1], *hw)).astype(np.float32)
-    num_classes = cfg.model['decode_head']['num_classes']
+    num_classes = _head_cfgs(cfg.model)[0]['num_classes']
     cells = rs.randint(0, num_classes, (2, hw[0] // 32, hw[1] // 32))
     gt = cells.repeat(32, axis=1).repeat(32, axis=2)
     gt[:, :hw[0] // 16] = 255
@@ -1771,10 +1809,11 @@ def phase_vit_train_card_vs_cpu():
         VIT_TRAIN_CHECK_HW, '[vit train card-vs-cpu]')
 
 
-def _supervised_card_vs_cpu(cfg, hw, tag):
+def _supervised_card_vs_cpu(cfg, hw, tag, gate=True):
     """One supervised step of ``cfg`` (dropout off) on the card and on
     the CPU (all threads, and one) from the same weights and batch at 2 x
-    ``hw``, TF32 off, held by ``_check_train_sides``; a ResNet's residual
+    ``hw``, TF32 off, held by ``_check_train_sides`` (or with
+    ``gate=False`` only read, its readings returned); a ResNet's residual
     blocks end at phase 8's BN scale (``_scale_residual``), and the heads'
     0-d ``gamma``s are ``GAMMA_SCALE`` (``_nonzero_gammas``)."""
     batch = {k: v.cpu() for k, v in _vit_batch(cfg, 7, hw).items()}
@@ -1801,7 +1840,7 @@ def _supervised_card_vs_cpu(cfg, hw, tag):
         torch.set_num_threads(threads)
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = old
-    _check_train_sides(sides, threads, f'{tag} {hw}')
+    return _check_train_sides(sides, threads, f'{tag} {hw}', gate=gate)
 
 
 def phase_microbench():
@@ -3861,15 +3900,17 @@ def phase_a13_heads(card):
     HRNet, ConvNeXt, MobileNetV3, the real-time nets) at 512^2, the
     attention and context heads on the ResNet-50-D8 (DANet, NonLocal,
     GCNet, DNL, APCNet, DMNet, EMANet, ISANet, CCNet, PSANet, EncNet) and
-    FastFCN's JPU at 512^2, each from its config as it stands with seeded
-    weights: requests (logits -> labels, then the feature state through
-    the similarity kernel), supervised steps in fp32 and bf16 autocast
-    (DANet's and EncNet's with their extra losses), each def's wall
-    seconds and peak allocation; ``A13_CHECKED`` card against CPU
-    (``A13_CHECK_BACKBONE``'s settings there, the heads' 0-d ``gamma``s
-    at ``GAMMA_SCALE``). Every
-    attention layer on the flash kernels (MiT's and PCPVT's with keys
-    shorter than the queries)."""
+    FastFCN's JPU at 512^2, and the cascades (OCRNet on HRNet and the
+    ResNet, PointRend), K-Net and STDC at 512^2, each from its config as
+    it stands with seeded weights: requests (logits -> labels, then the
+    feature state through the similarity kernel), supervised steps in fp32
+    and bf16 autocast (DANet's, EncNet's, the cascades', K-Net's and
+    STDC's with their extra losses), each def's wall seconds and peak
+    allocation; ``A13_CHECKED`` card against CPU (``A13_CHECK_BACKBONE``'s
+    settings there, the heads' 0-d ``gamma``s at ``GAMMA_SCALE``), and
+    ``A13_RECORDED``'s gaps read and printed. Every attention layer on the
+    flash kernels (MiT's and PCPVT's with keys shorter than the queries,
+    K-Net's between its kernels)."""
     t0 = time.time()
     serve, train, def_s, def_gb = {}, {}, {}, {}
     for name, (hw, layers, stride) in A13_MODELS.items():
@@ -3885,13 +3926,17 @@ def phase_a13_heads(card):
             train[(name, tag)] = run
         def_s[name] = round(time.time() - t_def, 1)
         def_gb[name] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
-    for name in A13_CHECKED:
+    recorded = {}
+    for name in A13_CHECKED + A13_RECORDED:
         t_def = time.time()
         # phase 11's check (a ResNet's blocks at phase 8's BN scale)
         cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'), dropout=False)
         cfg.model['backbone'].update(A13_CHECK_BACKBONE.get(name, {}))
-        _supervised_card_vs_cpu(cfg, TF_CHECK_HW,
-                                f'[a13 card-vs-cpu {name}]')
+        gaps = _supervised_card_vs_cpu(cfg, TF_CHECK_HW,
+                                       f'[a13 card-vs-cpu {name}]',
+                                       gate=name not in A13_RECORDED)
+        if gaps is not None:
+            recorded[name] = gaps
         def_s[f'{name} card-vs-cpu'] = round(time.time() - t_def, 1)
     launches = [sum(r['flash'][i] for r in serve.values())
                 + sum(t[1][i] for t in train.values()) for i in range(3)]
@@ -3902,7 +3947,8 @@ def phase_a13_heads(card):
         + f'; flash launches fwd/dkv/dq {launches}, similarity '
         f'{sum(r["sim"] for r in serve.values())}; wall s a def (requests '
         f'and steps) and a check {json.dumps(def_s)}; peak GiB allocated '
-        f'a def {json.dumps(def_gb)}; phase {time.time() - t0:.1f} s on '
+        f'a def {json.dumps(def_gb)}; card against CPU, not gated '
+        f'{json.dumps(recorded)}; phase {time.time() - t0:.1f} s on '
         f'{card}')
     return dict(serve=serve, train=train, launches=launches)
 

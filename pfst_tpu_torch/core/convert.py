@@ -37,7 +37,13 @@ heads of DANet, NL, DNL, GCNet, APCNet, DMNet, EMANet, ISANet, CCNet,
 PSANet and EncNet for their own modules (``_JAX_NAMED_HEAD``), mapped as
 the ``cnn`` family maps a module, with their scalar ``gamma``s, EMANet's
 ``bases`` (a ``batch_stats`` leaf) and the encoding's ``codewords`` and
-``scale``; their ``bottleneck`` and ``conv_seg`` are mmseg's. A
+``scale``; their ``bottleneck`` and ``conv_seg`` are mmseg's. The
+stages of a cascade's ``decode_head`` list (``decode_head.{i}``, mmseg's
+layout) are the JAX file's ``stage_heads_{i}``; OCR's, PointRend's and
+K-Net's modules keep the JAX file's names (``query``, ``key``,
+``value``, ``fuse``, ``soft_regions``; ``fc{i}``, ``point_cls``,
+``coarse_conv``, ``coarse_cls``; ``kgh``, a head of its own, and
+``update_head{i}`` with its layers inside). A
 ``SegformerHead`` (told by its ``fusion_conv``) maps mmseg's ``convs.{i}``
 to the JAX file's ``proj{i}``, where an FCN head's are ``conv{i}``.
 ``discriminator_key_to_flax`` maps ``FCDiscriminator``'s ``conv{i}``
@@ -430,12 +436,21 @@ _JAX_NAMED_HEAD = re.compile(
     r'(pam|cam)(_in|_out|_cls)?|conv_in|theta|phi|g|conv_out_nl|unary|'
     r'context_mask|transform(1|2|_ln)|pool_proj\d+|query\d+|ema_(in|out)|'
     r'global|local|(query|key|value)_conv|reduce(_p)?|'
-    r'attention(_p)?_(conv|mask)|proj|fc|se_layer')
+    r'attention(_p)?_(conv|mask)|proj|fc|se_layer|'
+    # OCR's, PointRend's, and K-Net's stages (``point_rend.py``)
+    r'query|key|value|soft_regions|fc\d+|point_cls|coarse_(conv|cls)|'
+    r'update_head\d+')
 
 
 def _head_key(base, r, ndim, uper=False, segformer=False, lraspp=False):
     if _JAX_NAMED_HEAD.fullmatch(r[0]) and len(r) > 1:
         return _cnn_key(r, ndim, base)
+    if r[0] == 'kgh':
+        # K-Net's kernel-generate head, a head of its own
+        return _head_key(base + ['kgh'], r[1:], ndim)
+    if r[0] == 'fuse' and not r[1].isdigit():
+        # OCR's fusion ConvModule (DPT's are a list, ``fuse.{i}``)
+        return _conv_module(r[1:], base + ['fuse'])
     if r in (['gamma'], ['encoding', 'codewords'], ['encoding', 'scale']):
         return 'params', base + r
     if r == ['bases']:
@@ -502,11 +517,12 @@ def _head_key(base, r, ndim, uper=False, segformer=False, lraspp=False):
 def _head_prefix(parts):
     """(the head's key prefix, its JAX module name, the rest of the key):
     ``auxiliary_head.{i}`` of a list of auxiliary heads is the JAX
-    file's ``aux_heads_{i}``, a single one ``aux_heads_0``."""
+    file's ``aux_heads_{i}``, a single one ``aux_heads_0``; stage i of a
+    cascade's ``decode_head`` list is ``stage_heads_{i}``."""
+    if parts[1].isdigit():
+        name = 'aux_heads' if parts[0] == 'auxiliary_head' else 'stage_heads'
+        return f'{parts[0]}.{parts[1]}', f'{name}_{parts[1]}', parts[2:]
     if parts[0] == 'auxiliary_head':
-        if parts[1].isdigit():
-            return (f'auxiliary_head.{parts[1]}', f'aux_heads_{parts[1]}',
-                    parts[2:])
         return 'auxiliary_head', 'aux_heads_0', parts[1:]
     return parts[0], _HEADS[parts[0]], parts[1:]
 

@@ -1,6 +1,6 @@
 """Real-time CNN backbones on NCHW tensors: Fast-SCNN, CGNet, ERFNet,
-BiSeNetV1/V2 and ICNet (port of ``pfst_tpu/models/backbones/
-fast_cnns.py:21-204, 343-554``; STDC is not ported yet).
+STDC, BiSeNetV1/V2 and ICNet (port of ``pfst_tpu/models/backbones/
+fast_cnns.py``).
 
 Each follows the JAX file, which keeps the stage and branch structure of
 the mmseg families but not their every layer:
@@ -17,6 +17,18 @@ the mmseg families but not their every layer:
 * ``ERFNet``: per stage a stride-2 conv concatenated with a 2x2 max
   pool, then the non-bottleneck-1d blocks ((3,1) and (1,3) convs, the
   ``norm_cfg=None`` ones with a bias, the second pair dilated);
+* ``STDCNet``: two stride-2 stem convs, then per stage blocks of
+  ``num_convs`` convs (1x1, then 3x3, the second carrying a block's
+  stride) whose outputs are concatenated, the part widths ``ch //
+  2**min(i + 1, num_convs - 1)``; a stride-2 block's first part through
+  a 3x3/2 average pool that counts the zero padding, as flax's does;
+* ``STDCContextPathNet``: the context path on an ``STDCNet``: attention
+  refinement of the two deepest stages (``arm{i}_conv``,
+  ``arm{i}_atten``), the global context (``conv_avg``), the refined maps
+  brought up nearest (``arm_out_conv{i}``), and the feature fusion of the
+  stride-8 stage with them (``ffm_conv0``; ``ffm_att1``, ``ffm_att2``
+  without a norm); its norm is BN where the config leaves ``norm_cfg``
+  unset. Returns ``(stage 8, arm 32 up, arm 16 up, fused)``;
 * ``BiSeNetV2``: the detail branch, the semantic branch of
   ``InvertedResidual``s (its outputs taken before the context embedding
   is added) and the bilateral guided aggregation;
@@ -27,8 +39,9 @@ the mmseg families but not their every layer:
   rounds them), its ``PPM`` and bottleneck, and the projections.
 
 A sub-backbone sits where flax puts it: in a module named ``context``
-(BiSeNetV1) or ``backbone`` (ICNet) under its class's auto-name
-(``ResNet_0``, ``ResNetV1c_0``), with the port's ResNet names inside.
+(BiSeNetV1) or ``backbone`` (ICNet, STDC's context path) under its
+class's auto-name (``ResNet_0``, ``ResNetV1c_0``, ``STDCNet_0``), with
+the port's ResNet names inside.
 Every other module has the JAX file's name, mapped by ``core.convert``'s
 ``cnn`` family. Each backbone declares ``feature_channels``, the widths
 of its outputs, which the segmentor builds the heads at.
@@ -279,6 +292,137 @@ class _SubBackbone(nn.Module):
 
     def forward(self, x):
         return getattr(self, self.name)(x)
+
+
+@BACKBONES.register_module()
+class STDCNet(nn.Module):
+    """Short-term dense concatenation stages (STDCNet1: one block a
+    stage, as the JAX file has it)."""
+
+    key_family = 'cnn'      # core.convert's key map
+
+    def __init__(self,
+                 stdc_type: str = 'STDCNet1',
+                 in_channels: int = 3,
+                 channels: Sequence[int] = (32, 64, 256, 512, 1024),
+                 bottleneck_type: str = 'cat',
+                 num_convs: int = 4,
+                 out_indices: Sequence[int] = (2, 3, 4),
+                 with_final_conv: bool = False,
+                 norm_cfg: Optional[dict] = None,
+                 act_cfg: Optional[dict] = None):
+        super().__init__()
+        # bottleneck_type and act_cfg are accepted and unused, as in the
+        # JAX file
+        del bottleneck_type, act_cfg
+        self.blocks = {'STDCNet1': (1, 1, 1), 'STDCNet2': (3, 4, 2)}[
+            stdc_type]
+        self.num_convs = num_convs
+        self.out_indices = tuple(out_indices)
+        self.stem0 = ConvModule(in_channels, channels[0], 3, stride=2,
+                                padding=1, norm_cfg=norm_cfg)
+        self.stem1 = ConvModule(channels[0], channels[1], 3, stride=2,
+                                padding=1, norm_cfg=norm_cfg)
+        width = channels[1]
+        for si, nb in enumerate(self.blocks):
+            ch = channels[si + 2]
+            for b in range(nb):
+                cin = width
+                for ci in range(num_convs):
+                    part = ch // 2**min(ci + 1, num_convs - 1)
+                    self.add_module(f's{si}b{b}c{ci}', ConvModule(
+                        cin, part, 1 if ci == 0 else 3,
+                        stride=2 if ci == 1 and b == 0 else 1,
+                        padding=0 if ci == 0 else 1, norm_cfg=norm_cfg))
+                    cin = part
+                width = ch
+        self.with_final_conv = with_final_conv
+        if with_final_conv:
+            self.final_conv = ConvModule(width, channels[-1], 1,
+                                         norm_cfg=norm_cfg)
+        widths = list(channels[2:])
+        if with_final_conv:
+            widths[-1] = channels[-1]
+        self.feature_channels = tuple(widths[i - 2] for i in self.out_indices)
+
+    def forward(self, x):
+        x = self.stem1(self.stem0(x))
+        outs = []
+        for si, nb in enumerate(self.blocks):
+            for b in range(nb):
+                parts, y = [], x
+                for ci in range(self.num_convs):
+                    y = getattr(self, f's{si}b{b}c{ci}')(y)
+                    parts.append(y)
+                if b == 0:
+                    parts[0] = F.avg_pool2d(parts[0], 3, 2, 1,
+                                            count_include_pad=True)
+                x = torch.cat(parts, dim=1)
+            outs.append(x)
+        if self.with_final_conv:
+            outs[-1] = self.final_conv(outs[-1])
+        return tuple(outs[i - 2] for i in self.out_indices)
+
+
+@BACKBONES.register_module()
+class STDCContextPathNet(nn.Module):
+    """``STDCNet`` and its context path."""
+
+    key_family = 'cnn'      # core.convert's key map
+
+    def __init__(self,
+                 backbone_cfg: Optional[dict] = None,
+                 last_in_channels: Sequence[int] = (1024, 512),
+                 out_channels: int = 128,
+                 ffm_cfg: Optional[dict] = None,
+                 upsample_mode: str = 'nearest',
+                 align_corners: Optional[bool] = None,
+                 norm_cfg: Optional[dict] = None):
+        super().__init__()
+        # the JAX file defaults the context path's norm to BN
+        norm_cfg = norm_cfg if norm_cfg is not None else {'type': 'BN'}
+        self.backbone = _SubBackbone(backbone_cfg or dict(
+            type='STDCNet', norm_cfg=norm_cfg))
+        widths = self.backbone.feature_channels
+        self.n_arms = len(last_in_channels)
+        self.upsample_mode = upsample_mode
+        self.align_corners = bool(align_corners)
+        c = out_channels
+        self.conv_avg = ConvModule(widths[-1], c, 1, norm_cfg=norm_cfg)
+        for i in range(self.n_arms):
+            self.add_module(f'arm{i}_conv', ConvModule(
+                widths[-1 - i], c, 3, padding=1, norm_cfg=norm_cfg))
+            self.add_module(f'arm{i}_atten', ConvModule(
+                c, c, 1, bias=False, norm_cfg=norm_cfg, act_cfg=_NO_ACT))
+            self.add_module(f'arm_out_conv{i}', ConvModule(
+                c, c, 3, padding=1, norm_cfg=norm_cfg))
+        ffm = dict(ffm_cfg or dict(in_channels=384, out_channels=256,
+                                   scale_factor=4))
+        fo = ffm['out_channels']
+        self.ffm_conv0 = ConvModule(widths[0] + c, fo, 1, norm_cfg=norm_cfg)
+        self.ffm_att1 = ConvModule(fo, fo // ffm.get('scale_factor', 4), 1,
+                                   bias=False)
+        self.ffm_att2 = ConvModule(fo // ffm.get('scale_factor', 4), fo, 1,
+                                   bias=False, act_cfg=_NO_ACT)
+        self.feature_channels = (widths[0], c, c, fo)
+
+    def _resize(self, x, like):
+        return resize(x, size=like.shape[2:], mode=self.upsample_mode,
+                      align_corners=self.align_corners)
+
+    def forward(self, x):
+        outs = list(self.backbone(x))
+        up = self._resize(self.conv_avg(_gap(outs[-1])), outs[-1])
+        arms = []
+        for i in range(self.n_arms):
+            y = getattr(self, f'arm{i}_conv')(outs[-1 - i])
+            y = y * torch.sigmoid(getattr(self, f'arm{i}_atten')(_gap(y)))
+            up = getattr(self, f'arm_out_conv{i}')(
+                self._resize(y + up, outs[-2 - i]))
+            arms.append(up)
+        fused = self.ffm_conv0(torch.cat([outs[0], arms[1]], dim=1))
+        att = self.ffm_att2(self.ffm_att1(_gap(fused)))
+        return outs[0], arms[0], arms[1], fused * torch.sigmoid(att) + fused
 
 
 @BACKBONES.register_module()

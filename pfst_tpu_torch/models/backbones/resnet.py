@@ -12,18 +12,32 @@ so the state dict carries the rsiseg key names. Covered:
   first block of a dilated stage uses ``dilation // 2``) and
   ``multi_grid``;
 * ``out_indices``, ``norm_eval`` and ``frozen_stages`` (BN in eval mode
-  and parameters frozen, as in mmseg).
+  and parameters frozen, as in mmseg);
+* ``with_cp``: each block through ``torch.utils.checkpoint`` (not
+  reentrant), the JAX file's ``nn.remat``, when a gradient is taken. The
+  backward runs a block's forward again, and a train-mode BN would move
+  its running statistics a second time on the same batch; flax's remat
+  updates ``batch_stats`` once, so the recomputation puts the block's
+  buffers back as it found them (``_KeepBuffers``);
+* ``s2d_stem``: the JAX file's space-to-depth form of the deep stem's
+  3x3/2 conv for the TPU's matrix unit (``resnet.py:95-142, 232-245``):
+  the same (3, 3, cin, out) kernel under the same name, zero-padded to
+  4x4 and re-blocked over 2x2 pixel blocks, the same function on the
+  even sizes it takes. The port runs the usual strided conv with those
+  weights.
 
 Output stride 8 for DeepLabV3+ comes from ``strides=(1, 2, 1, 1),
-dilations=(1, 1, 2, 4)``. The JAX file's ``s2d_stem`` and ``with_cp``
-are not ported yet and raise.
+dilations=(1, 1, 2, 4)``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..builder import BACKBONES
 from ..utils.layers import Norm, norm_name
@@ -42,6 +56,28 @@ def _downsample(cin, cout, stride, avg_down, norm_cfg):
         stride = 1
     layers += [_conv(cin, cout, 1, stride), Norm(cout, norm_cfg)]
     return nn.Sequential(*layers)
+
+
+class _KeepBuffers:
+    """Restores ``module``'s buffers (BN statistics and counts) on exit to
+    what they were on entry: the context of a checkpointed block's
+    recomputation."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module
+
+    def __enter__(self):
+        self.saved = [b.clone() for b in self.module.buffers()]
+
+    def __exit__(self, *exc):
+        with torch.no_grad():
+            for b, saved in zip(self.module.buffers(), self.saved):
+                b.copy_(saved)
+
+
+def _checkpointed(block, x):
+    return checkpoint(block, x, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), _KeepBuffers(block)))
 
 
 class BasicBlock(nn.Module):
@@ -139,8 +175,9 @@ class ResNet(nn.Module):
             raise KeyError(f'invalid depth {depth} for resnet')
         if style != 'pytorch':
             raise ValueError(f'only pytorch-style blocks, got {style!r}')
-        if with_cp or s2d_stem:
-            raise NotImplementedError('with_cp and s2d_stem are not ported')
+        # s2d_stem is the same function as the usual stem (above)
+        del s2d_stem
+        self.with_cp = with_cp
         deep_stem = self.default_deep_stem if deep_stem is None \
             else deep_stem
         avg_down = self.default_avg_down if avg_down is None else avg_down
@@ -221,8 +258,10 @@ class ResNet(nn.Module):
             x = F.relu(getattr(self, self.norm1_name)(self.conv1(x)))
         x = self.maxpool(x)
         outs = []
+        cp = self.with_cp and torch.is_grad_enabled()
         for i, name in enumerate(self.res_layers):
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = _checkpointed(block, x) if cp else block(x)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)

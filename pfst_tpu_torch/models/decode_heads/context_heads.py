@@ -1,7 +1,7 @@
 """Context heads on NCHW maps (port of
-``pfst_tpu/models/decode_heads/context_heads.py``): ``DNLHead``
-(``:89-148``), ``ANNHead`` (``:151-195``), ``APCHead`` and ``DMHead``
-(``:198-272``) and ``EMAHead`` (``:275-350``). ``OCRHead`` is not ported.
+``pfst_tpu/models/decode_heads/context_heads.py``): ``OCRHead``
+(``:22-86``), ``DNLHead`` (``:89-148``), ``ANNHead`` (``:151-195``),
+``APCHead`` and ``DMHead`` (``:198-272``) and ``EMAHead`` (``:275-350``).
 
 Every module has the JAX file's name, mapped by ``core.convert``, the
 classifier ``conv_seg``. The attention products are the JAX file's
@@ -12,6 +12,17 @@ kernel).
 * ``DNLHead``: theta and phi whitened by their means over the positions,
   the pairwise softmax at ``temperature``, and the softmaxed unary map
   (``unary``) added to every query's row.
+* ``OCRHead``: the JAX file's object-contextual head, not mmseg's
+  ``ObjectAttentionBlock``: a 3x3 ConvModule (``bottleneck``); the
+  previous stage's logits (``prev_logits``, not detached: the loss
+  reaches the stage before through them), softmaxed over the positions,
+  weight the class means of the features; a 1x1 conv (``query``) and two
+  Dense layers over the class vectors (``key``, ``value``) attend at
+  ``ocr_channels ** -0.5``; a 1x1 ConvModule (``fuse``) over ``[feats,
+  ocr]`` and the classifier. Standing alone (``prev_stage=False``) the
+  head makes its own prior with a 1x1 conv (``soft_regions``); as a later
+  stage of ``CascadeEncoderDecoder`` it has none, as the JAX tree has
+  none there.
 * ``ANNHead``: the JAX file's single asymmetric attention, not mmseg's
   AFNB and APNB: the deepest level through a 3x3 ConvModule
   (``high_in``); queries from a 1x1 conv (``q``) at every pixel, keys and
@@ -44,6 +55,43 @@ from .base import BaseDecodeHead
 from .psp_head import adaptive_avg_pool
 
 _NO_ACT = {'type': 'none'}
+
+
+@HEADS.register_module()
+class OCRHead(BaseDecodeHead):
+
+    def __init__(self, in_channels: int = 2048, channels: int = 512,
+                 num_classes: int = 19, ocr_channels: int = 256,
+                 scale: int = 1, in_index=3, prev_stage: bool = False,
+                 **kwargs):
+        super().__init__(in_channels, channels, num_classes,
+                         in_index=in_index, **kwargs)
+        del scale
+        self.ocr_channels = ocr_channels
+        self.bottleneck = ConvModule(in_channels, channels, 3, padding=1,
+                                     norm_cfg=self.norm_cfg)
+        if not prev_stage:
+            self.soft_regions = nn.Conv2d(channels, num_classes, 1)
+        self.query = nn.Conv2d(channels, ocr_channels, 1)
+        self.key = nn.Linear(channels, ocr_channels)
+        self.value = nn.Linear(channels, ocr_channels)
+        self.fuse = ConvModule(channels + ocr_channels, channels, 1,
+                               norm_cfg=self.norm_cfg)
+
+    def forward(self, inputs, prev_logits=None):
+        feats = self.bottleneck(self._transform_inputs(inputs))
+        if prev_logits is None:
+            prev_logits = self.soft_regions(feats)
+        h, w = feats.shape[2:]
+        with torch.autocast(feats.device.type, enabled=False):
+            probs = torch.softmax(prev_logits.float().flatten(2), dim=2)
+            context = torch.matmul(probs, tokens(feats).float())  # (B, K, C)
+        context = context.to(feats.dtype)
+        ocr = attend(tokens(self.query(feats)), self.key(context),
+                     self.value(context), self.ocr_channels**-0.5)
+        out = self.fuse(torch.cat([feats, as_map(ocr, h, w).to(feats.dtype)],
+                                  dim=1))
+        return self.cls_seg(out), out
 
 
 @HEADS.register_module()

@@ -11,9 +11,13 @@ over the same grid as the JAX ``fori_loop`` (here a plain loop), and
 ``decode.`` / ``aux.`` prefixes, in fp32, with the EncNet branch (the SE
 loss ``decode.loss_se`` from the same forward) and the DAHead branch (a
 loss of each of its outputs, ``decode.pam_cam.*``, ``decode.pam.*``,
-``decode.cam.*``); inference reads a head's first two outputs. The
-K-Net and PointRend branches, STDC's boundary targets and the OHEM
-sampler are not ported and raise. Where a backbone or neck declares the widths
+``decode.cam.*``), K-Net's loss of every stage (``decode.{name}.s{i}``,
+``encoder_decoder.py:140-166``) and PointRend's point loss beside the
+dense one (``decode.pointloss_ce``, ``decode.acc_point``, ``:214-227``);
+a head's ``transform_targets`` (STDC's boundaries) turns the labels
+before its loss, and its ``sampler`` (OHEM) gives the pixel weights in
+place of ``seg_weight`` (``:26-52``). Inference reads a head's first two
+outputs. Where a backbone or neck declares the widths
 of its outputs (``feature_channels``), the next module is built at the
 width it is fed, as flax infers it, and not at the one its config
 declares (``_at_fed_width``).
@@ -26,6 +30,7 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn as nn
 
+from ...core.seg import build_pixel_sampler
 from ...ops import resize
 from ...utils.misc import add_prefix
 from ..builder import (SEGMENTORS, build_backbone, build_head, build_loss,
@@ -35,10 +40,18 @@ from ..utils.layers import init_conv_, lecun_normal_
 
 
 def _head_losses(head, loss_fns, seg_logit, seg_label, seg_weight=None):
-    """Logits resized to the label size in fp32, each loss, then the pixel
-    accuracy (``encoder_decoder.py:26-51``)."""
+    """The head's targets (``transform_targets``), its logits resized to
+    the label size in fp32, its sampler's pixel weights in place of
+    ``seg_weight``, each loss, then the pixel accuracy
+    (``encoder_decoder.py:26-51``)."""
+    if hasattr(head, 'transform_targets'):
+        seg_label = head.transform_targets(seg_label)
     seg_logit = resize(seg_logit.float(), size=seg_label.shape[1:],
                        mode='bilinear', align_corners=head.align_corners)
+    if getattr(head, 'sampler', None) is not None:
+        sampler = build_pixel_sampler(head.sampler,
+                                      ignore_index=head.ignore_index)
+        seg_weight = sampler.sample(seg_logit, seg_label)
     loss = {}
     for loss_fn in loss_fns:
         name = loss_fn.loss_name
@@ -47,6 +60,22 @@ def _head_losses(head, loss_fns, seg_logit, seg_label, seg_weight=None):
         loss[name] = loss[name] + val if name in loss else val
     loss['acc_seg'] = accuracy(seg_logit, seg_label,
                                ignore_index=head.ignore_index)
+    return loss
+
+
+def _point_losses(head, loss_fns, point_logits, point_label):
+    """The losses of (B, N, K) point logits against (B, N) labels, each
+    under ``point`` and its name, and ``acc_point`` (the JAX file's (B, N,
+    1, K) spatial form, here (B, K, N, 1))."""
+    logits, label = point_logits.float().permute(0, 2, 1)[..., None], \
+        point_label[..., None]
+    loss = {}
+    for loss_fn in loss_fns:
+        name = 'point' + loss_fn.loss_name
+        val = loss_fn(logits, label, ignore_index=head.ignore_index)
+        loss[name] = loss[name] + val if name in loss else val
+    loss['acc_point'] = accuracy(logits, label,
+                                 ignore_index=head.ignore_index)
     return loss
 
 
@@ -78,17 +107,6 @@ def _at_fed_width(cfg, channels):
             if transform == 'resize_concat' else widths}
 
 
-def _check_plain_head(head):
-    """The training branches the port does not have yet."""
-    for attr, what in (('all_stage_logits', 'K-Net stage losses'),
-                       ('point_losses', 'the PointRend point loss'),
-                       ('transform_targets', 'STDC boundary targets'),
-                       ('sampler', 'the OHEM pixel sampler')):
-        if getattr(head, attr, None):
-            raise NotImplementedError(f'forward_train: {what} are not '
-                                      f'ported')
-
-
 @SEGMENTORS.register_module()
 class EncoderDecoder(nn.Module):
 
@@ -114,7 +132,7 @@ class EncoderDecoder(nn.Module):
             self.neck = build_neck(neck if widths is None else
                                    {**neck, 'in_channels': list(widths)})
             widths = getattr(self.neck, 'feature_channels', None)
-        self.decode_head = build_head(_at_fed_width(decode_head, widths))
+        self.decode_head = self._build_decode_head(decode_head, widths)
         if isinstance(auxiliary_head, (list, tuple)):
             self.auxiliary_head = nn.ModuleList(
                 build_head(_at_fed_width(a, widths)) for a in auxiliary_head)
@@ -125,7 +143,7 @@ class EncoderDecoder(nn.Module):
             self.auxiliary_head = None
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
-        self._decode_losses = _build_losses(decode_head.get('loss_decode'))
+        self._decode_losses = self._build_decode_losses(decode_head)
         aux_cfgs = [] if auxiliary_head is None else (
             list(auxiliary_head) if isinstance(auxiliary_head, (list, tuple))
             else [auxiliary_head])
@@ -134,6 +152,12 @@ class EncoderDecoder(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
         self.dtype = dtype
+
+    def _build_decode_head(self, cfg, widths):
+        return build_head(_at_fed_width(cfg, widths))
+
+    def _build_decode_losses(self, cfg):
+        return _build_losses(cfg.get('loss_decode'))
 
     @property
     def align_corners(self):
@@ -168,7 +192,8 @@ class EncoderDecoder(nn.Module):
                         m.bias.zero_()
                 elif isinstance(m, nn.Linear):
                     lecun_normal_(m.weight, generator)
-                    m.bias.zero_()
+                    if m.bias is not None:
+                        m.bias.zero_()
                 if hasattr(m, 'draw_'):
                     m.draw_(generator)
         for m in own:
@@ -221,43 +246,73 @@ class EncoderDecoder(nn.Module):
 
     def forward_train(self, img, gt_semantic_seg, seg_weight=None):
         """Losses and states of one supervised pass
-        (``encoder_decoder.py:140-241``, plain-head branch). Dropout runs
-        when the module is in train mode. Returns ``(losses, states)``,
-        ``states = {seg_logits (head resolution), decoded_features,
-        features}``."""
-        heads = [self.decode_head, *self._aux_heads()]
-        for head in heads:
-            _check_plain_head(head)
+        (``encoder_decoder.py:140-241``). Dropout runs when the module is
+        in train mode. Returns ``(losses, states)``, ``states =
+        {seg_logits (head resolution), decoded_features, features}``."""
         gt = gt_semantic_seg.long()
         dh = self.decode_head
-        se = getattr(dh, 'use_se_loss', False)
-        out = self(img, with_se=True) if se else self(img)
-        branches = getattr(dh, 'branch_loss_names', ())
-        primary = f'decode.{dh.primary_loss_name}' if branches else 'decode'
-        losses = add_prefix(_head_losses(dh, self._decode_losses,
-                                         out['seg_logits'], gt, seg_weight),
-                            primary)
-        for name, logit in zip(branches, out['branch_logits']):
+        if hasattr(dh, 'all_stage_logits'):
+            # K-Net: a loss of every stage, from one forward
+            with self._autocast(img):
+                feats = self.extract_feat(img)
+                stage_logits, decoded = dh.all_stage_logits(feats)
+                aux_logits = tuple(h(feats)[0] for h in self._aux_heads())
+            out = {'feats': feats, 'seg_logits': stage_logits[-1],
+                   'decoded_features': decoded, 'aux_logits': aux_logits}
+            losses = {}
+            for i, logit in enumerate(stage_logits):
+                stage = _head_losses(dh, self._decode_losses, logit, gt,
+                                     seg_weight)
+                losses.update(add_prefix({f'{k}.s{i}': v
+                                          for k, v in stage.items()},
+                                         'decode'))
+        else:
+            se = getattr(dh, 'use_se_loss', False)
+            out = self(img, with_se=True) if se else self(img)
+            branches = getattr(dh, 'branch_loss_names', ())
+            primary = f'decode.{dh.primary_loss_name}' if branches \
+                else 'decode'
+            losses = add_prefix(_head_losses(
+                dh, self._decode_losses, out['seg_logits'], gt, seg_weight),
+                primary)
+            for name, logit in zip(branches, out['branch_logits']):
+                losses.update(add_prefix(
+                    _head_losses(dh, self._decode_losses, logit, gt,
+                                 seg_weight), f'decode.{name}'))
+            if se:
+                # EncNet's SE loss (``encoder_decoder.py:166-189``): the
+                # SE logits' sigmoid CE against the classes present
+                se_loss = build_loss(dict(dh.loss_se_decode or dict(
+                    type='CrossEntropyLoss', use_sigmoid=True,
+                    loss_weight=0.2)))
+                losses['decode.loss_se'] = se_loss(
+                    out['branch_logits'][0].float(),
+                    dh.se_onehot_labels(gt))
+        if hasattr(dh, 'point_losses'):
+            # PointRend's point loss on the dense pass's coarse logits
+            with self._autocast(img):
+                points = dh.point_losses(out['feats'], gt,
+                                         coarse_logits=out['seg_logits'])
             losses.update(add_prefix(
-                _head_losses(dh, self._decode_losses, logit, gt, seg_weight),
-                f'decode.{name}'))
-        if se:
-            # EncNet's SE loss (``encoder_decoder.py:166-189``): the SE
-            # logits' sigmoid CE against the classes present
-            se_loss = build_loss(dict(dh.loss_se_decode or dict(
-                type='CrossEntropyLoss', use_sigmoid=True, loss_weight=0.2)))
-            losses['decode.loss_se'] = se_loss(
-                out['branch_logits'][0].float(), dh.se_onehot_labels(gt))
-        for i, (head, aux_logit) in enumerate(zip(heads[1:],
-                                                  out['aux_logits'])):
-            prefix = 'aux' if len(heads) == 2 else f'aux_{i}'
-            losses.update(add_prefix(
-                _head_losses(head, self._aux_losses[i], aux_logit, gt,
-                             seg_weight), prefix))
+                _point_losses(dh, self._decode_losses, *points), 'decode'))
+        losses.update(self._aux_head_losses(out['aux_logits'], gt,
+                                            seg_weight))
         states = {'seg_logits': out['seg_logits'],
                   'decoded_features': out['decoded_features'],
                   'features': out['feats']}
         return losses, states
+
+    def _aux_head_losses(self, aux_logits, gt, seg_weight):
+        """The auxiliary heads' losses under ``aux`` (one head) or
+        ``aux_{i}``."""
+        heads = self._aux_heads()
+        losses = {}
+        for i, (head, logit) in enumerate(zip(heads, aux_logits)):
+            prefix = 'aux' if len(heads) == 1 else f'aux_{i}'
+            losses.update(add_prefix(
+                _head_losses(head, self._aux_losses[i], logit, gt,
+                             seg_weight), prefix))
+        return losses
 
     # -- inference --------------------------------------------------------
     def whole_inference(self, img):

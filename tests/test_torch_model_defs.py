@@ -1,14 +1,16 @@
 """Which of the 49 ``configs/_base_/models`` defs the port can build:
 every component ``type`` of a def looked up in the port's registry, with
-no JAX and no model built. The 44 buildable defs resolve every type; each
-of the other 5 raises the registry's ``KeyError`` at its first missing
-type. This pins the count ROADMAP quotes (A13).
+no JAX and no model built (a head's ``sampler`` in the pixel samplers'
+registry). All 49 defs resolve every type; a def that did not would
+raise the registry's ``KeyError`` at its first missing type. This pins
+the count ROADMAP quotes (A13).
 """
 import glob
 import os.path as osp
 
 import pytest
 
+from pfst_tpu_torch.core.seg import PIXEL_SAMPLERS
 from pfst_tpu_torch.models import MODELS
 from pfst_tpu_torch.utils import Config
 
@@ -17,11 +19,11 @@ CONFIGS = osp.join(osp.dirname(__file__), '..', 'configs', '_base_',
 
 
 def _types(node, out, key=''):
-    """The component ``type`` names of a model dict in its order, leaving
-    out those of ``*_cfg`` dicts (norms, activations)."""
+    """The component ``(key, type)`` pairs of a model dict in its order,
+    leaving out those of ``*_cfg`` dicts (norms, activations)."""
     if isinstance(node, dict):
         if isinstance(node.get('type'), str) and not key.endswith('_cfg'):
-            out.append(node['type'])
+            out.append((key, node['type']))
         for k, v in node.items():
             _types(v, out, k)
     elif isinstance(node, (list, tuple)):
@@ -39,33 +41,32 @@ BUILDABLE = {'ann_r50-d8', 'annnet_r50-d8', 'apcnet_r50-d8',
              'dpt_vit-b16', 'emanet_r50-d8', 'encnet_r50-d8', 'erfnet_fcn',
              'fast_scnn', 'fastfcn_r50-d32_jpu_psp', 'fcn_hr18', 'fcn_r50-d8',
              'fcn_unet_s5-d16', 'fpn_r50', 'gcnet_r50-d8', 'icnet_r50-d8',
-             'isanet_r50-d8', 'lraspp_m-v3-d8', 'nonlocal_r50-d8',
-             'psanet_r50-d8', 'pspnet_r50-d8', 'pspnet_unet_s5-d16',
-             'segformer_mit-b0', 'segmenter_vit-b16_mask', 'setr_mla',
-             'setr_naive', 'setr_pup', 'twins_pcpvt-s_fpn',
-             'twins_pcpvt-s_upernet', 'upernet_beit', 'upernet_convnext',
-             'upernet_mae', 'upernet_r50', 'upernet_swin',
-             'upernet_vit-b16_ln_mln'}
-FIRST_MISSING = {
-    'knet_s3_fcn': 'IterativeDecodeHead',
-    'ocrnet_hr18': 'CascadeEncoderDecoder',
-    'ocrnet_r50-d8': 'CascadeEncoderDecoder',
-    'pointrend_r50': 'CascadeEncoderDecoder', 'stdc': 'STDCContextPathNet'}
+             'isanet_r50-d8', 'knet_s3_fcn', 'lraspp_m-v3-d8',
+             'nonlocal_r50-d8', 'ocrnet_hr18', 'ocrnet_r50-d8',
+             'pointrend_r50', 'psanet_r50-d8', 'pspnet_r50-d8',
+             'pspnet_unet_s5-d16', 'segformer_mit-b0',
+             'segmenter_vit-b16_mask', 'setr_mla', 'setr_naive', 'setr_pup',
+             'stdc', 'twins_pcpvt-s_fpn', 'twins_pcpvt-s_upernet',
+             'upernet_beit', 'upernet_convnext', 'upernet_mae', 'upernet_r50',
+             'upernet_swin', 'upernet_vit-b16_ln_mln'}
+FIRST_MISSING = {}
 MODEL_DEFS = sorted(glob.glob(osp.join(CONFIGS, '*.py')))
 
 
 def _resolve(model):
-    """Look every component type of ``model`` up in the port's registry,
-    raising the registry's ``KeyError`` at the first it lacks."""
-    for t in _types(model, []):
-        if MODELS.get(t) is None:
-            MODELS.build({'type': t})   # raises before building anything
+    """Look every component type of ``model`` up in the port's registry
+    (a head's ``sampler`` in the pixel samplers'), raising the registry's
+    ``KeyError`` at the first it lacks."""
+    for key, t in _types(model, []):
+        registry = PIXEL_SAMPLERS if key == 'sampler' else MODELS
+        if registry.get(t) is None:
+            registry.build({'type': t})   # raises before building anything
 
 
-def test_buildable_count_is_44_of_49():
+def test_buildable_count_is_49_of_49():
     names = {osp.basename(p)[:-3] for p in MODEL_DEFS}
     assert len(names) == 49 and BUILDABLE | set(FIRST_MISSING) == names
-    assert len(BUILDABLE) == 44 and not BUILDABLE & set(FIRST_MISSING)
+    assert len(BUILDABLE) == 49 and not BUILDABLE & set(FIRST_MISSING)
 
 
 @pytest.mark.parametrize('path', MODEL_DEFS, ids=osp.basename)

@@ -156,7 +156,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     PSPNet, Semantic-FPN and ANN heads and the MLA and FPN necks, the MiT
     and Twins backbones and the SegFormer head, the CNN backbones, the
     LR-ASPP head and ICNet's neck, the attention and context heads, the
-    PSA mask, the encoding layer and the JPU, evaluation, checkpoint and
+    PSA mask, the encoding layer and the JPU, the cascade, point sampling,
+    the pixel sampler, the Dice, focal and Lovasz losses, evaluation,
+    checkpoint and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
     design) and chip_smoke.py, in a fresh process: none of jax, flax,
@@ -209,7 +211,11 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'models.decode_heads.attention_heads',",
         "          'models.decode_heads.isa_cc_heads',",
         "          'models.decode_heads.enc_head', 'models.necks.jpu',",
-        "          'ops.psa_mask', 'ops.encoding'):",
+        "          'ops.psa_mask', 'ops.encoding', 'ops.point_sample',",
+        "          'core.seg', 'core.seg.sampler',",
+        "          'models.segmentors.cascade_encoder_decoder',",
+        "          'models.losses.dice_loss', 'models.losses.focal_loss',",
+        "          'models.losses.lovasz_loss', 'models.backbones.resnet'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

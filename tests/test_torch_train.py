@@ -597,7 +597,10 @@ def test_waiting_options_raise(case):
     ``tests/test_torch_optim.py``), and ``collect_vis``, which waited for
     the hooks that read it: the supervised step returns the JAX step's
     triple with no states (the PFGST step's are held to JAX in
-    ``tests/test_torch_a12_rest.py``)."""
+    ``tests/test_torch_a12_rest.py``); and the OHEM pixel sampler
+    (``ohem``), which waited for the heads that name it: a step with it
+    has a finite loss (the sampler and STDC's OHEM step are held to JAX
+    in ``tests/test_torch_cascade_knet_stdc.py``)."""
     cfg = _train_cfg('all')
     uda = dict(cfg['uda'], model=cfg['model'], device='cpu')
     if case == 'fdist':
@@ -657,9 +660,16 @@ def test_waiting_options_raise(case):
         return
     model_cfg = _model_cfg()
     model_cfg['decode_head']['sampler'] = dict(type='OHEMPixelSampler')
-    with pytest.raises(NotImplementedError):
-        build_segmentor(model_cfg).forward_train(
-            torch.zeros(1, 3, 32, 32), torch.zeros(1, 32, 32))
+    trainer = build_algorithm({'model': model_cfg}, device='cpu')
+    state = trainer.init_state(torch.Generator().manual_seed(0),
+                               build_optimizer(SGD))
+    rs = np.random.RandomState(0)
+    state, log_vars = trainer.make_train_step(MEAN, STD)(
+        state, {'img': nchw(_images(rs, 2, 32)),
+                'gt_semantic_seg': torch.from_numpy(
+                    rs.randint(0, 6, (2, 32, 32)))},
+        torch.Generator().manual_seed(0))
+    assert state.step == 1 and np.isfinite(log_vars['loss'].item())
 
 
 def test_build_train_model_default_device_needs_cuda(monkeypatch):
