@@ -239,9 +239,31 @@ Phases (any failure exits non-zero before the result lines):
    flash kernels: 6 forwards a request, 3 launches of each kernel a step;
    its steps with the four stages' losses) and STDC (1/8; its steps with
    the OHEM-weighted CE and the boundary head's CE and Dice); OCRNet-R50,
-   PointRend and K-Net card against CPU, STDC's gaps printed and not
-   held; phase 20's line gives each def's wall seconds and peak
-   allocation;
+   PointRend, K-Net and STDC card against CPU; ResNeXt-50 (32x4d),
+   ResNeSt-50 and the timm name ``resnest50d`` each in place of the leaf
+   config's ResNetV1c under its DeepLabV3+ head, one 512^2 request each;
+   ``OHEMPixelSampler`` alone card against CPU at STDC's settings on
+   2 x 19 x 512^2 logits, with its threshold and without (equal weights
+   but at ties with the k-th value); phase 20's line gives each def's
+   wall seconds and peak allocation;
+21. quantization at full width: (a) every int8 layer of the qat leaf
+   config's DeepLabV3+ R50-D8 on a 512^2 request, a Dense at ViT-B's MLP
+   and ResNeXt-50's grouped layer-4 conv: the card route's int32 sums
+   equal the float64 plain version on the same int8 operands on the
+   card, element for element; (b) int8 serving card against CPU (TF32
+   off, the CPU's calibrated scales) and (c) the QAT step card against
+   CPU (128^2), each held as another rounding of the same program, since
+   the int8 program turns any fp32 difference upstream of a quantizer
+   into flipped int8 values downstream: (b)'s logit gap at most twice
+   the CPU's int8-against-fp32 gap and its argmax disagreement at most
+   twice the CPU int8's with fp32; (c) at phase 11's bounds or twice the
+   CPU's own 1-vs-8-thread readings, whichever is larger; (d) the qat leaf
+   config through ``train_segmentor`` on phase 13's packs (6 iterations,
+   int8 evals in the loop, dynamic and with the scales of
+   ``tools/calibrate_int8_torch.py``), each scored by ``tools/
+   test_torch.py --quant-int8`` within 0.01 mIoU points; (e) ``tools/
+   int8_microbench_torch.py`` (fp32, bf16 and int8 patches/s at batch 24
+   of 512^2) and ``tools/benchmark_torch.py`` once;
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -287,6 +309,7 @@ from pfst_tpu_torch.models.backbones.swin import attn_mask as swin_mask
 from pfst_tpu_torch.models.backbones.swin import \
     relative_position_index as swin_index
 from pfst_tpu_torch.ops import neighborhood_sim as sim_module
+from pfst_tpu_torch.ops import quant
 from pfst_tpu_torch.ops import (build, cuda_flash_attention,
                                 cuda_flash_attention_backward,
                                 cuda_flash_attention_bwd_dkv,
@@ -476,15 +499,34 @@ A13_CHECKED = ('segmenter_vit-b16_mask', 'setr_pup', 'ann_r50-d8',
                'lraspp_m-v3-d8', 'icnet_r50-d8', 'danet_r50-d8',
                'encnet_r50-d8', 'emanet_r50-d8', 'ccnet_r50-d8',
                'psanet_r50-d8', 'ocrnet_r50-d8', 'pointrend_r50',
-               'knet_s3_fcn')
-# card against CPU for the record only: STDC's context-path BNs
-# (``conv_avg``, ``arm{0,1}_atten``) normalize one pooled value an image,
-# two a channel at batch 2 (ROADMAP C6)
-A13_RECORDED = ('stdc',)
+               'knet_s3_fcn', 'stdc')
+# phase 20: the last three backbones (A17), each in place of the leaf
+# config's ResNetV1c under its DeepLabV3+ head, at output stride 8 where
+# the backbone takes strides (one 512^2 forward each)
+A17_BACKBONES = {
+    'resnext50_32x4d': dict(type='ResNeXt', depth=50, groups=32,
+                            base_width=4, strides=(1, 2, 1, 1),
+                            dilations=(1, 1, 2, 4), contract_dilation=True),
+    'resnest50': dict(type='ResNeSt', depth=50, radix=2,
+                      strides=(1, 2, 1, 1), dilations=(1, 1, 2, 4),
+                      contract_dilation=True),
+    'timm_resnest50d': dict(type='TIMMBackbone', model_name='resnest50d')}
+# phase 20: OHEM alone card against CPU, at STDC's settings and a step's
+# logits (2 x 19 x 512^2)
+OHEM_SHAPE, OHEM_CFG = (2, 19, 512, 512), dict(thresh=0.7, min_kept=10000)
 # backbone settings of the card-against-CPU step: ConvNeXt-B's drop path
 # (0.4 over 36 blocks) would drop some branch for both images of the batch
 A13_CHECK_BACKBONE = {'upernet_convnext': dict(drop_path_rate=0.0)}
 MODEL_DEFS = osp.join(ROOT, 'configs', '_base_', 'models')
+# phase 21: the qat leaf config, (a)'s and (b)'s request, (c)'s crops and
+# (d)'s iterations with their resume point
+QAT_LEAF_NAME = 'qat_source_only_pots_irrg_deeplabv3plus_r50-d8'
+QAT_LEAF = osp.join(ROOT, 'configs', 'pfst', f'{QAT_LEAF_NAME}.py')
+QUANT_HW, QUANT_CHECK_HW = (512, 512), (128, 128)
+QUANT_LOOP_ITERS, QUANT_RESUME = 6, 3
+# phase 21 (b), (c): how many roundings' worth of difference the card's
+# int8 and QAT results may show against the CPU's (``_quant_card_vs_cpu``)
+QUANT_ROUNDINGS = 2.0
 # the ViT configs' input normalization (ImageNet mean/std, RGB)
 VIT_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
                 to_rgb=True)
@@ -1565,7 +1607,7 @@ def phase_train_card_vs_cpu(cfg, tag='[train card-vs-cpu]',
 
 
 def _check_train_sides(sides, threads, tag, self_gap_scale=None,
-                       allowed_zero=0, gate=True):
+                       allowed_zero=0, roundings=None):
     """Card step against the CPU step (``sides``: log vars and gradient
     groups of 'card', 'cpu' and 'cpu1', the CPU with one thread): log vars
     within rtol 1e-3 (atol 1e-5); gradients with cosine similarity >=
@@ -1576,12 +1618,26 @@ def _check_train_sides(sides, threads, tag, self_gap_scale=None,
     only to more than 1e-3 (ROADMAP C6) is held to a multiple of that.
     ``allowed_zero``: parameter tensors a side may leave at a zero gradient
     (those under a residual branch that drop path dropped for every
-    sample; the caller names and checks them). With ``gate=False`` the
-    readings are printed and returned, and nothing is held to them."""
+    sample; the caller names and checks them). ``roundings`` (phase 21's
+    QAT step, whose fake quantization makes any fp32 difference upstream
+    of a quantizer another rounding, ``_quant_card_vs_cpu``): each limit
+    is the larger of phase 11's and ``roundings`` times the CPU's own
+    reading at another thread count (a log var's relative gap, 1 -
+    cosine, the norm gap; the largest over the 'cpu<n>' sides, 1, 2 and 4
+    threads against N). Returns the readings."""
     (card_lv, card_g), (cpu_lv, cpu_g) = sides['card'], sides['cpu']
     cpu1_g = sides['cpu1'][1]
+    others = [v for k, v in sides.items() if k.startswith('cpu') and
+              k != 'cpu']
+
+    def lv_limit(k):
+        own = max(abs(lv[k] - cpu_lv[k]) for lv, _ in others) / max(
+            abs(cpu_lv[k]), 1e-30)
+        return 1e-3 if roundings is None else max(1e-3, roundings * own)
+
     bad = {k: (card_lv[k], cpu_lv[k]) for k in cpu_lv
-           if not abs(card_lv[k] - cpu_lv[k]) <= 1e-5 + 1e-3 * abs(cpu_lv[k])}
+           if not abs(card_lv[k] - cpu_lv[k]) <= 1e-5 + lv_limit(k) *
+           abs(cpu_lv[k])}
     zero = sum(int(not g.any()) for side in (card_g, cpu_g)
                for gs in side.values() for g in gs)
     per_group = {k: [round(v, 8) for v in _cos_and_gap(
@@ -1594,6 +1650,14 @@ def _check_train_sides(sides, threads, tag, self_gap_scale=None,
     self_cos, self_gap = _cos_and_gap(flat['cpu1'], flat['cpu'])
     norm_limit = 1e-3 if self_gap_scale is None else max(
         1e-3, self_gap_scale * self_gap)
+    cos_limit = 0.9999
+    if roundings is not None:
+        own = [_cos_and_gap(torch.cat([g.flatten() for gs in o[1].values()
+                                       for g in gs]), flat['cpu'])
+               for o in others]
+        norm_limit = max(norm_limit, roundings * max(g for _, g in own))
+        cos_limit = min(cos_limit,
+                        1 - roundings * max(1 - c for c, _ in own))
     log(f'{tag}: '
         f'log vars {len(cpu_lv)} compared, {len(bad)} outside rtol 1e-3; '
         f'gradient cosine {cos:.8f}, norm rel diff {norm_rel:.3e}; '
@@ -1603,15 +1667,18 @@ def _check_train_sides(sides, threads, tag, self_gap_scale=None,
         f'against {threads}: gradient cosine {self_cos:.8f}, norm rel diff '
         f'{self_gap:.3e}; norm limit {norm_limit:.3e}'
         + (f'; zero gradients allowed {allowed_zero} a side'
-           if allowed_zero else '') + ('' if gate else '; not gated'))
-    if not gate:
-        return dict(outside=len(bad), cosine=round(cos, 8),
-                    norm_gap=float(f'{norm_rel:.3e}'),
-                    cpu_norm_gap=float(f'{self_gap:.3e}'), zero=zero)
+           if allowed_zero else '')
+        + ('' if roundings is None else
+           f'; {roundings} roundings of the CPU at 1, 2 and 4 threads: '
+           f'cosine limit {cos_limit:.8f}, log var rtol '
+           f'{json.dumps({k: float(f"{lv_limit(k):.3e}") for k in cpu_lv})}'))
     if bad or set(card_lv) != set(cpu_lv) or zero != 2 * allowed_zero or \
             not (
-            cos >= 0.9999 and norm_rel <= norm_limit):
+            cos >= cos_limit and norm_rel <= norm_limit):
         raise AssertionError(f'card and CPU training disagree: {bad}')
+    return dict(outside=len(bad), cosine=round(cos, 8),
+                norm_gap=float(f'{norm_rel:.3e}'),
+                cpu_norm_gap=float(f'{self_gap:.3e}'), zero=zero)
 
 
 def vit_config(img_size=VIT_HW[0], dtype=None):
@@ -1809,13 +1876,16 @@ def phase_vit_train_card_vs_cpu():
         VIT_TRAIN_CHECK_HW, '[vit train card-vs-cpu]')
 
 
-def _supervised_card_vs_cpu(cfg, hw, tag, gate=True):
+def _supervised_card_vs_cpu(cfg, hw, tag, ctx=contextlib.nullcontext,
+                            roundings=None):
     """One supervised step of ``cfg`` (dropout off) on the card and on
     the CPU (all threads, and one) from the same weights and batch at 2 x
-    ``hw``, TF32 off, held by ``_check_train_sides`` (or with
-    ``gate=False`` only read, its readings returned); a ResNet's residual
-    blocks end at phase 8's BN scale (``_scale_residual``), and the heads'
-    0-d ``gamma``s are ``GAMMA_SCALE`` (``_nonzero_gammas``)."""
+    ``hw``, TF32 off, each step inside ``ctx()`` (phase 21's QAT
+    context), held by ``_check_train_sides`` (with ``roundings``), its
+    readings returned; a
+    ResNet's residual blocks end at phase 8's BN scale
+    (``_scale_residual``), and the heads' 0-d ``gamma``s are
+    ``GAMMA_SCALE`` (``_nonzero_gammas``)."""
     batch = {k: v.cpu() for k, v in _vit_batch(cfg, 7, hw).items()}
     old = (torch.backends.cudnn.allow_tf32,
            torch.backends.cuda.matmul.allow_tf32)
@@ -1823,16 +1893,20 @@ def _supervised_card_vs_cpu(cfg, hw, tag, gate=True):
     torch.backends.cuda.matmul.allow_tf32 = False
     threads = torch.get_num_threads()
     sides = {}
+    runs = [('card', 'cuda', threads), ('cpu', 'cpu', threads),
+            ('cpu1', 'cpu', 1)]
+    if roundings is not None:
+        runs += [(f'cpu{n}', 'cpu', n) for n in (2, 4) if n < threads]
     try:
-        for side, device, n in (('card', 'cuda', threads),
-                                ('cpu', 'cpu', threads), ('cpu1', 'cpu', 1)):
+        for side, device, n in runs:
             torch.set_num_threads(n)
             _, state, step = _vit_train_setup(cfg, device)
             _scale_residual(state, RESIDUAL_SCALE)
             _nonzero_gammas(state, GAMMA_SCALE)
-            _, log_vars = step(state, {k: v.to(device)
-                                       for k, v in batch.items()},
-                               torch.Generator().manual_seed(5))
+            with ctx():
+                _, log_vars = step(state, {k: v.to(device)
+                                           for k, v in batch.items()},
+                                   torch.Generator().manual_seed(5))
             sides[side] = ({k: float(v) for k, v in log_vars.items()},
                            _grad_groups(state))
             del state, step
@@ -1840,7 +1914,8 @@ def _supervised_card_vs_cpu(cfg, hw, tag, gate=True):
         torch.set_num_threads(threads)
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = old
-    return _check_train_sides(sides, threads, f'{tag} {hw}', gate=gate)
+    return _check_train_sides(sides, threads, f'{tag} {hw}',
+                              roundings=roundings)
 
 
 def phase_microbench():
@@ -3907,8 +3982,9 @@ def phase_a13_heads(card):
     and bf16 autocast (DANet's, EncNet's, the cascades', K-Net's and
     STDC's with their extra losses), each def's wall seconds and peak
     allocation; ``A13_CHECKED`` card against CPU (``A13_CHECK_BACKBONE``'s
-    settings there, the heads' 0-d ``gamma``s at ``GAMMA_SCALE``), and
-    ``A13_RECORDED``'s gaps read and printed. Every attention layer on the
+    settings there, the heads' 0-d ``gamma``s at ``GAMMA_SCALE``);
+    ``A17_BACKBONES`` under the leaf config's head, one request each;
+    ``OHEMPixelSampler`` alone card against CPU. Every attention layer on the
     flash kernels (MiT's and PCPVT's with keys shorter than the queries,
     K-Net's between its kernels)."""
     t0 = time.time()
@@ -3926,18 +4002,23 @@ def phase_a13_heads(card):
             train[(name, tag)] = run
         def_s[name] = round(time.time() - t_def, 1)
         def_gb[name] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
-    recorded = {}
-    for name in A13_CHECKED + A13_RECORDED:
+    a17 = {}
+    for name, backbone in A17_BACKBONES.items():
+        t_def = time.time()
+        a17[name] = _a17_serving(card, name, backbone)
+        def_s[name] = round(time.time() - t_def, 1)
+    checked = {}
+    for name in A13_CHECKED:
         t_def = time.time()
         # phase 11's check (a ResNet's blocks at phase 8's BN scale)
         cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'), dropout=False)
         cfg.model['backbone'].update(A13_CHECK_BACKBONE.get(name, {}))
-        gaps = _supervised_card_vs_cpu(cfg, TF_CHECK_HW,
-                                       f'[a13 card-vs-cpu {name}]',
-                                       gate=name not in A13_RECORDED)
-        if gaps is not None:
-            recorded[name] = gaps
+        checked[name] = _supervised_card_vs_cpu(cfg, TF_CHECK_HW,
+                                                f'[a13 card-vs-cpu {name}]')
         def_s[f'{name} card-vs-cpu'] = round(time.time() - t_def, 1)
+    t_def = time.time()
+    ohem = _ohem_card_vs_cpu(card)
+    def_s['ohem card-vs-cpu'] = round(time.time() - t_def, 1)
     launches = [sum(r['flash'][i] for r in serve.values())
                 + sum(t[1][i] for t in train.values()) for i in range(3)]
     log('[a13] warm ms per request ' + ', '.join(
@@ -3947,10 +4028,380 @@ def phase_a13_heads(card):
         + f'; flash launches fwd/dkv/dq {launches}, similarity '
         f'{sum(r["sim"] for r in serve.values())}; wall s a def (requests '
         f'and steps) and a check {json.dumps(def_s)}; peak GiB allocated '
-        f'a def {json.dumps(def_gb)}; card against CPU, not gated '
-        f'{json.dumps(recorded)}; phase {time.time() - t0:.1f} s on '
+        f'a def {json.dumps(def_gb)}; STDC card against CPU '
+        f'{json.dumps(checked["stdc"])}; phase {time.time() - t0:.1f} s on '
         f'{card}')
-    return dict(serve=serve, train=train, launches=launches)
+    return dict(serve=serve, train=train, launches=launches, a17=a17,
+                ohem=ohem, checked=checked)
+
+
+def _a17_serving(card, name, backbone):
+    """One full-width 512^2 request of the leaf config's DeepLabV3+ with
+    ``backbone`` in place of its ResNetV1c: logits -> labels."""
+    cfg = Config.fromfile(LEAF)
+    cfg.model['backbone'] = dict(backbone,
+                                 norm_cfg=cfg.model['backbone']['norm_cfg'])
+    model = init_segmentor(cfg)
+    img = _request(cfg, 1700, (PATCH, PATCH)).cuda()
+    infer = make_inference_fn(model)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits = infer(img)
+    labels = _finalize_views(model, [logits], [{'flip': False}],
+                             (PATCH, PATCH))
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    if labels.shape != (PATCH, PATCH) or not torch.isfinite(logits).all():
+        raise AssertionError(f'[a17 serve {name}] bad output')
+    log(f'[a17 serve {name}] {backbone["type"]} under the leaf config\'s '
+        f'DeepLabV3+ head, {n_params} parameters: one {PATCH}^2 request '
+        f'{ms:.1f} ms (first use), logits {tuple(logits.shape)} finite on '
+        f'{card}')
+    return dict(ms=ms, params=n_params)
+
+
+def _ohem_logits(rs, gt, c):
+    """Logits a trained net might give: the label's class ahead by 0-6,
+    so the gt probabilities spread over (0, 1) (``tests/
+    test_torch_cascade_knet_stdc.py::_trained_logits``), NCHW."""
+    logits = rs.randn(*gt.shape, c)
+    safe = np.where(gt == 255, 0, gt)
+    np.put_along_axis(logits, safe[..., None],
+                      rs.uniform(0.0, 6.0, gt.shape + (1,)), axis=-1)
+    return np.ascontiguousarray(logits.astype(np.float32).transpose(
+        0, 3, 1, 2))
+
+
+def _ohem_card_vs_cpu(card):
+    """``OHEMPixelSampler`` alone on the card against the CPU at
+    ``OHEM_SHAPE`` with STDC's ``min_kept``, with its ``thresh`` and
+    without: the weights equal, but where a pixel's value ties the k-th
+    one to the last bit on one side (a C2 difference, counted), and the
+    threshold deciding for some but not all valid pixels."""
+    from pfst_tpu_torch.core.seg import OHEMPixelSampler
+    b, c, h, w = OHEM_SHAPE
+    rs = np.random.RandomState(13)
+    gt = rs.randint(0, c, (b, h, w))
+    gt[:, :h // 16] = 255
+    logits = torch.from_numpy(_ohem_logits(rs, gt, c))
+    label = torch.from_numpy(gt)
+    out = {}
+    for thresh in (OHEM_CFG['thresh'], None):
+        sampler = OHEMPixelSampler(thresh=thresh,
+                                   min_kept=OHEM_CFG['min_kept'])
+        got = sampler.sample(logits.cuda(), label.cuda()).cpu()
+        want = sampler.sample(logits, label)
+        valid = label != 255
+        kept = float(want[valid].mean())
+        differ = int((got != want).sum())
+        # the CPU's cut of each image (the sampler's own formula): a pixel
+        # whose value lies within 4 fp32 ulps of it is a tie
+        safe = torch.where(valid, label, 0)[:, None]
+        n_px, k = h * w, OHEM_CFG['min_kept']
+        if thresh is not None:
+            v = torch.softmax(logits, dim=1).gather(1, safe)[:, 0]
+            flat = torch.where(valid, v, torch.inf).reshape(b, -1)
+            idx = (valid.reshape(b, -1).sum(1) - 1).clamp(0, k)
+            cut = flat.sort(1).values.gather(1, idx[:, None])[:, 0] \
+                .clamp(min=thresh)
+        else:
+            v = -F.log_softmax(logits, dim=1).gather(1, safe)[:, 0]
+            flat = torch.where(valid, v, -torch.inf).reshape(b, -1)
+            cut = flat.sort(1).values[:, n_px - k]
+        near = (v - cut[:, None, None]).abs() <= \
+            4 * torch.finfo(torch.float32).eps * cut.abs()[:, None, None]
+        ties = int(((got != want) & near).sum())
+        out[str(thresh)] = dict(kept=kept, differ=differ, ties=ties)
+        if not (0 < kept < 1) or differ != ties:
+            raise AssertionError(f'[ohem card-vs-cpu] thresh {thresh}: '
+                                 f'{differ} weights differ ({ties} ties), '
+                                 f'valid share kept {kept}')
+    log(f'[ohem card-vs-cpu] {OHEM_SHAPE}, min_kept '
+        f'{OHEM_CFG["min_kept"]}: thresh {OHEM_CFG["thresh"]} / None: '
+        f'valid share kept {out[str(OHEM_CFG["thresh"])]["kept"]:.6f} / '
+        f'{out["None"]["kept"]:.6f}, weights that differ '
+        f'{out[str(OHEM_CFG["thresh"])]["differ"]} / {out["None"]["differ"]}'
+        f' (ties at the k-th value, C2: '
+        f'{out[str(OHEM_CFG["thresh"])]["ties"]} / {out["None"]["ties"]}) '
+        f'on {card}')
+    return out
+
+
+# ------------------------------------------------------------------ phase 21
+def _quant_geometry(conv, qw, geom):
+    """A conv's or Dense's geometry as phase 21 prints it."""
+    if not conv:
+        return f'dense K={qw.shape[1]}'
+    o, cg, kh, kw = qw.shape
+    (s, _), _, (d, _), g = geom
+    kind = 'depthwise' if g > 1 and cg == 1 else 'grouped' if g > 1 \
+        else f'{kh}x{kw}'
+    return f'{kind} K={cg * kh * kw} s{s} d{d}'
+
+
+def _exact_observer(held):
+    """``int8_inference``'s observer for phase 21 (a): each layer's sums
+    from the card route against the float64 plain version on the same int8
+    operands, on the card; ``held`` gets path -> (geometry, elements,
+    elements that differ)."""
+    def observe(path, conv, qx, qw, geom, sums):
+        plain = quant.plain_int_conv2d(qx, qw, *geom) if conv \
+            else quant.plain_int_linear(qx, qw)
+        if sums.dtype != torch.int32 or sums.device.type != 'cuda':
+            raise AssertionError(f'[quant] {path}: sums {sums.dtype} on '
+                                 f'{sums.device}, not the card route')
+        held[path] = (_quant_geometry(conv, qw, geom), sums.numel(),
+                      int((sums.double() != plain).sum()))
+    return observe
+
+
+def _quant_exact(card):
+    """Phase 21 (a): every quantized layer of the leaf model on one
+    QUANT_HW request (dynamic scales), a Dense at ViT-B's MLP and
+    ResNeXt-50 32x4d's layer-4 grouped conv at 512^2 D8: the card route's
+    int32 sums equal the float64 plain version's, element for element."""
+    cfg = Config.fromfile(QAT_LEAF)
+    model = init_segmentor(cfg)
+    img = _request(cfg, 2100, QUANT_HW).cuda()
+    held = {}
+    before = dict(quant.launches)
+    with torch.inference_mode():
+        # the layer set: the paths a calibration records
+        layers = quant.calibrate_act_scales(model.inference_logits, [img])
+        with quant.int8_inference(observer=_exact_observer(held)):
+            logits, _ = model.inference_logits(img)
+    routed = {k: quant.launches[k] - before[k] for k in before}
+    if not torch.isfinite(logits).all() or set(held) != set(layers) or \
+            sum(routed.values()) != len(held):
+        raise AssertionError(f'[quant] leaf model: {len(held)} layers of '
+                             f'{len(layers)}, route launches {routed}')
+    gen = torch.Generator(device='cuda').manual_seed(21)
+
+    def r8(*shape):
+        return torch.randint(-127, 128, shape, device='cuda', generator=gen,
+                             dtype=torch.int8)
+
+    extra = {'dense (1, 1025, 768) -> 3072': (False, r8(1, 1025, 768),
+                                              r8(3072, 768), None),
+             'resnext layer4 grouped (1, 1024, 64, 64), 32 groups, d4': (
+                 True, r8(1, 1024, 64, 64), r8(1024, 32, 3, 3),
+                 ((1, 1), (4, 4), (4, 4), 32))}
+    for name, (conv, qx, qw, geom) in extra.items():
+        sums = quant.cuda_int_conv2d(qx, qw, *geom) if conv \
+            else quant.int_linear(qx, qw)
+        _exact_observer(held)(name, conv, qx, qw, geom, sums)
+    geoms = sorted({g for g, _, _ in held.values()})
+    bad = {p: d for p, (_, _, d) in held.items() if d}
+    log(f'[quant exact] {len(held) - len(extra)} quantized layers of the '
+        f'leaf model at {QUANT_HW} (route launches {routed}) and '
+        f'{list(extra)}: {sum(n for _, n, _ in held.values())} int32 sums '
+        f'against float64 on the card, {sum(bad.values())} differ; '
+        f'geometries {geoms} on {card}')
+    if bad:
+        raise AssertionError(f'[quant] int32 sums differ from float64: {bad}')
+    return model, cfg, img
+
+
+def _qx_recorder(store):
+    def observe(path, conv, qx, qw, geom, sums):
+        store.setdefault(path, []).append(qx.cpu())
+    return observe
+
+
+def _quant_card_vs_cpu(card, model, cfg, img):
+    """Phase 21 (b): int8 serving of the leaf model on the card against
+    int8 on the CPU (all threads, and one), TF32 off, with the CPU's
+    calibrated scales. The int8 program amplifies any fp32 difference
+    upstream of a quantizer: a BN output one ulp off on the card moves an
+    input across a rounding boundary, the flipped int8 value moves the
+    next layer's inputs, and so on (on the H100 the first 2 flips at the
+    second stem conv, 20 % of all ``qx`` by the head; with BN folded the
+    first flip comes later and as many follow; ``PERF.md`` §6), while the
+    CPU repeats itself across thread counts. So the card's int8 output is another
+    rounding of the same fp32 program, and it is held to that: its logit
+    gap to the CPU's int8 at most ``QUANT_ROUNDINGS`` times the CPU's own
+    int8-against-fp32 gap, and its argmax disagreement with the CPU's
+    int8 at most ``QUANT_ROUNDINGS`` times the CPU int8's with fp32. The
+    exactness of the card route itself is (a)'s."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    try:
+        cpu_model = copy.deepcopy(model).cpu()
+        x = img.cpu()
+        with torch.inference_mode():
+            scales = quant.calibrate_act_scales(cpu_model.inference, [x])
+            fp32 = cpu_model.inference_logits(x)[0]
+            qx = {'card': {}, 'cpu': {}, 'cpu1': {}}
+            with quant.int8_inference(scales,
+                                      observer=_qx_recorder(qx['cpu'])):
+                cpu = cpu_model.inference_logits(x)[0]
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                with quant.int8_inference(scales,
+                                          observer=_qx_recorder(qx['cpu1'])):
+                    cpu1 = cpu_model.inference_logits(x)[0]
+            finally:
+                torch.set_num_threads(threads)
+            with quant.int8_inference(scales,
+                                      observer=_qx_recorder(qx['card'])):
+                on_card = model.inference_logits(img)[0].cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+    def flips(side):
+        return sum(int((a != b).sum()) for p in qx['cpu']
+                   for a, b in zip(qx[side][p], qx['cpu'][p]))
+
+    def disagree(a, b):
+        return float((a.argmax(1) != b.argmax(1)).float().mean())
+
+    own = float((cpu - fp32).abs().max())
+    own_dis = disagree(cpu, fp32)
+    gap = float((on_card - cpu).abs().max())
+    dis = disagree(on_card, cpu)
+    differ, self_differ = flips('card'), flips('cpu1')
+    total = sum(a.numel() for v in qx['cpu'].values() for a in v)
+    first = next((p for p in qx['cpu'] if any(
+        (a != b).any() for a, b in zip(qx['card'][p], qx['cpu'][p]))), None)
+    log(f'[quant card-vs-cpu] {QUANT_HW}, {len(scales)} calibrated scales: '
+        f'int8 logit gap card against CPU {gap:.3e} (limit '
+        f'{QUANT_ROUNDINGS} x the CPU\'s int8 against fp32 gap {own:.3e}), '
+        f'argmax agreement {1 - dis:.6f} (CPU int8 against fp32 '
+        f'{1 - own_dis:.6f}); qx elements that differ {differ} of {total}, '
+        f'the first at {first}; the CPU with 1 thread against all: logit '
+        f'gap {float((cpu1 - cpu).abs().max()):.3e}, qx elements that '
+        f'differ {self_differ} ({time.time() - t0:.1f} s) on {card}')
+    if not (gap <= QUANT_ROUNDINGS * own and
+            dis <= QUANT_ROUNDINGS * own_dis):
+        raise AssertionError('[quant] card and CPU int8 disagree beyond '
+                             'another rounding')
+    return dict(gap=gap, own=own, agree=1 - dis, own_agree=1 - own_dis,
+                qx_differ=differ, qx_total=total)
+
+
+def _quant_loop(card, data):
+    """Phase 21 (d): the qat leaf config through ``train_segmentor`` on
+    phase 13's packs, scored as int8 in the loop and by the CLIs: run A
+    QUANT_LOOP_ITERS iterations (checkpoints at QUANT_RESUME and the end,
+    an int8 eval with dynamic scales at the end); ``tools/
+    calibrate_int8_torch.py`` on its last checkpoint; run B resumed from
+    QUANT_RESUME with those scales in ``evaluation.act_scales``;
+    ``tools/test_torch.py --quant-int8`` (with ``--act-scales`` for B) on
+    each run's last checkpoint within 0.01 mIoU points of its loop."""
+    pots, vaih, _ = data
+    root = tempfile.mkdtemp(prefix='pfst_qat_')
+    try:
+        cfg = _config_loop_config(QAT_LEAF, QUANT_LOOP_ITERS, pots, vaih)
+        cfg.merge_from_dict({'evaluation.quant_int8': True,
+                             'checkpoint_config.interval': QUANT_RESUME})
+        scales_path = osp.join(root, 'scales.json')
+        out, losses = {}, {}
+        for name in ('A', 'B'):
+            run_cfg = cfg.copy()
+            kwargs = {}
+            if name == 'B':
+                with open(scales_path) as f:
+                    run_cfg.merge_from_dict({'evaluation.act_scales':
+                                             json.load(f)})
+                kwargs['resume_from'] = osp.join(
+                    root, 'A', f'iter_{QUANT_RESUME}.pth')
+            hist = []
+            before = sum(quant.launches.values())
+            t0 = time.time()
+            train_segmentor(run_cfg, work_dir=osp.join(root, name),
+                            max_iters_override=QUANT_LOOP_ITERS, seed=0,
+                            history=hist, **kwargs)
+            wall = time.time() - t0
+            logs = [h for h in hist if h['kind'] == 'log']
+            losses[name] = [round(h['log_vars']['decode.loss_ce'], 4)
+                            for h in logs]
+            if not logs or not all(np.isfinite(v) for h in logs
+                                   for v in h['log_vars'].values()):
+                raise AssertionError(f'[quant loop] run {name}: non-finite '
+                                     f'losses {losses[name]}')
+            loop_miou = next(h['metrics']['mIoU'] for h in hist
+                             if h['kind'] == 'eval')
+            routed = sum(quant.launches.values()) - before
+            ckpt = osp.join(root, name, f'iter_{QUANT_LOOP_ITERS}.pth')
+            cfg_path = osp.join(root, f'{name}.py')
+            run_cfg.dump(cfg_path)
+            if name == 'A':
+                _tool('calibrate_int8_torch').main(
+                    [cfg_path, ckpt, '-o', scales_path, '-n', '2'])
+            args = [cfg_path, ckpt, '--eval', 'mIoU', '--quant-int8'] + (
+                ['--act-scales', scales_path] if name == 'B' else [])
+            res = _tool('test_torch').main(args)
+            out[name] = dict(loop=loop_miou, cli=res['mIoU'], wall=wall,
+                             routed=routed)
+            if abs(res['mIoU'] - loop_miou) > LOOP_MIOU_TOL + 1e-12 or \
+                    not routed:
+                raise AssertionError(f'[quant loop] run {name}: CLI int8 '
+                                     f'mIoU {res["mIoU"]} != in-loop '
+                                     f'{loop_miou} (route launches '
+                                     f'{routed})')
+        log(f'[quant loop] {QAT_LEAF_NAME} through train_segmentor, batch 2 '
+            f'of {TRAIN_HW}, every loss finite (decode loss A {losses["A"]},'
+            f' B {losses["B"]}); int8 mIoU in the loop / tools/'
+            f'test_torch.py --quant-int8: A (dynamic scales) '
+            f'{out["A"]["loop"]} / {out["A"]["cli"]}, B (calibrated by '
+            f'tools/calibrate_int8_torch.py) {out["B"]["loop"]} / '
+            f'{out["B"]["cli"]}; wall s A {out["A"]["wall"]:.1f}, B '
+            f'{out["B"]["wall"]:.1f} on {card}')
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_quant(card, data):
+    """Phase 21: quantization on the card (int8 inference, QAT,
+    calibration), at full width: (a) every quantized layer's int32 sums
+    against float64, (b) int8 serving card against CPU, (c) the QAT step
+    card against CPU (both held as another rounding of the same program,
+    ``QUANT_ROUNDINGS``), (d) the qat leaf config through its entry points,
+    (e) ``tools/int8_microbench_torch.py`` and ``tools/benchmark_torch.py``
+    once."""
+    t0 = time.time()
+    out = {}
+    model, cfg, img = _quant_exact(card)
+    out['card_vs_cpu'] = _quant_card_vs_cpu(card, model, cfg, img)
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    qcfg = Config.fromfile(QAT_LEAF)
+    for head in _head_cfgs(qcfg.model):
+        head['dropout_ratio'] = 0.0
+    out['qat_step'] = _supervised_card_vs_cpu(
+        qcfg, QUANT_CHECK_HW, '[quant qat card-vs-cpu]',
+        ctx=quant.qat_context_from_cfg(qcfg), roundings=QUANT_ROUNDINGS)
+    t2 = time.time()
+    out['loop'] = _quant_loop(card, data)
+    t3 = time.time()
+    out['microbench'] = _tool('int8_microbench_torch').main(
+        ['--steps', '2', '--reps', '2'])
+    bench = _tool('benchmark_torch').main(
+        [QAT_LEAF, '--num-images', '20', '--warmup', '3'])
+    out['fps'] = bench['fps']
+    rows = {r['variant']: r for r in out['microbench']}
+    log(f'[quant] fused program batch 24 of 512^2, patches/s: '
+        + ', '.join(f'{v} {r["patches_per_sec"]:.2f}' for v, r in
+                    rows.items())
+        + '; a 1024^2 request, median ms: '
+        + ', '.join(f'{v} {r["request_ms"]:.2f}' for v, r in rows.items())
+        + f'; int8 max softmax gap {rows["int8"]["max_softmax_gap"]:.4f}, '
+        f'argmax agreement {rows["int8"]["argmax_agreement"]:.4f}; '
+        f'tools/benchmark_torch.py {bench["fps"]:.2f} fps at 512^2; wall s '
+        f'exact + card-vs-cpu {t1 - t0:.1f}, qat step {t2 - t1:.1f}, loop '
+        f'{t3 - t2:.1f}, tools {time.time() - t3:.1f}; phase '
+        f'{time.time() - t0:.1f} s on {card}')
+    return out
 
 
 def _flash_entries(cases, serve, train, ab_cases, tf, a13):
@@ -4090,9 +4541,10 @@ def main():
         pseudo = timed(phase_pseudo_labels, card, data, cases)
         hooks = timed(phase_hooks, card, data)
         tf = timed(phase_transformers, card, data, ab_cases)
+        a13 = timed(phase_a13_heads, card)
+        timed(phase_quant, card, data)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
-    a13 = timed(phase_a13_heads, card)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
     eo_bwd = sum(r['launches'][1] for r in eo.values())
     cfg_fwd = sum(r['launches'][0] for r in configs.values())

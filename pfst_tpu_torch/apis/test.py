@@ -7,11 +7,13 @@
 the decoded features, reference ``apis/test.py:160-191``) and
 ``single_gpu_test`` runs a dataset through them, whole image by whole
 image, into ``pre_eval`` histograms or label maps. Images are NCHW tensors
-on the model's device. The multi-device test, int8 and spatially sharded
-inference wait for ROADMAP A14, writing predictions out for A12.
+on the model's device; with ``quant_int8`` the forward runs under
+``ops.quant.int8_inference``. The multi-device test waits for ROADMAP
+A14b and spatially sharded inference for A14c.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, List, Optional
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import neighborhood_similarity, resize
+from ..ops.quant import int8_inference
 from ..utils.logger import get_root_logger, print_log
 
 
@@ -120,10 +123,23 @@ def single_gpu_test(model,
     card computes the current one. ``format_only`` and ``out_dir`` are
     accepted and unused, as in the JAX function: the caller writes label
     maps out with the dataset's ``format_results``, and nothing draws
-    overlays."""
-    if quant_int8 or spatial:
-        raise NotImplementedError('int8 and spatially sharded inference '
-                                  'are not ported (ROADMAP A14)')
+    overlays. ``quant_int8``: every conv and Dense of the JAX layer set
+    runs int8 (``ops.quant.int8_inference``) with ``act_scales`` (a
+    ``{module_path: max|x|}`` table, or dynamic scales without one), as
+    the JAX function traces it (``test.py:130-148``)."""
+    if spatial:
+        raise NotImplementedError('spatially sharded inference is not '
+                                  'ported (ROADMAP A14c)')
+    qctx = int8_inference(act_scales=act_scales) if quant_int8 \
+        else contextlib.nullcontext()
+    with qctx:
+        return _single_gpu_test_body(model, data_loader, pre_eval,
+                                     progress, return_states,
+                                     state_proc_cfg)
+
+
+def _single_gpu_test_body(model, data_loader, pre_eval, progress,
+                          return_states, state_proc_cfg):
     dataset = data_loader.dataset
     device = next(model.parameters()).device
     infer = make_inference_fn(model)

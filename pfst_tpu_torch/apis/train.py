@@ -20,8 +20,14 @@ hooks, the step collects its visualisation states and every hook's
 ``after_train_iter`` gets them (``train.py:547-550``); else it gets
 None.
 
+With ``qat`` the whole step, forward and backward, runs under
+``ops.quant.qat_context_from_cfg(cfg)()`` (``train.py:689-698``: the JAX
+step is traced inside it, a teacher's forward included), and
+``evaluation.quant_int8`` scores the int8 program (with
+``evaluation.act_scales``) in the loop's evaluation (``:870-876``).
+
 Waiting, and raising ``NotImplementedError`` when a config asks for them:
-``parallel.*`` (tensor, spatial, ZeRO) and ``qat`` (ROADMAP A14);
+``parallel.*`` (tensor, spatial, ZeRO; ROADMAP A14b, A14c);
 ``data.decode_cache_mb`` (packs make decoding a one-time cost).
 """
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ..datasets.pipelines import DeferNormalize
 from ..models import build_train_model
 from ..models.uda.pfgst import parse_losses
 from ..models.uda.uda_decorator import UDATrainState, maybe_normalize_images
+from ..ops.quant import qat_context_from_cfg
 from ..utils.logger import get_root_logger, print_log
 from ..utils.misc import resolve_device
 from .test import single_gpu_test
@@ -202,10 +209,7 @@ def _refuse_waiting(cfg):
            if v not in (None, 0, 1, False)}
     if par:
         raise NotImplementedError(f'parallel {par} is not ported (ROADMAP '
-                                  f'A14)')
-    if cfg.get('qat') or (cfg.get('evaluation') or {}).get('quant_int8'):
-        raise NotImplementedError('quantization (qat, quant_int8) is not '
-                                  'ported (ROADMAP A14)')
+                                  f'A14b, A14c)')
     if cfg.data.get('decode_cache_mb'):
         raise NotImplementedError('data.decode_cache_mb is not ported: '
                                   'pack the dataset instead '
@@ -465,6 +469,7 @@ def train_segmentor(cfg,
            'cfg': cfg, 'state': state}
     for h in hooks:
         h.before_run(ctx)
+    qat_ctx = qat_context_from_cfg(cfg)
     compress_gt = bool(cfg.data.get('device_normalize'))
     prefetcher = BatchPrefetcher(iter(loader),
                                  make_to_device(device, compress_gt))
@@ -503,7 +508,8 @@ def train_segmentor(cfg,
             record('batch', iter=it + 1, indices=batch.indices.tolist())
             tensors = _normalize_on_device(batch.wait(), batch.metas,
                                            norm['mean'], norm['std'])
-            out = step_fn(state, tensors, step_generator(seed, it))
+            with qat_ctx():
+                out = step_fn(state, tensors, step_generator(seed, it))
             state, log_vars = out[:2]
             vis_states = out[2] if collect_vis else None
             if (it + 1) % log_interval == 0:
@@ -593,13 +599,17 @@ def _build_val(cfg) -> dict:
 @torch.no_grad()
 def evaluate_during_train(val: dict, state, eval_cfg: dict, logger=None):
     """The student on the validation set, in eval mode, whole image by
-    whole image (the EvalHook, ``eval_hooks.py:45-133``); returns the
+    whole image (the EvalHook, ``eval_hooks.py:45-133``), as int8 with
+    ``eval_cfg``'s ``quant_int8`` (and ``act_scales``); returns the
     dataset's ``evaluate`` metrics."""
     student = state.student
     was_training = student.training
     student.eval()
     try:
-        results = single_gpu_test(student, val['loader'], pre_eval=True)
+        results = single_gpu_test(
+            student, val['loader'], pre_eval=True,
+            quant_int8=bool(eval_cfg.get('quant_int8')),
+            act_scales=eval_cfg.get('act_scales'))
     finally:
         student.train(was_training)
     return val['dataset'].evaluate(results,

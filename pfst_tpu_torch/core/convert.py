@@ -95,6 +95,9 @@ def _backbone_key(rest, ndim, base=('backbone_mod',)):
         return None
     blk = base + [f'layer{m.group(1)}_block{rest[1]}']
     sub = rest[2]
+    if sub == 'conv2' and len(rest) > 4:
+        # ResNeSt's split-attention conv, the JAX file's names inside
+        return _cnn_key(rest[3:], ndim, blk + ['conv2'])
     if sub.startswith('conv') and rest[3] == 'weight':
         return 'params', blk + [sub, 'conv', 'kernel']
     if sub.startswith('bn'):
@@ -543,6 +546,14 @@ def torch_key_to_flax(key: str, ndim: int, uper: bool = False,
     family. A path element ``a|b|c`` names leaves concatenated on their
     last axis."""
     parts = key.split('.')
+    if parts[0] == 'backbone' and (backbone or '').startswith('timm:'):
+        # TIMMBackbone: the inner backbone's keys under ``inner``
+        if parts[1] != 'inner':
+            return None
+        mapped = torch_key_to_flax('.'.join(['backbone'] + parts[2:]), ndim,
+                                   backbone=backbone[5:] or None)
+        return None if mapped is None else (
+            mapped[0], mapped[1][:1] + ['inner'] + mapped[1][1:])
     if parts[0] == 'backbone':
         family = {'beit': _beit_key, 'swin': _swin_key}.get(backbone)
         if family is not None:

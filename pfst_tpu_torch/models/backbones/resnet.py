@@ -175,8 +175,11 @@ class ResNet(nn.Module):
             raise KeyError(f'invalid depth {depth} for resnet')
         if style != 'pytorch':
             raise ValueError(f'only pytorch-style blocks, got {style!r}')
-        # s2d_stem is the same function as the usual stem (above)
-        del s2d_stem
+        # s2d_stem is the same function as the usual stem (above); its
+        # first conv is outside the JAX file's nn.Conv layers, so the int8
+        # contexts leave it in float as the JAX interceptor does
+        self.s2d_stem = s2d_stem and bool(
+            self.default_deep_stem if deep_stem is None else deep_stem)
         self.with_cp = with_cp
         deep_stem = self.default_deep_stem if deep_stem is None \
             else deep_stem
@@ -197,6 +200,7 @@ class ResNet(nn.Module):
                 nn.ReLU(inplace=True),
                 _conv(half, stem_channels, 3, 1, 1),
                 Norm(stem_channels, norm_cfg), nn.ReLU(inplace=True))
+            self.stem[0].int8_exempt = self.s2d_stem
         else:
             self.norm1_name = f'{norm_name(norm_cfg)}1'
             self.conv1 = _conv(in_channels, stem_channels, 7, 2, 3)
@@ -218,14 +222,21 @@ class ResNet(nn.Module):
                 blk_stride = strides[i] if b == 0 else 1
                 out_ch = planes * block_cls.expansion
                 with_down = b == 0 and (blk_stride != 1 or inplanes != out_ch)
-                blocks.append(block_cls(inplanes, planes, blk_stride,
-                                        blk_dilation, with_down, avg_down,
-                                        norm_cfg))
+                blocks.append(self._block(block_cls, inplanes, planes,
+                                          blk_stride, blk_dilation,
+                                          with_down, avg_down, norm_cfg))
                 inplanes = out_ch
             name = f'layer{i + 1}'
             self.add_module(name, nn.Sequential(*blocks))
             self.res_layers.append(name)
         self._freeze_stages()
+
+    def _block(self, block_cls, inplanes, planes, stride, dilation,
+               with_downsample, avg_down, norm_cfg):
+        """One residual block (a subclass's grouped or split-attention
+        block in its place)."""
+        return block_cls(inplanes, planes, stride, dilation,
+                         with_downsample, avg_down, norm_cfg)
 
     def _frozen_modules(self):
         if self.frozen_stages >= 0:

@@ -16,12 +16,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.quant import track_root
 from ..builder import DISCRIMINATORS
 from ..utils.layers import lecun_normal_
 
 
 @DISCRIMINATORS.register_module()
 class FCDiscriminator(nn.Module):
+
+    def __new__(cls, *args, **kwargs):
+        # a root the int8 and QAT contexts name (copies too)
+        return track_root(super().__new__(cls))
 
     def __init__(self, num_in_channels: int = 19, ndf: int = 64):
         super().__init__()

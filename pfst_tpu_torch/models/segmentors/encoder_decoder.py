@@ -32,6 +32,7 @@ import torch.nn as nn
 
 from ...core.seg import build_pixel_sampler
 from ...ops import resize
+from ...ops.quant import track_root
 from ...utils.misc import add_prefix
 from ..builder import (SEGMENTORS, build_backbone, build_head, build_loss,
                        build_neck)
@@ -109,6 +110,10 @@ def _at_fed_width(cfg, channels):
 
 @SEGMENTORS.register_module()
 class EncoderDecoder(nn.Module):
+
+    def __new__(cls, *args, **kwargs):
+        # a root the int8 and QAT contexts name (copies too)
+        return track_root(super().__new__(cls))
 
     def __init__(self,
                  backbone: dict,

@@ -18,6 +18,7 @@ at 2 and at 4, an eval at 4) and a run resumed from its checkpoint at 2:
   W&B hooks run in the loop.
 """
 import glob
+import json
 import os.path as osp
 import sys
 import types
@@ -296,10 +297,19 @@ def test_waiting_config_branches_raise(runs, option, tmp_path, monkeypatch):
     waited for the A12 hook slice and run now: the event file holds the
     loop's log vars at each iteration, and with W&B (a stand-in module)
     the loop collects the step's visualisation states, whose density map
-    the hook logs as an image."""
+    the hook logs as an image. ``qat`` waited for the quantization slice
+    and trains now: an iteration under fake quantization with finite
+    losses."""
     cfg = runs['cfg'].copy()
     cfg.merge_from_dict(option)
     hooks = option.get('log_config.hooks') or option.get('custom_hooks')
+    if 'qat' in option:
+        hist = []
+        state = train_segmentor(cfg, max_iters_override=1, device='cpu',
+                                validate=False, history=hist)
+        (log,) = [h['log_vars'] for h in hist if h['kind'] == 'log']
+        assert state.step == 1 and all(np.isfinite(list(log.values())))
+        return
     if not hooks:
         with pytest.raises(NotImplementedError, match='ROADMAP|pack'):
             train_segmentor(cfg, max_iters_override=1, device='cpu')
@@ -330,3 +340,36 @@ def test_waiting_config_branches_raise(runs, option, tmp_path, monkeypatch):
     assert kind == 'image' and density.shape == (8, 8)
     assert np.isfinite(density).all()
     assert wandb.calls[-1] == ('finish',)
+
+
+def test_analyze_logs_parses_the_port_log_lines(runs):
+    """``tools/analyze_logs.py`` (which imports neither JAX nor its
+    package) reads the port loop's ``Iter [N/M] time: ... data: ...``
+    lines with every log var."""
+    import analyze_logs
+    recs = analyze_logs.parse_log(osp.join(runs['root'], 'A', 'train.log'))
+    logs = [h for h in runs['a'] if h['kind'] == 'log']
+    # run A's lines first (the root logger's file handler stays open for
+    # the later runs of this process)
+    recs = recs[:len(logs)]
+    assert [r['iter'] for r in recs] == [h['iter'] for h in logs]
+    for r, h in zip(recs, logs):
+        for k, v in h['log_vars'].items():
+            assert r[k] == pytest.approx(v, abs=1e-4), k
+        assert r['time'] == pytest.approx(h['time'], abs=1e-3)
+
+
+def test_benchmark_tool_writes_its_json(runs, tmp_path):
+    """``tools/benchmark_torch.py`` (``tools/benchmark.py``'s arguments
+    and JSON keys) on the tiny config, on the CPU."""
+    import benchmark_torch
+    summary = benchmark_torch.main([
+        runs['cfg_path'], osp.join(runs['root'], 'A', f'iter_{ITERS}.pth'),
+        '--num-images', '3', '--warmup', '1', '--repeat-times', '2',
+        '--work-dir', str(tmp_path), '--device', 'cpu',
+        '--cfg-options', 'crop_size=(64,64)'])
+    with open(tmp_path / 'benchmark.json') as f:
+        written = json.load(f)
+    assert written == summary
+    assert set(summary) == {'fps', 'fps_std', 'num_images'}
+    assert summary['fps'] > 0 and summary['num_images'] == 3

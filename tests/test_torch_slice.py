@@ -157,7 +157,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     and Twins backbones and the SegFormer head, the CNN backbones, the
     LR-ASPP head and ICNet's neck, the attention and context heads, the
     PSA mask, the encoding layer and the JPU, the cascade, point sampling,
-    the pixel sampler, the Dice, focal and Lovasz losses, evaluation,
+    the pixel sampler, the Dice, focal and Lovasz losses, quantization,
+    BN folding, ResNeXt, ResNeSt and the timm adapter, evaluation,
     checkpoint and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
@@ -215,7 +216,10 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'core.seg', 'core.seg.sampler',",
         "          'models.segmentors.cascade_encoder_decoder',",
         "          'models.losses.dice_loss', 'models.losses.focal_loss',",
-        "          'models.losses.lovasz_loss', 'models.backbones.resnet'):",
+        "          'models.losses.lovasz_loss', 'models.backbones.resnet',",
+        "          'ops.quant', 'core.fold_bn', 'models.backbones.resnext',",
+        "          'models.backbones.resnest',",
+        "          'models.backbones.timm_backbone'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',
@@ -226,6 +230,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         'import browse_dataset_torch, get_flops_torch',
         'import publish_model_torch, bench_loader_torch',
         'import trace_step_torch, grad_conditioning_torch',
+        'import calibrate_int8_torch, int8_microbench_torch',
+        'import benchmark_torch',
         'import chip_smoke',
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in",
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',",

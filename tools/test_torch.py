@@ -13,8 +13,15 @@ after the tile under ``--imgfile-prefix``::
     python tools/test_torch.py <config> <checkpoint> --format-only \
         --imgfile-prefix work_dirs/format
 
-``--show-dir`` is accepted and writes nothing, as in the JAX CLI. int8,
-spatial sharding and the launcher wait for ROADMAP A14.
+``--show-dir`` is accepted and writes nothing, as in the JAX CLI.
+``--quant-int8`` scores the int8 program (``pfst_tpu_torch/ops/quant.py``),
+with ``--act-scales`` a JSON table of ``tools/calibrate_int8_torch.py`` or
+``tools/calibrate_int8.py`` (dynamic scales without one)::
+
+    python tools/test_torch.py <config> <checkpoint> --eval mIoU \
+        --quant-int8 --act-scales scales.json
+
+Spatial sharding and the launcher wait for ROADMAP A14b and A14c.
 """
 import argparse
 import json
@@ -46,6 +53,13 @@ def parse_args(args=None):
                         default=False, help='compat no-op')
     parser.add_argument('--cfg-options', nargs='+', action=DictAction)
     parser.add_argument('--eval-options', nargs='+', action=DictAction)
+    parser.add_argument('--quant-int8', action='store_true',
+                        help='int8 convolutions and Dense layers; see '
+                             'pfst_tpu_torch/ops/quant.py')
+    parser.add_argument('--act-scales', default=None,
+                        help='static activation-scale JSON from '
+                             'tools/calibrate_int8_torch.py (default: '
+                             'dynamic scales)')
     parser.add_argument('--device-normalize', nargs='?', const='uint8',
                         default=None, choices=['uint8', 'float16'],
                         help='send eval images to the card on the 0-255 '
@@ -77,9 +91,15 @@ def main(args=None):
     loader = build_dataloader(dataset, 1, cfg.data.get('workers_per_gpu', 2),
                               shuffle=False)
     model = init_segmentor(cfg, args.checkpoint, device=args.device)
+    extra = {}
+    if args.quant_int8:
+        extra['quant_int8'] = True
+        if args.act_scales:
+            with open(args.act_scales) as f:
+                extra['act_scales'] = json.load(f)
     results = single_gpu_test(
         model, loader, pre_eval=bool(args.eval) and not args.format_only,
-        format_only=args.format_only, out_dir=args.show_dir)
+        format_only=args.format_only, out_dir=args.show_dir, **extra)
     if args.format_only:
         files = dataset.format_results(results, args.imgfile_prefix)
         logger.info(f'{len(files)} result maps written to '
