@@ -264,6 +264,30 @@ Phases (any failure exits non-zero before the result lines):
    test_torch.py --quant-int8`` within 0.01 mIoU points; (e) ``tools/
    int8_microbench_torch.py`` (fp32, bf16 and int8 patches/s at batch 24
    of 512^2) and ``tools/benchmark_torch.py`` once;
+22. data parallelism (``pfst_tpu_torch/parallel``): (a) the leaf
+   config's PFGST step at full width (2 x 512^2) through
+   ``make_sharded_train_step`` over an NCCL group of one rank, 3 steps
+   against the plain step (twice) from the same state and generators,
+   with PyTorch's deterministic algorithms on: each synchronisation
+   leaves its inputs bitwise, and parameters, BN buffers and log vars
+   equal the plain step's bitwise (where the plain step repeats itself
+   bitwise; both max differences and any op without a deterministic
+   kernel printed); (b) two gloo ranks sharing the card (``init_distributed``
+   from torchrun's variables, this file with ``--ddp-rank``) against the
+   same two ranks on the CPU, at 2 x 128^2 a rank, TF32 off: the PFGST
+   step and OCRNet-R50-D8 with its norms made ``SyncBN`` (the
+   reference's) under the supervised trainer, the first step's averaged
+   log vars and gradients within phase 11's bounds beside the CPU's own
+   1-vs-N-thread gap, and after each of 3 card steps the two ranks'
+   modules bitwise equal; (c) ``tools/train_torch.py --launcher
+   pytorch`` under torchrun with 2 gloo ranks on phase 13's packs (6
+   iterations at full width, an evaluation through ``multi_gpu_test`` at
+   the last): every logged loss finite, only rank 0's files in the work
+   dir, 2 similarity forward and 1 backward launches a rank an
+   iteration, the in-loop histograms equal ``single_gpu_test``'s on the
+   checkpoint and ``tools/test_torch.py --launcher pytorch``'s mIoU
+   equal to its, s/iter of the two processes sharing one GPU beside
+   phase 13's;
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -279,6 +303,7 @@ import importlib.util
 import json
 import os
 import os.path as osp
+import re
 import shutil
 import statistics
 import subprocess
@@ -618,6 +643,15 @@ EO_CONFIGS = {
     'season_net': ('pfst_season_net_sp2fa_deeplabv3plus_r50-d8.py',
                    ['--layout', 'season_net', '--size', '120',
                     '--num-train', '64', '--num-val', '16'])}
+
+# phase 22: (a) PFGST steps over an NCCL group of one rank, (b) steps of
+# the two gloo ranks on the card (the CPU's take one), (c) the train CLI's
+# iterations under torchrun; the def whose norms (b) makes SyncBN (the
+# reference's norm there); each process's time limit
+DDP_STEPS, DDP_CARD_STEPS, DDP_ITERS = 3, 3, 6
+DDP_SYNC_BN_DEF = osp.join(ROOT, 'configs', '_base_', 'models',
+                           'ocrnet_r50-d8.py')
+DDP_TIMEOUT_S = 300
 
 
 def log(msg):
@@ -1417,11 +1451,11 @@ def phase_pseudo_label(cfg, model, card):
             f'{rate:.2f} patches/s on {card}')
 
 
-def _train_batch(cfg, seed, hw):
-    """A synthetic training batch on the card: source, target and strong
-    target images (seeded uint8 noise, normalized as the pipeline does)
-    and a source label map of 6 classes in 32x32 blocks with a band of 255
-    (the ignore label) across the top."""
+def _train_batch(cfg, seed, hw, device='cuda'):
+    """A synthetic training batch on ``device`` (the card): source, target
+    and strong target images (seeded uint8 noise, normalized as the
+    pipeline does) and a source label map of 6 classes in 32x32 blocks with
+    a band of 255 (the ignore label) across the top."""
     rs = np.random.RandomState(seed)
     norm = cfg.img_norm_cfg
     mean = np.asarray(norm['mean'], np.float32).reshape(1, 3, 1, 1)
@@ -1429,12 +1463,13 @@ def _train_batch(cfg, seed, hw):
 
     def image():
         img = rs.randint(0, 256, (2, 3, *hw)).astype(np.float32)
-        return torch.from_numpy((img - mean) / std).cuda()
+        return torch.from_numpy((img - mean) / std).to(device)
 
     cells = rs.randint(0, 6, (2, hw[0] // 32, hw[1] // 32))
     gt = cells.repeat(32, axis=1).repeat(32, axis=2)
     gt[:, :hw[0] // 16] = 255
-    return dict(img=image(), gt_semantic_seg=torch.from_numpy(gt).cuda(),
+    return dict(img=image(),
+                gt_semantic_seg=torch.from_numpy(gt).to(device),
                 target_img=image(), target_img_strong_aug=image())
 
 
@@ -4496,6 +4531,492 @@ def _ab_case_entry(c, kernel, i):
     return out
 
 
+# ------------------------------- phase 22 ----------------------------------
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def _state_tensors(state):
+    """Every parameter and buffer of the state's modules, by name."""
+    from pfst_tpu_torch.parallel.mesh import state_modules
+    return {f'{i}.{k}': v.detach().clone()
+            for i, m in enumerate(state_modules(state))
+            for k, v in m.state_dict().items()}
+
+
+@contextlib.contextmanager
+def _sync_probe(module):
+    """Wrap the synchronisation calls of ``module``'s step
+    (``average_gradients``, ``average_log_vars``, ``average_buffers``) so
+    that each records whether it left its inputs bitwise as they were (a
+    gradient it filled in must be zeros): at a world size of 1 every one
+    must."""
+    names = ('average_gradients', 'average_log_vars', 'average_buffers')
+    inner = {n: getattr(module, n) for n in names}
+    calls = []
+
+    def gradients(params, group):
+        params = list(params)
+        before = [None if p.grad is None else p.grad.clone() for p in params]
+        inner['average_gradients'](params, group)
+        calls.append(('average_gradients', all(
+            torch.equal(p.grad, b) if b is not None else not p.grad.any()
+            for p, b in zip(params, before))))
+
+    def log_vars(values, group):
+        out = inner['average_log_vars'](values, group)
+        calls.append(('average_log_vars', out.keys() == values.keys() and all(
+            torch.equal(out[k], v) for k, v in values.items())))
+        return out
+
+    def buffers(mod, group):
+        before = [b.clone() for b in mod.buffers()]
+        inner['average_buffers'](mod, group)
+        calls.append(('average_buffers', all(
+            torch.equal(a, b) for a, b in zip(mod.buffers(), before))))
+
+    for n, fn in zip(names, (gradients, log_vars, buffers)):
+        setattr(module, n, fn)
+    try:
+        yield calls
+    finally:
+        for n, fn in inner.items():
+            setattr(module, n, fn)
+
+
+def _max_diff(a, b):
+    """The largest absolute difference over two runs' tensors (0 where
+    bitwise equal)."""
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               if a[k].is_floating_point() else
+               float((a[k] != b[k]).any()) for k in a)
+
+
+def _ddp_run(cfg, group, pfgst_module):
+    """DDP_STEPS steps of the leaf config's PFGST step from its seeded
+    state, through ``make_sharded_train_step`` over ``group`` or, without
+    one, the plain step: the modules and log vars after them, the
+    synchronisation calls' probe records, the similarity launches."""
+    from pfst_tpu_torch.parallel import make_sharded_train_step
+    algo, state, step = _train_setup(cfg)
+    if group is not None:
+        norm = cfg.img_norm_cfg
+        step = make_sharded_train_step(algo, norm['mean'], norm['std'],
+                                       group)
+    gen = torch.Generator().manual_seed(3)
+    logs = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    with _sync_probe(pfgst_module) as calls:
+        for i in range(DDP_STEPS):
+            state, log_vars = step(state, _train_batch(cfg, 1000 + i,
+                                                       TRAIN_HW), gen)
+            logs.update({f'{i}.{k}': v.detach().clone()
+                         for k, v in log_vars.items()})
+    torch.cuda.synchronize()
+    out = dict(tensors={**_state_tensors(state), **logs}, calls=calls,
+               counts=_sim_counts(), wall=time.time() - t0)
+    del algo, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_world_one(cfg, card):
+    """(a): DDP_STEPS steps of the leaf config's PFGST step at full width
+    through ``make_sharded_train_step`` over an NCCL group of one rank,
+    against the plain step twice, from the same state, batches and
+    generator, with PyTorch's deterministic algorithms wherever it has
+    them (the ops it has none for are printed). Every synchronisation
+    call of the sharded step must leave its inputs bitwise as they were,
+    and its parameters, buffers and log vars must equal the plain step's
+    bitwise whenever the plain step repeats itself bitwise."""
+    import warnings
+    import torch.distributed as dist
+    from pfst_tpu_torch.models.uda import pfgst as pfgst_module
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{_free_port()}', rank=0, world_size=1)
+    runs = {}
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter('always')
+            for name in ('plain', 'plain again', 'sharded'):
+                runs[name] = _ddp_run(cfg, dist.group.WORLD
+                                      if name == 'sharded' else None,
+                                      pfgst_module)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            old[:2]
+        torch.use_deterministic_algorithms(old[2], warn_only=old[3])
+    nondeterministic = sorted({
+        m.group(1) if m else str(w.message)[:72] for w in seen
+        if 'determinis' in str(w.message) for m in [re.search(
+            r'(\S+) does not have a deterministic implementation',
+            str(w.message))]})
+    plain, again, sharded = (runs[k] for k in ('plain', 'plain again',
+                                                'sharded'))
+    repeat = _max_diff(plain['tensors'], again['tensors'])
+    gap = _max_diff(plain['tensors'], sharded['tensors'])
+    identity = [ok for _, ok in sharded['calls']]
+    log(f'[ddp] (a) NCCL, world size 1, {DDP_STEPS} PFGST steps at batch 2 '
+        f'of {TRAIN_HW}: {len(identity)} synchronisation calls, '
+        f'{sum(identity)} left their inputs bitwise; sharded against plain '
+        f'max |diff| {gap:.3e} over {len(plain["tensors"])} tensors and log '
+        f'vars, plain against plain {repeat:.3e}; ops without a '
+        f'deterministic implementation {nondeterministic}; similarity '
+        f'launches {sharded["counts"]}; wall s plain {plain["wall"]:.1f} '
+        f'sharded {sharded["wall"]:.1f} on {card}')
+    if len(identity) != 3 * DDP_STEPS or not all(identity):
+        raise AssertionError(f'[ddp] (a) a synchronisation at world size 1 '
+                             f'changed its inputs: {sharded["calls"]}')
+    if sharded['counts'] != (2 * DDP_STEPS, DDP_STEPS):
+        raise AssertionError(f'[ddp] (a) similarity launches '
+                             f'{sharded["counts"]}')
+    if repeat == 0 and gap != 0:
+        raise AssertionError(f'[ddp] (a) the sharded step at world size 1 '
+                             f'is not the plain step: max |diff| {gap}')
+    return dict(bitwise=gap == 0, plain_repeats=repeat == 0,
+                max_diff=gap, plain_max_diff=repeat,
+                nondeterministic=nondeterministic,
+                launches=sharded['counts'])
+
+
+def _to_sync_bn(node):
+    """``node`` (a model config) with every ``BN`` norm made ``SyncBN``."""
+    if isinstance(node, dict):
+        if node.get('type') == 'BN':
+            return dict(node, type='SyncBN')
+        return {k: _to_sync_bn(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_to_sync_bn(v) for v in node)
+    return node
+
+
+def _ddp_rank_setup(kind, device, group):
+    """A rank's algorithm, state and group step for (b): the leaf config's
+    PFGST (dropout off), or the OCRNet-R50-D8 def with its norms made
+    ``SyncBN`` under the supervised trainer with SGD; the last BN scale of
+    each residual block at RESIDUAL_SCALE."""
+    if kind == 'pfgst':
+        cfg = Config.fromfile(LEAF)
+        cfg.model['decode_head']['dropout_ratio'] = 0.0
+        cfg.model['auxiliary_head']['dropout_ratio'] = 0.0
+        algo, state, _ = _train_setup(cfg, device)
+    else:
+        cfg = Config.fromfile(LEAF)
+        model = _to_sync_bn(Config.fromfile(DDP_SYNC_BN_DEF).model)
+        for head in _head_cfgs(model):
+            head['dropout_ratio'] = 0.0
+        algo = build_algorithm(dict(model=model), device=device)
+        state = algo.init_state(torch.Generator().manual_seed(0),
+                                build_optimizer(dict(type='SGD', lr=1e-2)))
+    _scale_residual(state, RESIDUAL_SCALE)
+    norm = cfg.img_norm_cfg
+    return cfg, state, algo.make_train_step(norm['mean'], norm['std'],
+                                            group=group)
+
+
+def _replicas_equal(state, group):
+    """Whether every rank of ``group`` holds rank 0's modules bitwise."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel.mesh import state_modules
+    flat = torch.cat([t.detach().reshape(-1).double()
+                      for m in state_modules(state)
+                      for t in list(m.parameters()) + list(m.buffers())])
+    ref = flat.clone()
+    dist.broadcast(ref, 0, group=group)
+    ok = torch.tensor([float(torch.equal(ref, flat))], device=flat.device)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+    return bool(ok.item())
+
+
+def ddp_rank_main(spec_path):
+    """A rank of phase 22 (b), started by ``_ddp_ranks`` with torchrun's
+    variables: it joins the gloo group with ``init_distributed``, takes
+    ``steps`` steps of each kind on its shard (2 of CHECK_HW a rank, TF32
+    off) and checks after each that the ranks hold the same modules;
+    rank 0 saves the first step's log vars and averaged gradients."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.apis.train import step_generator
+    from pfst_tpu_torch.parallel import init_distributed
+    from pfst_tpu_torch.parallel.sync_bn import SyncBatchNorm
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.set_num_threads(spec['threads'])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = init_distributed('pytorch', 'gloo', spec['device'])
+    rank = dist.get_rank()
+    out = {}
+    for kind in ('pfgst', 'sync_bn'):
+        cfg, state, step = _ddp_rank_setup(kind, device, dist.group.WORLD)
+        n_sync = sum(isinstance(m, SyncBatchNorm)
+                     for m in state.student.modules())
+        equal = []
+        for i in range(spec['steps']):
+            batch = _train_batch(cfg, 700 + 10 * i + rank, CHECK_HW, device)
+            if kind == 'sync_bn':
+                batch = {k: batch[k] for k in ('img', 'gt_semantic_seg')}
+            state, log_vars = step(state, batch, step_generator(5, i, rank))
+            if i == 0:
+                first = ({k: float(v) for k, v in log_vars.items()},
+                         {k: [g.float() for g in v] for k, v in
+                          _grad_groups(state).items()})
+            equal.append(_replicas_equal(state, dist.group.WORLD))
+        out[kind] = dict(log_vars=first[0], grads=first[1], equal=equal,
+                         sync_bn_layers=n_sync)
+        del state, step
+    if rank == 0:
+        torch.save(out, spec['out'])
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _ddp_ranks(root, name, device, threads, steps):
+    """Start two ranks of ``ddp_rank_main`` (this file, torchrun's
+    variables, ``LOCAL_RANK`` 0 for both so they share ``cuda:0``)."""
+    spec = dict(device=device, threads=threads, steps=steps,
+                out=osp.join(root, f'{name}.pt'))
+    path = osp.join(root, f'{name}.json')
+    with open(path, 'w') as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE='2',
+                   LOCAL_RANK='0', MASTER_ADDR='localhost',
+                   MASTER_PORT=str(port), OMP_NUM_THREADS=str(threads))
+        procs.append(subprocess.Popen(
+            [sys.executable, osp.abspath(__file__), '--ddp-rank', path],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs, spec['out']
+
+
+def _wait(procs, what, timeout=DDP_TIMEOUT_S):
+    """Wait for ``procs``; any that fails, or outlasts ``timeout``, fails
+    the phase with its output (all are stopped)."""
+    try:
+        outs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out)
+            if p.returncode != 0:
+                raise AssertionError(f'[ddp] {what}: a process exited '
+                                     f'{p.returncode}:\n{out[-6000:]}')
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _ddp_card_vs_cpu(card):
+    """(b): two gloo ranks sharing the card against the same two ranks on
+    the CPU (with its threads split between them, and with one thread
+    each), from the same weights, shards and draws: the PFGST step and
+    the OCRNet ``SyncBN`` step, the first step's averaged log vars and
+    gradients within phase 11's bounds; after every step on the card the
+    ranks' modules bitwise equal."""
+    root = tempfile.mkdtemp(prefix='pfst_ddp_b_')
+    threads = max(torch.get_num_threads() // 2, 1)
+    try:
+        t0 = time.time()
+        groups = {side: _ddp_ranks(root, side, device, n, steps)
+                  for side, device, n, steps in (
+                      ('card', 'cuda', threads, DDP_CARD_STEPS),
+                      ('cpu', 'cpu', threads, 1), ('cpu1', 'cpu', 1, 1))}
+        for side, (procs, _) in groups.items():
+            _wait(procs, f'(b) {side} ranks')
+        wall = time.time() - t0
+        res = {side: torch.load(path, weights_only=False)
+               for side, (_, path) in groups.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for kind in ('pfgst', 'sync_bn'):
+        sides = {side: (r[kind]['log_vars'],
+                        {k: [g.double() for g in v]
+                         for k, v in r[kind]['grads'].items()})
+                 for side, r in res.items()}
+        card_res = res['card'][kind]
+        tag = (f'[ddp] (b) {kind}, 2 ranks of 2 x {CHECK_HW} (card: gloo, '
+               f'both on cuda:0; CPU: {threads} threads a rank, cpu1 one)')
+        out[kind] = _check_train_sides(sides, threads, tag)
+        log(f'[ddp] (b) {kind}: ranks bitwise equal after each of '
+            f'{DDP_CARD_STEPS} card steps {card_res["equal"]}; SyncBN '
+            f'layers {card_res["sync_bn_layers"]}')
+        if not all(card_res['equal']) or len(card_res['equal']) != \
+                DDP_CARD_STEPS:
+            raise AssertionError(f'[ddp] (b) {kind}: the card ranks '
+                                 f'diverged: {card_res["equal"]}')
+        if (kind == 'sync_bn') != (card_res['sync_bn_layers'] > 0):
+            raise AssertionError(f'[ddp] (b) {kind}: '
+                                 f'{card_res["sync_bn_layers"]} SyncBN '
+                                 f'layers')
+    log(f'[ddp] (b) wall {wall:.1f} s for the three pairs of ranks on '
+        f'{card}')
+    return out
+
+
+DDP_DRIVER = '''
+"""Run a tool of the port under torchrun and record, for phase 22 (c),
+the similarity kernels' launches and the loop's evaluations."""
+import os, sys
+root, tool, out = sys.argv[1:4]
+sys.path[:0] = [root, os.path.join(root, 'tools')]
+import importlib
+import torch
+import torch.distributed as dist
+from pfst_tpu_torch.apis import train as train_api
+from pfst_tpu_torch.ops import (cuda_neighborhood_similarity as fwd,
+                                cuda_neighborhood_similarity_backward as bwd)
+evals = []
+inner = train_api.multi_gpu_test
+
+
+def recording(*args, **kwargs):
+    results = inner(*args, **kwargs)
+    evals.append(results)
+    return results
+
+
+train_api.multi_gpu_test = recording
+fwd.launches = bwd.launches = 0
+result = importlib.import_module(tool).main(sys.argv[4:])
+# test_torch's metrics on rank 0 (train_torch's is the train state)
+keep = tool == 'test_torch' and dist.get_rank() == 0
+torch.save(dict(launches=(fwd.launches, bwd.launches), evals=evals,
+                result=result if keep else None),
+           f'{out}.rank{dist.get_rank()}')
+dist.destroy_process_group()
+'''
+
+
+def _torchrun(root, tool, args, tag):
+    """``tool`` (train_torch or test_torch) with ``--launcher pytorch``
+    under torchrun, 2 processes on this card; each rank's record."""
+    driver = osp.join(root, 'ddp_driver.py')
+    with open(driver, 'w') as f:
+        f.write(DDP_DRIVER)
+    out = osp.join(root, f'{tool}.record')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node',
+         '2', '--master_port', str(_free_port()), driver, ROOT, tool, out,
+         *args, '--launcher', 'pytorch', '--cfg-options',
+         'dist_params.backend=gloo'], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    text = _wait([proc], tag)[0]
+    return [torch.load(f'{out}.rank{r}', weights_only=False)
+            for r in range(2)], text
+
+
+def _ddp_cli(card, data, loop_s_iter):
+    """(c): ``tools/train_torch.py --launcher pytorch`` under torchrun with
+    two gloo ranks on phase 13's packs (the leaf config at full width,
+    DDP_ITERS iterations, one evaluation through ``multi_gpu_test`` at the
+    end), then ``tools/test_torch.py --launcher pytorch`` on its
+    checkpoint."""
+    from pfst_tpu_torch.apis.train import _build_val
+    from pfst_tpu_torch.apis import single_gpu_test
+    root = tempfile.mkdtemp(prefix='pfst_ddp_c_')
+    try:
+        pots, vaih, _ = data
+        cfg = _loop_config(pots, vaih)
+        cfg.merge_from_dict({'checkpoint_config.interval': DDP_ITERS,
+                             'evaluation.interval': DDP_ITERS})
+        cfg_path = osp.join(root, 'ddp_config.py')
+        cfg.dump(cfg_path)
+        work = osp.join(root, 'work')
+        t0 = time.time()
+        train, text = _torchrun(root, 'train_torch', [
+            cfg_path, '--work-dir', work, '--seed', '0', '--max-iters',
+            str(DDP_ITERS)], '(c) train_torch under torchrun')
+        t_train = time.time() - t0
+        ckpt = osp.join(work, f'iter_{DDP_ITERS}.pth')
+        files = sorted(os.listdir(work))
+        with open(osp.join(work, 'train.log')) as f:
+            train_log = f.read()
+        iters = {int(m.group(1)): m for m in re.finditer(
+            r'Iter \[(\d+)/\d+\] time: ([\d.]+)s data: [\d.]+s  (.*)',
+            train_log)}
+        values = [float(v) for m in iters.values()
+                  for v in re.findall(r': ([^,]+)', m.group(3))]
+        s_iter = statistics.median(float(iters[i].group(2))
+                                   for i in range(3, DDP_ITERS + 1))
+        expected = {'train.log', 'ddp_config.py', f'iter_{DDP_ITERS}.pth'}
+        stamped = [f for f in files if f not in expected]
+        if sorted(iters) != list(range(1, DDP_ITERS + 1)) or \
+                not np.isfinite(values).all():
+            raise AssertionError(f'[ddp] (c) the log lines: {sorted(iters)}, '
+                                 f'finite {np.isfinite(values).all()}')
+        if not expected <= set(files) or len(stamped) != 1 or \
+                not stamped[0].endswith('.log') or \
+                train_log.count('entering train loop') != 1:
+            raise AssertionError(f'[ddp] (c) the work dir is not rank 0\'s '
+                                 f'alone: {files}')
+        for r, rec in enumerate(train):
+            if rec['launches'] != (2 * DDP_ITERS, DDP_ITERS) or \
+                    len(rec['evals']) != 1:
+                raise AssertionError(f'[ddp] (c) rank {r}: similarity '
+                                     f'launches {rec["launches"]}, '
+                                     f'{len(rec["evals"])} evaluations')
+        t0 = time.time()
+        test, _ = _torchrun(root, 'test_torch', [
+            cfg_path, ckpt, '--eval', 'mIoU'], '(c) test_torch under torchrun')
+        t_test = time.time() - t0
+        val = _build_val(cfg)
+        model = init_segmentor(cfg, ckpt)
+        single = single_gpu_test(model, val['loader'], pre_eval=True,
+                                 progress=False)
+        del model
+        torch.cuda.empty_cache()
+        loop = train[0]['evals'][0]
+        same = len(loop) == len(single) and all(
+            all(np.array_equal(np.asarray(x), np.asarray(y))
+                for x, y in zip(a, b)) for a, b in zip(loop, single))
+        miou = val['dataset'].evaluate(single, metric='mIoU')['mIoU']
+        cli_miou = test[0]['result']['mIoU']
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f'[ddp] (c) train_torch --launcher pytorch, 2 gloo ranks sharing '
+        f'one GPU, {DDP_ITERS} iterations of batch 2 a rank at full width: '
+        f'{t_train:.1f} s; every logged loss finite; similarity launches a '
+        f'rank {[r["launches"] for r in train]}; the work dir {files}; '
+        f'in-loop multi_gpu_test histograms equal single_gpu_test\'s on '
+        f'the checkpoint {same} ({len(single)} images); mIoU '
+        f'single_gpu_test {miou} / test_torch --launcher pytorch '
+        f'{cli_miou} ({t_test:.1f} s)')
+    log(f'[ddp] (c) s/iter median past iteration 2 for two processes '
+        f'sharing one GPU (not a multi-GPU speed) {s_iter:.4f}, beside '
+        f'phase 13\'s single-process loop {loop_s_iter:.4f} on {card}')
+    if not same or cli_miou != miou:
+        raise AssertionError(f'[ddp] (c) multi_gpu_test / test_torch '
+                             f'disagree with single_gpu_test: histograms '
+                             f'{same}, mIoU {cli_miou} != {miou}')
+    return dict(s_iter=s_iter, launches=[r['launches'] for r in train],
+                miou=miou)
+
+
+def phase_ddp(card, data, loop_s_iter):
+    """Phase 22: data parallelism on the card, (a), (b) and (c)."""
+    a = _ddp_world_one(Config.fromfile(LEAF), card)
+    b = _ddp_card_vs_cpu(card)
+    c = _ddp_cli(card, data, loop_s_iter)
+    return dict(a=a, b=b, c=c)
+
+
 def timed(fn, *args):
     """``fn(*args)``, its wall seconds kept in ``PHASE_S`` under its name
     without ``phase_``."""
@@ -4543,6 +5064,7 @@ def main():
         tf = timed(phase_transformers, card, data, ab_cases)
         a13 = timed(phase_a13_heads, card)
         timed(phase_quant, card, data)
+        ddp = timed(phase_ddp, card, data, loop['s_iter_median'])
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
@@ -4565,7 +5087,8 @@ def main():
         + sum(r['sim'] for r in a13['serve'].values())
         + loop['launches'][0] + loop['launches_b'][0] + eo_fwd
         + uda['launches'][0] + cfg_fwd + adaptors['launches'][0]
-        + pseudo['launches'][0] + hooks['launches'][0],
+        + pseudo['launches'][0] + hooks['launches'][0]
+        + ddp['a']['launches'][0] + sum(r[0] for r in ddp['c']['launches']),
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
@@ -4580,6 +5103,8 @@ def main():
         launches_pseudo_label_phase=pseudo['launches'][0],
         launches_hooks_phase=hooks['launches'][0],
         launches_a13_phase=sum(r['sim'] for r in a13['serve'].values()),
+        launches_ddp_world_one=ddp['a']['launches'][0],
+        launches_ddp_cli_per_rank=[r[0] for r in ddp['c']['launches']],
         a13_feature_shapes={n: r['sim_shape']
                             for n, r in a13['serve'].items()},
         max_abs_err=max(c['max_abs_err'] for c in cases),
@@ -4592,7 +5117,8 @@ def main():
         replaces='pfst_tpu/ops/pallas_sim.py:112',
         launches=train_bwd + loop['launches'][1] + loop['launches_b'][1]
         + eo_bwd + uda['launches'][1] + cfg_bwd + adaptors['launches'][1]
-        + pseudo['launches'][1] + hooks['launches'][1],
+        + pseudo['launches'][1] + hooks['launches'][1]
+        + ddp['a']['launches'][1] + sum(r[1] for r in ddp['c']['launches']),
         launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
@@ -4606,6 +5132,8 @@ def main():
             for n, r in adaptors['algorithms'].items()},
         launches_pseudo_label_phase=pseudo['launches'][1],
         launches_hooks_phase=hooks['launches'][1],
+        launches_ddp_world_one=ddp['a']['launches'][1],
+        launches_ddp_cli_per_rank=[r[1] for r in ddp['c']['launches']],
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],
@@ -4646,6 +5174,9 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--ddp-rank']:
+        ddp_rank_main(sys.argv[2])
+        sys.exit(0)
     try:
         main()
     except Exception:  # noqa: BLE001 - report the failed phase, exit 1

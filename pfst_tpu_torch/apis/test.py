@@ -6,10 +6,12 @@
 ``make_state_fn`` extracts the feature state (neighborhood similarity of
 the decoded features, reference ``apis/test.py:160-191``) and
 ``single_gpu_test`` runs a dataset through them, whole image by whole
-image, into ``pre_eval`` histograms or label maps. Images are NCHW tensors
-on the model's device; with ``quant_int8`` the forward runs under
-``ops.quant.int8_inference``. The multi-device test waits for ROADMAP
-A14b and spatially sharded inference for A14c.
+image, into ``pre_eval`` histograms or label maps; ``multi_gpu_test``
+spreads the images over the ranks of a process group and gives every
+rank ``single_gpu_test``'s results. Images are NCHW tensors on the
+model's device; with ``quant_int8`` the forward runs under
+``ops.quant.int8_inference``. Spatially sharded inference waits for
+ROADMAP A14c.
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import neighborhood_similarity, resize
 from ..ops.quant import int8_inference
+from ..parallel.mesh import default_group
 from ..utils.logger import get_root_logger, print_log
 
 
@@ -130,17 +134,67 @@ def single_gpu_test(model,
     if spatial:
         raise NotImplementedError('spatially sharded inference is not '
                                   'ported (ROADMAP A14c)')
-    qctx = int8_inference(act_scales=act_scales) if quant_int8 \
-        else contextlib.nullcontext()
-    with qctx:
-        return _single_gpu_test_body(model, data_loader, pre_eval,
-                                     progress, return_states,
-                                     state_proc_cfg)
-
-
-def _single_gpu_test_body(model, data_loader, pre_eval, progress,
-                          return_states, state_proc_cfg):
     dataset = data_loader.dataset
+    with _int8(quant_int8, act_scales):
+        per_image, states = _test_images(
+            model, dataset, range(len(dataset)), pre_eval, progress,
+            return_states, state_proc_cfg)
+    results = [r for chunk in per_image for r in chunk]
+    if return_states:
+        return results, states
+    return results
+
+
+def _int8(quant_int8: bool, act_scales):
+    return int8_inference(act_scales=act_scales) if quant_int8 \
+        else contextlib.nullcontext()
+
+
+def multi_gpu_test(model,
+                   data_loader,
+                   pre_eval: bool = True,
+                   format_only: bool = False,
+                   out_dir: Optional[str] = None,
+                   progress: bool = True,
+                   return_states: bool = False,
+                   state_proc_cfg: Optional[dict] = None,
+                   quant_int8: bool = False,
+                   act_scales: Optional[dict] = None):
+    """``single_gpu_test`` spread over the ranks of the default process
+    group (the reference's ``multi_gpu_test``, ``apis/test.py:194-287``,
+    and the JAX one, ``test.py:237-423``): rank r scores images
+    ``r::world`` of the dataset, and the per-image ``pre_eval`` tuples, or
+    label maps, are gathered back into dataset order on every rank with
+    ``all_gather_object`` (host objects, so it runs on gloo beside CUDA
+    tensors too). The results are ``single_gpu_test``'s, image for image.
+    ``quant_int8`` and ``act_scales`` are as there; ``return_states``
+    (a single-device diagnostic), one process and a group of one rank
+    run ``single_gpu_test``."""
+    group = default_group()
+    world = dist.get_world_size(group) if group is not None else 1
+    if return_states or world == 1:
+        return single_gpu_test(model, data_loader, pre_eval=pre_eval,
+                               format_only=format_only, out_dir=out_dir,
+                               progress=progress,
+                               return_states=return_states,
+                               state_proc_cfg=state_proc_cfg,
+                               quant_int8=quant_int8, act_scales=act_scales)
+    dataset = data_loader.dataset
+    n = len(dataset)
+    rank = dist.get_rank(group)
+    with _int8(quant_int8, act_scales):
+        mine, _ = _test_images(model, dataset, range(rank, n, world),
+                               pre_eval, progress, False, None)
+    shares: List[Any] = [None] * world
+    dist.all_gather_object(shares, mine, group=group)
+    return [r for i in range(n) for r in shares[i % world][i // world]]
+
+
+def _test_images(model, dataset, indices, pre_eval, progress,
+                 return_states, state_proc_cfg):
+    """Images ``indices`` of ``dataset`` through ``model``: a list of each
+    image's results (its ``pre_eval`` tuples, or ``[label map]``), and
+    with ``return_states`` the images' feature states."""
     device = next(model.parameters()).device
     infer = make_inference_fn(model)
     state_fn = make_state_fn(model, state_proc_cfg) if return_states \
@@ -149,7 +203,8 @@ def _single_gpu_test_body(model, data_loader, pre_eval, progress,
     results: List[Any] = []
     logger = get_root_logger()
     t0 = time.time()
-    n = len(dataset)
+    indices = list(indices)
+    n = len(indices)
 
     def fetch(idx):
         sample = dataset[idx]
@@ -158,25 +213,21 @@ def _single_gpu_test_body(model, data_loader, pre_eval, progress,
             imgs, metas = [imgs], [metas]
         return normalize_views(imgs, metas, device), metas
 
-    nxt = fetch(0) if n else None
-    for idx in range(n):
+    nxt = fetch(indices[0]) if n else None
+    for pos, idx in enumerate(indices):
         views, metas = nxt
         view_logits = [infer(v) for v in views]
-        if idx + 1 < n:
-            nxt = fetch(idx + 1)
+        if pos + 1 < n:
+            nxt = fetch(indices[pos + 1])
         pred = _finalize_views(model, view_logits, metas,
                                metas[0]['ori_shape'][:2])
         if state_fn is not None:
             st = state_fn(views[0])
             state_list.append({k: v[0].float().cpu().numpy()
                                for k, v in st.items()})
-        if pre_eval:
-            results.extend(dataset.pre_eval(pred, idx))
-        else:
-            results.append(pred)
-        if progress and (idx + 1) % 50 == 0:
-            rate = (idx + 1) / (time.time() - t0)
-            print_log(f'eval {idx + 1}/{n} ({rate:.1f} img/s)', logger)
-    if return_states:
-        return results, state_list
-    return results
+        results.append(list(dataset.pre_eval(pred, idx)) if pre_eval
+                       else [pred])
+        if progress and (pos + 1) % 50 == 0:
+            rate = (pos + 1) / (time.time() - t0)
+            print_log(f'eval {pos + 1}/{n} ({rate:.1f} img/s)', logger)
+    return results, state_list

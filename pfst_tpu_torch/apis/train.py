@@ -26,8 +26,20 @@ step is traced inside it, a teacher's forward included), and
 ``evaluation.quant_int8`` scores the int8 program (with
 ``evaluation.act_scales``) in the loop's evaluation (``:870-876``).
 
+Under an initialized process group (``parallel.init_distributed``, the
+tools' ``--launcher``) the loop is data-parallel, as the JAX loop is over
+its ``data`` mesh (``train.py:416-456``): each rank trains on its device
+with its ``rank::world`` shard of the loader, ``samples_per_gpu`` a rank;
+the state starts (or resumes) as rank 0's; each step averages the
+gradients, log vars and running statistics over the group
+(``parallel.make_sharded_train_step``); a preemption stops every rank at
+the same iteration, agreed on the log cadence (``train.py:755-770``);
+evaluation runs through ``multi_gpu_test``; and only rank 0 writes
+checkpoints, the log and the hooks' files.
+
 Waiting, and raising ``NotImplementedError`` when a config asks for them:
-``parallel.*`` (tensor, spatial, ZeRO; ROADMAP A14b, A14c);
+``parallel.tp``, ``sp``, ``spw``, ``zero``, ``pp`` and ``ep`` (tensor,
+spatial, ZeRO, pipeline and expert sharding; ROADMAP A14c);
 ``data.decode_cache_mb`` (packs make decoding a one-time cost).
 """
 from __future__ import annotations
@@ -57,9 +69,13 @@ from ..models import build_train_model
 from ..models.uda.pfgst import parse_losses
 from ..models.uda.uda_decorator import UDATrainState, maybe_normalize_images
 from ..ops.quant import qat_context_from_cfg
+from ..parallel import (average_buffers, average_gradients,
+                        average_log_vars, broadcast_state, default_group,
+                        get_dist_info, make_sharded_train_step,
+                        replicas_agree, sync_bn_group)
 from ..utils.logger import get_root_logger, print_log
 from ..utils.misc import resolve_device
-from .test import single_gpu_test
+from .test import multi_gpu_test, single_gpu_test
 
 
 class SupervisedTrainer:
@@ -85,10 +101,15 @@ class SupervisedTrainer:
         return UDATrainState(student=student, teacher=None,
                              optimizer=tx(student), step=0)
 
-    def make_train_step(self, mean, std, collect_vis: bool = False):
+    def make_train_step(self, mean, std, collect_vis: bool = False,
+                        group=None):
         """The train step ``(state, batch, generator) -> (state,
         log_vars)`` (``train.py:216-258``): ``forward_train`` losses,
         backward, optimizer step and ``step + 1``, in place on ``state``.
+        With a process ``group``, one replica's step: ``SyncBN`` spans the
+        group, and the gradients, the log vars and, after the optimizer
+        step, the running statistics are averaged over it
+        (``train.py:242-245``).
         ``batch`` holds ``img`` (NCHW, normalized, or uint8 / float16 on
         the 0-255 scale) and ``gt_semantic_seg`` on the state's device.
         The dropout of the step is seeded from ``generator``, drawn on the
@@ -103,17 +124,21 @@ class SupervisedTrainer:
             seed = int(torch.randint(2**62, (), generator=generator))
             devices = [img.device] if img.device.type == 'cuda' else []
             state.student.train()
-            with torch.random.fork_rng(devices=devices):
+            with torch.random.fork_rng(devices=devices), \
+                    sync_bn_group(group):
                 torch.manual_seed(seed)
                 losses, _ = state.student.forward_train(
                     img, batch['gt_semantic_seg'])
             total, log_vars = parse_losses(losses)
             state.optimizer.zero_grad()
             total.backward()
+            average_gradients(state.optimizer.params, group)
             state.optimizer.step()
+            average_buffers(state.student, group)
             state.step += 1
             log_vars = {k: v.detach() for k, v in log_vars.items()}
             log_vars['loss'] = total.detach()
+            log_vars = average_log_vars(log_vars, group)
             return (state, log_vars, {}) if collect_vis else (state, log_vars)
 
         return step_fn
@@ -146,12 +171,15 @@ def set_random_seed(seed: int, deterministic: bool = False):
         torch.backends.cudnn.benchmark = False
 
 
-def step_generator(seed: int, it: int) -> torch.Generator:
-    """The generator of iteration ``it``'s random numbers, a function of
-    the seed and the iteration (the JAX loop's ``fold_in(rng, it)``), so a
-    resumed run draws what the uninterrupted one does. torch seeds its
-    CPU generator with 32 bits, so the pair is hashed into 32."""
-    state = np.random.SeedSequence([seed, it]).generate_state(1)
+def step_generator(seed: int, it: int, rank: int = 0) -> torch.Generator:
+    """The generator of iteration ``it``'s random numbers on ``rank``, a
+    function of the seed, the iteration and the rank (the JAX loop's
+    ``fold_in(rng, it)`` and its step's ``fold_in(rng, axis_index)``), so
+    a resumed run draws what the uninterrupted one does, each replica its
+    own numbers, and rank 0 those of a single-process run. torch seeds
+    its CPU generator with 32 bits, so the tuple is hashed into 32."""
+    key = [seed, it] + ([rank] if rank else [])
+    state = np.random.SeedSequence(key).generate_state(1)
     return torch.Generator().manual_seed(int(state[0]))
 
 
@@ -202,14 +230,22 @@ def apply_device_normalize(cfg):
     return cfg
 
 
+# the JAX loop's ``cfg.parallel`` options beyond data parallelism
+WAITING_PARALLEL = ('tp', 'sp', 'spw', 'zero', 'pp', 'ep')
+
+
 def _refuse_waiting(cfg):
     """Raise for what the config asks of the JAX loop that the port does
     not do yet; nothing is skipped silently."""
     par = {k: v for k, v in (cfg.get('parallel') or {}).items()
            if v not in (None, 0, 1, False)}
-    if par:
-        raise NotImplementedError(f'parallel {par} is not ported (ROADMAP '
-                                  f'A14b, A14c)')
+    waiting = {k: v for k, v in par.items() if k in WAITING_PARALLEL}
+    if waiting:
+        raise NotImplementedError(f'parallel {waiting} is not ported '
+                                  f'(ROADMAP A14c)')
+    unknown = set(par) - set(WAITING_PARALLEL)
+    if unknown:
+        raise ValueError(f'unknown parallel options {sorted(unknown)}')
     if cfg.data.get('decode_cache_mb'):
         raise NotImplementedError('data.decode_cache_mb is not ported: '
                                   'pack the dataset instead '
@@ -391,11 +427,12 @@ def train_segmentor(cfg,
                     max_iters_override: Optional[int] = None,
                     device: Union[str, torch.device] = 'cuda',
                     history: Optional[List[dict]] = None):
-    """The train loop (``train.py:392-837``, its single-device branch).
+    """The train loop (``train.py:392-837``).
 
-    Runs on ``device`` (the card unless the CPU is asked for). Iteration
-    ``it`` draws its random numbers from ``step_generator(seed, it)``;
-    the pipelines draw from ``np.random``, seeded here. With ``history``
+    Runs on ``device`` (the card unless the CPU is asked for; under a
+    process group, this rank's device). Iteration ``it`` draws its random
+    numbers from ``step_generator(seed, it, rank)``; the pipelines draw
+    from ``np.random``, seeded here with ``seed + rank``. With ``history``
     given, the loop appends a record of each event to it: ``{'kind':
     'batch', 'iter', 'indices'}`` for each batch taken, ``'log'`` (``iter``,
     ``time`` and ``data`` in s/iter over the interval, ``log_vars``),
@@ -403,19 +440,22 @@ def train_segmentor(cfg,
     ``path``) and ``'halt'`` (``iter``: a hook ended training after it).
     Returns the train state."""
     device = resolve_device(device)
-    if work_dir:
+    group = default_group()
+    rank, world = get_dist_info()
+    if work_dir and rank == 0:
         os.makedirs(work_dir, exist_ok=True)
     logger = get_root_logger(
         osp.join(work_dir, 'train.log') if work_dir else None)
     _refuse_waiting(cfg)
-    set_random_seed(seed)
+    set_random_seed(seed + rank)
     apply_device_normalize(cfg)
 
     train_ds = build_dataset(cfg.data['train'])
     loader = build_dataloader(
         train_ds, cfg.data.get('samples_per_gpu', 2),
-        cfg.data.get('workers_per_gpu', 2), shuffle=True, seed=seed,
-        drop_last=True, infinite=True, pin_memory=device.type == 'cuda',
+        cfg.data.get('workers_per_gpu', 2), dist=group is not None,
+        shuffle=True, seed=seed, drop_last=True, infinite=True,
+        pin_memory=device.type == 'cuda',
         use_processes=cfg.data.get('use_processes', False))
     max_iters = max_iters_override or cfg.runner['max_iters']
     algo = build_algorithm(cfg, device=device)
@@ -453,16 +493,22 @@ def train_segmentor(cfg,
                                             logger)
             print_log(f'loaded weights from {load_from} (optimizer/step '
                       f'fresh)', logger)
+    broadcast_state(state, group)
 
     log_interval = (cfg.get('log_config') or {}).get('interval', 50)
     ckpt_interval = (cfg.get('checkpoint_config') or {}).get('interval',
                                                              4000)
     eval_cfg = cfg.get('evaluation') or {}
     eval_interval = eval_cfg.get('interval', 4000)
-    hooks = build_hooks(cfg, logger)
+    # the writers act on rank 0; a hook that every rank must run (one
+    # that halts training) says so with ``all_ranks``
+    hooks = [h for h in build_hooks(cfg, logger)
+             if rank == 0 or getattr(h, 'all_ranks', False)]
     collect_vis = any(type(h).__name__ in VIS_HOOKS for h in hooks)
-    step_fn = algo.make_train_step(norm['mean'], norm['std'],
-                                   collect_vis=collect_vis)
+    step_fn = algo.make_train_step(
+        norm['mean'], norm['std'], collect_vis=collect_vis) \
+        if group is None else make_sharded_train_step(
+            algo, norm['mean'], norm['std'], group, collect_vis=collect_vis)
     ctx = {'work_dir': work_dir, 'iter': start_iter, 'algo': algo,
            'palette': getattr(train_ds, 'PALETTE', None),
            'source_dataset': getattr(train_ds, 'source', train_ds),
@@ -477,7 +523,7 @@ def train_segmentor(cfg,
     # preemption: SIGTERM / SIGUSR1 ask for a checkpoint and a clean exit
     # at the next iteration boundary (handlers install only in the main
     # thread)
-    preempt = {'sig': None}
+    preempt = {'sig': None, 'vote': False}
     old_handlers = {}
     if work_dir and threading.current_thread() is threading.main_thread():
         def on_preempt(sig, frame):
@@ -509,7 +555,7 @@ def train_segmentor(cfg,
             tensors = _normalize_on_device(batch.wait(), batch.metas,
                                            norm['mean'], norm['std'])
             with qat_ctx():
-                out = step_fn(state, tensors, step_generator(seed, it))
+                out = step_fn(state, tensors, step_generator(seed, it, rank))
             state, log_vars = out[:2]
             vis_states = out[2] if collect_vis else None
             if (it + 1) % log_interval == 0:
@@ -542,9 +588,18 @@ def train_segmentor(cfg,
                 record('halt', iter=it + 1)
                 halted = True
                 break
-            if work_dir and preempt['sig'] is not None:
+            stop = preempt['sig'] is not None
+            if group is not None:
+                # the ranks agree on the stop iteration: a vote on the log
+                # cadence (``train.py:755-770``)
+                stop = work_dir is not None and \
+                    (it + 1) % log_interval == 0 and \
+                    replicas_agree(stop, group)
+            if work_dir and stop:
+                preempt['vote'] = True
                 checkpoint(it + 1)
-                print_log(f'preemption signal {preempt["sig"]}: exiting '
+                print_log(f'preemption signal '
+                          f'{preempt["sig"] or "(peer vote)"}: exiting '
                           f'(auto_resume continues from here)', logger)
                 break
             if work_dir and (it + 1) % ckpt_interval == 0:
@@ -571,7 +626,10 @@ def train_segmentor(cfg,
         loader.close()
         for s, h in old_handlers.items():
             signal.signal(s, h)
-    if work_dir and preempt['sig'] is None and \
+    # the ranks of a group skip the last checkpoint together
+    preempted = preempt['vote'] if group is not None \
+        else preempt['sig'] is not None
+    if work_dir and not preempted and \
             (state.step % ckpt_interval != 0 or halted):
         # a halted iteration's own checkpoint did not run
         checkpoint(state.step)
@@ -601,12 +659,15 @@ def evaluate_during_train(val: dict, state, eval_cfg: dict, logger=None):
     """The student on the validation set, in eval mode, whole image by
     whole image (the EvalHook, ``eval_hooks.py:45-133``), as int8 with
     ``eval_cfg``'s ``quant_int8`` (and ``act_scales``); returns the
-    dataset's ``evaluate`` metrics."""
+    dataset's ``evaluate`` metrics. Under a process group of more than
+    one rank each rank scores its share through ``multi_gpu_test``
+    (``train.py:876-882``), and every rank gets every metric."""
     student = state.student
     was_training = student.training
     student.eval()
+    test_fn = multi_gpu_test if get_dist_info()[1] > 1 else single_gpu_test
     try:
-        results = single_gpu_test(
+        results = test_fn(
             student, val['loader'], pre_eval=True,
             quant_int8=bool(eval_cfg.get('quant_int8')),
             act_scales=eval_cfg.get('act_scales'))

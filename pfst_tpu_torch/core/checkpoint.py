@@ -32,7 +32,9 @@ import re
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import get_dist_info
 from ..utils.logger import print_log
 
 
@@ -72,14 +74,25 @@ def save_checkpoint(work_dir: str, step: int, state,
                     meta: Optional[Dict] = None) -> str:
     """Write the whole train state (student, teacher, optimizer moments,
     LR schedule position and step) to ``{work_dir}/iter_<step>.pth``; the
-    file appears whole or not at all."""
+    file appears whole or not at all. Under a process group every rank
+    calls it: rank 0 writes (the replicas hold the same state), and all
+    pass a barrier after, so none reads a file that is not there yet."""
+    rank, world = get_dist_info()
+    path = checkpoint_path(work_dir, step)
+    if rank == 0:
+        _write(work_dir, path, state, step, meta)
+    if world > 1:
+        dist.barrier()
+    return path
+
+
+def _write(work_dir, path, state, step, meta):
     os.makedirs(work_dir, exist_ok=True)
     obj = {'meta': {**(meta or {}), 'iter': int(step)},
            'state_dict': state_dict_of(state), **_optimizer_entry(
                state.optimizer)}
     if getattr(state, 'disc_optimizer', None) is not None:
         obj['disc_optimizer'] = _optimizer_entry(state.disc_optimizer)
-    path = checkpoint_path(work_dir, step)
     tmp = f'{path}.tmp{os.getpid()}'
     try:
         torch.save(obj, tmp)
@@ -87,7 +100,6 @@ def save_checkpoint(work_dir: str, step: int, state,
     finally:
         if osp.exists(tmp):
             os.remove(tmp)
-    return path
 
 
 def _optimizer_entry(opt) -> Dict:

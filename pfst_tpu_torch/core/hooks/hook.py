@@ -6,6 +6,8 @@ runner object, no priorities. ``train_segmentor`` builds the hooks of
 ``log_config.hooks`` and ``custom_hooks`` and passes each call a ``ctx``
 dict with ``work_dir``, ``iter``, ``algo``, ``palette``,
 ``source_dataset``, ``cfg`` and, once a step has run, ``state``.
+A hook that ends training (``_StopTraining``) must end it on every rank
+of a process group: it sets ``all_ranks``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,11 @@ def build_hook(cfg):
 
 
 class Hook:
-    """Override any subset; all receive plain dicts."""
+    """Override any subset; all receive plain dicts. Under a process
+    group the loop calls a hook on rank 0 alone (the writers: log,
+    TensorBoard, W&B, profiler, plots) unless it sets ``all_ranks``."""
+
+    all_ranks = False
 
     def before_run(self, ctx: Dict[str, Any]):
         pass

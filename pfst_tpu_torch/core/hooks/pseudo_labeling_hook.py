@@ -16,6 +16,9 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
+
+from ...parallel.mesh import get_dist_info
 from ..checkpoint import find_latest_checkpoint
 from .hook import HOOKS, Hook
 
@@ -46,7 +49,17 @@ class PseudoLabelingHookV4(Hook):
         self.target_mean_sim = target_mean_sim
         self.trigger_iter = int(trigger_iter)
 
+    # every rank halts at ``trigger_iter``; rank 0 writes the corpus
+    all_ranks = True
+
     def _generate(self, ctx: Dict[str, Any]):
+        rank, world = get_dist_info()
+        if rank == 0:
+            self._write_corpus(ctx)
+        if world > 1:
+            torch.distributed.barrier()
+
+    def _write_corpus(self, ctx: Dict[str, Any]):
         from ...apis.pseudo_labels import generate_pseudo_labels
         work_dir = ctx.get('work_dir') or '.'
         ckpt = find_latest_checkpoint(work_dir)

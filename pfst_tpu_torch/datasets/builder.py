@@ -288,6 +288,8 @@ class DataLoader:
 def build_dataloader(dataset,
                      samples_per_gpu,
                      workers_per_gpu,
+                     num_gpus=1,
+                     dist=False,
                      shuffle=True,
                      seed=None,
                      drop_last=False,
@@ -297,12 +299,18 @@ def build_dataloader(dataset,
                      infinite=False,
                      use_processes=False,
                      **kwargs):
-    """Public builder (signature mirrors ``datasets/builder.py:100``);
-    multi-device arguments (``dist``, ``num_gpus`` above 1) wait for
-    ROADMAP A14."""
-    if kwargs.get('dist') or kwargs.get('num_gpus', 1) > 1:
-        raise NotImplementedError('multi-device loading is not ported '
-                                  '(ROADMAP A14)')
+    """Public builder (signature mirrors ``datasets/builder.py:100``),
+    with mmseg's meaning of ``dist`` and ``num_gpus``: with ``dist`` each
+    rank of the default process group draws ``samples_per_gpu`` from its
+    ``rank::world_size`` shard of the seeded permutation; without it,
+    ``num_gpus`` multiplies the batch and the workers of one loader
+    (``rank`` and ``world_size`` shard it by hand)."""
+    if dist:
+        from ..parallel.mesh import get_dist_info
+        rank, world_size = get_dist_info()
+    else:
+        samples_per_gpu *= num_gpus
+        workers_per_gpu *= num_gpus
     return DataLoader(
         dataset,
         samples_per_gpu=samples_per_gpu,

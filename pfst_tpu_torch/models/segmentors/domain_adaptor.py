@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 
 from ...ops import resize
+from ...parallel import (average_buffers, average_gradients,
+                         average_log_vars, sync_bn_group)
 from ...utils.misc import add_prefix
 from ..builder import (SEGMENTORS, build_discriminator, build_loss,
                        build_segmentor)
@@ -128,7 +130,8 @@ class _DomainAdaptorBase:
         log vars."""
         raise NotImplementedError
 
-    def make_train_step(self, mean, std, collect_vis: bool = False):
+    def make_train_step(self, mean, std, collect_vis: bool = False,
+                        group=None):
         """The train step ``(state, batch, generator) -> (state, log_vars)``
         (``domain_adaptor.py:118-215``): the losses, backward, optimizer
         step and ``step + 1``, in place on ``state``. ``batch`` holds NCHW
@@ -136,7 +139,10 @@ class _DomainAdaptorBase:
         float16 on the 0-255 scale); ``log_vars`` are 0-dim tensors on the
         device. With ``collect_vis`` the step returns ``(state, log_vars,
         {})``: the JAX adaptors give no visualisation states
-        (``domain_adaptor.py:212``)."""
+        (``domain_adaptor.py:212``). With a process ``group``, one
+        replica's step: ``SyncBN`` spans the group, and the gradients, the
+        log vars and, after the optimizer step, the running statistics are
+        averaged over it (``domain_adaptor.py:202-205``)."""
 
         def step_fn(state, batch: dict, generator: torch.Generator):
             batch = maybe_normalize_images(batch, mean, std)
@@ -144,15 +150,19 @@ class _DomainAdaptorBase:
             img = domain_batch(batch)[0]
             devices = [img.device] if img.device.type == 'cuda' else []
             state.student.train()
-            with torch.random.fork_rng(devices=devices):
+            with torch.random.fork_rng(devices=devices), \
+                    sync_bn_group(group):
                 torch.manual_seed(seed)
                 total, log_vars = self.forward_train(state, batch)
             state.optimizer.zero_grad()
             total.backward()
+            average_gradients(state.optimizer.params, group)
             state.optimizer.step()
+            average_buffers(state.student, group)
             state.step += 1
             log_vars = {k: v.detach() for k, v in log_vars.items()}
             log_vars['loss'] = total.detach()
+            log_vars = average_log_vars(log_vars, group)
             return (state, log_vars, {}) if collect_vis else (state, log_vars)
 
         return step_fn
@@ -233,11 +243,16 @@ class DomainAdaptorAdv(_DomainAdaptorBase):
                              discriminator=disc,
                              disc_optimizer=tx_disc(disc))
 
-    def make_train_step(self, mean, std, collect_vis: bool = False):
+    def make_train_step(self, mean, std, collect_vis: bool = False,
+                        group=None):
         """The train step (``domain_adaptor.py:280-396``), in place on
         ``state``: both optimizers step, the discriminator's first. With
         ``collect_vis`` it returns ``(state, log_vars, {})``
-        (``domain_adaptor.py:393``)."""
+        (``domain_adaptor.py:393``). With a process ``group`` each
+        optimizer steps on gradients averaged over it (the
+        discriminator's, ``:353-354``, then the generator's, ``:380-383``),
+        and the log vars and the student's running statistics are
+        averaged too."""
 
         def step_fn(state: AdvTrainState, batch: dict,
                     generator: torch.Generator):
@@ -248,7 +263,8 @@ class DomainAdaptorAdv(_DomainAdaptorBase):
                 else []
             student, disc = state.student, state.discriminator
             student.train()
-            with torch.random.fork_rng(devices=devices):
+            with torch.random.fork_rng(devices=devices), \
+                    sync_bn_group(group):
                 torch.manual_seed(seed)
                 l_src, st_src = student.forward_train(img_src, gt_src)
                 out_trg = student(img_trg)
@@ -270,6 +286,7 @@ class DomainAdaptorAdv(_DomainAdaptorBase):
             state.disc_optimizer.zero_grad()
             if isinstance(d_total, torch.Tensor):
                 d_total.backward()
+            average_gradients(state.disc_optimizer.params, group)
             state.disc_optimizer.step()
 
             # the generator against the updated discriminator, frozen
@@ -286,13 +303,16 @@ class DomainAdaptorAdv(_DomainAdaptorBase):
                     p.requires_grad_(True)
             state.optimizer.zero_grad()
             total.backward()
+            average_gradients(state.optimizer.params, group)
             state.optimizer.step()
+            average_buffers(state.student, group)
             state.step += 1
             log_vars.update(d_log)
             log_vars = {k: v.detach() for k, v in log_vars.items()}
             log_vars['loss'] = total.detach() + (
                 d_total.detach() if isinstance(d_total, torch.Tensor)
                 else d_total)
+            log_vars = average_log_vars(log_vars, group)
             return (state, log_vars, {}) if collect_vis else (state, log_vars)
 
         return step_fn

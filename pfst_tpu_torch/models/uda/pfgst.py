@@ -39,6 +39,8 @@ from typing import Dict
 import torch
 
 from ...ops import resize
+from ...parallel import (average_buffers, average_gradients,
+                         average_log_vars, sync_bn_group)
 from ...utils.misc import add_prefix
 from ..builder import UDA, build_loss
 from ..losses.utils import masked_mean
@@ -346,10 +348,16 @@ class PFGST(UDADecorator):
         return total, dict(log_vars=log_vars, vis_states=vis_states)
 
     # ------------------------------------------------------------------
-    def make_train_step(self, mean, std, collect_vis: bool = False):
+    def make_train_step(self, mean, std, collect_vis: bool = False,
+                        group=None):
         """The train step ``(state, batch, generator, premix=None) ->
         (state, log_vars)`` (``pfgst.py:523-578``): EMA update, loss,
         backward, optimizer step, ``step + 1``, all in place on ``state``.
+        With a process ``group`` it is one replica's step (``axis_name``
+        of the JAX step): ``SyncBN`` spans the group, and after the whole
+        backward the gradients, then the log vars, are averaged over it,
+        and after the optimizer step the student's running statistics;
+        ``grad_mag`` is this replica's, averaged as a log var.
         ``batch`` holds NCHW tensors on the state's device (images
         normalized, or uint8 / float16 on the 0-255 scale); ``log_vars``
         are 0-dim tensors on that device, so the step does not wait for
@@ -362,9 +370,10 @@ class PFGST(UDADecorator):
             batch = maybe_normalize_images(batch, mean, std)
             draws = self.sample_draws(generator, batch['img'].shape[0])
             self.ema_update(state, self.alpha)
-            total, aux = self.forward_train(state, batch, draws, mean, std,
-                                            premix=premix,
-                                            collect_vis=collect_vis)
+            with sync_bn_group(group):
+                total, aux = self.forward_train(
+                    state, batch, draws, mean, std, premix=premix,
+                    collect_vis=collect_vis)
             state.optimizer.zero_grad()
             total.backward()
             log_vars = {k: v.detach() for k, v in aux['log_vars'].items()}
@@ -376,7 +385,11 @@ class PFGST(UDADecorator):
                          if p.grad is not None]
                 log_vars['grad_mag'] = torch.linalg.vector_norm(
                     torch.stack(torch._foreach_norm(grads)))
+            # ``pfgst.py:563-568``
+            average_gradients(state.optimizer.params, group)
+            log_vars = average_log_vars(log_vars, group)
             state.optimizer.step()
+            average_buffers(state.student, group)
             state.step += 1
             if collect_vis:
                 return state, log_vars, aux['vis_states']

@@ -5,9 +5,10 @@ mmcv's ``ConvModule`` / ``DepthwiseSeparableConvModule`` with mmcv's
 attribute names (``conv``, then ``bn``/``gn``/``ln``/``in`` for the
 norm), so state dicts carry the rsiseg key names. Norms follow the
 ``norm_cfg`` dicts: ``BN`` is batch norm with torch momentum 0.1 and
-eps 1e-5; ``SyncBN`` is the same layer on one device; ``GN``, ``LN``
-(over channels, per pixel) and ``IN`` (one channel per group) are as in
-the JAX file.
+eps 1e-5; ``SyncBN`` is ``parallel.SyncBatchNorm``, the same layer
+whose train-mode statistics span the replicas of a data-parallel step;
+``GN``, ``LN`` (over channels, per pixel) and ``IN`` (one channel per
+group) are as in the JAX file.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ...parallel.sync_bn import SyncBatchNorm
 
 _NORM_NAMES = {'BN': 'bn', 'BN2d': 'bn', 'SyncBN': 'bn', 'GN': 'gn',
                'LN': 'ln', 'IN': 'in', 'none': 'norm', None: 'norm'}
@@ -103,8 +106,9 @@ def Norm(features: int, norm_cfg: Optional[dict] = None) -> nn.Module:
     kind = cfg.pop('type', 'BN')
     requires_grad = cfg.pop('requires_grad', True)
     if kind in ('BN', 'BN2d', 'SyncBN'):
-        layer = nn.BatchNorm2d(features, eps=cfg.pop('eps', 1e-5),
-                               momentum=cfg.pop('momentum', 0.1))
+        cls = SyncBatchNorm if kind == 'SyncBN' else nn.BatchNorm2d
+        layer = cls(features, eps=cfg.pop('eps', 1e-5),
+                    momentum=cfg.pop('momentum', 0.1))
     elif kind == 'GN':
         layer = nn.GroupNorm(cfg.pop('num_groups', 32), features,
                              eps=cfg.pop('eps', 1e-5))

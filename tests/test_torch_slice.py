@@ -158,8 +158,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     LR-ASPP head and ICNet's neck, the attention and context heads, the
     PSA mask, the encoding layer and the JPU, the cascade, point sampling,
     the pixel sampler, the Dice, focal and Lovasz losses, quantization,
-    BN folding, ResNeXt, ResNeSt and the timm adapter, evaluation,
-    checkpoint and
+    BN folding, ResNeXt, ResNeSt and the timm adapter, data parallelism
+    (``parallel``: the group, the sharded step's collectives, SyncBN,
+    the sharded slide inference), evaluation, checkpoint and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
     design) and chip_smoke.py, in a fresh process: none of jax, flax,
@@ -219,7 +220,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'models.losses.lovasz_loss', 'models.backbones.resnet',",
         "          'ops.quant', 'core.fold_bn', 'models.backbones.resnext',",
         "          'models.backbones.resnest',",
-        "          'models.backbones.timm_backbone'):",
+        "          'models.backbones.timm_backbone', 'parallel',",
+        "          'parallel.mesh', 'parallel.sync_bn', 'parallel.slide'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

@@ -21,10 +21,18 @@ with ``--act-scales`` a JSON table of ``tools/calibrate_int8_torch.py`` or
     python tools/test_torch.py <config> <checkpoint> --eval mIoU \
         --quant-int8 --act-scales scales.json
 
-Spatial sharding and the launcher wait for ROADMAP A14b and A14c.
+With ``--launcher pytorch`` (torchrun, or ``tools/dist_test_torch.sh``)
+or ``slurm`` each rank scores its share of the images through
+``multi_gpu_test`` and rank 0 reports::
+
+    torchrun --nproc_per_node 8 tools/test_torch.py <config> <checkpoint> \
+        --eval mIoU --launcher pytorch
+
+Spatial sharding waits for ROADMAP A14c.
 """
 import argparse
 import json
+import os
 import os.path as osp
 import sys
 
@@ -66,6 +74,13 @@ def parse_args(args=None):
                              'scale and normalize them there')
     parser.add_argument('--device', default='cuda',
                         help='torch device (default: the card)')
+    parser.add_argument('--launcher', default='none',
+                        choices=['none', 'pytorch', 'slurm'],
+                        help='join the process group of torchrun '
+                             '(pytorch) or srun (slurm)')
+    parser.add_argument('--local_rank', '--local-rank', type=int,
+                        default=None, help='set by torch.distributed.'
+                        'launch; read as LOCAL_RANK')
     return parser.parse_args(args)
 
 
@@ -74,12 +89,20 @@ def main(args=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
+    if args.local_rank is not None:
+        os.environ.setdefault('LOCAL_RANK', str(args.local_rank))
+    from pfst_tpu_torch.parallel import get_dist_info, init_distributed
+    device = init_distributed(
+        args.launcher, (cfg.get('dist_params') or {}).get('backend'),
+        args.device) if args.launcher != 'none' else args.device
+    rank, world = get_dist_info()
     logger = get_root_logger()
     if args.aug_test:
         tta = cfg.data['test']['pipeline'][1]
         tta['img_ratios'] = [0.5, 0.75, 1.0, 1.25, 1.5, 1.75]
         tta['flip'] = True
-    from pfst_tpu_torch.apis import init_segmentor, single_gpu_test
+    from pfst_tpu_torch.apis import (init_segmentor, multi_gpu_test,
+                                     single_gpu_test)
     from pfst_tpu_torch.datasets import build_dataloader, build_dataset
     from pfst_tpu_torch.datasets.pipelines import DeferNormalize
     if args.device_normalize and DeferNormalize.swap_into(
@@ -90,16 +113,19 @@ def main(args=None):
     dataset = build_dataset({**cfg.data['test'], 'test_mode': True})
     loader = build_dataloader(dataset, 1, cfg.data.get('workers_per_gpu', 2),
                               shuffle=False)
-    model = init_segmentor(cfg, args.checkpoint, device=args.device)
+    model = init_segmentor(cfg, args.checkpoint, device=device)
     extra = {}
     if args.quant_int8:
         extra['quant_int8'] = True
         if args.act_scales:
             with open(args.act_scales) as f:
                 extra['act_scales'] = json.load(f)
-    results = single_gpu_test(
+    test_fn = multi_gpu_test if world > 1 else single_gpu_test
+    results = test_fn(
         model, loader, pre_eval=bool(args.eval) and not args.format_only,
         format_only=args.format_only, out_dir=args.show_dir, **extra)
+    if rank > 0:
+        return results
     if args.format_only:
         files = dataset.format_results(results, args.imgfile_prefix)
         logger.info(f'{len(files)} result maps written to '
@@ -116,4 +142,9 @@ def main(args=None):
 
 
 if __name__ == '__main__':
-    main()
+    import torch.distributed as dist
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -4,10 +4,23 @@
 
     python tools/train_torch.py <config> [--work-dir D] [--resume-from C]
         [--auto-resume] [--seed N] [--max-iters N] [--cfg-options k=v ...]
+        [--launcher {none,pytorch,slurm}]
 
 Runs on the card unless ``--device cpu``. Checkpoints are
-``<work-dir>/iter_<N>.pth``. Multi-device training (the JAX tool's
-launcher, ``--tp``, ``--sp``, ``--zero``) waits for ROADMAP A14.
+``<work-dir>/iter_<N>.pth``. Data-parallel training runs one process a
+GPU, each joining the process group of its launcher
+(``pfst_tpu_torch.parallel.init_distributed``) with the backend of the
+config's ``dist_params.backend`` (``'xla'``, the shipped default, is NCCL
+on the card, gloo on the CPU)::
+
+    torchrun --nproc_per_node 8 tools/train_torch.py <config> \
+        --launcher pytorch          # or tools/dist_train_torch.sh <config> 8
+    srun --ntasks 8 --gres gpu:8 python tools/train_torch.py <config> \
+        --launcher slurm
+
+``samples_per_gpu`` is each rank's batch. Tensor, spatial and ZeRO
+sharding (the JAX tool's ``--tp``, ``--sp``, ``--zero``) wait for ROADMAP
+A14c.
 """
 import argparse
 import os
@@ -39,6 +52,13 @@ def parse_args(args=None):
                         help='override config entries key=value')
     parser.add_argument('--device', default='cuda',
                         help='torch device (default: the card)')
+    parser.add_argument('--launcher', default='none',
+                        choices=['none', 'pytorch', 'slurm'],
+                        help='join the process group of torchrun '
+                             '(pytorch) or srun (slurm)')
+    parser.add_argument('--local_rank', '--local-rank', type=int,
+                        default=None, help='set by torch.distributed.'
+                        'launch; read as LOCAL_RANK')
     return parser.parse_args(args)
 
 
@@ -47,12 +67,20 @@ def main(args=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
+    if args.local_rank is not None:
+        os.environ.setdefault('LOCAL_RANK', str(args.local_rank))
+    from pfst_tpu_torch.parallel import get_dist_info, init_distributed
+    device = init_distributed(
+        args.launcher, (cfg.get('dist_params') or {}).get('backend'),
+        args.device) if args.launcher != 'none' else args.device
+    rank, world = get_dist_info()
     work_dir = args.work_dir or cfg.get('work_dir') or osp.join(
         'work_dirs', osp.splitext(osp.basename(args.config))[0])
-    os.makedirs(work_dir, exist_ok=True)
     timestamp = time.strftime('%Y%m%d_%H%M%S', time.localtime())
+    if rank == 0:
+        os.makedirs(work_dir, exist_ok=True)
+        cfg.dump(osp.join(work_dir, osp.basename(args.config)))
     logger = get_root_logger(osp.join(work_dir, f'{timestamp}.log'))
-    cfg.dump(osp.join(work_dir, osp.basename(args.config)))
 
     from pfst_tpu_torch.apis import set_random_seed, train_segmentor
     from pfst_tpu_torch.utils.collect_env import collect_env
@@ -62,7 +90,8 @@ def main(args=None):
     env_info = '\n'.join(f'{k}: {v}' for k, v in collect_env().items())
     logger.info('Environment info:\n' + '-' * 40 + f'\n{env_info}\n' +
                 '-' * 40)
-    logger.info(f'device {args.device} seed {seed}')
+    logger.info(f'device {device} seed {seed} launcher {args.launcher} '
+                f'world size {world}')
     logger.info(f'Config:\n{cfg.dump()}')
     if args.deterministic:
         set_random_seed(seed, deterministic=True)
@@ -78,8 +107,13 @@ def main(args=None):
         seed=seed,
         meta=meta,
         max_iters_override=args.max_iters,
-        device=args.device)
+        device=device)
 
 
 if __name__ == '__main__':
-    main()
+    import torch.distributed as dist
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
