@@ -231,7 +231,11 @@ Phases (any failure exits non-zero before the result lines):
    steps with the SE loss) and FastFCN (JPU and PSP head);
    UNet-DeepLabV3, HRNet, ConvNeXt (drop path off there), LR-ASPP,
    ICNet, DANet, EncNet, EMANet, CCNet and PSANet card against CPU (the
-   heads' 0-d ``gamma``s at 0.1 there); then the cascades, K-Net and STDC
+   heads' 0-d ``gamma``s at 0.1 there; every card-against-CPU step of
+   this phase at reduced depth, widths unchanged: ViTs of 2 layers (4 for
+   SETR-PUP's four taps), one block a stage of the ResNets, MiT, PCPVT
+   and ConvNeXt, one a branch of HRNet, one conv a UNet stage); then the
+   cascades, K-Net and STDC
    the same way at 512^2: OCRNet on HRNet-W18 (features at 1/4) and on
    the ResNetV1c-50-D8 (1/8), PointRend on the ResNet-50 FPN (1/4; its
    requests refine the 2048 most uncertain coarse logits, its steps take
@@ -288,6 +292,29 @@ Phases (any failure exits non-zero before the result lines):
    checkpoint and ``tools/test_torch.py --launcher pytorch``'s mIoU
    equal to its, s/iter of the two processes sharing one GPU beside
    phase 13's;
+23. the sharded modes on two gloo ranks sharing the card (this file with
+   ``--gspmd-rank``; the operations gloo stages through pinned host
+   memory printed): (a) tensor parallelism, ``upernet_vit-b16_ln_mln`` at
+   512^2, batch 2, tp 2 (6 heads a rank on the flash kernels), 3 fp32
+   steps and one bf16 step against the single-process steps on the card
+   (TF32 off): log vars within rtol 1e-3 and step 1's gradients within
+   phase 11's bounds, the model ranks' replicated leaves bitwise equal
+   after every step; (b) ZeRO-1 and ZeRO-3, the leaf config's PFGST step
+   at 512^2 with one image a data rank against the single-process step at
+   batch 2 (dropout off), phase 11's bounds, the AdamW moments' (and at
+   level 3 the student's and teacher's) bytes a rank against whole, each
+   run's peak allocation, the similarity launches a rank; (c) spatial
+   inference of a 1024^2 request of the leaf config over the two ranks
+   against the whole-image forward (logits within 1e-4 of the largest,
+   labels equal where the top-2 margin exceeds that), then
+   ``tools/test_torch.py --spatial 2 --launcher pytorch`` under torchrun
+   on phase 13's packs with ``single_gpu_test``'s mIoU; (d) GPipe of
+   ViT-B's 12 blocks as 2 stages of 6 at (4, 1025, 768) in 4
+   microbatches against the blocks in sequence (output, input and
+   parameter gradients within 1e-4 of the largest), and the MoE of 2
+   ViT-B MLP experts on 1025 tokens a rank at ample capacity against the
+   dense computation (1e-5) and at capacity factor 0.5 (the dropped
+   tokens zero);
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -542,6 +569,12 @@ OHEM_SHAPE, OHEM_CFG = (2, 19, 512, 512), dict(thresh=0.7, min_kept=10000)
 # backbone settings of the card-against-CPU step: ConvNeXt-B's drop path
 # (0.4 over 36 blocks) would drop some branch for both images of the batch
 A13_CHECK_BACKBONE = {'upernet_convnext': dict(drop_path_rate=0.0)}
+# phase 20's card-against-CPU steps run at this depth, every width as the
+# def has it: ViTs of CHECK_VIT_LAYERS layers or as many as they tap (the
+# last taps kept), one block a stage of ResNet-50/101, MiT, PCPVT and
+# ConvNeXt, one block a branch of HRNet, one conv a UNet stage
+# (``_check_depth``, ``_shallow_resnets``)
+CHECK_VIT_LAYERS = 2
 MODEL_DEFS = osp.join(ROOT, 'configs', '_base_', 'models')
 # phase 21: the qat leaf config, (a)'s and (b)'s request, (c)'s crops and
 # (d)'s iterations with their resume point
@@ -4048,8 +4081,10 @@ def phase_a13_heads(card):
         # phase 11's check (a ResNet's blocks at phase 8's BN scale)
         cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'), dropout=False)
         cfg.model['backbone'].update(A13_CHECK_BACKBONE.get(name, {}))
-        checked[name] = _supervised_card_vs_cpu(cfg, TF_CHECK_HW,
-                                                f'[a13 card-vs-cpu {name}]')
+        _check_depth(cfg.model['backbone'])
+        with _shallow_resnets():
+            checked[name] = _supervised_card_vs_cpu(
+                cfg, TF_CHECK_HW, f'[a13 card-vs-cpu {name}]')
         def_s[f'{name} card-vs-cpu'] = round(time.time() - t_def, 1)
     t_def = time.time()
     ohem = _ohem_card_vs_cpu(card)
@@ -4068,6 +4103,48 @@ def phase_a13_heads(card):
         f'{card}')
     return dict(serve=serve, train=train, launches=launches, a17=a17,
                 ohem=ohem, checked=checked)
+
+
+def _check_depth(backbone):
+    """``backbone`` (a config) at the card-against-CPU steps' depth, its
+    widths as they are: a ViT of CHECK_VIT_LAYERS layers (or as many as it
+    taps) tapping its last ones, one block a stage of MiT, PCPVT and
+    ConvNeXt, one block a branch of HRNet, one conv a UNet stage; other
+    backbones as they stand (ResNets: ``_shallow_resnets``)."""
+    kind = backbone['type']
+    if kind == 'VisionTransformer':
+        n = len(backbone.get('out_indices', (11,)))
+        layers = max(n, CHECK_VIT_LAYERS)
+        backbone.update(num_layers=layers, out_indices=tuple(
+            range(layers - n, layers)))
+    elif kind == 'UNet':
+        for key in ('enc_num_convs', 'dec_num_convs'):
+            backbone[key] = (1,) * len(backbone[key])
+    elif kind in ('MixVisionTransformer', 'MiT'):
+        backbone['num_layers'] = (1,) * len(backbone['num_layers'])
+    elif 'depths' in backbone:
+        backbone['depths'] = (1,) * len(backbone['depths'])
+    elif kind == 'ConvNeXt':
+        from pfst_tpu_torch.models.backbones.convnext import ARCH
+        spec = dict(ARCH[backbone['arch']])
+        backbone['arch'] = dict(spec, depths=(1,) * len(spec['depths']))
+    elif kind == 'HRNet':
+        for stage in backbone['extra'].values():
+            stage['num_blocks'] = (1,) * len(stage['num_blocks'])
+
+
+@contextlib.contextmanager
+def _shallow_resnets():
+    """ResNet-50 and -101 (their bottleneck widths) with one block a stage
+    while the context is open."""
+    from pfst_tpu_torch.models.backbones.resnet import ResNet
+    saved = ResNet.arch_settings
+    ResNet.arch_settings = {**saved, **{
+        d: (saved[d][0], (1,) * len(saved[d][1])) for d in (50, 101)}}
+    try:
+        yield
+    finally:
+        ResNet.arch_settings = saved
 
 
 def _a17_serving(card, name, backbone):
@@ -4439,10 +4516,11 @@ def phase_quant(card, data):
     return out
 
 
-def _flash_entries(cases, serve, train, ab_cases, tf, a13):
+def _flash_entries(cases, serve, train, ab_cases, tf, a13, gspmd):
     """The kernels-line entries of the three flash kernels: times of the
     ViT serving shape (forward) and training shape (backward), fp32; the
-    launches of phases 9, 11, 19 and 20; and the cases with the bias
+    launches of phases 9, 11, 19, 20 and 23 (each tensor-parallel rank's,
+    each GPipe stage's); and the cases with the bias
     (``ab_cases``, phase 3c), with their times, bounds and SDPA's with
     the same bias as a float mask."""
     fwd = next(c for c in cases if c['shape'] == [1, 12, 1025, 64]
@@ -4466,7 +4544,10 @@ def _flash_entries(cases, serve, train, ab_cases, tf, a13):
             replaces=f'{lib}:{line}',
             called_from='tools/attn_microbench.py:30',
             launches=serve['flash'][i] + train_launches
-            + tf['launches'][i] + a13['launches'][i],
+            + tf['launches'][i] + a13['launches'][i]
+            + sum(f[i] for f in gspmd['tp_flash'] + gspmd['pipe_flash']),
+            launches_tp_per_rank=[f[i] for f in gspmd['tp_flash']],
+            launches_pipe=[f[i] for f in gspmd['pipe_flash']],
             launches_vit=serve['flash'][i] + train_launches,
             launches_transformers=tf['launches'][i],
             launches_a13=a13['launches'][i],
@@ -5017,6 +5098,574 @@ def phase_ddp(card, data, loop_s_iter):
     return dict(a=a, b=b, c=c)
 
 
+# ------------------------------- phase 23 ----------------------------------
+# (a) tensor parallelism: fp32 steps, then one bf16 step, of the ViT-B
+# UPerNet at VIT_HW, batch 2; (b) ZeRO: the leaf config's PFGST step at
+# TRAIN_HW, one image a data rank; (c) spatial inference of a REQUEST_HW
+# request; (d) GPipe of ViT-B's 12 blocks as 2 stages of 6 at PIPE_SHAPE
+# in PIPE_MB microbatches, and the MoE of 2 ViT-B MLP experts on MOE_TOKENS
+# tokens a rank
+GSPMD_TP_STEPS = 3
+# a batch of 4: the 4 microbatches must divide it
+PIPE_SHAPE, PIPE_MB, PIPE_BLOCKS = (4, 1025, 768), 4, 12
+MOE_TOKENS = 1025
+GSPMD_TIMEOUT_S = 600
+# (c): the logits' bound, against the largest |logit|, and the top-2
+# margin below which a pixel's label is not compared
+SPATIAL_LOGIT_TOL, SPATIAL_MARGIN = 1e-4, 1e-4
+
+
+def _whole_grads(state):
+    """The student's whole gradients by ``_grad_groups``' groups (fp64 on
+    the CPU): a ZeRO shard's gathered over the data ranks, a
+    tensor-parallel shard's over the model ranks; collective."""
+    from pfst_tpu_torch.parallel import comm
+    from pfst_tpu_torch.parallel import tp as tp_mod
+    sh = state.sharding
+    groups = {}
+    for name, p in state.student.named_parameters():
+        if not p.requires_grad:
+            continue
+        q = getattr(p, 'zero_shard', None)
+        g = p.grad if q is None else q.grad
+        if q is not None and sh.layout.n_data > 1:
+            g = comm.all_gather(g, sh.layout.data, p.zero_dim)
+        if getattr(p, 'tp_dim', None) is not None:
+            g = tp_mod._whole(g, p.tp_kind, p.tp_dim, sh.layout.model)
+        parts = name.split('.')
+        key = '.'.join(parts[:2]) if parts[0] == 'backbone' else parts[0]
+        groups.setdefault(key, []).append(g.double().cpu())
+    return groups
+
+
+def _grad_reading(got, want):
+    """(cosine, norm gap) of two gradient groups' concatenations."""
+    a = torch.cat([g.flatten() for gs in got.values() for g in gs])
+    b = torch.cat([g.flatten() for gs in want.values() for g in gs])
+    return _cos_and_gap(a, b)
+
+
+def _lv_gap(got, want):
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+               for k in want)
+
+
+def _model_ranks_agree(state, layout):
+    """Whether the model ranks of a data index hold the student's
+    replicated leaves bitwise alike."""
+    import torch.distributed as dist
+    flat = torch.cat([p.detach().reshape(-1).double()
+                      for p in state.student.parameters()
+                      if getattr(p, 'tp_dim', None) is None])
+    ref = flat.clone()
+    dist.broadcast(ref, dist.get_global_rank(layout.model, 0),
+                   group=layout.model)
+    ok = torch.tensor([float(torch.equal(ref, flat))], device=flat.device)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def _gspmd_tp(rank):
+    """(a) on this rank: rank 0 first takes the single-process steps (the
+    reference), then both take the tp 2 steps from the same weights,
+    batch and generators."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel import tp as tp_mod
+    from pfst_tpu_torch.parallel import zero
+    cfg = _vit_train_cfg(VIT_HW[0], dropout=False)
+    batch = _vit_batch(cfg, 23, VIT_HW)
+    out = {}
+
+    def run(state, step):
+        logs, grads = [], None
+        for i in range(GSPMD_TP_STEPS + 1):
+            if i == GSPMD_TP_STEPS:
+                state.student.dtype = torch.bfloat16
+            state, lv = step(state, batch, torch.Generator().manual_seed(
+                40 + i))
+            logs.append({k: float(v) for k, v in lv.items()})
+            if i == 0:
+                grads = _grad_groups(state) if layout is None else \
+                    _whole_grads(state)
+            if layout is not None:
+                agree.append(_model_ranks_agree(state, layout))
+        return logs, grads
+
+    agree = []
+    if rank == 0:
+        layout = None
+        _, state, step = _vit_train_setup(cfg)
+        out['ref'] = run(state, step)
+        del state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    layout = tp_mod.get_2d_groups(2)
+    algo, state, _ = _vit_train_setup(cfg)
+    state = tp_mod.shard_state(state, layout)
+    norm = cfg.img_norm_cfg
+    step = tp_mod.make_tp_train_step(algo, norm['mean'], norm['std'],
+                                     state.sharding)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    out['tp'] = run(state, step)
+    torch.cuda.synchronize()
+    out.update(wall=time.time() - t0, flash=_flash_counts(), agree=agree,
+               heads=sorted({m.tp_heads for m in state.student.modules()
+                             if hasattr(m, 'tp_heads')}))
+    del state, step, algo
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gspmd_zero(rank):
+    """(b) on this rank: rank 0 the single-process PFGST step at batch 2,
+    then both ranks ZeRO-1 and ZeRO-3 steps on one image each, from the
+    same weights, batch and generator; the memory audit and each run's
+    peak allocation."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel import zero
+    cfg = Config.fromfile(LEAF)
+    for head in _head_cfgs(cfg.model):
+        head['dropout_ratio'] = 0.0
+    batch = _train_batch(cfg, 1900, TRAIN_HW)
+    out = {}
+    if rank == 0:
+        _, state, step = _train_setup(cfg)
+        _scale_residual(state, RESIDUAL_SCALE)
+        state, lv = step(state, batch, torch.Generator().manual_seed(3))
+        out['ref'] = ({k: float(v) for k, v in lv.items()},
+                      _grad_groups(state))
+        del state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mine = {k: v[rank:rank + 1] for k, v in batch.items()}
+    for level in (1, 3):
+        torch.cuda.reset_peak_memory_stats()
+        algo, state, _ = _train_setup(cfg)
+        _scale_residual(state, RESIDUAL_SCALE)
+        state = zero.shard_state(state, zero.get_data_layout(), level)
+        norm = cfg.img_norm_cfg
+        step = zero.make_zero_train_step(algo, norm['mean'], norm['std'],
+                                         state.sharding)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        state, lv = step(state, mine, torch.Generator().manual_seed(3))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _sim_counts()
+        audit = dict(opt=zero.opt_state_bytes(state.optimizer),
+                     params=zero.tree_bytes(state.student),
+                     teacher=zero.tree_bytes(state.teacher))
+        out[level] = dict(log_vars={k: float(v) for k, v in lv.items()},
+                          grads=_whole_grads(state), counts=counts,
+                          audit=audit, wall=wall,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del state, step, algo
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gspmd_spatial(rank):
+    """(c) on this rank: the leaf model's whole-image logits (rank 0, the
+    reference), then the request sharded over the two ranks."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel.spatial import spatial_inference
+    cfg = Config.fromfile(LEAF)
+    model = init_segmentor(cfg)
+    img = _request(cfg, 2300, REQUEST_HW).cuda()
+    out = {}
+    with torch.inference_mode():
+        if rank == 0:
+            out['whole'] = model.inference_logits(img)[0].float().cpu()
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        logits = spatial_inference(model, img, softmax=False)
+        torch.cuda.synchronize()
+    out.update(logits=logits.cpu(), wall=time.time() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vit_blocks(n, seed):
+    from pfst_tpu_torch.models.backbones.vit import ViTBlock
+    g = torch.Generator().manual_seed(seed)
+    blocks = [ViTBlock(PIPE_SHAPE[2], 12, 4) for _ in range(n)]
+    with torch.no_grad():
+        for b in blocks:
+            for name, p in b.named_parameters():
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g)
+                        if name.startswith('ln') and name.endswith('weight')
+                        else 0.02 * torch.randn(p.shape, generator=g))
+    return [b.cuda() for b in blocks]
+
+
+def _gspmd_pipe_moe(rank):
+    """(d) on this rank: GPipe of 12 ViT-B blocks as 2 stages of 6, and the
+    MoE of 2 ViT-B MLP experts at ample capacity and at capacity factor
+    0.5; rank 0 then runs the references (the blocks in sequence, the
+    dense per-token computation)."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.models.backbones.vit import FFN
+    from pfst_tpu_torch.parallel.ep import moe_apply
+    from pfst_tpu_torch.parallel.pp import gpipe_apply, stack_stage_params
+    group = dist.group.WORLD
+    blocks = _vit_blocks(PIPE_BLOCKS, 51)
+    per = PIPE_BLOCKS // 2
+    stage = torch.nn.Sequential(*blocks[:per])
+    names = [n for n, _ in stage.named_parameters()]
+    stages = [dict(zip(names, [p for b in blocks[s * per:(s + 1) * per]
+                               for p in b.parameters()])) for s in range(2)]
+    stacked = {k: v.detach().clone().requires_grad_()
+               for k, v in stack_stage_params(stages).items()}
+    g = torch.Generator().manual_seed(52)
+    x = torch.randn(PIPE_SHAPE, generator=g).cuda()
+    w = torch.randn(PIPE_SHAPE, generator=g).cuda()
+
+    def block_fn(params, act):
+        return torch.func.functional_call(stage, params, (act,))
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    xs = x.clone().requires_grad_()
+    out = gpipe_apply(block_fn, stacked, xs, group, PIPE_MB)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    res = dict(pipe_wall=time.time() - t0, pipe_flash=_flash_counts())
+    mine = {k: v.grad[rank].cpu() for k, v in stacked.items()}
+    if rank == 0:
+        seq = x.clone().requires_grad_()
+        y = seq
+        for b in blocks:
+            y = b(y)
+        (y * w).sum().backward()
+        want = [{k: p.grad.cpu() for k, p in zip(
+            names, [p for b in blocks[s * per:(s + 1) * per]
+                    for p in b.parameters()])} for s in range(2)]
+        res['pipe'] = dict(out=_rel(out, y), dx=_rel(xs.grad, seq.grad))
+        res['pipe_grads'] = [max(_rel(mine_k, want[0][k])
+                                 for k, mine_k in mine.items())]
+        res['pipe_other'] = want[1]
+    else:
+        res['pipe_mine'] = mine
+    # the MoE: ViT-B's MLP as the experts
+    ffns = [FFN(768, 3072).cuda() for _ in range(2)]
+    with torch.no_grad():
+        for f in ffns:
+            for p in f.parameters():
+                p.copy_(0.02 * torch.randn(p.shape, generator=g).cuda())
+    fnames = [n for n, _ in ffns[0].named_parameters()]
+    experts = stack_stage_params([dict(f.named_parameters()) for f in ffns])
+    experts = {k: v.detach() for k, v in experts.items()}
+    gate = torch.randn(768, 2, generator=g).cuda()
+    tokens = torch.randn(2 * MOE_TOKENS, 768, generator=g).cuda()
+    mine_x = tokens[rank * MOE_TOKENS:(rank + 1) * MOE_TOKENS]
+
+    def expert(params, t):
+        return torch.func.functional_call(ffns[0], params, (t,))
+
+    with torch.no_grad():
+        ample = moe_apply(expert, experts, mine_x, gate, group, 4.0)
+        tight = moe_apply(expert, experts, mine_x, gate, group, 0.5)
+        probs = torch.softmax(mine_x @ gate, dim=-1)
+        idx = probs.argmax(dim=-1)
+        dense = torch.stack([f(mine_x) for f in ffns])
+        want = dense[idx, torch.arange(len(idx))] * probs.gather(
+            1, idx[:, None])
+        kept = torch.zeros(len(idx), dtype=torch.bool, device=idx.device)
+        cap = int(0.5 * MOE_TOKENS / 2)
+        for e in range(2):
+            kept[(idx == e).nonzero()[:cap, 0]] = True
+    res['moe'] = dict(ample=_rel(ample, want),
+                      tight_kept=_rel(tight[kept], want[kept]),
+                      tight_dropped=float(tight[~kept].abs().max())
+                      if (~kept).any() else 0.0,
+                      dropped=int((~kept).sum()), fnames=fnames)
+    del blocks, stage, stacked, ffns
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|."""
+    return float((a.detach().float() - b.detach().float()).abs().max()
+                 / b.detach().float().abs().max())
+
+
+def gspmd_rank_main(spec_path):
+    """A rank of phase 23, started by ``_gspmd_ranks`` with torchrun's
+    variables (both ranks on ``cuda:0``, gloo): (a)-(d) in turn, TF32 off;
+    rank 0 saves the readings."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel import comm, init_distributed
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the model ranks compute the replicated leaves alike only with the
+    # deterministic kernels (phase 22 (a): the plain step repeats itself
+    # bitwise only with them)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    init_distributed('pytorch', 'gloo', 'cuda')
+    rank = dist.get_rank()
+    phase_build()
+    out = dict(staged=comm.staged_operations(dist.group.WORLD, 'cuda'))
+    for name, fn in (('tp', _gspmd_tp), ('zero', _gspmd_zero),
+                     ('spatial', _gspmd_spatial),
+                     ('pipe_moe', _gspmd_pipe_moe)):
+        t0 = time.time()
+        out[name] = fn(rank)
+        out[name]['part_s'] = time.time() - t0
+        dist.barrier()
+    if rank == 1:
+        torch.save({'pipe_mine': out['pipe_moe'].pop('pipe_mine'),
+                    'tp_flash': out['tp']['flash'],
+                    'zero_counts': {lv: out['zero'][lv]['counts']
+                                    for lv in (1, 3)},
+                    'audit': {lv: out['zero'][lv]['audit']
+                              for lv in (1, 3)},
+                    'peak': {lv: out['zero'][lv]['peak_gib']
+                             for lv in (1, 3)},
+                    'pipe_flash': out['pipe_moe']['pipe_flash'],
+                    'logits': out['spatial']['logits']},
+                   spec['out'] + '.rank1')
+    dist.barrier()
+    if rank == 0:
+        torch.save(out, spec['out'])
+    dist.destroy_process_group()
+
+
+def _gspmd_ranks(root):
+    """Two ranks of ``gspmd_rank_main`` sharing the card."""
+    spec = dict(out=osp.join(root, 'gspmd.pt'))
+    path = osp.join(root, 'gspmd.json')
+    with open(path, 'w') as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE='2',
+                   LOCAL_RANK='0', MASTER_ADDR='localhost',
+                   MASTER_PORT=str(port),
+                   CUBLAS_WORKSPACE_CONFIG=':4096:8')
+        procs.append(subprocess.Popen(
+            [sys.executable, osp.abspath(__file__), '--gspmd-rank', path],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs, spec['out']
+
+
+def _check_tp(res, card):
+    ref_logs, ref_grads = res['tp_ref']
+    logs, grads = res['tp']
+    gaps = [_lv_gap(got, want) for got, want in zip(logs[:GSPMD_TP_STEPS],
+                                                     ref_logs)]
+    cos, gap = _grad_reading(grads, ref_grads)
+    bf16_gap = _lv_gap(logs[-1], ref_logs[-1])
+    flash = [res['tp_flash'], res['tp_flash1']]
+    log(f'[gspmd] (a) tp 2, upernet_vit-b16_ln_mln at {VIT_HW}, batch 2, '
+        f'two gloo ranks sharing the card (heads a rank {res["tp_heads"]}): '
+        f'{GSPMD_TP_STEPS} fp32 steps against the single-process steps, '
+        f'log vars largest relative gap a step {[f"{g:.2e}" for g in gaps]}; '
+        f'step 1 gradients cosine {cos:.8f}, norm gap {gap:.3e}; the bf16 '
+        f'step\'s log vars largest relative gap {bf16_gap:.2e}; replicated '
+        f'leaves bitwise equal on the model ranks after each step '
+        f'{res["tp_agree"]}; flash launches fwd/dkv/dq a rank {flash}; '
+        f'{res["tp_wall"]:.2f} s for the 4 steps on {card}')
+    if max(gaps) > 1e-3 or cos < 0.9999 or gap > 1e-3 or \
+            not all(res['tp_agree']) or not all(
+                np.isfinite(list(lv.values())).all() for lv in logs):
+        raise AssertionError('[gspmd] (a) tensor parallelism is not the '
+                             'single-process step')
+    want = 12 * (GSPMD_TP_STEPS + 1)
+    if any(tuple(f) != (want, want, want) for f in flash):
+        raise AssertionError(f'[gspmd] (a) flash launches {flash}, '
+                             f'{want} of each expected a rank')
+    return flash
+
+
+def _check_zero(res, card):
+    ref_lv, ref_grads = res['zero_ref']
+    readings = {}
+    for level in (1, 3):
+        r = res['zero'][level]
+        cos, gap = _grad_reading(r['grads'], ref_grads)
+        lv_gap = _lv_gap(r['log_vars'], ref_lv)
+        audit = [r['audit'], res['audit1'][level]]
+        readings[level] = dict(lv_gap=lv_gap, cos=cos, gap=gap,
+                               counts=[r['counts'],
+                                       res['zero_counts1'][level]],
+                               opt_bytes=[a['opt'] for a in audit],
+                               params_bytes=[a['params'] for a in audit],
+                               teacher_bytes=[a['teacher'] for a in audit],
+                               peak_gib=[round(r['peak_gib'], 2),
+                                         round(res['peak1'][level], 2)],
+                               wall=r['wall'])
+        log(f'[gspmd] (b) ZeRO-{level}, the leaf config\'s PFGST step at '
+            f'{TRAIN_HW}, one image a data rank, against the single-process '
+            f'step at batch 2: log vars largest relative gap {lv_gap:.2e}; '
+            f'gradients cosine {cos:.8f}, norm gap {gap:.3e}; AdamW moments '
+            f'bytes stored / whole a rank {readings[level]["opt_bytes"]}; '
+            f'student {readings[level]["params_bytes"]}; teacher '
+            f'{readings[level]["teacher_bytes"]}; peak GiB allocated a rank '
+            f'{readings[level]["peak_gib"]}; similarity launches fwd/bwd a '
+            f'rank {readings[level]["counts"]}; step {r["wall"]:.2f} s on '
+            f'{card}')
+        if lv_gap > 1e-3 or cos < 0.9999 or gap > 1e-3:
+            raise AssertionError(f'[gspmd] (b) ZeRO-{level} is not the '
+                                 f'single-process step')
+        if any(tuple(c) != (2, 1) for c in readings[level]['counts']):
+            raise AssertionError(f'[gspmd] (b) similarity launches '
+                                 f'{readings[level]["counts"]}')
+        opt = readings[level]['opt_bytes']
+        if not all(s < 0.6 * w for s, w in opt) or (level == 3 and not all(
+                s < 0.6 * w for s, w in readings[level]['params_bytes'])):
+            raise AssertionError(f'[gspmd] (b) ZeRO-{level} did not shard: '
+                                 f'{readings[level]}')
+    return readings
+
+
+def _check_spatial(res, card):
+    whole = res['spatial_whole']
+    scale = float(whole.abs().max())
+    out = {}
+    for r, logits in enumerate((res['spatial_logits'],
+                                res['spatial_logits1'])):
+        err = float((logits - whole).abs().max())
+        top2 = whole.topk(2, dim=1).values
+        margin = (top2[:, 0] - top2[:, 1]) > SPATIAL_MARGIN * scale
+        agree = bool((logits.argmax(1) == whole.argmax(1))[margin].all())
+        out[r] = dict(err=err, undecided=int((~margin).sum()), agree=agree)
+    log(f'[gspmd] (c) spatial inference of a {REQUEST_HW} request of the '
+        f'leaf config over two gloo ranks (stripes of 512 rows): logits '
+        f'largest |diff| a rank {[o["err"] for o in out.values()]} against '
+        f'the whole-image forward (largest |logit| {scale:.4f}); labels '
+        f'equal where the top-2 margin exceeds {SPATIAL_MARGIN} of it '
+        f'{[o["agree"] for o in out.values()]}, pixels below that margin '
+        f'{out[0]["undecided"]}; {res["spatial_wall"]:.2f} s, peak GiB '
+        f'{res["spatial_peak"]:.2f} a rank on {card}')
+    if any(o['err'] > SPATIAL_LOGIT_TOL * scale or not o['agree']
+           for o in out.values()):
+        raise AssertionError(f'[gspmd] (c) spatial inference: {out}')
+    return out
+
+
+def _check_pipe_moe(res, card):
+    pipe = res['pipe']
+    other = res['pipe_other']
+    grads1 = max(_rel(res['pipe_mine1'][k], other[k]) for k in other)
+    pipe_grads = max(res['pipe_grads'][0], grads1)
+    moe = res['moe']
+    flash = [res['pipe_flash'], res['pipe_flash1']]
+    log(f'[gspmd] (d) GPipe of ViT-B\'s {PIPE_BLOCKS} blocks as 2 stages of '
+        f'{PIPE_BLOCKS // 2} at {PIPE_SHAPE}, {PIPE_MB} microbatches, fp32, '
+        f'against the blocks in sequence: output {pipe["out"]:.2e}, input '
+        f'gradient {pipe["dx"]:.2e}, parameter gradients {pipe_grads:.2e} '
+        f'(largest |diff| over the largest |value|); flash launches '
+        f'fwd/dkv/dq a stage {flash}; {res["pipe_wall"]:.2f} s forward and '
+        f'backward. MoE of 2 ViT-B MLP experts on {MOE_TOKENS} tokens a '
+        f'rank: ample capacity against the dense computation '
+        f'{moe["ample"]:.2e}; capacity factor 0.5: kept tokens '
+        f'{moe["tight_kept"]:.2e}, {moe["dropped"]} dropped, largest |out| '
+        f'of a dropped token {moe["tight_dropped"]} on {card}')
+    if max(pipe['out'], pipe['dx'], pipe_grads) > 1e-4 or \
+            moe['ample'] > 1e-5 or moe['tight_kept'] > 1e-5 or \
+            moe['tight_dropped'] != 0.0 or not moe['dropped']:
+        raise AssertionError(f'[gspmd] (d) GPipe / MoE: {pipe}, {moe}')
+    want = PIPE_MB * PIPE_BLOCKS // 2
+    if any(tuple(f) != (want, want, want) for f in flash):
+        raise AssertionError(f'[gspmd] (d) flash launches {flash}')
+    return flash
+
+
+def _spatial_cli(card, data):
+    """(c): ``tools/test_torch.py --spatial 2 --launcher pytorch`` under
+    torchrun on phase 13's packs, against ``single_gpu_test``."""
+    from pfst_tpu_torch.apis import single_gpu_test
+    from pfst_tpu_torch.apis.train import _build_val
+    root = tempfile.mkdtemp(prefix='pfst_spatial_')
+    try:
+        pots, vaih, _ = data
+        cfg = _loop_config(pots, vaih)
+        cfg_path = osp.join(root, 'spatial_config.py')
+        cfg.dump(cfg_path)
+        model = init_segmentor(cfg)
+        ckpt = osp.join(root, 'seeded.pth')
+        torch.save({'state_dict': model.state_dict()}, ckpt)
+        val = _build_val(cfg)
+        single = single_gpu_test(model, val['loader'], pre_eval=True,
+                                 progress=False)
+        miou = val['dataset'].evaluate(single, metric='mIoU')['mIoU']
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        test, _ = _torchrun(root, 'test_torch', [
+            cfg_path, ckpt, '--eval', 'mIoU', '--spatial', '2'],
+            '(c) test_torch --spatial 2 under torchrun')
+        cli = test[0]['result']['mIoU']
+        wall = time.time() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f'[gspmd] (c) test_torch --spatial 2 --launcher pytorch on '
+        f'{len(single)} tiles: mIoU {cli} against single_gpu_test\'s {miou} '
+        f'({wall:.1f} s) on {card}')
+    if cli != miou:
+        raise AssertionError(f'[gspmd] (c) --spatial 2 mIoU {cli} != '
+                             f'{miou}')
+    return dict(miou=miou, cli=cli)
+
+
+def phase_gspmd(card, data):
+    """Phase 23: tensor parallelism, ZeRO-1 and ZeRO-3, spatial inference,
+    GPipe and the MoE on two gloo ranks sharing the card, (a)-(d); the
+    operations gloo stages through the host printed."""
+    root = tempfile.mkdtemp(prefix='pfst_gspmd_')
+    try:
+        procs, path = _gspmd_ranks(root)
+        texts = _wait(procs, 'phase 23 ranks', GSPMD_TIMEOUT_S)
+        out = torch.load(path, weights_only=False)
+        other = torch.load(path + '.rank1', weights_only=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del texts
+    res = dict(tp_ref=out['tp']['ref'], tp=out['tp']['tp'],
+               tp_flash=out['tp']['flash'], tp_flash1=other['tp_flash'],
+               tp_agree=out['tp']['agree'], tp_heads=out['tp']['heads'],
+               tp_wall=out['tp']['wall'], zero_ref=out['zero']['ref'],
+               zero=out['zero'], audit1=other['audit'],
+               zero_counts1=other['zero_counts'], peak1=other['peak'],
+               spatial_whole=out['spatial']['whole'],
+               spatial_logits=out['spatial']['logits'],
+               spatial_logits1=other['logits'],
+               spatial_wall=out['spatial']['wall'],
+               spatial_peak=out['spatial']['peak_gib'],
+               pipe_mine1=other['pipe_mine'], pipe_flash1=other['pipe_flash'],
+               **{k: out['pipe_moe'][k] for k in (
+                   'pipe', 'pipe_grads', 'pipe_other', 'pipe_flash',
+                   'pipe_wall', 'moe')})
+    log(f'[gspmd] gloo stages through pinned host memory on the card: '
+        f'{list(out["staged"])}; parts s ' + json.dumps(
+            {k: round(out[k]['part_s'], 1) for k in ('tp', 'zero',
+                                                      'spatial',
+                                                      'pipe_moe')}))
+    tp_flash = _check_tp(res, card)
+    zero_readings = _check_zero(res, card)
+    spatial = _check_spatial(res, card)
+    cli = _spatial_cli(card, data)
+    pipe_flash = _check_pipe_moe(res, card)
+    return dict(tp_flash=tp_flash, pipe_flash=pipe_flash,
+                zero=zero_readings, spatial=spatial, cli=cli,
+                staged=list(out['staged']))
+
+
 def timed(fn, *args):
     """``fn(*args)``, its wall seconds kept in ``PHASE_S`` under its name
     without ``phase_``."""
@@ -5065,6 +5714,7 @@ def main():
         a13 = timed(phase_a13_heads, card)
         timed(phase_quant, card, data)
         ddp = timed(phase_ddp, card, data, loop['s_iter_median'])
+        gspmd = timed(phase_gspmd, card, data)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
@@ -5088,7 +5738,8 @@ def main():
         + loop['launches'][0] + loop['launches_b'][0] + eo_fwd
         + uda['launches'][0] + cfg_fwd + adaptors['launches'][0]
         + pseudo['launches'][0] + hooks['launches'][0]
-        + ddp['a']['launches'][0] + sum(r[0] for r in ddp['c']['launches']),
+        + ddp['a']['launches'][0] + sum(r[0] for r in ddp['c']['launches'])
+        + sum(c[0] for r in gspmd['zero'].values() for c in r['counts']),
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
@@ -5105,6 +5756,8 @@ def main():
         launches_a13_phase=sum(r['sim'] for r in a13['serve'].values()),
         launches_ddp_world_one=ddp['a']['launches'][0],
         launches_ddp_cli_per_rank=[r[0] for r in ddp['c']['launches']],
+        launches_zero_per_rank={f'zero{lv}': [c[0] for c in r['counts']]
+                                for lv, r in gspmd['zero'].items()},
         a13_feature_shapes={n: r['sim_shape']
                             for n, r in a13['serve'].items()},
         max_abs_err=max(c['max_abs_err'] for c in cases),
@@ -5118,7 +5771,8 @@ def main():
         launches=train_bwd + loop['launches'][1] + loop['launches_b'][1]
         + eo_bwd + uda['launches'][1] + cfg_bwd + adaptors['launches'][1]
         + pseudo['launches'][1] + hooks['launches'][1]
-        + ddp['a']['launches'][1] + sum(r[1] for r in ddp['c']['launches']),
+        + ddp['a']['launches'][1] + sum(r[1] for r in ddp['c']['launches'])
+        + sum(c[1] for r in gspmd['zero'].values() for c in r['counts']),
         launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
@@ -5134,13 +5788,15 @@ def main():
         launches_hooks_phase=hooks['launches'][1],
         launches_ddp_world_one=ddp['a']['launches'][1],
         launches_ddp_cli_per_rank=[r[1] for r in ddp['c']['launches']],
+        launches_zero_per_rank={f'zero{lv}': [c[1] for c in r['counts']]
+                                for lv, r in gspmd['zero'].items()},
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],
         bound_ms=bwd_case['bound_ms'], bound_by=bwd_case['bound_by'],
         library_ms=None, cases=bwd_cases, geometry_cases=bwd_geometry)]
     kernels += _flash_entries(flash_cases, vit_serve, vit_train, ab_cases,
-                              tf, a13)
+                              tf, a13, gspmd)
     log(f'[train] s/iter batch 2 of {TRAIN_HW}: fp32 {train["fp32"][0]:.4f}, '
         f'bf16 {train["bf16"][0]:.4f} on {card}')
     log(f'[vit] warm ms per {VIT_HW} request {vit_serve["warm_ms"]:.2f}; '
@@ -5176,6 +5832,9 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--ddp-rank']:
         ddp_rank_main(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ['--gspmd-rank']:
+        gspmd_rank_main(sys.argv[2])
         sys.exit(0)
     try:
         main()

@@ -10,8 +10,9 @@ image, into ``pre_eval`` histograms or label maps; ``multi_gpu_test``
 spreads the images over the ranks of a process group and gives every
 rank ``single_gpu_test``'s results. Images are NCHW tensors on the
 model's device; with ``quant_int8`` the forward runs under
-``ops.quant.int8_inference``. Spatially sharded inference waits for
-ROADMAP A14c.
+``ops.quant.int8_inference``. ``single_gpu_test(spatial=n)`` shards each
+whole-image forward's height over the n ranks of the process group
+(``parallel/spatial.py``).
 """
 from __future__ import annotations
 
@@ -130,15 +131,23 @@ def single_gpu_test(model,
     overlays. ``quant_int8``: every conv and Dense of the JAX layer set
     runs int8 (``ops.quant.int8_inference``) with ``act_scales`` (a
     ``{module_path: max|x|}`` table, or dynamic scales without one), as
-    the JAX function traces it (``test.py:130-148``)."""
-    if spatial:
-        raise NotImplementedError('spatially sharded inference is not '
-                                  'ported (ROADMAP A14c)')
+    the JAX function traces it (``test.py:130-148``).
+
+    ``spatial=n``: every rank of the default group (n ranks) runs this,
+    reads every image and computes its stripe of each whole-image forward
+    (``parallel.spatial.make_spatial_inference_fn``: the height sharded,
+    edge-padded to a multiple of n); rank 0 assembles the logits, finalizes
+    the views and returns the results, the other ranks None."""
     dataset = data_loader.dataset
+    if spatial and (return_states or quant_int8):
+        raise NotImplementedError('spatial inference with the feature '
+                                  'states or int8')
     with _int8(quant_int8, act_scales):
         per_image, states = _test_images(
             model, dataset, range(len(dataset)), pre_eval, progress,
-            return_states, state_proc_cfg)
+            return_states, state_proc_cfg, spatial)
+    if spatial and dist.get_rank(default_group()) != 0:
+        return None
     results = [r for chunk in per_image for r in chunk]
     if return_states:
         return results, states
@@ -191,12 +200,16 @@ def multi_gpu_test(model,
 
 
 def _test_images(model, dataset, indices, pre_eval, progress,
-                 return_states, state_proc_cfg):
+                 return_states, state_proc_cfg, spatial: int = 0):
     """Images ``indices`` of ``dataset`` through ``model``: a list of each
     image's results (its ``pre_eval`` tuples, or ``[label map]``), and
     with ``return_states`` the images' feature states."""
     device = next(model.parameters()).device
-    infer = make_inference_fn(model)
+    if spatial:
+        from ..parallel.spatial import make_spatial_inference_fn
+        infer = make_spatial_inference_fn(model, spatial)
+    else:
+        infer = make_inference_fn(model)
     state_fn = make_state_fn(model, state_proc_cfg) if return_states \
         else None
     state_list: List[Any] = []
@@ -219,6 +232,8 @@ def _test_images(model, dataset, indices, pre_eval, progress,
         view_logits = [infer(v) for v in views]
         if pos + 1 < n:
             nxt = fetch(indices[pos + 1])
+        if view_logits[0] is None:
+            continue   # a spatial rank other than the first
         pred = _finalize_views(model, view_logits, metas,
                                metas[0]['ori_shape'][:2])
         if state_fn is not None:

@@ -37,9 +37,20 @@ the same iteration, agreed on the log cadence (``train.py:755-770``);
 evaluation runs through ``multi_gpu_test``; and only rank 0 writes
 checkpoints, the log and the hooks' files.
 
-Waiting, and raising ``NotImplementedError`` when a config asks for them:
-``parallel.tp``, ``sp``, ``spw``, ``zero``, ``pp`` and ``ep`` (tensor,
-spatial, ZeRO, pipeline and expert sharding; ROADMAP A14c);
+``parallel.tp`` and ``parallel.zero`` (True or 1, 3; the two compose)
+make the step a GSPMD one over the process group (``train.py:417-447,
+554-596``): the ranks form a ``(data, model)`` layout
+(``parallel.tp.get_2d_groups``), the loader shards by data index with
+``samples_per_gpu`` a rank (the model ranks of a data index get the same
+samples and seed their pipelines alike), the state is laid out after any
+resume (``parallel.zero.attach``), every rank draws the single-process
+step's random numbers (``step_generator(seed, it)``), checkpoints are
+gathered whole, and evaluation scores a whole copy of the student.
+
+Raising when a config asks for them: ``parallel.sp`` and ``spw``
+(spatially sharded training, ROADMAP A14c-2); ``pp`` and ``ep``, which
+are no loop modes (the JAX loop ignores them; ``parallel.pp.gpipe_apply``
+and ``parallel.ep.moe_apply`` are the building blocks);
 ``data.decode_cache_mb`` (packs make decoding a one-time cost).
 """
 from __future__ import annotations
@@ -230,20 +241,34 @@ def apply_device_normalize(cfg):
     return cfg
 
 
-# the JAX loop's ``cfg.parallel`` options beyond data parallelism
-WAITING_PARALLEL = ('tp', 'sp', 'spw', 'zero', 'pp', 'ep')
+# the JAX loop's ``cfg.parallel`` modes: the GSPMD ones the port runs,
+# spatially sharded training, which waits, and the building blocks the
+# JAX loop does not read
+LOOP_PARALLEL = ('tp', 'zero')
+WAITING_PARALLEL = ('sp', 'spw')
+BLOCK_PARALLEL = ('pp', 'ep')
 
 
 def _refuse_waiting(cfg):
     """Raise for what the config asks of the JAX loop that the port does
-    not do yet; nothing is skipped silently."""
+    not do yet, and for ``pp`` / ``ep``, which are no loop modes: nothing
+    is skipped silently."""
     par = {k: v for k, v in (cfg.get('parallel') or {}).items()
            if v not in (None, 0, 1, False)}
     waiting = {k: v for k, v in par.items() if k in WAITING_PARALLEL}
     if waiting:
-        raise NotImplementedError(f'parallel {waiting} is not ported '
-                                  f'(ROADMAP A14c)')
-    unknown = set(par) - set(WAITING_PARALLEL)
+        raise NotImplementedError(f'parallel {waiting}: spatially sharded '
+                                  f'training is not ported (ROADMAP '
+                                  f'A14c-2)')
+    blocks = {k: v for k, v in par.items() if k in BLOCK_PARALLEL}
+    if blocks:
+        raise NotImplementedError(
+            f'parallel {blocks} is not a mode of the train loop (the JAX '
+            f'loop reads only tp, zero, sp and spw): pipeline and expert '
+            f'parallelism are the building blocks '
+            f'parallel.pp.gpipe_apply and parallel.ep.moe_apply')
+    unknown = set(par) - set(LOOP_PARALLEL + WAITING_PARALLEL +
+                             BLOCK_PARALLEL)
     if unknown:
         raise ValueError(f'unknown parallel options {sorted(unknown)}')
     if cfg.data.get('decode_cache_mb'):
@@ -447,15 +472,20 @@ def train_segmentor(cfg,
     logger = get_root_logger(
         osp.join(work_dir, 'train.log') if work_dir else None)
     _refuse_waiting(cfg)
-    set_random_seed(seed + rank)
+    layout, zero_level = _gspmd_layout(cfg, group)
+    # the pipelines' draws: a model rank's samples are its data index's
+    data_index = layout.data_index if layout is not None else rank
+    set_random_seed(seed + data_index)
     apply_device_normalize(cfg)
 
     train_ds = build_dataset(cfg.data['train'])
     loader = build_dataloader(
         train_ds, cfg.data.get('samples_per_gpu', 2),
-        cfg.data.get('workers_per_gpu', 2), dist=group is not None,
+        cfg.data.get('workers_per_gpu', 2),
+        dist=group is not None and layout is None,
         shuffle=True, seed=seed, drop_last=True, infinite=True,
         pin_memory=device.type == 'cuda',
+        rank=data_index, world_size=layout.n_data if layout else 1,
         use_processes=cfg.data.get('use_processes', False))
     max_iters = max_iters_override or cfg.runner['max_iters']
     algo = build_algorithm(cfg, device=device)
@@ -494,6 +524,11 @@ def train_segmentor(cfg,
             print_log(f'loaded weights from {load_from} (optimizer/step '
                       f'fresh)', logger)
     broadcast_state(state, group)
+    if layout is not None:
+        # ZeRO and tensor parallelism: the whole state laid out over the
+        # ranks (a resumed one included), the step a GSPMD one
+        from ..parallel import zero
+        state = zero.attach(state, layout, zero_level)
 
     log_interval = (cfg.get('log_config') or {}).get('interval', 50)
     ckpt_interval = (cfg.get('checkpoint_config') or {}).get('interval',
@@ -505,10 +540,18 @@ def train_segmentor(cfg,
     hooks = [h for h in build_hooks(cfg, logger)
              if rank == 0 or getattr(h, 'all_ranks', False)]
     collect_vis = any(type(h).__name__ in VIS_HOOKS for h in hooks)
-    step_fn = algo.make_train_step(
-        norm['mean'], norm['std'], collect_vis=collect_vis) \
-        if group is None else make_sharded_train_step(
-            algo, norm['mean'], norm['std'], group, collect_vis=collect_vis)
+    if layout is not None:
+        from ..parallel import zero
+        step_fn = zero.make_global_step(algo, norm['mean'], norm['std'],
+                                        state.sharding, collect_vis)
+    elif group is None:
+        step_fn = algo.make_train_step(norm['mean'], norm['std'],
+                                       collect_vis=collect_vis)
+    else:
+        step_fn = make_sharded_train_step(algo, norm['mean'], norm['std'],
+                                          group, collect_vis=collect_vis)
+    # a GSPMD step draws the single-process step's numbers on every rank
+    gen_rank = 0 if layout is not None else rank
     ctx = {'work_dir': work_dir, 'iter': start_iter, 'algo': algo,
            'palette': getattr(train_ds, 'PALETTE', None),
            'source_dataset': getattr(train_ds, 'source', train_ds),
@@ -555,7 +598,8 @@ def train_segmentor(cfg,
             tensors = _normalize_on_device(batch.wait(), batch.metas,
                                            norm['mean'], norm['std'])
             with qat_ctx():
-                out = step_fn(state, tensors, step_generator(seed, it, rank))
+                out = step_fn(state, tensors,
+                              step_generator(seed, it, gen_rank))
             state, log_vars = out[:2]
             vis_states = out[2] if collect_vis else None
             if (it + 1) % log_interval == 0:
@@ -638,6 +682,26 @@ def train_segmentor(cfg,
     return state
 
 
+def _gspmd_layout(cfg, group):
+    """(the ranks' layout, the ZeRO level) of ``cfg.parallel``'s ``tp``
+    and ``zero`` (``train.py:417-447``), (None, 0) for neither. ``zero``
+    True or 1 is ZeRO-1, 3 ZeRO-3; without a process group ZeRO is off,
+    as the JAX loop leaves it off on one device."""
+    par = cfg.get('parallel') or {}
+    tp_size = int(par.get('tp') or 1)
+    zero_level = int(par.get('zero') or 0)
+    zero_level = 0 if zero_level <= 0 else (3 if zero_level >= 3 else 1)
+    if tp_size <= 1 and (not zero_level or group is None):
+        return None, 0
+    if group is None:
+        raise AssertionError(f'1 device not divisible by parallel.tp='
+                             f'{tp_size}: launch tp ranks (--launcher)')
+    from ..parallel import tp, zero
+    layout = tp.get_2d_groups(tp_size, group) if tp_size > 1 \
+        else zero.get_data_layout(group)
+    return layout, zero_level
+
+
 def _build_val(cfg) -> dict:
     """The validation dataset (test mode) and its loader, built once a
     run; ``data.device_normalize_eval`` narrows its wire as
@@ -663,6 +727,10 @@ def evaluate_during_train(val: dict, state, eval_cfg: dict, logger=None):
     one rank each rank scores its share through ``multi_gpu_test``
     (``train.py:876-882``), and every rank gets every metric."""
     student = state.student
+    if getattr(state, 'sharding', None) is not None:
+        # a ZeRO or tensor-parallel student: score a whole copy
+        from ..parallel import zero
+        student = zero.whole_copy(state)
     was_training = student.training
     student.eval()
     test_fn = multi_gpu_test if get_dist_info()[1] > 1 else single_gpu_test

@@ -76,23 +76,52 @@ def save_checkpoint(work_dir: str, step: int, state,
     LR schedule position and step) to ``{work_dir}/iter_<step>.pth``; the
     file appears whole or not at all. Under a process group every rank
     calls it: rank 0 writes (the replicas hold the same state), and all
-    pass a barrier after, so none reads a file that is not there yet."""
+    pass a barrier after, so none reads a file that is not there yet. A
+    ZeRO or tensor-parallel state (``state.sharding``) is gathered whole
+    by every rank first, so its file is the single-process one's."""
     rank, world = get_dist_info()
     path = checkpoint_path(work_dir, step)
+    sharding = getattr(state, 'sharding', None)
+    if sharding is not None:
+        # a ZeRO or tensor-parallel state: every rank gathers the whole
+        obj = _whole_entry(state, sharding, step, meta)
     if rank == 0:
-        _write(work_dir, path, state, step, meta)
+        _write(work_dir, path, obj if sharding is not None else
+               _entry(state, step, meta))
     if world > 1:
         dist.barrier()
     return path
 
 
-def _write(work_dir, path, state, step, meta):
-    os.makedirs(work_dir, exist_ok=True)
+def _entry(state, step, meta) -> Dict:
     obj = {'meta': {**(meta or {}), 'iter': int(step)},
            'state_dict': state_dict_of(state), **_optimizer_entry(
                state.optimizer)}
     if getattr(state, 'disc_optimizer', None) is not None:
         obj['disc_optimizer'] = _optimizer_entry(state.disc_optimizer)
+    return obj
+
+
+def _whole_entry(state, sharding, step, meta) -> Dict:
+    """The checkpoint of a sharded state as the single-process port writes
+    it: the segmentors' and the optimizer's tensors gathered whole (on the
+    CPU, on every rank: the gathers are collective)."""
+    sharding.gather_trees()
+    try:
+        sds = {id(m): {k: v.detach().cpu().clone() for k, v in
+                       sharding.whole_state_dict(m).items()}
+               for m, _ in _prefixed(state)}
+    finally:
+        sharding.release_trees()
+    sd = dict(sds[id(state.student)]) if _student_only(state) else {
+        f'{prefix}{k}': v for module, prefix in _prefixed(state)
+        for k, v in sds[id(module)].items()}
+    return {'meta': {**(meta or {}), 'iter': int(step)},
+            'state_dict': sd, **state.optimizer.whole_entry()}
+
+
+def _write(work_dir, path, obj):
+    os.makedirs(work_dir, exist_ok=True)
     tmp = f'{path}.tmp{os.getpid()}'
     try:
         torch.save(obj, tmp)

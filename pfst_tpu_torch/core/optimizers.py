@@ -163,6 +163,10 @@ class ScheduledOptimizer:
       same, as JAX's do. The finiteness check reads one flag from the
       device each step.
 
+    With ``layout`` set (the ZeRO and tensor-parallel steps, whose
+    parameters here are shards), the clip and the check read the whole
+    gradient's norm and flag, one ``all_reduce`` each.
+
     A parameter that got no gradient is updated with a zero one (weight
     decay still applies), as the JAX step updates every leaf."""
 
@@ -198,6 +202,10 @@ class ScheduledOptimizer:
         else:
             self.scheduler = None
         self.max_norm = max_norm
+        # a GSPMD step's layout (``parallel.GlobalBatch``) when the
+        # parameters are shards: the clip's norm and the non-finite flag
+        # are then the whole gradient's
+        self.layout = None
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
@@ -207,9 +215,13 @@ class ScheduledOptimizer:
         """optax ``clip_by_global_norm``: scale by max_norm / norm when
         the norm reaches max_norm."""
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float())
-                         for g in grads]))
+        if self.layout is not None:
+            from ..parallel.global_batch import global_sum_sq
+            norm = torch.sqrt(global_sum_sq(self.params, self.layout))
+        else:
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.float())
+                             for g in grads]))
         scale = torch.where(norm < self.max_norm, 1.0,
                             self.max_norm / norm)
         torch._foreach_mul_(grads, scale)
@@ -223,8 +235,12 @@ class ScheduledOptimizer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         if self.skip_nonfinite:
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads]).all())
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads]).all()
+            if self.layout is not None:
+                from ..parallel.global_batch import global_flag
+                finite = ~global_flag(~finite, self.layout)
+            finite = bool(finite)
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             self.total_notfinite += 0 if finite else 1
             if not finite and self.notfinite_count <= self.skip_nonfinite:

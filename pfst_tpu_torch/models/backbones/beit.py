@@ -47,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import attention
+from ...parallel.global_batch import batch_rows
 from ..builder import BACKBONES
 from .vit import _LN_EPS, FFN, PatchEmbed, run_block
 
@@ -86,13 +87,15 @@ def drop_index_buffer(state_dict, prefix):
 def drop_path_masks(batch: int, rates: Sequence[float], device):
     """Two per-sample keep masks a block, (len(rates), 2, batch) bool on
     ``device`` (None where a rate is 0), drawn with
-    ``torch.rand`` on the CPU's default generator."""
+    ``torch.rand`` on the CPU's default generator (for the global batch,
+    this rank's columns kept, in a GSPMD step's split forward)."""
+    total, rows = batch_rows(batch)
     out = []
     for rate in rates:
         if rate == 0.0:
             out.append(None)
         else:
-            keep = torch.rand((2, batch)) >= rate
+            keep = (torch.rand((2, total)) >= rate)[:, rows]
             out.append(keep.to(device, non_blocking=True))
     return out
 

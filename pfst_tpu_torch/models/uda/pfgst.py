@@ -40,7 +40,8 @@ import torch
 
 from ...ops import resize
 from ...parallel import (average_buffers, average_gradients,
-                         average_log_vars, sync_bn_group)
+                         average_log_vars, gradient_norm, is_global_batch,
+                         sync_bn_group)
 from ...utils.misc import add_prefix
 from ..builder import UDA, build_loss
 from ..losses.utils import masked_mean
@@ -363,7 +364,10 @@ class PFGST(UDADecorator):
         are 0-dim tensors on that device, so the step does not wait for
         the card. The gradients stay on the student's parameters until
         the next step. With ``collect_vis`` the step returns ``(state,
-        log_vars, vis_states)``, the JAX step's triple."""
+        log_vars, vis_states)``, the JAX step's triple. A GSPMD ``group``
+        (``parallel.GlobalBatch``, the ZeRO and tensor-parallel steps) runs
+        this step on the global batch, its segmentors' forwards split over
+        the data ranks, and ``grad_mag`` is the whole batch's."""
 
         def step_fn(state: UDATrainState, batch: dict,
                     generator: torch.Generator, premix=None):
@@ -378,15 +382,19 @@ class PFGST(UDADecorator):
             total.backward()
             log_vars = {k: v.detach() for k, v in aux['log_vars'].items()}
             log_vars['loss'] = total.detach()
+            # a GSPMD step reads the whole batch's gradient
+            # (``parallel/global_batch.py``), a replica its own
+            whole = is_global_batch(group)
+            if whole:
+                average_gradients(state.optimizer.params, group)
             if self.print_grad_magnitude:
                 # the global L2 norm of the backbone's gradients
                 # (``pfgst.py:556-562``), before the optimizer's clipping
-                grads = [p.grad for p in state.student.backbone.parameters()
-                         if p.grad is not None]
-                log_vars['grad_mag'] = torch.linalg.vector_norm(
-                    torch.stack(torch._foreach_norm(grads)))
+                log_vars['grad_mag'] = gradient_norm(
+                    state.student.backbone.parameters(), group)
             # ``pfgst.py:563-568``
-            average_gradients(state.optimizer.params, group)
+            if not whole:
+                average_gradients(state.optimizer.params, group)
             log_vars = average_log_vars(log_vars, group)
             state.optimizer.step()
             average_buffers(state.student, group)

@@ -34,6 +34,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .global_batch import is_global_batch
+
 # DistributedDataParallel's default bucket size
 BUCKET_BYTES = 25 * 2**20
 # a join or a collective that waits longer than this raises
@@ -187,6 +189,9 @@ def average_gradients(params: Iterable[torch.nn.Parameter], group) -> None:
     gradient first, as the optimizer's step would give it."""
     if group is None:
         return
+    if is_global_batch(group):
+        group.average_gradients(params)
+        return
     params = list(params)
     for p in params:
         if p.grad is None:
@@ -199,7 +204,7 @@ def average_log_vars(log_vars: Dict[str, torch.Tensor],
                      group) -> Dict[str, torch.Tensor]:
     """The mean over ``group`` of each 0-dim log var, with one
     ``all_reduce`` (the JAX ``pmean(log_vars)``)."""
-    if group is None or not log_vars:
+    if group is None or not log_vars or is_global_batch(group):
         return log_vars
     names = list(log_vars)
     flat = torch.stack([log_vars[k].detach().float() for k in names])
@@ -211,11 +216,25 @@ def average_log_vars(log_vars: Dict[str, torch.Tensor],
 @torch.no_grad()
 def average_buffers(module: torch.nn.Module, group) -> None:
     """The mean over ``group`` of ``module``'s floating-point buffers
-    (the new running statistics each replica's forward passes left)."""
-    if group is None:
+    (the new running statistics each replica's forward passes left). A
+    GSPMD step's statistics are the global batch's on every rank."""
+    if group is None or is_global_batch(group):
         return
     _mean_in_place([b for b in module.buffers() if b.is_floating_point()],
                    group)
+
+
+def gradient_norm(params: Iterable[torch.nn.Parameter],
+                  group) -> torch.Tensor:
+    """The L2 norm of ``params``' gradients: this replica's under data
+    parallelism, the whole batch's gradient (after ``average_gradients``)
+    in a GSPMD step."""
+    params = [p for p in params if p.grad is not None or
+              getattr(p, 'zero_shard', None) is not None]
+    if is_global_batch(group):
+        return group.grad_norm(params)
+    return torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm([p.grad for p in params])))
 
 
 def state_modules(state) -> List[torch.nn.Module]:

@@ -32,13 +32,23 @@ _GROUP = [None]
 @contextlib.contextmanager
 def sync_bn_group(group):
     """``SyncBatchNorm`` layers reduce their statistics over ``group``
-    while the context is open (the train step's, None for none)."""
+    while the context is open (the train step's, None for none). A GSPMD
+    step's ``GlobalBatch`` (``global_batch.py``) opens its layout too, and
+    its batch norms reduce over its data group inside a split forward
+    only."""
+    from .global_batch import global_batch, is_global_batch
     prev = _GROUP[0]
     _GROUP[0] = group
     try:
-        yield
+        with global_batch(group if is_global_batch(group) else None):
+            yield
     finally:
         _GROUP[0] = prev
+
+
+def _bn_group():
+    group = _GROUP[0]
+    return group.bn_group if hasattr(group, 'bn_group') else group
 
 
 def _channel_sum(x):
@@ -98,7 +108,7 @@ class SyncBatchNorm(nn.BatchNorm2d):
     the open ``sync_bn_group``."""
 
     def forward(self, x):
-        group = _GROUP[0]
+        group = _bn_group()
         if not self.training or group is None or \
                 dist.get_world_size(group) == 1:
             return super().forward(x)

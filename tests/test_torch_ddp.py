@@ -28,7 +28,8 @@ xdist's workers.
   against the port's single-process slide inference and the JAX
   function on 2 devices.
 * The loader's ``dist`` shards, the rank in the step's generator, the
-  backend resolution and the refusals of what waits for ROADMAP A14c.
+  backend resolution and the refusals of what waits (spatially sharded
+  training, ROADMAP A14c-2).
 
 The tiny model is ``tests/test_torch_uda_family.py``'s (the golden
 traces' depth-18 ResNetV1c, FCN head, dropout 0). Tolerances are the
@@ -642,8 +643,9 @@ def test_backend_of_the_configs():
 
 @pytest.mark.parametrize('option', WAITING_PARALLEL)
 def test_other_parallelisms_still_raise_by_name(option):
-    """Data parallelism runs; ``tp``, ``sp``, ``spw``, ``zero``, ``pp`` and
-    ``ep`` wait for ROADMAP A14c and raise, naming the option."""
+    """Data parallelism runs (``tp`` and ``zero`` too since the sharded
+    modes, ``tests/test_torch_zero_tp.py``); ``sp`` and ``spw`` wait for
+    ROADMAP A14c-2 and raise, naming the option."""
     cfg = Config(dict(data=dict(), parallel={option: 2}))
     with pytest.raises(NotImplementedError, match=f"'{option}'.*A14c"):
         _refuse_waiting(cfg)

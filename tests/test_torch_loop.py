@@ -286,18 +286,20 @@ class _Wandb(types.ModuleType):
 
 
 @pytest.mark.parametrize('option', [
-    {'parallel.tp': 2}, {'qat': {'bits': 8}},
+    {'parallel.sp': 2}, {'qat': {'bits': 8}},
     {'log_config.hooks': [{'type': 'TensorboardLoggerHook',
                            'interval': 1}]},
     {'data.decode_cache_mb': 64},
     {'custom_hooks': [{'type': 'WandbHookSeg', 'interval': 1}]},
 ])
 def test_waiting_config_branches_raise(runs, option, tmp_path, monkeypatch):
-    """What the port does not do raises. The TensorBoard and W&B hooks
-    waited for the A12 hook slice and run now: the event file holds the
-    loop's log vars at each iteration, and with W&B (a stand-in module)
-    the loop collects the step's visualisation states, whose density map
-    the hook logs as an image. ``qat`` waited for the quantization slice
+    """What the port does not do raises (spatially sharded training,
+    ``parallel.sp``; ``parallel.tp`` trains under a launcher since the
+    sharded modes, ``tests/test_torch_zero_tp.py``). The TensorBoard and
+    W&B hooks waited for the A12 hook slice and run now: the event file
+    holds the loop's log vars at each iteration, and with W&B (a stand-in
+    module) the loop collects the step's visualisation states, whose
+    density map the hook logs as an image. ``qat`` waited for the quantization slice
     and trains now: an iteration under fake quantization with finite
     losses."""
     cfg = runs['cfg'].copy()

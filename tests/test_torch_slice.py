@@ -160,7 +160,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     the pixel sampler, the Dice, focal and Lovasz losses, quantization,
     BN folding, ResNeXt, ResNeSt and the timm adapter, data parallelism
     (``parallel``: the group, the sharded step's collectives, SyncBN,
-    the sharded slide inference), evaluation, checkpoint and
+    the sharded slide inference), the sharded modes (their collectives,
+    the GSPMD global batch, tensor parallelism, ZeRO, GPipe, the MoE,
+    spatial inference), evaluation, checkpoint and
     host-kernel modules named, so that a missing one fails), the port's
     tools but the JAX checkpoint converter (which imports both packages by
     design) and chip_smoke.py, in a fresh process: none of jax, flax,
@@ -221,7 +223,10 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         "          'ops.quant', 'core.fold_bn', 'models.backbones.resnext',",
         "          'models.backbones.resnest',",
         "          'models.backbones.timm_backbone', 'parallel',",
-        "          'parallel.mesh', 'parallel.sync_bn', 'parallel.slide'):",
+        "          'parallel.mesh', 'parallel.sync_bn', 'parallel.slide',",
+        "          'parallel.comm', 'parallel.global_batch', 'parallel.tp',",
+        "          'parallel.zero', 'parallel.pp', 'parallel.ep',",
+        "          'parallel.spatial'):",
         "    importlib.import_module('pfst_tpu_torch.' + m)",
         "sys.path.insert(0, 'tools')",
         'import attn_microbench_torch',

@@ -1,5 +1,7 @@
-"""The ranks of ``tests/test_torch_ddp.py``: a process group of the port
-on the CPU, without JAX.
+"""The ranks of ``tests/test_torch_ddp.py`` and of the sharded modes'
+tests (``test_torch_zero_tp.py``, ``test_torch_pp_ep.py``,
+``test_torch_spatial.py``): a process group of the port on the CPU,
+without JAX.
 
 ``start_ranks(job, directory)`` starts ``world`` processes of this file;
 each joins a gloo group through a file store in ``directory``, takes its
@@ -209,9 +211,254 @@ def task_loop(task, rank, world, groups):
                 student=copy.deepcopy(state.student.state_dict()))
 
 
+# -- the sharded modes (tests/test_torch_zero_tp.py, test_torch_pp_ep.py,
+# test_torch_spatial.py) -------------------------------------------------
+def _layout(task):
+    from pfst_tpu_torch.parallel import tp, zero
+    return tp.get_2d_groups(task['tp']) if task.get('tp', 1) > 1 \
+        else zero.get_data_layout()
+
+
+def _whole_modules(state):
+    """The state's segmentors' whole state dicts (collective)."""
+    from pfst_tpu_torch.parallel import zero
+    sh = state.sharding
+    sh.gather_trees()
+    try:
+        return {name: {k: v.clone() for k, v in
+                       sh.whole_state_dict(getattr(state, name)).items()}
+                for name in ('student', 'teacher')
+                if getattr(state, name, None) is not None}
+    finally:
+        sh.release_trees()
+
+
+def _single_steps(task, batch):
+    """The port's single-process steps over the global batch."""
+    algo, state = train_state(task)
+    step = algo.make_train_step(MEAN, STD)
+    logs = []
+    for seed in task['gen_seeds']:
+        state, lv = step(state, batch, torch.Generator().manual_seed(seed))
+        logs.append({k: v.item() for k, v in lv.items()})
+    return logs, {name: copy.deepcopy(getattr(state, name).state_dict())
+                  for name in ('student', 'teacher')
+                  if getattr(state, name, None) is not None}
+
+
+def task_gspmd_step(task, rank, world, groups):
+    """ZeRO (``task['zero']`` 1 or 3) and / or tensor parallelism
+    (``task['tp']``) steps of this rank's rows of the global batch, with
+    the single-process step's generators: each step's log vars, the whole
+    modules after, the memory audit, the specs; with ``single`` rank 0's
+    single-process steps; with ``resume`` (ZeRO-3) a whole checkpoint
+    after the first step, loaded into the single-process port and into a
+    fresh sharded state, each stepping on."""
+    from pfst_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                restore_state,
+                                                save_checkpoint)
+    from pfst_tpu_torch.parallel import tp, zero
+    layout = _layout(task)
+    batch = task['batch']
+    n = batch['img'].shape[0] // layout.n_data
+    rows = slice(layout.data_index * n, (layout.data_index + 1) * n)
+    mine = {k: v[rows] for k, v in batch.items()}
+    algo, state = train_state(task)
+    out = {}
+    state = zero.attach(state, layout, task.get('zero', 0))
+    if task.get('specs'):
+        out['tp_specs'] = tp.tree_specs(state.student)
+        out['zero_specs'] = zero.zero_specs(state, layout.n_data,
+                                            task.get('zero') or 1)
+    step = zero.make_global_step(algo, MEAN, STD, state.sharding)
+    logs = []
+    for i, seed in enumerate(task['gen_seeds']):
+        state, lv = step(state, mine, torch.Generator().manual_seed(seed))
+        logs.append({k: v.item() for k, v in lv.items()})
+        if i == 0 and task.get('resume'):
+            path = save_checkpoint(task['dir'], state.step, state)
+    out.update(logs=logs, modules=_whole_modules(state),
+               opt_bytes=zero.opt_state_bytes(state.optimizer),
+               tree_bytes={name: zero.tree_bytes(getattr(state, name))
+                           for name in ('student', 'teacher')
+                           if getattr(state, name, None) is not None},
+               local={k: v.clone() for k, v in
+                      state.student.state_dict().items()},
+               tp_keys=sorted(k for k, p in state.student.named_parameters()
+                              if getattr(p, 'tp_dim', None) is not None))
+    if task.get('resume'):
+        ckpt = load_checkpoint(path)
+        # a fresh sharded state resumed from the whole checkpoint
+        algo2, fresh = train_state(task)
+        fresh = zero.attach(restore_state(fresh, ckpt), layout,
+                            task['zero'])
+        step2 = zero.make_global_step(algo2, MEAN, STD, fresh.sharding)
+        fresh, lv = step2(fresh, mine, torch.Generator().manual_seed(
+            task['gen_seeds'][1]))
+        out['resumed'] = dict(log_vars={k: v.item() for k, v in lv.items()},
+                              modules=_whole_modules(fresh))
+        if rank == 0:
+            # the single-process port reads the same file and steps on
+            algo3, single = train_state(task)
+            single = restore_state(single, ckpt)
+            single, lv = algo3.make_train_step(MEAN, STD)(
+                single, batch,
+                torch.Generator().manual_seed(task['gen_seeds'][1]))
+            out['resumed_single'] = dict(
+                log_vars={k: v.item() for k, v in lv.items()},
+                student=copy.deepcopy(single.student.state_dict()),
+                ckpt_keys=sorted(ckpt['state_dict']),
+                opt_state=ckpt['optimizer'])
+    if task.get('single') and rank == 0:
+        out['single'] = _single_steps(task, batch)
+    return out
+
+
+def task_gspmd_loop(task, rank, world, groups):
+    """``train_segmentor`` with ``task['parallel']`` under the default
+    group, then, on rank 0, the single-process run of the same config: the
+    histories and the students."""
+    from pfst_tpu_torch.apis import train_segmentor
+    from pfst_tpu_torch.utils import Config
+
+    def run(parallel, work_dir):
+        cfg = Config.fromfile(task['config'])
+        cfg.merge_from_dict({f'parallel.{k}': v
+                             for k, v in parallel.items()})
+        history = []
+        state = train_segmentor(cfg, work_dir=work_dir,
+                                max_iters_override=task['iters'],
+                                device='cpu', seed=0, history=history)
+        from pfst_tpu_torch.core.checkpoint import load_checkpoint
+        ckpt = load_checkpoint(osp.join(work_dir, f'iter_{task["iters"]}'
+                                        '.pth'))
+        return dict(history=[h for h in history if h['kind'] == 'log'],
+                    ckpt=ckpt['state_dict'])
+
+    out = run(task['parallel'], task['work_dir'])
+    if rank == 0:
+        import torch.distributed as dist
+        group = dist.group.WORLD
+        # the single-process run outside the group
+        from pfst_tpu_torch.parallel import mesh
+        real = mesh.default_group, mesh.get_dist_info
+        mesh.default_group = lambda: None
+        mesh.get_dist_info = lambda: (0, 1)
+        import pfst_tpu_torch.apis.train as train_api
+        saved = train_api.default_group, train_api.get_dist_info
+        train_api.default_group, train_api.get_dist_info = \
+            mesh.default_group, mesh.get_dist_info
+        import pfst_tpu_torch.core.checkpoint as ckpt_api
+        ckpt_saved = ckpt_api.get_dist_info
+        ckpt_api.get_dist_info = mesh.get_dist_info
+        try:
+            out['single'] = run({}, task['work_dir'] + '_single')
+        finally:
+            mesh.default_group, mesh.get_dist_info = real
+            train_api.default_group, train_api.get_dist_info = saved
+            ckpt_api.get_dist_info = ckpt_saved
+        del group
+    return out
+
+
+def _first(groups, n):
+    """The group of the first ``n`` ranks (the world at its size)."""
+    return groups['first'].get(n, groups['world'])
+
+
+def task_gpipe(task, rank, world, groups):
+    """``gpipe_apply`` on the first ``task['stages']`` ranks: the output,
+    and the gradients of the sum of its squares with respect to the input
+    and this stage's parameters."""
+    from pfst_tpu_torch.parallel.pp import gpipe_apply, module_block_fn
+    group = _first(groups, task['stages'])
+    if rank >= task['stages']:
+        return None
+    if task.get('vit'):
+        from pfst_tpu_torch.models.backbones.vit import ViTBlock
+        block = ViTBlock(*task['vit'])
+        fn = module_block_fn(block)
+    else:
+        def fn(p, x):
+            h = torch.tanh(x @ p['w1'] + p['b1'])
+            return x + h @ p['w2']
+    stacked = {k: v.clone().requires_grad_() for k, v in
+               task['params'].items()}
+    x = task['x'].clone().requires_grad_()
+    out = gpipe_apply(fn, stacked, x, group, task['m'])
+    (out ** 2).sum().backward()
+    return dict(out=out.detach(), dx=x.grad,
+                grads={k: v.grad[rank] for k, v in stacked.items()})
+
+
+def task_moe(task, rank, world, groups):
+    """``moe_apply`` on the first ``task['experts']`` ranks, each with its
+    share of the tokens: the outputs, and the gradients of the sum of their
+    squares for the experts' parameters and the gate."""
+    from pfst_tpu_torch.parallel.ep import moe_apply
+    e = task['experts']
+    group = _first(groups, e)
+    if rank >= e:
+        return None
+    stacked = {k: v.clone().requires_grad_() for k, v in
+               task['params'].items()}
+    gate = task['gate'].clone().requires_grad_()
+    x = shard(task['x'], rank, e)
+
+    def expert(p, t):
+        return torch.tanh(t @ p['w']) @ p['v']
+
+    out = moe_apply(expert, stacked, x, gate, group, task['cf'])
+    (out ** 2).sum().backward()
+    return dict(out=out.detach(), grads={k: v.grad[rank] for k, v in
+                                         stacked.items()},
+                gate_grad=gate.grad)
+
+
+def task_spatial(task, rank, world, groups):
+    """``spatial_inference`` (or, with ``pad``, the edge-padding
+    ``make_spatial_inference_fn``) of ``task['scene']`` on the first
+    ``task['ranks']`` ranks: the logits on rank 0."""
+    from pfst_tpu_torch.parallel.spatial import (make_spatial_inference_fn,
+                                                 spatial_inference)
+    n = task['ranks']
+    group = _first(groups, n)
+    if rank >= n:
+        return None
+    model = _segmentor(task)
+    scene = task['scene']
+    if task.get('pad'):
+        out = make_spatial_inference_fn(model, n, group)(scene)
+    else:
+        out = spatial_inference(model, scene, group, grid=task.get('grid'),
+                                softmax=task.get('softmax', False))
+    return out
+
+
+def task_spatial_test(task, rank, world, groups):
+    """``single_gpu_test(spatial=world)`` on the toy dataset, and the test
+    CLI's ``--spatial`` on a config and checkpoint, on every rank of the
+    default group."""
+    from pfst_tpu_torch.apis import single_gpu_test
+    model = _segmentor(task)
+    loader = ToyLoader(ToyDataset(**task['dataset']))
+    out = dict(results=single_gpu_test(model, loader, pre_eval=True,
+                                       progress=False, spatial=world))
+    if task.get('config'):
+        sys.path.insert(0, osp.join(REPO, 'tools'))
+        import test_torch
+        out['cli'] = test_torch.main([task['config'], task['checkpoint'],
+                                      '--eval', 'mIoU', '--device', 'cpu',
+                                      '--spatial', str(world)])
+    return out
+
+
 TASKS = {'step': task_step, 'sync_bn': task_sync_bn,
          'multi_gpu_test': task_multi_gpu_test, 'slide': task_slide,
-         'loop': task_loop}
+         'loop': task_loop, 'gspmd_step': task_gspmd_step,
+         'gspmd_loop': task_gspmd_loop, 'gpipe': task_gpipe,
+         'moe': task_moe, 'spatial': task_spatial,
+         'spatial_test': task_spatial_test}
 
 
 def main(argv):
@@ -222,7 +469,10 @@ def main(argv):
         'gloo', init_method=f'file://{argv[3]}', rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=JOIN_SECONDS))
     singles = [dist.new_group([r]) for r in range(world)]
-    groups = {'world': dist.group.WORLD, 'single': singles[rank]}
+    # the first k ranks, for the building blocks' smaller groups
+    firsts = {k: dist.new_group(list(range(k))) for k in range(2, world)}
+    groups = {'world': dist.group.WORLD, 'single': singles[rank],
+              'first': firsts}
     job = torch.load(argv[4], weights_only=False)
     out = {name: TASKS[task['kind']](task, rank, world, groups)
            for name, task in job.items()}

@@ -28,7 +28,12 @@ or ``slurm`` each rank scores its share of the images through
     torchrun --nproc_per_node 8 tools/test_torch.py <config> <checkpoint> \
         --eval mIoU --launcher pytorch
 
-Spatial sharding waits for ROADMAP A14c.
+``--spatial N`` under a launcher of N ranks shards each whole-image
+forward's height over them instead (every rank reads every image, rank 0
+scores), for scenes too large for one card::
+
+    torchrun --nproc_per_node 2 tools/test_torch.py <config> <checkpoint> \
+        --eval mIoU --launcher pytorch --spatial 2
 """
 import argparse
 import json
@@ -74,6 +79,12 @@ def parse_args(args=None):
                              'scale and normalize them there')
     parser.add_argument('--device', default='cuda',
                         help='torch device (default: the card)')
+    parser.add_argument('--spatial', type=int, default=0,
+                        help='shard each whole-image forward\'s height '
+                        'over this many ranks (--launcher; the halo '
+                        'exchange of parallel/spatial.py), for scenes too '
+                        'large for one card; heights that do not divide '
+                        'are edge-padded')
     parser.add_argument('--launcher', default='none',
                         choices=['none', 'pytorch', 'slurm'],
                         help='join the process group of torchrun '
@@ -121,6 +132,12 @@ def main(args=None):
             with open(args.act_scales) as f:
                 extra['act_scales'] = json.load(f)
     test_fn = multi_gpu_test if world > 1 else single_gpu_test
+    if args.spatial:
+        # spatial shards ONE forward over the ranks (memory-bound scenes);
+        # image-sharded multi_gpu_test is the throughput layout: they do
+        # not compose, and spatial wins when asked for (tools/test.py)
+        test_fn = single_gpu_test
+        extra['spatial'] = args.spatial
     results = test_fn(
         model, loader, pre_eval=bool(args.eval) and not args.format_only,
         format_only=args.format_only, out_dir=args.show_dir, **extra)

@@ -18,9 +18,12 @@ on the card, gloo on the CPU)::
     srun --ntasks 8 --gres gpu:8 python tools/train_torch.py <config> \
         --launcher slurm
 
-``samples_per_gpu`` is each rank's batch. Tensor, spatial and ZeRO
-sharding (the JAX tool's ``--tp``, ``--sp``, ``--zero``) wait for ROADMAP
-A14c.
+``samples_per_gpu`` is each rank's batch. ``--tp N`` shards the
+transformer blocks' attention heads and MLP units over N ranks and
+``--zero [1|3]`` the AdamW moments (3: also the student, teacher and
+frozen-reference weights) over the data ranks, as the JAX tool's flags do
+(``cfg.parallel``); both run under a launcher. Spatially sharded training
+(the JAX tool's ``--sp``) waits for ROADMAP A14c-2.
 """
 import argparse
 import os
@@ -59,7 +62,29 @@ def parse_args(args=None):
     parser.add_argument('--local_rank', '--local-rank', type=int,
                         default=None, help='set by torch.distributed.'
                         'launch; read as LOCAL_RANK')
+    parser.add_argument('--tp', type=int, default=None,
+                        help='tensor-parallel degree: the transformer '
+                        'blocks\' attention heads and MLP units shard over '
+                        'this many ranks (the rest form the data axis); '
+                        'equivalent to --cfg-options parallel.tp=N')
+    parser.add_argument('--zero', nargs='?', const=1, default=None,
+                        type=int, choices=[1, 3],
+                        help='ZeRO over the data ranks: --zero (or --zero '
+                        '1) shards the AdamW moments; --zero 3 also the '
+                        'student, teacher and frozen-reference weights; '
+                        'equivalent to --cfg-options parallel.zero=N')
     return parser.parse_args(args)
+
+
+def parallel_options(args) -> dict:
+    """The ``--tp`` / ``--zero`` flags as ``cfg.parallel`` keys, merged
+    over the config's own (``tools/train.py``)."""
+    out = {}
+    if args.tp:
+        out['parallel.tp'] = args.tp
+    if args.zero:
+        out['parallel.zero'] = args.zero
+    return out
 
 
 def main(args=None):
@@ -67,6 +92,8 @@ def main(args=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
+    if parallel_options(args):
+        cfg.merge_from_dict(parallel_options(args))
     if args.local_rank is not None:
         os.environ.setdefault('LOCAL_RANK', str(args.local_rank))
     from pfst_tpu_torch.parallel import get_dist_info, init_distributed
