@@ -202,7 +202,7 @@ Phases (any failure exits non-zero before the result lines):
    source-only config's data, 512^2 crops, img_size 512, 6 classes) for
    10 iterations with a slide-mode evaluation (512^2 windows, stride 341)
    of the 1024^2 tiles, and ``tools/test_torch.py`` on its checkpoint;
-20. A13's defs on the ViT and the ResNet at full width and depth, each
+20. A13's defs on the ViT and the ResNet at full width, each
    from its ``configs/_base_/models`` config as it stands with seeded
    weights (``A13_MODELS``): SETR naive, PUP and MLA (ViT-L/16) at
    768^2, Segmenter (ViT-B/16, 19 classes) and DPT (ViT-B/16, its 14^2
@@ -210,7 +210,8 @@ Phases (any failure exits non-zero before the result lines):
    14 bands), Semantic FPN and ANN (both defs), SegFormer (MiT-B0: 8
    attention layers, keys on a 16^2 grid) and Twins PCPVT-S under
    UPerNet and Semantic FPN (16 attention layers, N_k = 16^2) at 512^2
-   each answer 3 requests (logits -> labels, then ``make_state_fn``'s
+   each, at the depth of the card-against-CPU checks below, answer 3
+   requests (logits -> labels, then ``make_state_fn``'s
    similarity on the decoded features, at 1/4 of the request, 1/1 for
    SETR-PUP, 1/8 for PSPNet and ANN, 1/16 for Segmenter; 2 x the
    attention layers of flash forwards a request) and take 5 supervised
@@ -293,8 +294,8 @@ Phases (any failure exits non-zero before the result lines):
    equal to its, s/iter of the two processes sharing one GPU beside
    phase 13's;
 23. the sharded modes on two gloo ranks sharing the card (this file with
-   ``--gspmd-rank``; the operations gloo stages through pinned host
-   memory printed): (a) tensor parallelism, ``upernet_vit-b16_ln_mln`` at
+   ``--gspmd-rank``, started before phase 22 and run beside it; the
+   operations gloo stages through pinned host memory printed): (a) tensor parallelism, ``upernet_vit-b16_ln_mln`` at
    512^2, batch 2, tp 2 (6 heads a rank on the flash kernels), 3 fp32
    steps and one bf16 step against the single-process steps on the card
    (TF32 off): log vars within rtol 1e-3 and step 1's gradients within
@@ -314,7 +315,16 @@ Phases (any failure exits non-zero before the result lines):
    parameter gradients within 1e-4 of the largest), and the MoE of 2
    ViT-B MLP experts on 1025 tokens a rank at ample capacity against the
    dense computation (1e-5) and at capacity factor 0.5 (the dropped
-   tokens zero);
+   tokens zero); (e) spatially sharded training, the leaf config's PFGST
+   step at 1024x512 (twice the leaf's crop height), batch 2, SGD at a
+   constant rate, sp 2: two steps, each from the single-process step's
+   state, within phase 11's bounds of it (log vars, gradients, the
+   changes of the parameters, BN statistics and EMA), the ranks bitwise
+   equal, each rank's peak allocation below the single-process step's,
+   2 + 1 similarity launches a rank a step; then ``tools/train_torch.py
+   --sp 2 --launcher pytorch`` under torchrun for 2 iterations (beside
+   (c)'s CLI): every rank's student equal to the checkpoint, which loads
+   into the single-process port;
 then a ``[phases]`` line with each phase's wall seconds, one
 ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
 
@@ -569,11 +579,11 @@ OHEM_SHAPE, OHEM_CFG = (2, 19, 512, 512), dict(thresh=0.7, min_kept=10000)
 # backbone settings of the card-against-CPU step: ConvNeXt-B's drop path
 # (0.4 over 36 blocks) would drop some branch for both images of the batch
 A13_CHECK_BACKBONE = {'upernet_convnext': dict(drop_path_rate=0.0)}
-# phase 20's card-against-CPU steps run at this depth, every width as the
-# def has it: ViTs of CHECK_VIT_LAYERS layers or as many as they tap (the
-# last taps kept), one block a stage of ResNet-50/101, MiT, PCPVT and
-# ConvNeXt, one block a branch of HRNet, one conv a UNet stage
-# (``_check_depth``, ``_shallow_resnets``)
+# phase 20's requests, steps and card-against-CPU checks run at this
+# depth, every width as the def has it: ViTs of CHECK_VIT_LAYERS layers or
+# as many as they tap (the last taps kept), one block a stage of
+# ResNet-50/101, MiT, PCPVT and ConvNeXt, one block a branch of HRNet, one
+# conv a UNet stage (``_check_depth``, ``_shallow_resnets``)
 CHECK_VIT_LAYERS = 2
 MODEL_DEFS = osp.join(ROOT, 'configs', '_base_', 'models')
 # phase 21: the qat leaf config, (a)'s and (b)'s request, (c)'s crops and
@@ -4036,7 +4046,9 @@ def _a13_watch(student):
 
 
 def phase_a13_heads(card):
-    """Phase 20: A13's defs on the ViT (SETR naive, PUP and MLA with ViT-L
+    """Phase 20: A13's defs, every width as it stands and at the
+    card-against-CPU checks' depth (``_check_depth``, ``_shallow_resnets``),
+    on the ViT (SETR naive, PUP and MLA with ViT-L
     at 768^2; Segmenter and DPT with ViT-B at 512^2), on the ResNet
     (PSPNet, Semantic FPN, ANN at 512^2), on MiT-B0 (SegFormer), on
     Twins PCPVT-S (UPerNet, Semantic FPN) and on the CNN backbones (UNet,
@@ -4061,13 +4073,22 @@ def phase_a13_heads(card):
         t_def = time.time()
         torch.cuda.reset_peak_memory_stats()
         cfg = model_config(osp.join(MODEL_DEFS, f'{name}.py'))
-        model = init_segmentor(cfg)
-        serve[name] = _tf_serving(name, cfg, model, hw, layers, stride, 'a13')
-        del model
-        torch.cuda.empty_cache()
-        for tag, run in _train_runs(cfg, hw, layers, f'a13 train {name}',
-                                    card, _a13_watch).items():
-            train[(name, tag)] = run
+        # at the card-against-CPU checks' depth, every width as it stands:
+        # the backbone's attention layers go, the head's stay
+        backbone = cfg.model['backbone']
+        layers -= _attention_blocks(backbone)
+        _check_depth(backbone)
+        layers += _attention_blocks(backbone)
+        with _shallow_resnets():
+            model = init_segmentor(cfg)
+            serve[name] = _tf_serving(name, cfg, model, hw, layers, stride,
+                                      'a13')
+            del model
+            torch.cuda.empty_cache()
+            for tag, run in _train_runs(cfg, hw, layers,
+                                        f'a13 train {name}', card,
+                                        _a13_watch).items():
+                train[(name, tag)] = run
         def_s[name] = round(time.time() - t_def, 1)
         def_gb[name] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
     a17 = {}
@@ -4105,6 +4126,19 @@ def phase_a13_heads(card):
                 ohem=ohem, checked=checked)
 
 
+def _attention_blocks(backbone):
+    """The attention layers a forward of ``backbone`` (a config) runs: a
+    ViT's layers, MiT's and PCPVT's blocks; none in a CNN."""
+    kind = backbone['type']
+    if kind == 'VisionTransformer':
+        return backbone['num_layers']
+    if kind in ('MixVisionTransformer', 'MiT'):
+        return sum(backbone['num_layers'])
+    if kind == 'PCPVT':
+        return sum(backbone['depths'])
+    return 0
+
+
 def _check_depth(backbone):
     """``backbone`` (a config) at the card-against-CPU steps' depth, its
     widths as they are: a ViT of CHECK_VIT_LAYERS layers (or as many as it
@@ -4118,8 +4152,10 @@ def _check_depth(backbone):
         backbone.update(num_layers=layers, out_indices=tuple(
             range(layers - n, layers)))
     elif kind == 'UNet':
-        for key in ('enc_num_convs', 'dec_num_convs'):
-            backbone[key] = (1,) * len(backbone[key])
+        # one conv a stage of the encoder's num_stages and the decoder's
+        stages = backbone.get('num_stages', 5)
+        backbone['enc_num_convs'] = (1,) * stages
+        backbone['dec_num_convs'] = (1,) * (stages - 1)
     elif kind in ('MixVisionTransformer', 'MiT'):
         backbone['num_layers'] = (1,) * len(backbone['num_layers'])
     elif 'depths' in backbone:
@@ -4891,6 +4927,9 @@ def _wait(procs, what, timeout=DDP_TIMEOUT_S):
         outs = []
         for p in procs:
             out, _ = p.communicate(timeout=timeout)
+            if out is None and hasattr(p, 'log_path'):
+                with open(p.log_path) as f:
+                    out = f.read()
             outs.append(out)
             if p.returncode != 0:
                 raise AssertionError(f'[ddp] {what}: a process exited '
@@ -4976,10 +5015,21 @@ def recording(*args, **kwargs):
 train_api.multi_gpu_test = recording
 fwd.launches = bwd.launches = 0
 result = importlib.import_module(tool).main(sys.argv[4:])
-# test_torch's metrics on rank 0 (train_torch's is the train state)
+# test_torch's metrics on rank 0 (train_torch's is the train state, whose
+# student's SHA-256 each rank keeps)
 keep = tool == 'test_torch' and dist.get_rank() == 0
+digest = None
+if tool == 'train_torch':
+    import hashlib
+    h = hashlib.sha256()
+    sd = result.student.state_dict()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].detach().cpu().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    digest = h.hexdigest()
 torch.save(dict(launches=(fwd.launches, bwd.launches), evals=evals,
-                result=result if keep else None),
+                result=result if keep else None, digest=digest),
            f'{out}.rank{dist.get_rank()}')
 dist.destroy_process_group()
 '''
@@ -4988,6 +5038,12 @@ dist.destroy_process_group()
 def _torchrun(root, tool, args, tag):
     """``tool`` (train_torch or test_torch) with ``--launcher pytorch``
     under torchrun, 2 processes on this card; each rank's record."""
+    return _torchrun_wait(*_torchrun_start(root, tool, args), tag)
+
+
+def _torchrun_start(root, tool, args):
+    """``_torchrun``'s process, started in ``root``; (process, the
+    records' path)."""
     driver = osp.join(root, 'ddp_driver.py')
     with open(driver, 'w') as f:
         f.write(DDP_DRIVER)
@@ -4998,6 +5054,12 @@ def _torchrun(root, tool, args, tag):
          *args, '--launcher', 'pytorch', '--cfg-options',
          'dist_params.backend=gloo'], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def _torchrun_wait(proc, out, tag):
+    """Each rank's record of a ``_torchrun_start`` process, and its
+    output."""
     text = _wait([proc], tag)[0]
     return [torch.load(f'{out}.rank{r}', weights_only=False)
             for r in range(2)], text
@@ -5113,6 +5175,14 @@ GSPMD_TIMEOUT_S = 600
 # (c): the logits' bound, against the largest |logit|, and the top-2
 # margin below which a pixel's label is not compared
 SPATIAL_LOGIT_TOL, SPATIAL_MARGIN = 1e-4, 1e-4
+# (e) spatially sharded training: the leaf config's PFGST step on crops
+# twice the leaf's height, batch 2 (the leaf's samples_per_gpu), each of
+# the two ranks a block of 512 rows; SP_TRAIN_STEPS fp32 steps; the
+# torchrun run's iterations
+SP_TRAIN_HW, SP_TRAIN_STEPS, SP_CLI_ITERS = (1024, 512), 2, 2
+# (e): acc_seg's budget, in points: an argmax over near-tied logits may
+# flip a few of its 2 x 1024 x 512 pixels (the JAX test's 0.5)
+SP_ACC_POINTS = 0.5
 
 
 def _whole_grads(state):
@@ -5292,6 +5362,184 @@ def _gspmd_spatial(rank):
     return out
 
 
+def _delta_groups(before, after):
+    """The change of every floating-point tensor from ``before`` to
+    ``after`` (``_state_tensors``), fp64 on the CPU, by group: the
+    student's parameters, its running statistics, the teacher's (EMA)
+    parameters."""
+    groups = {}
+    for k, v in after.items():
+        if not v.is_floating_point():
+            continue
+        module = 'student' if k.startswith('0.') else 'teacher'
+        kind = 'stats' if 'running_' in k else 'params'
+        if module == 'teacher' and kind == 'stats':
+            continue
+        groups.setdefault(f'{module} {kind}', []).append(
+            (v.double() - before[k].double()).cpu())
+    return groups
+
+
+def _ranks_bitwise_equal(state):
+    """Whether every rank holds the state's modules bitwise alike: each
+    module's ``_digest``, all-gathered."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel.mesh import state_modules
+    mine = [_digest(m.state_dict()) for m in state_modules(state)]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return all(d == every[0] for d in every)
+
+
+def _load_state_tensors(state, tensors):
+    """The state's modules loaded from ``_state_tensors``' dict."""
+    from pfst_tpu_torch.parallel.mesh import state_modules
+    for i, m in enumerate(state_modules(state)):
+        m.load_state_dict({k[len(f'{i}.'):]: v for k, v in tensors.items()
+                           if k.startswith(f'{i}.')})
+
+
+def _peak_sites(snapshot, top=8):
+    """The blocks alive at the largest allocated total of a
+    ``torch.cuda.memory._snapshot`` trace, summed by the first frame of
+    the port that allocated them: [(GiB, site)], largest first."""
+    trace = snapshot['device_traces'][torch.cuda.current_device()]
+    live, cur, peak, at = {}, 0, 0, -1
+    for i, e in enumerate(trace):
+        if e['action'] == 'alloc':
+            live[e['addr']] = e
+            cur += e['size']
+            if cur > peak:
+                peak, at = cur, i
+        elif e['action'] == 'free_completed' and e['addr'] in live:
+            cur -= live.pop(e['addr'])['size']
+    live = {}
+    for e in trace[:at + 1]:
+        if e['action'] == 'alloc':
+            live[e['addr']] = e
+        elif e['action'] == 'free_completed':
+            live.pop(e['addr'], None)
+    sites = collections.Counter()
+    for e in live.values():
+        frames = e.get('frames') or []
+        ours = [f for f in frames if 'pfst_tpu_torch' in f['filename']]
+        f = (ours or frames or [None])[0]
+        sites['?' if f is None else f'{osp.relpath(f["filename"], ROOT)}:'
+              f'{f["line"]} {f["name"]}'] += e['size']
+    return [(round(n / 2**30, 3), site) for site, n in sites.most_common(top)]
+
+
+def _gspmd_spatial_train(rank):
+    """(e) on this rank: rank 0 first takes SP_TRAIN_STEPS single-process
+    PFGST steps on the global batch of SP_TRAIN_HW (the reference), with
+    each step's starting state, gradients and changes, and its peak
+    allocation; then both ranks take the spatial steps at sp 2
+    (``parallel.spatial.make_spatial_train_step``) on their blocks, with
+    the same batch and generators, each step from the single-process
+    step's starting state (rank 0's, broadcast); their peaks, their
+    similarity launches by shape and whether they end bitwise alike. A
+    step from the same state is compared: this step's fp32 rounding grows
+    ten-fold over a step (the CPU tests' reading). SGD at a constant
+    rate, as the JAX test of the mode steps: an adaptive optimizer's
+    first steps take the sign of each gradient, which makes a parameter
+    of a near-zero gradient move by its full step on rounding alone."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel import broadcast_state, spatial
+    cfg = Config.fromfile(LEAF)
+    cfg.optimizer = dict(type='SGD', lr=0.01)
+    # a constant rate: the leaf's warm-up starts at 1e-6 of it, where a
+    # step moves the parameters by less than their fp32 spacing
+    cfg.lr_config = None
+    batch = _train_batch(cfg, 2400, SP_TRAIN_HW)
+    norm = cfg.img_norm_cfg
+    out = {}
+
+    def run(state, step, data, starts=None):
+        """Each step's (log vars, gradient groups, changes), the starting
+        states, and each step's memory: (its peak allocation, its peak
+        above what was allocated just before it, the allocation sites
+        alive at the last step's peak on rank 0); with ``starts`` each
+        step begins from rank 0's ``starts[i]``."""
+        steps, begun, memory = [], [], []
+        for i in range(SP_TRAIN_STEPS):
+            if starts is not None:
+                if rank == 0:
+                    _load_state_tensors(state, starts[i])
+                broadcast_state(state, dist.group.WORLD)
+            before = _state_tensors(state)
+            begun.append({k: v.cpu() for k, v in before.items()})
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sites = rank == 0 and i == SP_TRAIN_STEPS - 1
+            if sites:
+                torch.cuda.memory._record_memory_history(max_entries=400000)
+            state, lv = step(state, data, torch.Generator().manual_seed(
+                60 + i))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            if sites:
+                snapshot = torch.cuda.memory._snapshot()
+                torch.cuda.memory._record_memory_history(enabled=None)
+            memory.append((peak / 2**30, (peak - base) / 2**30,
+                           _peak_sites(snapshot) if sites else None))
+            steps.append(({k: float(v) for k, v in lv.items()},
+                          _grad_groups(state),
+                          _delta_groups(before, _state_tensors(state))))
+        return steps, begun, memory
+
+    ref, starts = None, None
+    if rank == 0:
+        _, state, step = _train_setup(cfg)
+        _scale_residual(state, RESIDUAL_SCALE)
+        t0 = time.time()
+        ref, starts, memory = run(state, step, batch)
+        out.update(ref_logs=[r[0] for r in ref], ref_wall=time.time() - t0,
+                   ref_memory=memory)
+        del state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    layout = spatial.get_spatial_layout(2)
+    algo, state, _ = _train_setup(cfg)
+    _scale_residual(state, RESIDUAL_SCALE)
+    step = spatial.make_spatial_train_step(algo, norm['mean'], norm['std'],
+                                           layout)
+    blocks = spatial.shard_spatial_batch(batch, layout)
+    del batch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    with _sim_shapes() as shapes:
+        got, _, memory = run(state, step, blocks,
+                               starts or [None] * SP_TRAIN_STEPS)
+    if ref is not None:
+        # each step's gradients and changes against the single-process
+        # step's from the same state, by group; a group neither step
+        # changed (the teacher at step 1: the EMA copies the student it
+        # already equals) is named instead
+        out['readings'], out['unchanged'] = [], []
+        for i, (g, r) in enumerate(zip(got, ref)):
+            step_readings = {'gradients': _grad_reading(g[1], r[1])}
+            for k, want in r[2].items():
+                a = torch.cat([d.flatten() for d in g[2][k]])
+                b = torch.cat([d.flatten() for d in want])
+                if not a.any() and not b.any():
+                    out['unchanged'].append(f'step {i + 1} {k}')
+                else:
+                    step_readings[k] = _cos_and_gap(a, b)
+            out['readings'].append(step_readings)
+    out.update(logs=[g[0] for g in got], wall=time.time() - t0,
+               memory=memory, counts=_sim_counts(),
+               shapes={k: {f'{shape} {dtype}': n
+                           for (shape, dtype), n in v.items()}
+                       for k, v in shapes.items()},
+               block=tuple(blocks['img'].shape),
+               agree=_ranks_bitwise_equal(state))
+    del got, ref, starts, state, step, algo, blocks
+    torch.cuda.empty_cache()
+    return out
+
+
 def _vit_blocks(n, seed):
     from pfst_tpu_torch.models.backbones.vit import ViTBlock
     g = torch.Generator().manual_seed(seed)
@@ -5420,7 +5668,8 @@ def gspmd_rank_main(spec_path):
     out = dict(staged=comm.staged_operations(dist.group.WORLD, 'cuda'))
     for name, fn in (('tp', _gspmd_tp), ('zero', _gspmd_zero),
                      ('spatial', _gspmd_spatial),
-                     ('pipe_moe', _gspmd_pipe_moe)):
+                     ('pipe_moe', _gspmd_pipe_moe),
+                     ('spatial_train', _gspmd_spatial_train)):
         t0 = time.time()
         out[name] = fn(rank)
         out[name]['part_s'] = time.time() - t0
@@ -5435,7 +5684,9 @@ def gspmd_rank_main(spec_path):
                     'peak': {lv: out['zero'][lv]['peak_gib']
                              for lv in (1, 3)},
                     'pipe_flash': out['pipe_moe']['pipe_flash'],
-                    'logits': out['spatial']['logits']},
+                    'logits': out['spatial']['logits'],
+                    'sp_train': {k: out['spatial_train'][k] for k in (
+                        'logs', 'counts', 'memory', 'block', 'agree')}},
                    spec['out'] + '.rank1')
     dist.barrier()
     if rank == 0:
@@ -5444,7 +5695,9 @@ def gspmd_rank_main(spec_path):
 
 
 def _gspmd_ranks(root):
-    """Two ranks of ``gspmd_rank_main`` sharing the card."""
+    """Two ranks of ``gspmd_rank_main`` sharing the card, started: (their
+    processes, the results' path). Their output goes to a file (nothing
+    reads a pipe while phase 22 runs beside them)."""
     spec = dict(out=osp.join(root, 'gspmd.pt'))
     path = osp.join(root, 'gspmd.json')
     with open(path, 'w') as f:
@@ -5456,10 +5709,13 @@ def _gspmd_ranks(root):
                    LOCAL_RANK='0', MASTER_ADDR='localhost',
                    MASTER_PORT=str(port),
                    CUBLAS_WORKSPACE_CONFIG=':4096:8')
-        procs.append(subprocess.Popen(
-            [sys.executable, osp.abspath(__file__), '--gspmd-rank', path],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        with open(osp.join(root, f'rank{rank}.log'), 'w') as out:
+            proc = subprocess.Popen(
+                [sys.executable, osp.abspath(__file__), '--gspmd-rank',
+                 path], cwd=ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT, text=True)
+        proc.log_path = out.name
+        procs.append(proc)
     return procs, spec['out']
 
 
@@ -5558,6 +5814,145 @@ def _check_spatial(res, card):
     return out
 
 
+def _check_spatial_train(res, card):
+    """(e): each spatial step within phase 11's bounds of the
+    single-process step from the same state: its log vars within rtol
+    1e-3 (atol 1e-5), acc_seg within SP_ACC_POINTS; its gradients, and the
+    changes it made to the student's parameters, its running statistics
+    and the teacher's (EMA) parameters, each with cosine >= 0.9999 and
+    norms within 1e-3 of the single-process step's; both ranks
+    bitwise alike; each rank's peak allocation below the single-process
+    step's; 2 forward and 1 backward similarity launches a step a rank."""
+    sp = res['sp']
+    ranks = [sp, res['sp1']]
+    gaps, bad = [], {}
+    for got, want in zip(sp['logs'], sp['ref_logs'], strict=True):
+        gaps.append(_lv_gap(got, want))
+        for k, v in want.items():
+            limit = SP_ACC_POINTS if 'acc' in k else 1e-5 + 1e-3 * abs(v)
+            if abs(got[k] - v) > limit:
+                bad[k] = (got[k], v)
+    readings = {f'step {i + 1} {k}': [round(x, 8) for x in r]
+                for i, step in enumerate(sp['readings'])
+                for k, r in step.items()}
+    # each step's peak allocation, and its peak above what was allocated
+    # just before it, a rank and single-process; the last (warm) step's
+    # allocation sites on rank 0 and single-process
+    peaks = [round(max(m[0] for m in r['memory']), 2) for r in ranks]
+    ref_peak = round(max(m[0] for m in sp['ref_memory']), 2)
+    step_peaks = [[round(m[1], 2) for m in r['memory']] for r in ranks]
+    ref_step_peaks = [round(m[1], 2) for m in sp['ref_memory']]
+    warm = [p[-1] / ref_step_peaks[-1] for p in step_peaks]
+    counts = [tuple(r['counts']) for r in ranks]
+    want_counts = (2 * SP_TRAIN_STEPS, SP_TRAIN_STEPS)
+    log(f'[gspmd] (e) spatially sharded training, the leaf config\'s PFGST '
+        f'step at {SP_TRAIN_HW} (twice the leaf\'s crop height), batch 2, '
+        f'SGD, sp 2 over two gloo ranks sharing the card (blocks '
+        f'{sp["block"]} a rank): {SP_TRAIN_STEPS} fp32 steps, each against '
+        f'the single-process step from the same state on the same batch, '
+        f'log vars largest relative gap a step {[f"{g:.2e}" for g in gaps]}, outside the '
+        f'bounds {bad}; [cosine, norm gap] {json.dumps(readings)}; '
+        f'unchanged on both sides {sp["unchanged"]}; ranks '
+        f'bitwise equal {[r["agree"] for r in ranks]}; peak GiB allocated '
+        f'a rank {peaks} against the single-process step\'s {ref_peak} '
+        f'(ratio {[round(p / ref_peak, 3) for p in peaks]}); each step\'s '
+        f'peak above what was allocated before it {step_peaks} against '
+        f'{ref_step_peaks} GiB, the warm step\'s ratio '
+        f'{[round(w, 3) for w in warm]}; alive at the warm step\'s peak by '
+        f'site (GiB), rank 0 {sp["memory"][-1][2]}, single-process '
+        f'{sp["ref_memory"][-1][2]}; '
+        f'similarity launches fwd/bwd a rank {counts}, by shape '
+        f'{json.dumps(sp["shapes"])}; {sp["wall"]:.2f} s for the steps a '
+        f'rank (two processes on one card, not the mode\'s speed), '
+        f'single-process {sp["ref_wall"]:.2f} s, on {card}')
+    if bad or not all(c >= 0.9999 and g <= 1e-3
+                      for c, g in readings.values()):
+        raise AssertionError('[gspmd] (e) the spatial steps are not the '
+                             'single-process steps')
+    if not all(r['agree'] for r in ranks) or \
+            not all(p < ref_peak for p in peaks) or \
+            any(c != want_counts for c in counts):
+        raise AssertionError(f'[gspmd] (e) ranks alike '
+                             f'{[r["agree"] for r in ranks]}, peaks {peaks} '
+                             f'against {ref_peak}, launches {counts}')
+    return dict(gaps=gaps, readings=readings, peak_gib=peaks,
+                ref_peak_gib=ref_peak, step_peak_gib=step_peaks,
+                ref_step_peak_gib=ref_step_peaks, warm_ratio=warm,
+                counts=counts,
+                shapes=sp['shapes'], wall=sp['wall'],
+                ref_wall=sp['ref_wall'])
+
+
+def _spatial_train_cli_start(data):
+    """(e): ``tools/train_torch.py --sp 2 --launcher pytorch`` under
+    torchrun on phase 13's packs, SP_CLI_ITERS iterations, no evaluation,
+    started (beside (c)'s CLI); ``_spatial_train_cli`` waits for it."""
+    root = tempfile.mkdtemp(prefix='pfst_sp_train_')
+    pots, vaih, _ = data
+    cfg = _loop_config(pots, vaih)
+    cfg.merge_from_dict({'checkpoint_config.interval': SP_CLI_ITERS})
+    cfg_path = osp.join(root, 'sp_config.py')
+    cfg.dump(cfg_path)
+    work = osp.join(root, 'work')
+    started = _torchrun_start(root, 'train_torch', [
+        cfg_path, '--work-dir', work, '--seed', '0', '--max-iters',
+        str(SP_CLI_ITERS), '--no-validate', '--sp', '2'])
+    return dict(root=root, cfg=cfg, work=work, started=started,
+                t0=time.time())
+
+
+def _spatial_train_cli(card, run):
+    """(e): the ``--sp 2`` run of ``_spatial_train_cli_start`` waited
+    for: both ranks end with the state rank 0 wrote, and the checkpoint
+    loads into the single-process port, whose forward on a request is
+    finite."""
+    cfg = run['cfg']
+    try:
+        train, _ = _torchrun_wait(*run['started'],
+                                  '(e) train_torch --sp 2 under torchrun')
+        wall = time.time() - run['t0']
+        ckpt = osp.join(run['work'], f'iter_{SP_CLI_ITERS}.pth')
+        saved = torch.load(ckpt, map_location='cpu',
+                           weights_only=False)['state_dict']
+        written = _digest({k[len('model.'):]: v for k, v in saved.items()
+                           if k.startswith('model.')})
+        model = init_segmentor(cfg, ckpt)
+        with torch.no_grad():
+            logits = model.inference_logits(
+                _request(cfg, 2500, TRAIN_HW).cuda())[0]
+        finite = bool(torch.isfinite(logits).all())
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(run['root'], ignore_errors=True)
+    digests = [r['digest'] for r in train]
+    launches = [r['launches'] for r in train]
+    log(f'[gspmd] (e) train_torch --sp 2 --launcher pytorch, 2 gloo ranks '
+        f'sharing one GPU, {SP_CLI_ITERS} iterations of the leaf config at '
+        f'full width, no evaluation, beside (c)\'s CLI: {wall:.1f} s; the '
+        f'ranks\' students equal the checkpoint rank 0 wrote '
+        f'{[d == written for d in digests]}; similarity launches fwd/bwd a '
+        f'rank {launches}; the checkpoint loads into the single-process '
+        f'port, its logits finite {finite} on {card}')
+    if any(d != written for d in digests) or not finite or any(
+            tuple(n) != (2 * SP_CLI_ITERS, SP_CLI_ITERS) for n in launches):
+        raise AssertionError(f'[gspmd] (e) --sp 2: digests {digests} against '
+                             f'{written}, finite {finite}, launches '
+                             f'{launches}')
+    return dict(launches=launches, wall=wall)
+
+
+def _digest(state_dict):
+    """A SHA-256 of a state dict's tensors, by name, bitwise."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state_dict):
+        h.update(k.encode())
+        h.update(state_dict[k].detach().cpu().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def _check_pipe_moe(res, card):
     pipe = res['pipe']
     other = res['pipe_other']
@@ -5623,14 +6018,23 @@ def _spatial_cli(card, data):
     return dict(miou=miou, cli=cli)
 
 
-def phase_gspmd(card, data):
-    """Phase 23: tensor parallelism, ZeRO-1 and ZeRO-3, spatial inference,
-    GPipe and the MoE on two gloo ranks sharing the card, (a)-(d); the
-    operations gloo stages through the host printed."""
+def phase_gspmd_start():
+    """Phase 23's two ranks, started (``main`` starts them before phase
+    22, which runs beside them): (their directory, processes, results'
+    path, start time)."""
     root = tempfile.mkdtemp(prefix='pfst_gspmd_')
+    return (root, *_gspmd_ranks(root), time.time())
+
+
+def phase_gspmd(card, data, ranks):
+    """Phase 23: tensor parallelism, ZeRO-1 and ZeRO-3, spatial inference,
+    GPipe and the MoE, and spatially sharded training on two gloo ranks
+    sharing the card, (a)-(e), the ranks of ``phase_gspmd_start``; the
+    operations gloo stages through the host printed."""
+    root, procs, path, t0 = ranks
     try:
-        procs, path = _gspmd_ranks(root)
         texts = _wait(procs, 'phase 23 ranks', GSPMD_TIMEOUT_S)
+        ranks_s = time.time() - t0
         out = torch.load(path, weights_only=False)
         other = torch.load(path + '.rank1', weights_only=False)
     finally:
@@ -5648,21 +6052,29 @@ def phase_gspmd(card, data):
                spatial_wall=out['spatial']['wall'],
                spatial_peak=out['spatial']['peak_gib'],
                pipe_mine1=other['pipe_mine'], pipe_flash1=other['pipe_flash'],
+               sp=out['spatial_train'], sp1=other['sp_train'],
                **{k: out['pipe_moe'][k] for k in (
                    'pipe', 'pipe_grads', 'pipe_other', 'pipe_flash',
                    'pipe_wall', 'moe')})
-    log(f'[gspmd] gloo stages through pinned host memory on the card: '
-        f'{list(out["staged"])}; parts s ' + json.dumps(
-            {k: round(out[k]['part_s'], 1) for k in ('tp', 'zero',
-                                                      'spatial',
-                                                      'pipe_moe')}))
-    tp_flash = _check_tp(res, card)
-    zero_readings = _check_zero(res, card)
-    spatial = _check_spatial(res, card)
-    cli = _spatial_cli(card, data)
-    pipe_flash = _check_pipe_moe(res, card)
+    sp_run = _spatial_train_cli_start(data)
+    try:
+        log(f'[gspmd] gloo stages through pinned host memory on the card: '
+            f'{list(out["staged"])}; the ranks {ranks_s:.1f} s since their '
+            f'start (beside phase 22); parts s ' + json.dumps(
+                {k: round(out[k]['part_s'], 1)
+                 for k in ('tp', 'zero', 'spatial', 'pipe_moe',
+                           'spatial_train')}))
+        tp_flash = _check_tp(res, card)
+        zero_readings = _check_zero(res, card)
+        spatial = _check_spatial(res, card)
+        cli = _spatial_cli(card, data)
+        pipe_flash = _check_pipe_moe(res, card)
+        sp_train = _check_spatial_train(res, card)
+    finally:
+        sp_cli = _spatial_train_cli(card, sp_run)
     return dict(tp_flash=tp_flash, pipe_flash=pipe_flash,
                 zero=zero_readings, spatial=spatial, cli=cli,
+                sp_train=sp_train, sp_cli=sp_cli,
                 staged=list(out['staged']))
 
 
@@ -5713,8 +6125,17 @@ def main():
         tf = timed(phase_transformers, card, data, ab_cases)
         a13 = timed(phase_a13_heads, card)
         timed(phase_quant, card, data)
-        ddp = timed(phase_ddp, card, data, loop['s_iter_median'])
-        gspmd = timed(phase_gspmd, card, data)
+        # phase 23's ranks run beside phase 22
+        ranks = phase_gspmd_start()
+        try:
+            ddp = timed(phase_ddp, card, data, loop['s_iter_median'])
+            gspmd = timed(phase_gspmd, card, data, ranks)
+        finally:
+            for p in ranks[1]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            shutil.rmtree(ranks[0], ignore_errors=True)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     eo_fwd = sum(r['launches'][0] for r in eo.values())
@@ -5739,7 +6160,9 @@ def main():
         + uda['launches'][0] + cfg_fwd + adaptors['launches'][0]
         + pseudo['launches'][0] + hooks['launches'][0]
         + ddp['a']['launches'][0] + sum(r[0] for r in ddp['c']['launches'])
-        + sum(c[0] for r in gspmd['zero'].values() for c in r['counts']),
+        + sum(c[0] for r in gspmd['zero'].values() for c in r['counts'])
+        + sum(c[0] for c in gspmd['sp_train']['counts'])
+        + sum(c[0] for c in gspmd['sp_cli']['launches']),
         launches_per_request=(launches + vit_serve['sim'])
         / (N_REQUESTS + N_VIT_REQUESTS),
         launches_per_train_step=train_fwd / (TRAIN_STEPS * len(train)),
@@ -5758,6 +6181,8 @@ def main():
         launches_ddp_cli_per_rank=[r[0] for r in ddp['c']['launches']],
         launches_zero_per_rank={f'zero{lv}': [c[0] for c in r['counts']]
                                 for lv, r in gspmd['zero'].items()},
+        launches_sp_per_rank=[c[0] for c in gspmd['sp_train']['counts']],
+        launches_sp_cli_per_rank=[c[0] for c in gspmd['sp_cli']['launches']],
         a13_feature_shapes={n: r['sim_shape']
                             for n, r in a13['serve'].items()},
         max_abs_err=max(c['max_abs_err'] for c in cases),
@@ -5772,7 +6197,9 @@ def main():
         + eo_bwd + uda['launches'][1] + cfg_bwd + adaptors['launches'][1]
         + pseudo['launches'][1] + hooks['launches'][1]
         + ddp['a']['launches'][1] + sum(r[1] for r in ddp['c']['launches'])
-        + sum(c[1] for r in gspmd['zero'].values() for c in r['counts']),
+        + sum(c[1] for r in gspmd['zero'].values() for c in r['counts'])
+        + sum(c[1] for c in gspmd['sp_train']['counts'])
+        + sum(c[1] for c in gspmd['sp_cli']['launches']),
         launches_per_request=0,
         launches_per_train_step=train_bwd / (TRAIN_STEPS * len(train)),
         launches_per_loop_iter=loop['launches'][1] / LOOP_ITERS,
@@ -5790,6 +6217,8 @@ def main():
         launches_ddp_cli_per_rank=[r[1] for r in ddp['c']['launches']],
         launches_zero_per_rank={f'zero{lv}': [c[1] for c in r['counts']]
                                 for lv, r in gspmd['zero'].items()},
+        launches_sp_per_rank=[c[1] for c in gspmd['sp_train']['counts']],
+        launches_sp_cli_per_rank=[c[1] for c in gspmd['sp_cli']['launches']],
         max_abs_err=max(c['max_abs_err'] for c in bwd_cases + bwd_geometry),
         ms=bwd_case['ms'], device_ms=bwd_case['device_ms'],
         plain_ms=bwd_case['plain_ms'],

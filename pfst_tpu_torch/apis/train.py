@@ -47,8 +47,16 @@ resume (``parallel.zero.attach``), every rank draws the single-process
 step's random numbers (``step_generator(seed, it)``), checkpoints are
 gathered whole, and evaluation scores a whole copy of the student.
 
-Raising when a config asks for them: ``parallel.sp`` and ``spw``
-(spatially sharded training, ROADMAP A14c-2); ``pp`` and ``ep``, which
+``parallel.sp`` (and ``spw``) shard each data index's crop over ``sp``
+(x ``spw``) ranks (``train.py:433-447,574-585``): the ranks form a
+``(data, spatial)`` layout (``parallel.spatial.get_spatial_layout``), the
+loader shards by data index as above, every rank holds the whole state
+and runs the single-process step over the global batch, its segmentors'
+activations one block a rank (``parallel.spatial``), and evaluation
+scores the student as it is through ``multi_gpu_test``. They compose with
+data parallelism only.
+
+Raising when a config asks for them: ``pp`` and ``ep``, which
 are no loop modes (the JAX loop ignores them; ``parallel.pp.gpipe_apply``
 and ``parallel.ep.moe_apply`` are the building blocks);
 ``data.decode_cache_mb`` (packs make decoding a one-time cost).
@@ -68,6 +76,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.checkpoint import (find_latest_checkpoint, load_checkpoint,
                                load_weights_into_state, restore_state,
@@ -241,11 +250,9 @@ def apply_device_normalize(cfg):
     return cfg
 
 
-# the JAX loop's ``cfg.parallel`` modes: the GSPMD ones the port runs,
-# spatially sharded training, which waits, and the building blocks the
-# JAX loop does not read
-LOOP_PARALLEL = ('tp', 'zero')
-WAITING_PARALLEL = ('sp', 'spw')
+# the JAX loop's ``cfg.parallel`` modes, which the port runs, and the
+# building blocks the JAX loop does not read
+LOOP_PARALLEL = ('tp', 'zero', 'sp', 'spw')
 BLOCK_PARALLEL = ('pp', 'ep')
 
 
@@ -255,11 +262,6 @@ def _refuse_waiting(cfg):
     is skipped silently."""
     par = {k: v for k, v in (cfg.get('parallel') or {}).items()
            if v not in (None, 0, 1, False)}
-    waiting = {k: v for k, v in par.items() if k in WAITING_PARALLEL}
-    if waiting:
-        raise NotImplementedError(f'parallel {waiting}: spatially sharded '
-                                  f'training is not ported (ROADMAP '
-                                  f'A14c-2)')
     blocks = {k: v for k, v in par.items() if k in BLOCK_PARALLEL}
     if blocks:
         raise NotImplementedError(
@@ -267,8 +269,7 @@ def _refuse_waiting(cfg):
             f'loop reads only tp, zero, sp and spw): pipeline and expert '
             f'parallelism are the building blocks '
             f'parallel.pp.gpipe_apply and parallel.ep.moe_apply')
-    unknown = set(par) - set(LOOP_PARALLEL + WAITING_PARALLEL +
-                             BLOCK_PARALLEL)
+    unknown = set(par) - set(LOOP_PARALLEL + BLOCK_PARALLEL)
     if unknown:
         raise ValueError(f'unknown parallel options {sorted(unknown)}')
     if cfg.data.get('decode_cache_mb'):
@@ -524,7 +525,7 @@ def train_segmentor(cfg,
             print_log(f'loaded weights from {load_from} (optimizer/step '
                       f'fresh)', logger)
     broadcast_state(state, group)
-    if layout is not None:
+    if layout is not None and not _is_spatial(layout):
         # ZeRO and tensor parallelism: the whole state laid out over the
         # ranks (a resumed one included), the step a GSPMD one
         from ..parallel import zero
@@ -540,7 +541,12 @@ def train_segmentor(cfg,
     hooks = [h for h in build_hooks(cfg, logger)
              if rank == 0 or getattr(h, 'all_ranks', False)]
     collect_vis = any(type(h).__name__ in VIS_HOOKS for h in hooks)
-    if layout is not None:
+    if _is_spatial(layout):
+        from ..parallel import spatial
+        # the loader gives this data index's whole batch
+        step_fn = spatial.make_spatial_global_step(
+            algo, norm['mean'], norm['std'], layout, collect_vis)
+    elif layout is not None:
         from ..parallel import zero
         step_fn = zero.make_global_step(algo, norm['mean'], norm['std'],
                                         state.sharding, collect_vis)
@@ -683,14 +689,30 @@ def train_segmentor(cfg,
 
 
 def _gspmd_layout(cfg, group):
-    """(the ranks' layout, the ZeRO level) of ``cfg.parallel``'s ``tp``
-    and ``zero`` (``train.py:417-447``), (None, 0) for neither. ``zero``
-    True or 1 is ZeRO-1, 3 ZeRO-3; without a process group ZeRO is off,
-    as the JAX loop leaves it off on one device."""
+    """(the ranks' layout, the ZeRO level) of ``cfg.parallel``'s ``tp``,
+    ``zero``, ``sp`` and ``spw`` (``train.py:417-447``), (None, 0) for
+    none. ``zero`` True or 1 is ZeRO-1, 3 ZeRO-3; without a process group
+    ZeRO is off, as the JAX loop leaves it off on one device. ``sp`` x
+    ``spw`` ranks share a data index's crop (``parallel.spatial``); they
+    compose with data parallelism only, and a world they do not divide
+    raises, one process included (the JAX asserts)."""
     par = cfg.get('parallel') or {}
     tp_size = int(par.get('tp') or 1)
     zero_level = int(par.get('zero') or 0)
     zero_level = 0 if zero_level <= 0 else (3 if zero_level >= 3 else 1)
+    sp, spw = int(par.get('sp') or 1), int(par.get('spw') or 1)
+    if sp > 1 or spw > 1:
+        if tp_size > 1 or zero_level:
+            raise AssertionError('parallel.sp composes with dp only (not '
+                                 'tp/zero)')
+        world = dist.get_world_size(group) if group is not None else 1
+        if world % (sp * spw):
+            raise AssertionError(
+                f'{world} devices not divisible by parallel.sp={sp}x '
+                f'spw={spw}' + ('' if group is not None else
+                                ': launch the ranks (--launcher)'))
+        from ..parallel import spatial
+        return spatial.get_spatial_layout(sp, spw, group), 0
     if tp_size <= 1 and (not zero_level or group is None):
         return None, 0
     if group is None:
@@ -700,6 +722,11 @@ def _gspmd_layout(cfg, group):
     layout = tp.get_2d_groups(tp_size, group) if tp_size > 1 \
         else zero.get_data_layout(group)
     return layout, zero_level
+
+
+def _is_spatial(layout) -> bool:
+    from ..parallel.spatial import SpatialLayout
+    return isinstance(layout, SpatialLayout)
 
 
 def _build_val(cfg) -> dict:

@@ -50,6 +50,31 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over ``group``; every rank's gradient is the sum over the
+    group of the gradients of the sum, since each rank's output feeds its
+    own part of the loss."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of ``t``, out of place and differentiable
+    (its backward is the same sum of the gradients)."""
+    return _SumOverRanks.apply(t, group)
+
+
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The ranks' equal-shaped ``t`` concatenated along ``dim`` in rank
     order."""
@@ -85,7 +110,9 @@ def all_to_all(t: torch.Tensor, group,
                in_splits: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``all_to_all_single`` along dim 0: rank r's ``in_splits[q]`` rows
     go to rank q, and the result holds ``out_splits[q]`` rows from each
-    rank q in rank order (equal splits when not given)."""
+    rank q in rank order (equal splits when not given). Its transpose is
+    the same call with the splits swapped: ``spatial.py``'s halo exchange
+    makes that its backward."""
     src = t.contiguous()
     rows = sum(out_splits) if out_splits is not None else src.shape[0]
     out = src.new_empty((rows,) + src.shape[1:])

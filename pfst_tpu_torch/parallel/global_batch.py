@@ -79,6 +79,20 @@ class GlobalBatch:
         n = total // self.n_data
         return slice(self.index * n, (self.index + 1) * n)
 
+    def split_call(self, fn, img, *args, **kwargs):
+        """A segmentor entry point ``fn`` on this rank's rows of ``img``,
+        its outputs gathered over the data group."""
+        rows = self.rows(img.shape[0])
+        self.depth += 1
+        try:
+            out = fn(img[rows], *args, **kwargs)
+        finally:
+            self.depth -= 1
+        if self.n_data == 1:
+            return out
+        return map_outputs(out, lambda t: gather_rows(t, self),
+                           rows.stop - rows.start)
+
     # -- what the step calls in place of the data-parallel helpers ---------
     def average_gradients(self, params: Iterable[nn.Parameter]) -> None:
         """The whole batch's gradient: the mean over the data group of the
@@ -139,20 +153,24 @@ class Dropout(nn.Dropout):
     mask); elsewhere ``nn.Dropout``."""
 
     def forward(self, x):
+        from .spatial import Stripe
+        if isinstance(x, Stripe):
+            # a block's mask is cut from the global map's (``spatial.py``)
+            return super().forward(x)
         total, rows = batch_rows(x.shape[0])
         if not self.training or self.p == 0.0 or rows == slice(None):
             return super().forward(x)
-        mask = F.dropout(_ones_laid_out_as(x, total), self.p, True, False)
+        shape = (total,) + tuple(x.shape[1:])
+        mask = F.dropout(ones_laid_out_as(x, shape), self.p, True, False)
         return x * mask[rows]
 
 
-def _ones_laid_out_as(x: torch.Tensor, total: int) -> torch.Tensor:
-    """Ones of ``x``'s shape with ``total`` rows, in ``x``'s memory order
-    (dropout draws its mask in memory order: a channels-last map's differs
-    from a contiguous one's)."""
+def ones_laid_out_as(x: torch.Tensor, shape) -> torch.Tensor:
+    """Ones of ``shape`` in ``x``'s memory order (dropout draws its mask in
+    memory order: a channels-last map's differs from a contiguous
+    one's)."""
     order = sorted(range(x.ndim), key=lambda d: (-x.stride(d), d))
-    shape = [total if d == 0 else x.shape[d] for d in order]
-    ones = x.new_ones(shape)
+    ones = x.new_ones([shape[d] for d in order])
     return ones.permute([order.index(d) for d in range(x.ndim)])
 
 
@@ -171,17 +189,33 @@ class _GatherRows(torch.autograd.Function):
         return grad[ctx.rows] * ctx.gb.n_data, None
 
 
-def _gather_tree(out, gb: GlobalBatch, batch: int):
-    if isinstance(out, torch.Tensor):
-        if out.ndim == 0 or out.shape[0] != batch:
-            raise ValueError(f'a split forward returned a tensor of shape '
-                             f'{tuple(out.shape)}, not a batch of {batch}')
-        return _GatherRows.apply(out, gb)
-    if isinstance(out, dict):
-        return {k: _gather_tree(v, gb, batch) for k, v in out.items()}
-    if isinstance(out, (list, tuple)):
-        return type(out)(_gather_tree(v, gb, batch) for v in out)
-    return out
+def gather_rows(x: torch.Tensor, gb: 'GlobalBatch'):
+    """The global batch of the rows ``x`` of each data rank of ``gb``."""
+    return _GatherRows.apply(x, gb)
+
+
+def map_outputs(out, fn, batch: int):
+    """``fn`` of every tensor of a split forward's output tree, each
+    checked to be a batch of ``batch`` rows (a tensor given twice is
+    mapped once)."""
+    done = {}
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            if id(o) not in done:
+                if o.ndim == 0 or o.shape[0] != batch:
+                    raise ValueError(f'a split forward returned a tensor of '
+                                     f'shape {tuple(o.shape)}, not a batch '
+                                     f'of {batch}')
+                done[id(o)] = (o, fn(o))
+            return done[id(o)][1]
+        if isinstance(o, dict):
+            return {k: walk(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(walk(v) for v in o)
+        return o
+
+    return walk(out)
 
 
 def _split_entry(name):
@@ -190,15 +224,7 @@ def _split_entry(name):
         gb = _ACTIVE[0]
         if gb is None or gb.depth > 0:
             return fn(img, *args, **kwargs)
-        rows = gb.rows(img.shape[0])
-        gb.depth += 1
-        try:
-            out = fn(img[rows], *args, **kwargs)
-        finally:
-            gb.depth -= 1
-        if gb.n_data == 1:
-            return out
-        return _gather_tree(out, gb, rows.stop - rows.start)
+        return gb.split_call(fn, img, *args, **kwargs)
 
     call.__name__ = name
     return call

@@ -14,7 +14,9 @@ train mode inside ``sync_bn_group(group)`` with more than one rank in
 
 The running variance takes the unbiased variance over the global count,
 as torch's BN does over its batch. Anywhere else, or at one rank, it is
-``nn.BatchNorm2d``. Only ``all_reduce`` is used, so it runs on gloo with
+``nn.BatchNorm2d``. ``cross_replica_batch_norm`` is the function itself,
+which spatially sharded training's train-mode BN applies to each rank's
+block (``spatial.py``). Only ``all_reduce`` is used, so it runs on gloo with
 CPU or CUDA tensors as on NCCL (``torch.nn.SyncBatchNorm`` refuses CPU
 tensors).
 """
@@ -58,7 +60,8 @@ def _channel_sum(x):
 class _CrossReplicaBatchNorm(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, weight, bias, bn, group):
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
+                eps, group):
         xf = x.float()
         c = xf.shape[1]
         shape = (1, c, 1, 1)
@@ -71,14 +74,13 @@ class _CrossReplicaBatchNorm(torch.autograd.Function):
         sq = _channel_sum(centered * centered)
         dist.all_reduce(sq, group=group)
         var = sq / n
-        invstd = torch.rsqrt(var + bn.eps)
+        invstd = torch.rsqrt(var + eps)
         xhat = centered * invstd.view(shape)
-        if bn.track_running_stats:
+        if running_mean is not None:
             with torch.no_grad():
-                m = bn.momentum
-                bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                bn.running_var.mul_(1 - m).add_(var * n / (n - 1), alpha=m)
-                bn.num_batches_tracked.add_(1)
+                running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+                running_var.mul_(1 - momentum).add_(var * n / (n - 1),
+                                                    alpha=momentum)
         ctx.save_for_backward(xhat, invstd, weight, n)
         ctx.group = group
         ctx.in_dtype = x.dtype
@@ -100,7 +102,22 @@ class _CrossReplicaBatchNorm(torch.autograd.Function):
         dx = (weight * invstd).view(shape) * (g - mean_dy - xhat *
                                                mean_dy_xhat)
         return (dx.to(ctx.in_dtype), sum_dy_xhat.to(weight.dtype),
-                sum_dy.to(weight.dtype), None, None)
+                sum_dy.to(weight.dtype), None, None, None, None, None)
+
+
+def cross_replica_batch_norm(x, running_mean, running_var, weight, bias,
+                             momentum: float, eps: float, group):
+    """Train-mode batch norm of ``x`` (N, C, H, W) with the statistics of
+    every rank's ``x`` in ``group`` (module docstring); the running
+    statistics, when given, move in place. No weight (or bias) is one (or
+    zero)."""
+    c = x.shape[1]
+    if weight is None:
+        weight = torch.ones(c, device=x.device)
+    if bias is None:
+        bias = torch.zeros(c, device=x.device)
+    return _CrossReplicaBatchNorm.apply(x, weight, bias, running_mean,
+                                        running_var, momentum, eps, group)
 
 
 class SyncBatchNorm(nn.BatchNorm2d):
@@ -114,5 +131,10 @@ class SyncBatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         if self.momentum is None:
             raise ValueError('SyncBatchNorm takes a momentum')
-        return _CrossReplicaBatchNorm.apply(x, self.weight, self.bias, self,
-                                            group)
+        tracked = self.track_running_stats
+        if tracked:
+            self.num_batches_tracked.add_(1)
+        return cross_replica_batch_norm(
+            x, self.running_mean if tracked else None,
+            self.running_var if tracked else None, self.weight, self.bias,
+            self.momentum, self.eps, group)

@@ -158,8 +158,10 @@ def test_convert_and_forward_parity():
 
     model = build_segmentor(FLAX_CFG)
     x = np.random.RandomState(0).randn(1, 32, 32, 3).astype(np.float32)
-    ref = model.init({'params': jax.random.PRNGKey(0)},
-                     jnp.asarray(x), train=False)
+    # the tree's structure and shapes (every leaf is converted: an eager
+    # ``init`` would take ~20 s to make values nothing reads)
+    ref = jax.eval_shape(lambda: model.init(
+        {'params': jax.random.PRNGKey(0)}, jnp.asarray(x), train=False))
 
     def merge(ref_tree, new_tree):
         out = {}

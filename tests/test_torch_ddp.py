@@ -77,8 +77,8 @@ from pfst_tpu.parallel.slide import \
     sharded_slide_inference as jax_slide  # noqa: E402
 from pfst_tpu_torch.apis import (build_algorithm, init_segmentor,  # noqa: E402
                                  single_gpu_test)
-from pfst_tpu_torch.apis.train import (WAITING_PARALLEL,  # noqa: E402
-                                       _build_val, _refuse_waiting,
+from pfst_tpu_torch.apis.train import (_build_val,  # noqa: E402
+                                       _gspmd_layout, _refuse_waiting,
                                        step_generator)
 from pfst_tpu_torch.core import (build_optimizer, build_optimizers,  # noqa: E402
                                  jax_variables_to_state_dict,
@@ -641,14 +641,19 @@ def test_backend_of_the_configs():
         resolve_backend('nccl', 'cpu')
 
 
-@pytest.mark.parametrize('option', WAITING_PARALLEL)
+@pytest.mark.parametrize('option', ['sp', 'spw'])
 def test_other_parallelisms_still_raise_by_name(option):
-    """Data parallelism runs (``tp`` and ``zero`` too since the sharded
-    modes, ``tests/test_torch_zero_tp.py``); ``sp`` and ``spw`` wait for
-    ROADMAP A14c-2 and raise, naming the option."""
-    cfg = Config(dict(data=dict(), parallel={option: 2}))
-    with pytest.raises(NotImplementedError, match=f"'{option}'.*A14c"):
-        _refuse_waiting(cfg)
+    """Data parallelism runs, and ``tp``, ``zero``, ``sp`` and ``spw`` too
+    since the sharded modes (``tests/test_torch_zero_tp.py``,
+    ``tests/test_torch_spatial_train.py``); ``sp`` and ``spw`` compose with
+    data parallelism only: ``sp`` with ``tp``, and ``spw`` with ``zero``,
+    raise the JAX assert, naming them."""
+    other = dict(tp=2) if option == 'sp' else dict(zero=1)
+    cfg = Config(dict(data=dict(), parallel={option: 2, **other}))
+    _refuse_waiting(cfg)
+    with pytest.raises(AssertionError, match=r'parallel\.sp composes with '
+                                             r'dp only \(not tp/zero\)'):
+        _gspmd_layout(cfg, None)
     _refuse_waiting(Config(dict(data=dict(), parallel={option: 1})))
 
 

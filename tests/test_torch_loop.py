@@ -293,9 +293,11 @@ class _Wandb(types.ModuleType):
     {'custom_hooks': [{'type': 'WandbHookSeg', 'interval': 1}]},
 ])
 def test_waiting_config_branches_raise(runs, option, tmp_path, monkeypatch):
-    """What the port does not do raises (spatially sharded training,
-    ``parallel.sp``; ``parallel.tp`` trains under a launcher since the
-    sharded modes, ``tests/test_torch_zero_tp.py``). The TensorBoard and
+    """What the port does not do raises (``data.decode_cache_mb``), and so
+    does ``parallel.sp`` in one process: it trains under a launcher since
+    the sharded modes (``tests/test_torch_spatial_train.py``, as
+    ``parallel.tp`` does, ``tests/test_torch_zero_tp.py``), and one device
+    does not divide into its ranks (the JAX assert). The TensorBoard and
     W&B hooks waited for the A12 hook slice and run now: the event file
     holds the loop's log vars at each iteration, and with W&B (a stand-in
     module) the loop collects the step's visualisation states, whose
@@ -311,6 +313,11 @@ def test_waiting_config_branches_raise(runs, option, tmp_path, monkeypatch):
                                 validate=False, history=hist)
         (log,) = [h['log_vars'] for h in hist if h['kind'] == 'log']
         assert state.step == 1 and all(np.isfinite(list(log.values())))
+        return
+    if 'parallel.sp' in option:
+        with pytest.raises(AssertionError, match=r'1 devices not divisible '
+                                                 r'by parallel\.sp=2x spw=1'):
+            train_segmentor(cfg, max_iters_override=1, device='cpu')
         return
     if not hooks:
         with pytest.raises(NotImplementedError, match='ROADMAP|pack'):

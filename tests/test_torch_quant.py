@@ -228,19 +228,35 @@ MODELS = {
 }
 
 
+class _Lazy(dict):
+    """A dict whose missing keys ``make`` computes on first use: a worker
+    builds only the models (and runs only the JAX programs) its tests
+    read."""
+
+    def __init__(self, make):
+        super().__init__()
+        self.make = make
+
+    def __missing__(self, key):
+        self[key] = value = self.make(key)
+        return value
+
+
 @pytest.fixture(scope='module')
 def models():
     """Each model's JAX module and variables, the port's model and one
-    input image (NHWC)."""
-    out = {}
-    for i, (name, (cfg, size)) in enumerate(sorted(MODELS.items())):
+    input image (NHWC), by name, built when a test first reads it."""
+    def build(name):
+        i = sorted(MODELS).index(name)
+        cfg, size = MODELS[name]
         jm = jax_segmentor(dict(cfg))
         v = jax_variables(jm, (1, size, size, 3), seed=i)
         pm = load_port(build_segmentor(dict(cfg)), v)
         x = np.random.RandomState(10 + i).randn(1, size, size, 3).astype(
             np.float32)
-        out[name] = (jm, v, pm, x)
-    return out
+        return jm, v, pm, x
+
+    return _Lazy(build)
 
 
 PERCENTILES = (100.0, 99.9)
@@ -281,9 +297,14 @@ def _jax_tables(jm, v, x, skip=jq.DEFAULT_SKIP):
 
 @pytest.fixture(scope='module')
 def jax_tables(models):
-    return {(name, p): table
-            for name, (jm, v, _, x) in models.items()
-            for p, table in _jax_tables(jm, v, x).items()}
+    """The JAX tables by (model, percentile), one program a model run when
+    a test first reads one of its tables."""
+    def tables(name):
+        jm, v, _, x = models[name]
+        return _jax_tables(jm, v, x)
+
+    by_model = _Lazy(tables)
+    return _Lazy(lambda key: by_model[key[0]][key[1]])
 
 
 @pytest.mark.parametrize('percentile', PERCENTILES)

@@ -65,7 +65,7 @@ from pfst_tpu.parallel import tp as jax_tp  # noqa: E402
 from pfst_tpu.parallel import zero as jax_zero  # noqa: E402
 from pfst_tpu_torch.apis import build_algorithm, init_segmentor  # noqa: E402
 from pfst_tpu_torch.apis.train import (BLOCK_PARALLEL,  # noqa: E402
-                                       WAITING_PARALLEL, _refuse_waiting)
+                                       _gspmd_layout, _refuse_waiting)
 from pfst_tpu_torch.core import (build_optimizer,  # noqa: E402
                                  jax_variables_to_state_dict,
                                  load_jax_train_state)
@@ -247,9 +247,10 @@ def gspmd(tmp_path_factory):
                                work_dir=str(d2 / 'work'))
         d4 = directory / 'four'
         d4.mkdir(exist_ok=True)
+        # the four ranks' loop is held to itself: no single-process run
         jobs[4]['loop'] = dict(kind='gspmd_loop', config=config,
                                iters=LOOP_ITERS, parallel=dict(tp=2, zero=3),
-                               work_dir=str(d4 / 'work'))
+                               work_dir=str(d4 / 'work'), single=False)
         procs = {w: start_ranks(jobs[w], str(directory / n), w)
                  for w, n in ((2, 'two'), (4, 'four'))}
         try:
@@ -482,13 +483,17 @@ def test_zero_dim_is_the_jax_rule():
     assert _zero_dim((8, 8), 1) is None
 
 
-@pytest.mark.parametrize('option', WAITING_PARALLEL)
+@pytest.mark.parametrize('option', ['sp', 'spw'])
 def test_spatial_training_raises_naming_its_item(option):
-    """``parallel.sp`` / ``spw`` raise, naming the option and ROADMAP
-    A14c-2."""
-    with pytest.raises(NotImplementedError,
-                       match=f"'{option}'.*spatially.*A14c-2"):
-        _refuse_waiting(Config(dict(data=dict(), parallel={option: 2})))
+    """``parallel.sp`` / ``spw`` train under a launcher
+    (``tests/test_torch_spatial_train.py``); in one process, without one,
+    they raise the JAX divisibility assert, naming the option's degree."""
+    cfg = Config(dict(data=dict(), parallel={option: 2}))
+    _refuse_waiting(cfg)
+    want = 'sp=2x spw=1' if option == 'sp' else 'sp=1x spw=2'
+    with pytest.raises(AssertionError,
+                       match=f'1 devices not divisible by parallel.{want}'):
+        _gspmd_layout(cfg, None)
 
 
 @pytest.mark.parametrize('option', BLOCK_PARALLEL)

@@ -233,9 +233,10 @@ def _whole_modules(state):
         sh.release_trees()
 
 
-def _single_steps(task, batch):
-    """The port's single-process steps over the global batch."""
-    algo, state = train_state(task)
+def _single_steps(task, batch, built=None):
+    """The port's single-process steps over the global batch (of
+    ``built``'s algorithm and state, by default the task's)."""
+    algo, state = built or train_state(task)
     step = algo.make_train_step(MEAN, STD)
     logs = []
     for seed in task['gen_seeds']:
@@ -316,8 +317,9 @@ def task_gspmd_step(task, rank, world, groups):
 
 def task_gspmd_loop(task, rank, world, groups):
     """``train_segmentor`` with ``task['parallel']`` under the default
-    group, then, on rank 0, the single-process run of the same config: the
-    histories and the students."""
+    group, then, on rank 0 (unless ``single`` is False), the
+    single-process run of the same config: the histories and the
+    students."""
     from pfst_tpu_torch.apis import train_segmentor
     from pfst_tpu_torch.utils import Config
 
@@ -336,7 +338,7 @@ def task_gspmd_loop(task, rank, world, groups):
                     ckpt=ckpt['state_dict'])
 
     out = run(task['parallel'], task['work_dir'])
-    if rank == 0:
+    if rank == 0 and task.get('single', True):
         import torch.distributed as dist
         group = dist.group.WORLD
         # the single-process run outside the group
@@ -453,12 +455,136 @@ def task_spatial_test(task, rank, world, groups):
     return out
 
 
+# -- spatially sharded training (tests/test_torch_spatial_train.py) ---------
+class StripeNet(torch.nn.Module):
+    """The window ops a segmentor's train forward runs on blocks: a conv,
+    train-mode BN, max-pool, a conv of ``dilation``, the image pool
+    (adaptive pool, a 1x1 conv and BN on the whole pooled map, a bilinear
+    resize back), a 1x1 classifier, a bilinear upsampling by 2."""
+
+    def __init__(self, dilation: int):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(3, 8, 3, padding=1)
+        self.bn1 = nn.BatchNorm2d(8)
+        self.conv2 = nn.Conv2d(8, 8, 3, padding=dilation, dilation=dilation)
+        self.bn2 = nn.BatchNorm2d(8)
+        self.pool_conv = nn.Conv2d(8, 8, 1)
+        self.pool_bn = nn.BatchNorm2d(8)
+        self.cls = nn.Conv2d(16, 4, 1)
+
+    def forward(self, x):
+        import torch.nn.functional as F
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        x = F.relu(self.bn2(self.conv2(x)))
+        pooled = F.relu(self.pool_bn(self.pool_conv(
+            F.adaptive_avg_pool2d(x, 1))))
+        pooled = F.interpolate(pooled, size=x.shape[2:], mode='bilinear',
+                               align_corners=False)
+        out = self.cls(torch.cat([x, pooled], dim=1))
+        return F.interpolate(out, size=(out.shape[2] * 2, out.shape[3] * 2),
+                             mode='bilinear', align_corners=False)
+
+
+def _stripe_net_run(task, net, x, grid=None):
+    """The net's output on ``x`` (whole, or sharded over ``grid`` and
+    gathered), and after ``sum(out * g)``'s backward the input's and the
+    weights' gradients (each the mean over the ranks of this rank's, whose
+    sum is the whole) and the running statistics."""
+    import torch.distributed as dist
+    from pfst_tpu_torch.parallel.spatial import gather_stripes, scatter_scene
+    x = x.clone().requires_grad_()
+    out = net(x) if grid is None else gather_stripes(
+        net(scatter_scene(x, grid)))
+    (out * task['g']).sum().backward()
+    grads = {'input': x.grad}
+    grads.update({k: p.grad for k, p in net.named_parameters()})
+    if grid is not None:
+        for t in grads.values():
+            dist.all_reduce(t)
+            t.div_(dist.get_world_size())
+    return dict(out=out.detach(), grads=grads,
+                stats={k: v.clone() for k, v in net.state_dict().items()
+                       if 'running' in k})
+
+
+def task_stripe_grad(task, rank, world, groups):
+    """``StripeNet`` on ``Stripe`` blocks of ``task['x']`` over each grid
+    of ``task['grids']`` that fits the world, in train mode, against the
+    whole map on rank 0."""
+    from pfst_tpu_torch.parallel.spatial import Grid
+    out = {}
+    for n_h, n_w in task['grids']:
+        if n_h * n_w != world:
+            continue
+        net = StripeNet(task['dilation']).train()
+        net.load_state_dict(task['weights'])
+        out[(n_h, n_w)] = _stripe_net_run(
+            task, net, task['x'], Grid(groups['world'], n_h, n_w))
+    if rank == 0:
+        net = StripeNet(task['dilation']).train()
+        net.load_state_dict(task['weights'])
+        out['whole'] = _stripe_net_run(task, net, task['x'])
+    return out
+
+
+def _with_class_scores(algo, scores):
+    """``algo`` drawing ``scores`` as its ClassMix scores (the JAX step's
+    draws), its other draws its own."""
+    if scores is None:
+        return algo
+    draw = algo.sample_draws
+
+    def sample_draws(generator, batch_size):
+        return dict(draw(generator, batch_size), class_scores=scores.clone())
+
+    algo.sample_draws = sample_draws
+    return algo
+
+
+def task_spatial_step(task, rank, world, groups):
+    """Steps of ``make_spatial_train_step`` at ``task['sp']`` x
+    ``task['spw']``, the rest data indices, on this rank's block of the
+    global batch, with the single-process step's generators: each step's
+    log vars and the modules after; with ``single`` rank 0's
+    single-process steps and their BN counts."""
+    from pfst_tpu_torch.parallel import spatial
+    layout = spatial.get_spatial_layout(task['sp'], task.get('spw', 1))
+    batch = task['batch']
+    n = batch['img'].shape[0] // layout.n_data
+    mine = {k: v[layout.data_index * n:(layout.data_index + 1) * n]
+            for k, v in batch.items()}
+    blocks = spatial.shard_spatial_batch(mine, layout)
+    algo, state = train_state(task)
+    _with_class_scores(algo, task.get('class_scores'))
+    step = spatial.make_spatial_train_step(algo, MEAN, STD, layout)
+    logs = []
+    for seed in task['gen_seeds']:
+        state, lv = step(state, blocks, torch.Generator().manual_seed(seed))
+        logs.append({k: v.item() for k, v in lv.items()})
+    out = dict(logs=logs, blocks={k: tuple(v.shape)
+                                  for k, v in blocks.items()},
+               modules={name: copy.deepcopy(getattr(state, name).state_dict())
+                        for name in task['state']})
+    if task.get('single') and rank == 0:
+        algo, state = train_state(task)
+        _with_class_scores(algo, task.get('class_scores'))
+        counts, hooks = bn_counts(state.student)
+        out['single'] = _single_steps(task, batch, (algo, state))
+        for h in hooks:
+            h.remove()
+        out['counts'] = counts
+    return out
+
+
 TASKS = {'step': task_step, 'sync_bn': task_sync_bn,
          'multi_gpu_test': task_multi_gpu_test, 'slide': task_slide,
          'loop': task_loop, 'gspmd_step': task_gspmd_step,
          'gspmd_loop': task_gspmd_loop, 'gpipe': task_gpipe,
          'moe': task_moe, 'spatial': task_spatial,
-         'spatial_test': task_spatial_test}
+         'spatial_test': task_spatial_test, 'stripe_grad': task_stripe_grad,
+         'spatial_step': task_spatial_step}
 
 
 def main(argv):

@@ -22,8 +22,12 @@ on the card, gloo on the CPU)::
 transformer blocks' attention heads and MLP units over N ranks and
 ``--zero [1|3]`` the AdamW moments (3: also the student, teacher and
 frozen-reference weights) over the data ranks, as the JAX tool's flags do
-(``cfg.parallel``); both run under a launcher. Spatially sharded training
-(the JAX tool's ``--sp``) waits for ROADMAP A14c-2.
+(``cfg.parallel``); both run under a launcher. ``--sp N`` shards each
+data index's training crop along its height over N ranks (an H x W grid
+with ``--cfg-options parallel.spw=M``), the rest of the ranks data
+indices; every rank holds the whole state and one block of every
+activation, e.g. ``torchrun --nproc_per_node 2 tools/train_torch.py CONFIG
+--launcher pytorch --sp 2``.
 """
 import argparse
 import os
@@ -67,6 +71,12 @@ def parse_args(args=None):
                         'blocks\' attention heads and MLP units shard over '
                         'this many ranks (the rest form the data axis); '
                         'equivalent to --cfg-options parallel.tp=N')
+    parser.add_argument('--sp', type=int, default=None,
+                        help='spatial-parallel degree: the training crop\'s '
+                        'height shards over this many ranks (the rest form '
+                        'the data axis), each holding one block of every '
+                        'activation; equivalent to --cfg-options '
+                        'parallel.sp=N')
     parser.add_argument('--zero', nargs='?', const=1, default=None,
                         type=int, choices=[1, 3],
                         help='ZeRO over the data ranks: --zero (or --zero '
@@ -77,11 +87,13 @@ def parse_args(args=None):
 
 
 def parallel_options(args) -> dict:
-    """The ``--tp`` / ``--zero`` flags as ``cfg.parallel`` keys, merged
-    over the config's own (``tools/train.py``)."""
+    """The ``--tp`` / ``--sp`` / ``--zero`` flags as ``cfg.parallel`` keys,
+    merged over the config's own (``tools/train.py``)."""
     out = {}
     if args.tp:
         out['parallel.tp'] = args.tp
+    if args.sp:
+        out['parallel.sp'] = args.sp
     if args.zero:
         out['parallel.zero'] = args.zero
     return out
